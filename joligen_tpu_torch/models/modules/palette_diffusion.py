@@ -1,0 +1,200 @@
+"""Palette conditioning wrapper and the DDPM/DDIM samplers
+(``joligen_tpu/models/modules/palette_diffusion.py``).
+
+The JAX package runs each sampling chain as one ``lax.scan``; here they are
+Python loops, one denoiser call per step. Images are NHWC, sampler
+arithmetic is fp32. Random draws come from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.schedules import NoiseSchedule, extract, gamma_embedding
+from .unet_mha import Dense
+
+
+class LabelEmbedder(nn.Module):
+    """Class/mask-label embedding table (palette_denoise_fn.py:14-32)."""
+
+    def __init__(self, num_classes, hidden_size):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(num_classes, hidden_size))
+
+    def forward(self, labels):
+        return self.weight[labels.long()]
+
+
+class PaletteDenoiser(nn.Module):
+    """Wraps an inner denoiser with gamma/class/mask conditioning.
+
+    inner: module mapping ((B,H,W,Cin) NHWC, (B, emb_dim)) -> (B,H,W,Cout).
+    conditioning: "" | "mask" | "class" | "mask_and_class".
+    """
+
+    def __init__(self, inner, cond_embed_dim, conditioning="", nclasses=2,
+                 dtype=torch.float32):
+        super().__init__()
+        if "ref" in conditioning:
+            raise NotImplementedError(
+                "ref conditioning (ROADMAP Queue 1 item 4)")
+        self.inner = inner
+        self.cond_embed_dim = cond_embed_dim
+        self.conditioning = conditioning
+        self.nclasses = nclasses
+        g = self.gamma_dim
+        self.cond_embed_0 = Dense(g, g, dtype=dtype)
+        self.cond_embed_1 = Dense(g, g, dtype=dtype)
+        if "class" in conditioning:
+            self.embedder_class = LabelEmbedder(nclasses, cond_embed_dim // 2)
+        if "mask" in conditioning:
+            self.embedder_mask = LabelEmbedder(nclasses, cond_embed_dim)
+
+    @property
+    def gamma_dim(self):
+        # class conditioning halves the gamma share of the embedding
+        # (diffusion_generator.py:66-75)
+        if "class" in self.conditioning:
+            return self.cond_embed_dim // 2
+        return self.cond_embed_dim
+
+    def forward(self, x, gammas, cls=None, mask=None, zero_gamma=False):
+        """x: (B,H,W,C) concatenated [y_cond, y_noisy]; gammas: (B,);
+        cls: (B,) int or None; mask: (B,H,W,1) labels or None."""
+        emb = gamma_embedding(gammas, self.gamma_dim)
+        emb = self.cond_embed_1(F.silu(self.cond_embed_0(emb)))
+        if zero_gamma:
+            # CFG unconditional branch: literal zero embedding
+            emb = torch.zeros_like(emb)
+        if "class" in self.conditioning:
+            cls_embed = (
+                self.embedder_class(cls) if cls is not None else
+                # cls=None (CFG uncond): zero class vector, NOT class 0
+                torch.zeros(x.shape[0], self.cond_embed_dim // 2,
+                            dtype=emb.dtype, device=emb.device))
+            emb = torch.cat([emb, cls_embed.to(emb.dtype)], dim=1)
+        if "mask" in self.conditioning:
+            if mask is None:
+                mask = torch.zeros(x.shape[:-1] + (1,), dtype=torch.int32,
+                                   device=x.device)
+            m = torch.clamp(mask[..., 0].long(), 0, self.nclasses - 1)
+            x = torch.cat([x, self.embedder_mask(m).to(x.dtype)], dim=-1)
+        return self.inner(x, emb)
+
+
+def predict_start_from_noise(schedule: NoiseSchedule, y_t, t, noise):
+    """(diffusion_utils.py:122-127)."""
+    return (extract(schedule.sqrt_recip_gammas, t, y_t.ndim) * y_t
+            - extract(schedule.sqrt_recipm1_gammas, t, y_t.ndim) * noise)
+
+
+def q_posterior(schedule: NoiseSchedule, y0_hat, y_t, t):
+    """(diffusion_utils.py:130-139)."""
+    mean = (extract(schedule.posterior_mean_coef1, t, y_t.ndim) * y0_hat
+            + extract(schedule.posterior_mean_coef2, t, y_t.ndim) * y_t)
+    logvar = extract(schedule.posterior_log_variance_clipped, t, y_t.ndim)
+    return mean, logvar
+
+
+def _gammas(schedule, t):
+    return torch.as_tensor(schedule.gammas, device=t.device)[t.long()]
+
+
+def _denoise(apply_fn, schedule, y_t, y_cond, t, cls, mask, guidance_scale):
+    gammas = _gammas(schedule, t)
+    x_in = torch.cat([y_cond, y_t], dim=-1)
+    noise_hat = apply_fn(x_in, gammas, cls=cls, mask=mask)
+    y0_hat = predict_start_from_noise(schedule, y_t, t, noise_hat)
+    if guidance_scale > 0.0:
+        noise_uncond = apply_fn(x_in, gammas, cls=None, mask=None,
+                                zero_gamma=True)
+        y0_uncond = predict_start_from_noise(schedule, y_t, t, noise_uncond)
+        y0_hat = (1 + guidance_scale) * y0_hat - guidance_scale * y0_uncond
+    return torch.clamp(y0_hat, -1.0, 1.0)
+
+
+def _initial(y_cond, y_t, out_channel, generator):
+    if y_t is not None:
+        return y_t
+    c = out_channel or y_cond.shape[-1]
+    return torch.randn(y_cond.shape[:-1] + (c,), generator=generator,
+                       dtype=y_cond.dtype, device=y_cond.device)
+
+
+def ddpm_sample(apply_fn, generator, schedule: NoiseSchedule, y_cond,
+                y_t=None, y_0=None, mask=None, cls=None, guidance_scale=0.0,
+                out_channel=None, noise_seq=None):
+    """Full ancestral DDPM chain (reference restoration_ddpm,
+    diffusion_generator.py:119-177). ``apply_fn(x, gammas, cls=, mask=,
+    zero_gamma=)`` is the denoiser.
+
+    ``noise_seq``: optional (T, B, H, W, C) per-step transition noises (step
+    k is the noise added at t = T-1-k), so that a test drives this chain and
+    the JAX one with the same noise. Otherwise ``y_t`` (when not given) is
+    the generator's first draw and each step draws its noise after it."""
+    b = y_cond.shape[0]
+    y = _initial(y_cond, y_t, out_channel, generator)
+    tmask = (None if mask is None
+             else torch.clamp(mask.to(y_cond.dtype), 0.0, 1.0))
+    for k, i in enumerate(range(schedule.num_timesteps - 1, -1, -1)):
+        t = torch.full((b,), i, dtype=torch.int64, device=y.device)
+        y0_hat = _denoise(apply_fn, schedule, y, y_cond, t, cls, mask,
+                          guidance_scale)
+        mean, logvar = q_posterior(schedule, y0_hat, y, t)
+        noise = (torch.as_tensor(noise_seq[k], device=y.device)
+                 if noise_seq is not None else
+                 torch.randn(y.shape, generator=generator, dtype=y.dtype,
+                             device=y.device))
+        y = mean + (1.0 if i > 0 else 0.0) * noise * torch.exp(0.5 * logvar)
+        if tmask is not None and y_0 is not None:
+            y = y_0 * (1.0 - tmask) + tmask * y
+    return y
+
+
+def ddim_timesteps(num_timesteps, num_steps):
+    """(current t, previous t) per DDIM step; the last previous t is -1."""
+    tseq = np.linspace(0, num_timesteps - 1, num_steps).astype(np.int32)
+    t_list = tseq[::-1].copy()
+    prev_list = np.concatenate([tseq[::-1][1:], [-1]]).astype(np.int32)
+    return t_list, prev_list
+
+
+def ddim_sample(apply_fn, generator, schedule: NoiseSchedule, y_cond,
+                y_t=None, y_0=None, mask=None, cls=None, guidance_scale=0.0,
+                num_steps=10, eta=0.5, out_channel=None):
+    """DDIM sampling (reference restoration_ddim, diffusion_generator.py:
+    286-455). As in the reference the net output is used as y0 directly,
+    and no noise is added: the only random draw is ``y_t`` when not given."""
+    b = y_cond.shape[0]
+    y = _initial(y_cond, y_t, out_channel, generator)
+    tmask = (None if mask is None
+             else torch.clamp(mask.to(y_cond.dtype), 0.0, 1.0))
+    t_list, prev_list = ddim_timesteps(schedule.num_timesteps, num_steps)
+    for ti, prevti in zip(t_list.tolist(), prev_list.tolist()):
+        t = torch.full((b,), ti, dtype=torch.int64, device=y.device)
+        gammas = _gammas(schedule, t)
+        x_in = torch.cat([y_cond, y], dim=-1)
+        y0_hat = apply_fn(x_in, gammas, cls=cls, mask=mask)
+        if guidance_scale > 0.0:
+            y0_unc = apply_fn(x_in, gammas, cls=None, mask=None,
+                              zero_gamma=True)
+            y0_hat = (1 + guidance_scale) * y0_hat - guidance_scale * y0_unc
+        y0_hat = torch.clamp(y0_hat, -1.0, 1.0)
+
+        gamma_t = extract(schedule.gammas, t, y.ndim)
+        # gammas_prev[prevti + 1] (palette_diffusion.py:351)
+        gamma_prevt = extract(schedule.gammas_prev,
+                              torch.full_like(t, prevti + 1), y.ndim)
+        sigma = eta * torch.sqrt(
+            (1 - gamma_prevt) / (1 - gamma_t) * (1 - gamma_t / gamma_prevt))
+        coef_eps = torch.sqrt(torch.clamp(1 - gamma_prevt - sigma ** 2,
+                                          min=0.0))
+        mean = (torch.sqrt(gamma_prevt) * (y - torch.sqrt(1.0 - gamma_t) * y0_hat)
+                / torch.sqrt(gamma_t) + coef_eps * y0_hat)
+        y = torch.clamp(mean, -1.0, 1.0)
+        if tmask is not None and y_0 is not None:
+            y = y_0 * (1.0 - tmask) + tmask * y
+    return y

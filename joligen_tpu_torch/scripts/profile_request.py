@@ -1,0 +1,124 @@
+"""Where a serving request's time goes on the card.
+
+    python -m joligen_tpu_torch.scripts.profile_request \\
+        [--config examples/example_ddpm_noglasses2glasses.json] \\
+        [--sampling_method ddim] [--out profile_request.json]
+
+Builds the config's palette model at full width with seeded random weights,
+serves two warm-up requests on a synthetic masked image, then times one
+request by the host clock and traces another with ``torch.profiler``. Prints
+one JSON object: request latency, kernels launched per request, the
+device's busy time (the union of the kernels' intervals) and idle share of
+the untraced latency, and the kernels that take the most device time.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from ..models import create_model
+from ..options import TrainOptions
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def synthetic_batch(size, seed):
+    rng = np.random.default_rng(seed)
+    crop = rng.uniform(-1, 1, (1, size, size, 3)).astype(np.float32)
+    mask = np.zeros((1, size, size, 1), np.int32)
+    mask[:, size // 4:3 * size // 4, size // 4:3 * size // 4] = 1
+    cond = np.where(mask > 0, rng.uniform(-1, 1, crop.shape), crop)
+    return {"A": cond.astype(np.float32), "B": crop, "B_label_mask": mask}
+
+
+def busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", default=os.path.join(
+        ROOT, "examples", "example_ddpm_noglasses2glasses.json"))
+    p.add_argument("--sampling_method", default="ddim",
+                   choices=["ddim", "ddpm"])
+    p.add_argument("--top", type=int, default=12)
+    p.add_argument("--out", default="")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_request measures the card: no CUDA "
+                           "device is available")
+
+    with open(args.config) as f:
+        opt = TrainOptions().parse_json(json.load(f), verbose=False)
+    model = create_model(opt, phase="test")
+    batch = synthetic_batch(opt.data_crop_size, model.seed)
+
+    def request():
+        out = model.inference(batch, sampling_method=args.sampling_method)
+        torch.cuda.synchronize()
+        return out
+
+    for _ in range(2):
+        request()
+    t0 = time.perf_counter()
+    request()
+    latency_us = (time.perf_counter() - t0) * 1e6
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        request()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    result = {
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "config": os.path.basename(args.config),
+        "sampling_method": args.sampling_method,
+        "crop_size": opt.data_crop_size,
+        "latency_ms": latency_us / 1e3,
+        "device_launches": len(kernels),
+        "device_busy_ms": busy / 1e3,
+        "device_idle_share": max(0.0, 1.0 - busy / latency_us),
+        "top_kernels": [{"name": n[:120], "launches": c, "ms": t / 1e3,
+                         "share_of_busy": t / busy}
+                        for n, (c, t) in top],
+    }
+    line = json.dumps(result)
+    print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return result
+
+
+if __name__ == "__main__":
+    main()

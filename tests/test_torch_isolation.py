@@ -1,0 +1,103 @@
+"""The port stands alone: it imports with jax, flax, jaxlib, msgpack and the
+JAX package blocked, no source file of it (nor chip_smoke.py) imports them,
+and without a CUDA device its entry points raise unless the CPU is asked
+for."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "joligen_tpu_torch")
+BLOCKED = ("jax", "flax", "jaxlib", "msgpack", "joligen_tpu")
+
+
+def _blocked(name):
+    # exact module names: ``joligen_tpu_torch`` is not ``joligen_tpu``
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
+def test_blocked_names_are_exact():
+    assert _blocked("joligen_tpu") and _blocked("joligen_tpu.ops")
+    assert _blocked("jax.numpy") and not _blocked("joligen_tpu_torch")
+    assert not _blocked("jaxtyping") and not _blocked("msgpack_numpy")
+
+
+IMPORT_ALL = r"""
+import importlib, importlib.abc, pkgutil, sys
+BLOCKED = %r
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import joligen_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(joligen_tpu_torch.__path__,
+                                               "joligen_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = [m for m in sys.modules
+       if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+assert not bad, bad
+print(len(names))
+""" % (BLOCKED,)
+
+
+def test_package_imports_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    offenders = []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [(path, n) for n in names if _blocked(n)]
+    assert not offenders
+
+
+def test_no_silent_cpu_fallback(monkeypatch, tmp_path):
+    from joligen_tpu_torch import resolve_device
+    from joligen_tpu_torch.models import create_model
+    from joligen_tpu_torch.options import TrainOptions
+    from joligen_tpu_torch.scripts.common import load_model_from_file
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert resolve_device(cpu=True).type == "cpu"
+    cfg = {"model_type": "palette", "G": {"ngf": 8, "unet_mha": {
+        "channel_mults": [1], "res_blocks": [1]}}}
+    opt = TrainOptions().parse_json(cfg, verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_model(opt)
+    (tmp_path / "train_config.json").write_text(json.dumps(cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model_from_file(str(tmp_path / "latest_net_G_A.pth"))
