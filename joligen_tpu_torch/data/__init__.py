@@ -1,0 +1,51 @@
+"""Host-side data pipeline (``joligen_tpu/data/__init__.py``).
+
+All randomness, PIL decoding and cropping stay on the host; the device sees
+fixed-shape NHWC batches. Only the labeled-mask dataset modes are ported.
+"""
+
+from __future__ import annotations
+
+from .loader import DataLoader
+
+PORTED_MODES = ("unaligned_labeled_mask", "unaligned_labeled_mask_cls",
+                "self_supervised_labeled_mask",
+                "self_supervised_labeled_mask_cls")
+
+
+def find_dataset_class(mode):
+    from . import datasets as D
+    table = dict(zip(PORTED_MODES, (D.UnalignedLabeledMaskDataset,
+                                    D.UnalignedLabeledMaskClsDataset,
+                                    D.SelfSupervisedLabeledMaskDataset,
+                                    D.SelfSupervisedLabeledMaskClsDataset)))
+    if mode not in table:
+        raise NotImplementedError(
+            f"dataset mode {mode} is not ported (ported: {PORTED_MODES}; "
+            "ROADMAP Queue 1 item 1)")
+    return table[mode]
+
+
+def create_dataset(opt, phase="train", name=""):
+    cls = find_dataset_class(opt.data_dataset_mode)
+    return cls(opt, phase, name=name)
+
+
+def create_dataloader(opt, dataset, shuffle=None, batch_size=None,
+                      drop_last=None):
+    """One data-parallel rank on one card: the batch_size option is the
+    batch (per device, as in the reference), capped at the dataset size so
+    tiny eval sets still yield full batches. Multi-GPU is ROADMAP Queue 1
+    item 15."""
+    if batch_size is None:
+        batch_size = (opt.train_batch_size if getattr(opt, "isTrain", True)
+                      else opt.test_batch_size)
+    if shuffle is None:
+        shuffle = not getattr(opt, "data_serial_batches", False)
+    if drop_last is None:
+        drop_last = shuffle  # eval loaders keep the remainder
+    return DataLoader(dataset, batch_size=max(1, min(batch_size, len(dataset))),
+                      shuffle=shuffle, drop_last=drop_last,
+                      prefetch=max(1, getattr(opt, "tpu_prefetch", 2) or 2),
+                      num_workers=getattr(opt, "data_num_threads", 4),
+                      seed=getattr(opt, "seed", None))

@@ -1,0 +1,186 @@
+"""Dataset modes (host-side sample producers): the labeled-mask modes of
+``joligen_tpu/data/datasets.py:31-227``, copied.
+
+Each dataset returns per-sample dicts of numpy arrays with keys matching the
+reference contract (data/base_dataset.py:120-195): ``A``, ``B`` (H,W,C float32
+in [-1,1]), ``A_label_mask``/``B_label_mask`` (H,W,1 int32),
+``A_label_cls``/``B_label_cls`` (int32 scalars), plus path metadata.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+
+import numpy as np
+
+from .image_folder import make_dataset, make_labeled_path_dataset
+from .transforms import (PairedTransform, fill_mask_with_color,
+                         fill_mask_with_random, load_image, load_mask)
+
+
+class BaseDataset:
+    def __init__(self, opt, phase, name=""):
+        self.opt = opt
+        self.phase = phase
+        self.name = name
+        self.root = opt.dataroot
+        suffix = name or ""
+        # direction swap (reference base_dataset.py:73-88)
+        btoa = getattr(opt, "data_direction", "AtoB") == "BtoA"
+        dir_A = "B" if btoa else "A"
+        dir_B = "A" if btoa else "B"
+        self.dir_A = os.path.join(self.root, phase + dir_A + suffix)
+        self.dir_B = os.path.join(self.root, phase + dir_B + suffix)
+        self.transform = PairedTransform(
+            opt, phase,
+            grayscale=(getattr(opt, "model_input_nc", 3) == 1))
+        self.use_domain_B = True
+
+    def _load_img(self, p):
+        # bound image loader so data_image_bits>8 keeps its depth
+        # (reference data/utils.py:4-14, base_dataset.py:92-95)
+        return load_image(self._resolve(p),
+                          int(getattr(self.opt, "data_image_bits", 8) or 8))
+
+    def _resolve(self, p):
+        if getattr(self.opt, "data_relative_paths", False):
+            return os.path.join(self.root, p)
+        # paths.txt entries are absolute by default (reference contract), but
+        # fall back to dataroot-relative instead of failing every sample when
+        # the user forgot --data_relative_paths
+        if not os.path.isabs(p) and not os.path.exists(p):
+            cand = os.path.join(self.root, p)
+            if os.path.exists(cand):
+                return cand
+        return p
+
+    def __len__(self):
+        return self.A_size
+
+    def __getitem__(self, index):
+        raise NotImplementedError
+
+
+class _LabeledPathsMixin:
+    """Parses trainX/paths.txt lines: 'img [cls] [mask]'
+    (reference data/image_folder.py:81-104 + unaligned_labeled_* variants)."""
+
+    def _load_side(self, d, with_cls, with_mask):
+        if os.path.exists(os.path.join(d, "paths.txt")):
+            imgs, labels = make_labeled_path_dataset(
+                d, "/paths.txt", self.opt.data_max_dataset_size)
+        else:
+            imgs, labels = make_labeled_path_dataset(
+                self.root, "/paths.txt", self.opt.data_max_dataset_size)
+        cls_list, mask_list = [], []
+        for lab in labels:
+            parts = lab.split()
+            if with_cls and with_mask:
+                cls_list.append(int(parts[0]) if len(parts) > 1 else 0)
+                mask_list.append(parts[-1])
+            elif with_mask:
+                mask_list.append(parts[-1])
+                cls_list.append(0)
+            elif with_cls:
+                cls_list.append(int(parts[0]))
+                mask_list.append(None)
+        return imgs, cls_list, mask_list
+
+
+class UnalignedLabeledMaskDataset(BaseDataset, _LabeledPathsMixin):
+    with_cls = False
+    with_mask = True
+
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self.A_img_paths, self.A_cls, self.A_mask_paths = self._load_side(
+            self.dir_A, self.with_cls, self.with_mask)
+        self.A_size = len(self.A_img_paths)
+        self.B_img_paths, self.B_cls, self.B_mask_paths = [], [], []
+        if self.use_domain_B and os.path.isdir(self.dir_B):
+            try:
+                self.B_img_paths, self.B_cls, self.B_mask_paths = self._load_side(
+                    self.dir_B, self.with_cls, self.with_mask)
+            except (AssertionError, FileNotFoundError, ValueError):
+                self.B_img_paths = make_dataset(
+                    self.dir_B, self.opt.data_max_dataset_size)
+                self.B_cls = [0] * len(self.B_img_paths)
+                self.B_mask_paths = [None] * len(self.B_img_paths)
+        self.B_size = len(self.B_img_paths)
+
+    def get_img(self, A_path, A_mask_path, A_cls, B_path=None, B_mask_path=None,
+                B_cls=None):
+        p = self.transform.sample_params()
+        out = {
+            "A": self.transform.image(self._load_img(A_path), p),
+            "A_img_paths": A_path,
+            "A_label_cls": np.int32(A_cls or 0),
+        }
+        if A_mask_path:
+            out["A_label_mask"] = self.transform.mask(
+                load_mask(self._resolve(A_mask_path)), p)
+        if B_path is not None:
+            pB = self.transform.sample_params()
+            out["B"] = self.transform.image(self._load_img(B_path), pB)
+            out["B_img_paths"] = B_path
+            out["B_label_cls"] = np.int32(B_cls or 0)
+            if B_mask_path:
+                out["B_label_mask"] = self.transform.mask(
+                    load_mask(self._resolve(B_mask_path)), pB)
+        return out
+
+    def __getitem__(self, index):
+        A_path = self.A_img_paths[index % self.A_size]
+        A_mask = self.A_mask_paths[index % self.A_size] if self.with_mask else None
+        A_cls = self.A_cls[index % self.A_size] if self.A_cls else 0
+        B_path = B_mask = B_cls = None
+        if self.B_size:
+            j = (index % self.B_size
+                 if getattr(self.opt, "data_serial_batches", False)
+                 else random.randint(0, self.B_size - 1))
+            B_path = self.B_img_paths[j]
+            B_mask = self.B_mask_paths[j] if self.with_mask else None
+            B_cls = self.B_cls[j] if self.B_cls else 0
+        return self.get_img(A_path, A_mask, A_cls, B_path, B_mask, B_cls)
+
+
+class UnalignedLabeledMaskClsDataset(UnalignedLabeledMaskDataset):
+    with_cls = True
+    with_mask = True
+
+
+class SelfSupervisedLabeledMaskDataset(UnalignedLabeledMaskDataset):
+    """A = mask-noised copy of the single domain; B = original
+    (reference data/self_supervised_labeled_mask_dataset.py:23-60)."""
+
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self.use_domain_B = False
+
+    def __getitem__(self, index):
+        A_path = self.A_img_paths[index % self.A_size]
+        A_mask = self.A_mask_paths[index % self.A_size]
+        A_cls = self.A_cls[index % self.A_size] if self.A_cls else 0
+        out = self.get_img(A_path, A_mask, A_cls)
+        img, mask = out["A"], out["A_label_mask"]
+        if getattr(self.opt, "data_online_creation_rand_mask_A", True):
+            noised = fill_mask_with_random(img, mask, -1)
+        else:
+            # color fill otherwise (reference
+            # self_supervised_*_dataset.py:45-53 raises when NEITHER flag is
+            # set; defaulting to the color fill keeps default configs
+            # trainable instead of failing every sample)
+            noised = fill_mask_with_color(img, mask)
+        out.update({
+            "A": noised,
+            "B": img,
+            "B_img_paths": out["A_img_paths"],
+            "B_label_mask": mask.copy(),
+            "B_label_cls": out["A_label_cls"],
+        })
+        return out
+
+
+class SelfSupervisedLabeledMaskClsDataset(SelfSupervisedLabeledMaskDataset):
+    with_cls = True

@@ -9,7 +9,9 @@ port's modules carry the flax names. Leaf mappings:
 - norm ``scale`` <-> ``weight``; ``bias`` <-> ``bias``;
 - embedding tables (modules named ``embedder_*``) ``embedding`` <-> ``weight``.
 
-Both directions only transpose, so they are exact.
+Both directions only transpose, so they are exact. The same mapping carries
+an optax adam/adamw state (count, mu, nu) to the port's optimizer state and
+back.
 """
 
 from __future__ import annotations
@@ -49,6 +51,71 @@ def flax_to_torch(params):
         out[".".join(path[:-1] + (tname,))] = torch.from_numpy(
             np.array(arr, order="C"))
     return out
+
+
+def _tree_to_torch_numpy(tree):
+    """A flax-shaped tree (any float dtype, bf16 included) -> numpy fp32
+    arrays keyed and laid out like the torch parameters."""
+    def f32(t):
+        return {k: f32(v) if isinstance(v, dict) else np.asarray(v, np.float32)
+                for k, v in t.items()}
+    return {k: v.numpy() for k, v in flax_to_torch(f32(tree)).items()}
+
+
+def optax_adam_state_to_torch(opt_state):
+    """An optax adam/adamw state (the ``chain`` tuple, optionally inside
+    ``MultiStepsState``) -> the port's optimizer state dict
+    (``models/train_state.py``): ``{"count", "mu", "nu"}``, or
+    ``{"mini_step", "gradient_step", "acc_grads", "inner"}`` around it.
+    Reads the NamedTuples by field name; optax is not imported."""
+    if hasattr(opt_state, "mini_step"):
+        return {"mini_step": int(opt_state.mini_step),
+                "gradient_step": int(opt_state.gradient_step),
+                "acc_grads": _tree_to_torch_numpy(opt_state.acc_grads),
+                "inner": optax_adam_state_to_torch(opt_state.inner_opt_state)}
+    adam = next(s for s in opt_state if hasattr(s, "mu"))
+    return {"count": int(adam.count),
+            "mu": _tree_to_torch_numpy(adam.mu),
+            "nu": _tree_to_torch_numpy(adam.nu)}
+
+
+def torch_adam_state_to_optax(state, template):
+    """Inverse of ``optax_adam_state_to_torch``: fills a copy of
+    ``template`` (the optimizer's own ``init`` state, which gives the
+    NamedTuple types and the leaf dtypes) from the port's state dict."""
+    def tree(arrays, like):
+        flax = torch_to_flax({k: torch.from_numpy(np.asarray(v, np.float32))
+                              for k, v in arrays.items()})
+        if "params" not in like:
+            flax = flax["params"]
+
+        def cast(t, ref):
+            return {k: cast(v, ref[k]) if isinstance(v, dict)
+                    else np.asarray(v).astype(np.asarray(ref[k]).dtype)
+                    for k, v in t.items()}
+        return cast(flax, like)
+
+    def count(ref, value):
+        return np.asarray(value, dtype=np.asarray(ref).dtype)
+
+    if hasattr(template, "mini_step"):
+        return template._replace(
+            mini_step=count(template.mini_step, state["mini_step"]),
+            gradient_step=count(template.gradient_step,
+                                state["gradient_step"]),
+            acc_grads=tree(state["acc_grads"], template.acc_grads),
+            inner_opt_state=torch_adam_state_to_optax(
+                state["inner"], template.inner_opt_state))
+    out = []
+    for s in template:
+        if hasattr(s, "mu"):
+            s = s._replace(count=count(s.count, state["count"]),
+                           mu=tree(state["mu"], s.mu),
+                           nu=tree(state["nu"], s.nu))
+        elif "count" in getattr(s, "_fields", ()):   # the schedule's count
+            s = s._replace(count=count(s.count, state["count"]))
+        out.append(s)
+    return type(template)(out)
 
 
 def torch_to_flax(state_dict):

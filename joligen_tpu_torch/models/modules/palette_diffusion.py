@@ -1,8 +1,8 @@
-"""Palette conditioning wrapper and the DDPM/DDIM samplers
-(``joligen_tpu/models/modules/palette_diffusion.py``).
+"""Palette conditioning wrapper, the training forward and loss, and the
+DDPM/DDIM samplers (``joligen_tpu/models/modules/palette_diffusion.py``).
 
 The JAX package runs each sampling chain as one ``lax.scan``; here they are
-Python loops, one denoiser call per step. Images are NHWC, sampler
+Python loops, one denoiser call per step. Images are NHWC, sampler and loss
 arithmetic is fp32. Random draws come from an explicit ``torch.Generator``.
 """
 
@@ -25,7 +25,9 @@ class LabelEmbedder(nn.Module):
         self.weight = nn.Parameter(torch.zeros(num_classes, hidden_size))
 
     def forward(self, labels):
-        return self.weight[labels.long()]
+        # F.embedding, not weight[labels]: the indexing op's backward
+        # serialises on repeated rows (a mask label per pixel, 2 rows)
+        return F.embedding(labels.long(), self.weight)
 
 
 class PaletteDenoiser(nn.Module):
@@ -83,6 +85,115 @@ class PaletteDenoiser(nn.Module):
             m = torch.clamp(mask[..., 0].long(), 0, self.nclasses - 1)
             x = torch.cat([x, self.embedder_mask(m).to(x.dtype)], dim=-1)
         return self.inner(x, emb)
+
+
+def q_sample(y0, sample_gammas, noise):
+    """y_noisy = sqrt(g)*y0 + sqrt(1-g)*eps (diffusion_generator.py:410-412)."""
+    return torch.sqrt(sample_gammas) * y0 + torch.sqrt(1.0 - sample_gammas) * noise
+
+
+def continuous_gammas(schedule: NoiseSchedule, t, u):
+    """gamma = gamma_{t-1} + u * (gamma_t - gamma_{t-1}) for t in 1..T-1 and
+    u in [0, 1) (diffusion_generator.py:464-478)."""
+    g_lo = extract(schedule.gammas, t - 1, 1)
+    g_hi = extract(schedule.gammas, t, 1)
+    return (g_hi - g_lo) * u + g_lo
+
+
+def sample_continuous_gammas(generator, schedule: NoiseSchedule, batch,
+                             device):
+    """t ~ U{1..T-1}, gamma ~ U[gamma_{t-1}, gamma_t]; returns (t, gammas)."""
+    t = torch.randint(1, schedule.num_timesteps, (batch,), generator=generator,
+                      device=device)
+    u = torch.rand(batch, generator=generator, device=device)
+    return t, continuous_gammas(schedule, t, u)
+
+
+def min_snr_weight(schedule: NoiseSchedule, t, ksnr=5.0):
+    """min(SNR, k)/SNR per-sample weight (diffusion_generator.py:498-519)."""
+    snr1 = extract(schedule.sqrt_recip_gammas, t, 1)
+    snr2 = extract(schedule.sqrt_recipm1_gammas, t, 1)
+    snr = (snr1 / snr2) ** 2
+    return torch.clamp(snr, max=ksnr) / snr
+
+
+def draw_training_noise(generator, schedule: NoiseSchedule, y0,
+                        dropout_prob=0.0):
+    """The random draws of one training forward, from ``generator`` in this
+    order: timesteps and noise levels (``sample_continuous_gammas``), the
+    noise, and (only with label dropout) the per-sample keep draws."""
+    b = y0.shape[0]
+    t, gammas = sample_continuous_gammas(generator, schedule, b, y0.device)
+    noise = torch.randn(y0.shape, generator=generator, dtype=y0.dtype,
+                        device=y0.device)
+    keep_u = (torch.rand(b, generator=generator, device=y0.device)
+              if dropout_prob > 0.0 else None)
+    return {"t": t, "gammas": gammas, "noise": noise, "keep_u": keep_u}
+
+
+def palette_training_outputs(apply_fn, generator, schedule: NoiseSchedule,
+                             y0, y_cond, mask=None, cls=None,
+                             dropout_prob=0.0, minsnr=True, null_class=0,
+                             draws=None):
+    """One training forward: returns (noise, noise_hat, weight) as the
+    reference DiffusionGenerator.forward (diffusion_generator.py:457-521).
+
+    y0/y_cond: (B,H,W,C) NHWC in [-1,1]. mask: (B,H,W,1) int labels or None.
+    The draws come from ``generator`` (``draw_training_noise``) unless
+    ``draws`` gives them (tests share host draws with the JAX package)."""
+    b = y0.shape[0]
+    bshape = (b,) + (1,) * (y0.ndim - 1)
+    if draws is None:
+        draws = draw_training_noise(generator, schedule, y0, dropout_prob)
+    t, gammas, noise = draws["t"], draws["gammas"], draws["noise"]
+
+    y_noisy = q_sample(y0, gammas.reshape(bshape), noise)
+    if mask is not None:
+        m = torch.clamp(mask.to(y0.dtype), 0.0, 1.0)
+        y_noisy = y_noisy * m + (1.0 - m) * y0
+
+    # classifier-free dropout of conditioning labels (palette_model.py:
+    # 565-584): dropped samples get the reserved null class, not class 0
+    if dropout_prob > 0.0:
+        keep = draws["keep_u"] >= dropout_prob
+        if cls is not None:
+            cls = torch.where(keep, cls, torch.full_like(cls, null_class))
+        if mask is not None:
+            mask = torch.where(keep.reshape(bshape), mask,
+                               torch.full_like(mask, null_class))
+
+    x_in = torch.cat([y_cond, y_noisy], dim=-1)
+    noise_hat = apply_fn(x_in, gammas, cls=cls, mask=mask)
+    weight = min_snr_weight(schedule, t).reshape(bshape) if minsnr else 1.0
+    return noise, noise_hat, weight
+
+
+def _avg_pool2(e):
+    """NHWC 2x2 stride-2 average pool (flax ``nn.avg_pool``, VALID)."""
+    return F.avg_pool2d(e.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+def masked_elementwise_loss(noise, noise_hat, mask=None, weight=1.0,
+                            kind="MSE"):
+    """Masked MSE/L1 (+ the 3-scale ``multiscale*`` pyramid) over the noised
+    region with reference semantics (palette_model.py:586-609): the min-SNR
+    weight and the mask multiply the inputs, and the reduction is a plain
+    mean over all elements."""
+    m = (torch.clamp(mask.to(noise.dtype), 0.0, 1.0)
+         if mask is not None else 1.0)
+    d = (noise_hat - noise) * weight * m
+
+    def base(e):
+        return torch.abs(e) if "L1" in kind else e ** 2
+
+    if kind.startswith("multiscale"):
+        total = 0.0
+        e = d
+        for _ in range(3):
+            total = total + torch.mean(base(e))
+            e = _avg_pool2(e)
+        return total / 3.0
+    return torch.mean(base(d))
 
 
 def predict_start_from_noise(schedule: NoiseSchedule, y_t, t, noise):

@@ -1,10 +1,12 @@
-"""Palette DDPM/DDIM inpainting, phase ``test``
-(``joligen_tpu/models/palette_model.py:95-192,288-346``).
+"""Palette DDPM inpainting: training and DDPM/DDIM sampling
+(``joligen_tpu/models/palette_model.py:33-346``).
 
-``inference`` = ``prepare_batch`` (set_input, uint8 wire step, device put)
-then ``sample`` (decode on the device, run the DDPM or DDIM chain with the
-EMA weights). ``sample``'s first random draw is ``y_t`` from the model's
-generator. Training is not ported yet (ROADMAP Queue 1 items 4-6).
+``optimize_parameters`` = ``prepare_batch`` (set_input, uint8 wire step,
+device put) then ``optimize_prepared``: decode on the device, q_sample, the
+denoiser, the masked loss, its gradients (through K1 forward and K2/K3
+backward on the card), AdamW and the EMA. ``inference`` = ``prepare_batch``
+then ``sample`` (the DDPM or DDIM chain with the EMA weights); ``sample``'s
+first random draw is ``y_t`` from the model's generator.
 """
 
 from __future__ import annotations
@@ -15,7 +17,10 @@ import torch
 from ..ops.schedules import NoiseSchedule
 from .base import BaseModel, dequantize, quantize_batch
 from .diffusion_networks import define_G, init_weights
-from .modules.palette_diffusion import ddim_sample, ddpm_sample
+from .modules.palette_diffusion import (ddim_sample, ddpm_sample,
+                                        masked_elementwise_loss,
+                                        palette_training_outputs)
+from .train_state import apply_updates
 
 UNPORTED_COND_CREATION = ("computed_sketch", "sketch", "canny", "depth",
                           "hed", "hough", "sam", "low_res", "previous_frame")
@@ -23,19 +28,28 @@ UNPORTED_COND_CREATION = ("computed_sketch", "sketch", "canny", "depth",
 
 class PaletteModel(BaseModel):
     def __init__(self, opt, phase="test", device=None, cpu=False):
-        if phase != "test":
-            raise NotImplementedError(
-                "palette training (ROADMAP Queue 1 items 4-6)")
-        super().__init__(opt, device=device, cpu=cpu)
+        super().__init__(opt, phase=phase, device=device, cpu=cpu)
         self.task = getattr(opt, "alg_diffusion_task", "inpainting")
         self.sampling_method = getattr(opt, "alg_palette_sampling_method",
                                        "ddpm")
+        self.loss_kind = getattr(opt, "alg_palette_loss", "MSE")
+        self.minsnr = bool(getattr(opt, "alg_palette_minsnr", False))
+        self.dropout_prob = float(getattr(opt, "alg_diffusion_dropout_prob",
+                                          0.0) or 0.0)
+        self.lambda_G = float(getattr(opt, "alg_diffusion_lambda_G", 1.0))
+        self.ema_beta = float(getattr(opt, "train_G_ema_beta", 0.999))
         self.use_ema = bool(getattr(opt, "train_G_ema", False))
         self.conditioning = getattr(opt, "alg_diffusion_cond_embed", "") or ""
+        # "the highest class is the unconditioned one" (palette_model.py:
+        # 565-584)
+        self.null_class = max(getattr(opt, "f_s_semantic_nclasses", 2),
+                              getattr(opt, "cls_semantic_nclasses", 2)) - 1
+        self.sched_train = NoiseSchedule.for_phase(opt, "train")
         self.sched_test = NoiseSchedule.for_phase(opt, "test")
         netG = define_G(opt)
         init_weights(netG, torch.Generator().manual_seed(self.seed))
-        self.add_net("G_A", netG, use_ema=self.use_ema)
+        self.add_net("G_A", netG, use_ema=self.use_ema,
+                     lr=getattr(opt, "train_G_lr", 2e-4))
 
     # ------------------------------------------------------------------
     def set_input(self, batch):
@@ -67,6 +81,42 @@ class PaletteModel(BaseModel):
         inp = quantize_batch(self.set_input(batch),
                              float_keys=("y_cond", "gt"), int_keys=("mask",))
         return self.put_batch(inp)
+
+    def _loss_fn(self, dev, draws=None):
+        """lambda_G * masked loss of one training forward on a prepared
+        batch; the wire-compressed inputs decode on the device."""
+        y_cond = dequantize(dev["y_cond"], "image")
+        gt = dequantize(dev["gt"], "image")
+        mask = dequantize(dev.get("mask"), "label")
+        net = self.nets["G_A"]
+
+        def apply_fn(x, gammas, cls=None, mask=None):
+            return net(x, gammas, cls=cls, mask=mask)
+
+        noise, noise_hat, weight = palette_training_outputs(
+            apply_fn, self.generator, self.sched_train, gt, y_cond, mask=mask,
+            cls=dev.get("cls"), dropout_prob=self.dropout_prob,
+            minsnr=self.minsnr, null_class=self.null_class, draws=draws)
+        loss = masked_elementwise_loss(noise, noise_hat, mask=mask,
+                                       weight=weight, kind=self.loss_kind)
+        return self.lambda_G * loss
+
+    def optimize_prepared(self, dev, draws=None):
+        """One training step on a prepared batch: loss, gradients, AdamW and
+        the EMA. ``draws`` (tests) replaces the generator's draws. The loss
+        stays on the device: the host reads it only when it prints."""
+        state = self.states["G_A"]
+        loss = self._loss_fn(dev, draws)
+        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+        # a parameter the loss does not reach gets a zero gradient, as in JAX
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, state.params)]
+        apply_updates(state, grads, self.ema_beta)
+        self.loss_log = {"G_tot": loss.detach()}
+        return self.loss_log
+
+    def optimize_parameters(self, batch):
+        return self.optimize_prepared(self.prepare_batch(batch))
 
     def _sampling_args(self, sampling_method, num_steps, eta):
         # test-time overrides (reference palette_model.py:628-646)

@@ -1,16 +1,17 @@
-"""Where a serving request's time goes on the card.
+"""Where a serving request's, or a training step's, time goes on the card.
 
     python -m joligen_tpu_torch.scripts.profile_request \\
         [--config examples/example_ddpm_noglasses2glasses.json] \\
-        [--sampling_method ddim] [--out profile_request.json]
+        [--sampling_method ddim | --train] [--out profile_request.json]
 
-Builds the config's palette model at full width with seeded random weights,
-serves two warm-up requests on a synthetic masked image, then times one
-request by the host clock and traces another with ``torch.profiler``. Prints
-one JSON object: request latency, kernels launched per request, the
-device's busy time (the union of the kernels' intervals) and idle share of
-the untraced latency, and the kernels that take the most device time.
-Needs a CUDA device.
+Builds the config's palette model at full width with seeded random weights
+and runs twice as warm-up, on a synthetic masked image, either one serving
+request or (``--train``) one training step on a batch of
+``train_batch_size`` such images; then times one run by the host clock and
+traces another with ``torch.profiler``. Prints one JSON object: latency,
+kernels launched per run, the device's busy time (the union of the kernels'
+intervals) and idle share of the untraced latency, and the kernels that
+take the most device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import argparse
 import json
 import os
 import subprocess
+import tempfile
 import time
 from collections import defaultdict
 
@@ -32,10 +34,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def synthetic_batch(size, seed):
+def synthetic_batch(size, seed, batch=1):
     rng = np.random.default_rng(seed)
-    crop = rng.uniform(-1, 1, (1, size, size, 3)).astype(np.float32)
-    mask = np.zeros((1, size, size, 1), np.int32)
+    crop = rng.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
+    mask = np.zeros((batch, size, size, 1), np.int32)
     mask[:, size // 4:3 * size // 4, size // 4:3 * size // 4] = 1
     cond = np.where(mask > 0, rng.uniform(-1, 1, crop.shape), crop)
     return {"A": cond.astype(np.float32), "B": crop, "B_label_mask": mask}
@@ -58,6 +60,8 @@ def main(argv=None):
         ROOT, "examples", "example_ddpm_noglasses2glasses.json"))
     p.add_argument("--sampling_method", default="ddim",
                    choices=["ddim", "ddpm"])
+    p.add_argument("--train", action="store_true",
+                   help="profile a training step instead of a request")
     p.add_argument("--top", type=int, default=12)
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
@@ -67,13 +71,24 @@ def main(argv=None):
 
     with open(args.config) as f:
         opt = TrainOptions().parse_json(json.load(f), verbose=False)
-    model = create_model(opt, phase="test")
-    batch = synthetic_batch(opt.data_crop_size, model.seed)
+    if args.train:
+        # phase train makes its checkpoint directory; nothing is saved there
+        opt.checkpoints_dir = tempfile.mkdtemp(prefix="profile_")
+        model = create_model(opt, phase="train")
+        os.rmdir(model.save_dir)
+        os.rmdir(opt.checkpoints_dir)
+        batch = synthetic_batch(opt.data_crop_size, model.seed,
+                                opt.train_batch_size)
+    else:
+        model = create_model(opt, phase="test")
+        batch = synthetic_batch(opt.data_crop_size, model.seed)
 
     def request():
-        out = model.inference(batch, sampling_method=args.sampling_method)
+        if args.train:
+            model.optimize_parameters(batch)
+        else:
+            model.inference(batch, sampling_method=args.sampling_method)
         torch.cuda.synchronize()
-        return out
 
     for _ in range(2):
         request()
@@ -102,7 +117,8 @@ def main(argv=None):
     result = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "config": os.path.basename(args.config),
-        "sampling_method": args.sampling_method,
+        "run": ("training step, batch %d" % opt.train_batch_size
+                if args.train else args.sampling_method + " request"),
         "crop_size": opt.data_crop_size,
         "latency_ms": latency_us / 1e3,
         "device_launches": len(kernels),

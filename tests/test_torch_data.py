@@ -1,0 +1,102 @@
+"""The port's data pipeline (joligen_tpu_torch/data) against the JAX
+package's (joligen_tpu/data) on a tools/make_fake_dataset.py dataset: item by
+item, with Python's ``random`` and numpy seeded identically before each side
+draws its crop, flips and fills; then the port's threaded loader's batches.
+
+Tolerance: images 1e-6 (the JAX package may normalise uint8 -> [-1, 1] with
+its g++ helper, a multiply by the reciprocal, one float32 ulp from the
+port's division); masks, classes and paths exactly.
+"""
+
+import os
+import random
+import sys
+
+import numpy as np
+import pytest
+
+from joligen_tpu.data import create_dataset as jax_create_dataset
+from joligen_tpu.options import TrainOptions as JaxTrainOptions
+from joligen_tpu_torch.data import (PORTED_MODES, create_dataloader,
+                                    create_dataset)
+from joligen_tpu_torch.options import TrainOptions
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from tools.make_fake_dataset import make  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def dataroot(tmp_path_factory):
+    root = tmp_path_factory.mktemp("fakeds")
+    make(str(root), n=8, size=40, nclasses=2, seed=3)
+    return str(root)
+
+
+def _cfg(root, mode, rand_fill):
+    return {"model_type": "palette", "dataroot": root,
+            "data": {"dataset_mode": mode, "load_size": 40, "crop_size": 32,
+                     "relative_paths": True,
+                     "online_creation": {"rand_mask_A": rand_fill}},
+            "train": {"batch_size": 3}}
+
+
+@pytest.mark.parametrize("mode,rand_fill", [
+    ("self_supervised_labeled_mask", False),
+    ("self_supervised_labeled_mask", True),
+    ("self_supervised_labeled_mask_cls", False),
+    ("unaligned_labeled_mask", False)])
+def test_items_match_jax_dataset(dataroot, mode, rand_fill):
+    cfg = _cfg(dataroot, mode, rand_fill)
+    jds = jax_create_dataset(JaxTrainOptions().parse_json(cfg, verbose=False))
+    tds = create_dataset(TrainOptions().parse_json(cfg, verbose=False))
+    assert len(tds) == len(jds) == 8
+    for i in range(len(tds)):
+        items = []
+        for ds in (jds, tds):
+            random.seed(100 + i)
+            np.random.seed(100 + i)
+            items.append(ds[i])
+        want, got = items
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            g = got[k]
+            if isinstance(w, np.ndarray) and w.dtype == np.float32:
+                assert g.dtype == np.float32 and g.shape == w.shape
+                np.testing.assert_allclose(g, w, atol=1e-6, rtol=0,
+                                           err_msg=k)
+            elif isinstance(w, np.ndarray):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w, err_msg=k)
+            else:
+                assert g == w, k
+
+
+def test_loader_yields_full_batches(dataroot):
+    opt = TrainOptions().parse_json(
+        _cfg(dataroot, "self_supervised_labeled_mask", False), verbose=False)
+    loader = create_dataloader(opt, create_dataset(opt))
+    assert len(loader) == 8 // 3
+    batches = list(loader)
+    assert len(batches) == 2
+    for b in batches:
+        assert {"A", "B", "B_label_mask", "B_label_cls",
+                "A_label_mask"} <= set(b)
+        assert b["A"].shape == b["B"].shape == (3, 32, 32, 3)
+        assert b["A"].dtype == b["B"].dtype == np.float32
+        assert b["B_label_mask"].shape == (3, 32, 32, 1)
+        assert b["B_label_mask"].dtype == np.int32
+        assert b["B_label_cls"].shape == (3,)
+        assert b["B_label_cls"].dtype == np.int32
+        assert len(b["B_img_paths"]) == 3
+        assert np.abs(b["A"]).max() <= 1.0
+        # the self-supervised A is B with the masked region filled
+        keep = b["B_label_mask"][..., 0] == 0
+        np.testing.assert_array_equal(b["A"][keep], b["B"][keep])
+
+
+def test_unported_modes_raise(dataroot):
+    assert "self_supervised_labeled_mask" in PORTED_MODES
+    opt = TrainOptions().parse_json(_cfg(dataroot, "unaligned", False),
+                                    verbose=False)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        create_dataset(opt)

@@ -60,7 +60,8 @@ def test_cpu_wrapper_takes_plain_path_and_counts_no_launch():
     o = fa.flash_attention(tq, tk, tv, sm_scale=0.3)
     ref, _ = fa.flash_attention_reference(tq, tk, tv, sm_scale=0.3)
     assert torch.equal(o, ref)
-    assert fa.LAUNCHES == before == {"flash_attention_fwd": 0}
+    assert fa.LAUNCHES == before
+    assert all(n == 0 for n in fa.LAUNCHES.values())
 
 
 def test_reference_reads_strided_qkv_slices():

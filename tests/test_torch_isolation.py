@@ -1,7 +1,8 @@
 """The port stands alone: it imports with jax, flax, jaxlib, msgpack and the
-JAX package blocked, no source file of it (nor chip_smoke.py) imports them,
-and without a CUDA device its entry points raise unless the CPU is asked
-for."""
+JAX package blocked (every module, the training slice's included), no source
+file of it (nor chip_smoke.py) imports them, and without a CUDA device its
+entry points (model, serving script, train CLI) raise unless the CPU is
+asked for."""
 
 import ast
 import json
@@ -47,8 +48,12 @@ for n in names:
 bad = [m for m in sys.modules
        if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """ % (BLOCKED,)
+# the training slice's modules, among those the walk imports
+TRAINING_MODULES = ("data", "data.datasets", "data.image_folder",
+                    "data.loader", "data.transforms", "train",
+                    "utils.visualizer", "models.train_state")
 
 
 def test_package_imports_with_jax_blocked():
@@ -56,7 +61,10 @@ def test_package_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    names = out.stdout.split()
+    assert len(names) >= 28
+    for m in TRAINING_MODULES:
+        assert "joligen_tpu_torch." + m in names, m
 
 
 def _sources():
@@ -101,3 +109,10 @@ def test_no_silent_cpu_fallback(monkeypatch, tmp_path):
     (tmp_path / "train_config.json").write_text(json.dumps(cfg))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model_from_file(str(tmp_path / "latest_net_G_A.pth"))
+    # python -m joligen_tpu_torch.train without --cpu: raises before any work
+    from joligen_tpu_torch import train
+    argv = ["--model_type", "palette", "--dataroot", str(tmp_path / "none"),
+            "--checkpoints_dir", str(tmp_path / "ckpt")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(argv)
+    assert not (tmp_path / "ckpt").exists()
