@@ -5,13 +5,18 @@ GPU. Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. Build: compiles every kernel of the serving and training paths from
-   ``csrc/`` (one ``nvcc`` per source, started together).
+2. Build: compiles every kernel of the serving and training paths and of
+   the probes from ``csrc/`` (one ``nvcc`` per source, started together).
 3. Kernels: K1 (flash-attention forward), K2 (dQ) and K3 (dK, dV) each
    against its plain PyTorch version on the same CUDA tensors at the paths'
    shapes, the autograd Function against autograd through the plain
-   forward, and each kernel's time, its bound, the plain version's time and
-   one library call's time as a yardstick.
+   forward; P1 and P2 (the 3×3 tap conv, each s2) against their plain
+   versions in bf16 and fp32 at the conv probe's hot site (batch 2) and at
+   a ragged shape, and against the library conv, then in bf16 at the
+   probe's own shape (batch 16); P3 (the double-buffered copy) bit for bit
+   at six chunkings and at its path's 1 GiB. For each kernel its time, its
+   bound, the plain version's time and one library call's time as a
+   yardstick, at its path's shape.
 4. Serving: palette inpainting at the full width of
    ``examples/example_ddpm_noglasses2glasses.json`` (128 px, ngf 64, 62.8M
    parameters, bf16) with seeded random weights, saved and reloaded through
@@ -25,6 +30,9 @@ GPU. Run from the repository root with no arguments:
    lerp, step time and peak memory; then one DDIM-10 request served from the
    trained ``latest`` checkpoint; then one fp32 training step's gradients,
    card (K1-K3) against CPU (plain versions), over all 327 leaves.
+6. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
+   bf16 and ``tools.bw_probe3`` over 1 GiB arrays, each with the launch
+   counters set to 0 just before it and read just after.
 
 Prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -35,7 +43,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -64,6 +71,18 @@ BWD_CHECKS = [((8, 256, 16, 32), "bfloat16"), ((8, 256, 16, 32), "float32"),
               ((2, 100, 2, 64), "float32"), ((2, 5, 2, 16), "float32")]
 TRAIN_SHAPE = (8, 256, 16, 32)      # the mid block at 128 px, batch 8
 BIG_SHAPE = (8, 1024, 16, 32)       # the mid block at 256 px, batch 8
+# P1/P2: the probe's hot site at batch 2, and a shape whose H, W and Co are
+# not multiples of the kernels' tiles; errors relative to max |y|
+CONV_CHECKS = [((2, 128, 128, 128), 128), ((1, 37, 53, 64), 40)]
+CONV_PATH_SHAPE = (16, 128, 128, 128)
+LIBRARY_CONV_TOL = 3e-2             # the probe's own tolerance
+# P3: (n_rows, row, chunk_rows, dtype): the probe's chunkings, an odd chunk
+# count, a single chunk, chunks ending in a partial tile, odd tile counts
+COPY_CHECKS = [(4096, 1024, 256, "float32"), (4096, 1024, 1024, "bfloat16"),
+               (4096, 1024, 4096, "float32"), (768, 1024, 256, "float32"),
+               (1200, 1024, 12, "bfloat16"), (60, 1024, 12, "float32")]
+COPY_PATH = (262_144, 1024, 1024, "float32")     # 1 GiB, the probe's shape
+PROBE_ITERS = 32
 
 
 def log(msg):
@@ -322,15 +341,243 @@ def backward_kernel_phase():
     return out
 
 
-def reset_launches():
+def conv_bound_ms(shape, co, dtype_name):
+    """Least time for one 3×3 conv: x and w read once, y written once,
+    against 2*9*B*H*W*C*Co FLOPs."""
+    b, h, w, c = shape
+    item = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (b * h * w * (c + co) + 9 * c * co) * item
+    flops = 2 * 9 * b * h * w * c * co
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-6)).item()
+
+
+def probe_kernel_phase():
+    """P1, P2 and P3 against their plain versions (and P1, P2 against the
+    library conv) on CUDA tensors; their times at the probes' shapes."""
+    import torch
+    import torch.nn.functional as F
+    from joligen_tpu_torch.ops import conv3x3
+    from joligen_tpu_torch.ops import copy as dma
+    from joligen_tpu_torch.tools.bw_probe3 import source
+    from joligen_tpu_torch.tools.fused_resblock_probe import conv_library
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    variants = [("P1", None)] + [("P2", s2) for s2 in conv3x3.STRIPS]
+    conv_checks = []
+    for shape, co in CONV_CHECKS:
+        for name in ("bfloat16", "float32"):
+            dtype = getattr(torch, name)
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            w = (torch.randn((3, 3, shape[-1], co), generator=gen, device=dev)
+                 / (9 * shape[-1]) ** 0.5).to(dtype)
+            lib = conv_library(x, w) if name == "bfloat16" else None
+            for kern, s2 in variants:
+                if s2 is None:
+                    got = conv3x3.conv3x3_taps(x, w)
+                    want = conv3x3.conv3x3_taps_reference(x, w)
+                else:
+                    got = conv3x3.conv3x3_taps_v2(x, w, s2=s2)
+                    want = conv3x3.conv3x3_taps_v2_reference(x, w)
+                torch.cuda.synchronize()
+                rec = {"kernel": kern, "s2": s2, "shape": list(shape),
+                       "co": co, "dtype": name,
+                       "max_abs_err": (got.float() - want.float()).abs()
+                       .max().item(),
+                       "rel_err": _rel_err(got, want), "tol": TOL[name]}
+                if lib is not None:
+                    rec["rel_err_vs_library"] = _rel_err(got, lib)
+                conv_checks.append(rec)
+                log(f"{kern}{'' if s2 is None else f' s2={s2}'} check {shape}"
+                    f"->{co} {name}: rel err {rec['rel_err']:.3e} (tol "
+                    f"{TOL[name]}), vs library "
+                    f"{rec.get('rel_err_vs_library', float('nan')):.3e}")
+                if not (rec["rel_err"] <= TOL[name] and rec.get(
+                        "rel_err_vs_library", 0.0) < LIBRARY_CONV_TOL):
+                    raise AssertionError(f"{kern} s2={s2} disagrees at "
+                                         f"{shape} {name}")
+
+    copy_checks = []
+    for n_rows, row, chunk_rows, name in COPY_CHECKS:
+        dtype = getattr(torch, name)
+        bits = torch.int32 if name == "float32" else torch.int16
+        info = torch.iinfo(bits)
+        x = torch.randint(info.min, info.max, (n_rows, row), generator=gen,
+                          device=dev, dtype=bits).view(dtype)
+        y = dma.make_copy(n_rows, row, chunk_rows, dtype, dev)(x)
+        plain = dma.copy_reference(x, chunk_rows)
+        torch.cuda.synchronize()
+        exact = torch.equal(y.view(bits), x.view(bits)) and torch.equal(
+            plain.view(bits), x.view(bits))
+        copy_checks.append({"n_rows": n_rows, "row": row,
+                            "chunk_rows": chunk_rows, "dtype": name,
+                            "chunks": n_rows // chunk_rows, "exact": exact})
+        log(f"P3 check ({n_rows}, {row}) {name} chunk_rows {chunk_rows} "
+            f"({n_rows // chunk_rows} chunks): exact {exact}")
+        if not exact:
+            raise AssertionError("P3 is not an exact copy")
+
+    # the probe's shape: each wrapper against its plain version, then the
+    # times of the kernels alone (outputs allocated once)
+    x = (torch.randn(CONV_PATH_SHAPE, generator=gen, device=dev) * 0.1).to(
+        torch.bfloat16)
+    c = CONV_PATH_SHAPE[-1]
+    w = (torch.randn((3, 3, c, c), generator=gen, device=dev)
+         / (9 * c) ** 0.5).to(torch.bfloat16)
+    plain = {"P1": conv3x3.conv3x3_taps_reference(x, w),
+             "P2": conv3x3.conv3x3_taps_v2_reference(x, w)}
+    path_checks = {}
+    for kern, s2 in variants:
+        got = (conv3x3.conv3x3_taps(x, w) if s2 is None
+               else conv3x3.conv3x3_taps_v2(x, w, s2=s2))
+        want = plain[kern]
+        torch.cuda.synchronize()
+        rec = path_checks[(kern, s2)] = {
+            "kernel": kern, "s2": s2, "shape": list(CONV_PATH_SHAPE),
+            "co": c, "dtype": "bfloat16",
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "rel_err": _rel_err(got, want), "tol": TOL["bfloat16"]}
+        conv_checks.append(rec)
+        log(f"{kern}{'' if s2 is None else f' s2={s2}'} check "
+            f"{CONV_PATH_SHAPE}->{c} bfloat16: rel err {rec['rel_err']:.3e} "
+            f"(tol {TOL['bfloat16']})")
+        if not rec["rel_err"] <= TOL["bfloat16"]:
+            raise AssertionError(f"{kern} s2={s2} disagrees at "
+                                 f"{CONV_PATH_SHAPE}")
+        del got
+    del plain
+    out = torch.empty_like(x)
+    taps = {None: w.reshape(9, c, c), "v2": conv3x3.repack_v2(w).contiguous()}
+    conv_ms = {"P1": time_ms(lambda: conv3x3._launch(x, taps[None], 0, out),
+                             20)}
+    for s2 in conv3x3.STRIPS:
+        conv_ms[f"P2 s2={s2}"] = time_ms(
+            lambda s2=s2: conv3x3._launch(x, taps["v2"], s2, out), 20)
+    plain_ms = {"P1": time_ms(lambda: conv3x3.conv3x3_taps_reference(x, w),
+                              5),
+                "P2": time_ms(lambda: conv3x3.conv3x3_taps_v2_reference(x, w),
+                              5)}
+    xn = x.permute(0, 3, 1, 2)                      # channels_last NCHW
+    wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    lib_ms = time_ms(lambda: F.conv2d(xn, wn, padding=1), 20)
+    bound, by = conv_bound_ms(CONV_PATH_SHAPE, c, "bfloat16")
+    bound32, _ = conv_bound_ms(CONV_PATH_SHAPE, c, "float32")
+    log(f"conv times {CONV_PATH_SHAPE} bf16: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in conv_ms.items())
+        + f"; plain P1 {plain_ms['P1']:.4f} ms, P2 {plain_ms['P2']:.4f} ms; "
+        f"cuDNN conv {lib_ms:.4f} ms; bound {bound:.5f} ms ({by}), on fp32 "
+        f"FMAs {bound32:.4f} ms")
+    del x, out, taps, xn, wn
+
+    n_rows, row, chunk_rows, name = COPY_PATH
+    dtype = getattr(torch, name)
+    src = source(n_rows, row, dtype, dev)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dma._launch(src, chunk_rows, dst), 10)
+    copy_err = (dst.float() - src.float()).abs().max().item()
+    if copy_err != 0:
+        raise AssertionError(f"P3 is not an exact copy at {COPY_PATH}")
+    copy_plain = time_ms(lambda: dma.copy_reference(src, chunk_rows), 5)
+    copy_lib = time_ms(lambda: dst.copy_(src), 10)
+    nbytes = src.numel() * src.element_size()
+    copy_bound = 2 * nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"P3 time ({n_rows}, {row}) {name} chunk_rows {chunk_rows}: kernel "
+        f"{copy_ms:.4f} ms ({2 * nbytes / copy_ms / 1e6:.1f} GB/s), plain "
+        f"{copy_plain:.4f} ms, copy_ {copy_lib:.4f} ms "
+        f"({2 * nbytes / copy_lib / 1e6:.1f} GB/s), bound {copy_bound:.4f} "
+        f"ms (bytes)")
+    del src, dst
+    torch.cuda.empty_cache()
+
+    shape_note = f"{CONV_PATH_SHAPE} -> {c} bf16 NHWC: the probe's hot site"
+    p1 = {"name": "conv3x3_taps", "route": "cuda",
+          "source": "joligen_tpu_torch/csrc/conv3x3_tap.cu",
+          "replaces": "tools/fused_resblock_probe.py:43",
+          "launches": None,
+          "max_abs_err": path_checks[("P1", None)]["max_abs_err"],
+          "ms": conv_ms["P1"], "plain_ms": plain_ms["P1"],
+          "bound_ms": bound, "bound_by": by, "bound_fp32_ms": bound32,
+          "library_ms": lib_ms, "shape": shape_note, "checks": conv_checks}
+    p2 = {"name": "conv3x3_taps_v2", "route": "cuda",
+          "source": "joligen_tpu_torch/csrc/conv3x3_tap.cu",
+          "replaces": "tools/fused_resblock_probe.py:121",
+          "launches": None,
+          "max_abs_err": max(path_checks[("P2", s2)]["max_abs_err"]
+                             for s2 in conv3x3.STRIPS),
+          "ms": conv_ms["P2 s2=16"], "ms_by_s2": {
+              s2: conv_ms[f"P2 s2={s2}"] for s2 in conv3x3.STRIPS},
+          "plain_ms": plain_ms["P2"], "bound_ms": bound, "bound_by": by,
+          "bound_fp32_ms": bound32, "library_ms": lib_ms,
+          "shape": shape_note + "; ms at s2 = 16"}
+    p3 = {"name": "dma_copy", "route": "cuda",
+          "source": "joligen_tpu_torch/csrc/dma_copy.cu",
+          "replaces": "tools/bw_probe3.py:24", "launches": None,
+          "max_abs_err": copy_err, "ms": copy_ms, "plain_ms": copy_plain,
+          "bound_ms": copy_bound, "bound_by": "bytes",
+          "library_ms": copy_lib,
+          "shape": f"({n_rows}, {row}) {name}, chunk_rows {chunk_rows}: "
+                   "1 GiB", "checks": copy_checks}
+    return p1, p2, p3
+
+
+def probe_paths():
+    """The two probes at full size, each with the launch counters at 0 just
+    before it and read just after."""
+    import torch
+    from joligen_tpu_torch.tools import bw_probe3
+    from joligen_tpu_torch.tools import fused_resblock_probe as frp
+
+    launches, results = {}, {}
+    for path, run, expect in (
+            ("fused_resblock_probe", lambda: frp.stage_a(PROBE_ITERS),
+             frp.stage_a_launches(PROBE_ITERS)),
+            ("bw_probe3", bw_probe3.run_cases, bw_probe3.RUN_LAUNCHES)):
+        reset_launches()                         # the probe's path starts
+        t0 = time.perf_counter()
+        results[path] = run()
+        torch.cuda.synchronize()
+        launches[path] = read_launches()         # and ends here
+        want = {n: expect.get(n, 0) for n in launches[path]}
+        log(f"{path}: {time.perf_counter() - t0:.1f} s, launches "
+            f"{launches[path]}")
+        if launches[path] != want:
+            raise AssertionError(f"{path} launched {launches[path]}, "
+                                 f"expected {want}")
+        torch.cuda.empty_cache()
+    return launches, results
+
+
+def _counters():
+    from joligen_tpu_torch.ops import conv3x3
+    from joligen_tpu_torch.ops import copy as dma
     from joligen_tpu_torch.ops import flash_attention as fa
-    for name in fa.LAUNCHES:
-        fa.LAUNCHES[name] = 0
+    return fa.LAUNCHES, conv3x3.LAUNCHES, dma.LAUNCHES
+
+
+def reset_launches():
+    for counters in _counters():
+        for name in counters:
+            counters[name] = 0
 
 
 def read_launches():
+    return {n: c for counters in _counters() for n, c in counters.items()}
+
+
+def _attention_only(launches, n):
+    """The launch counts expected where each attention kernel ran ``n``
+    times and no probe kernel ran."""
     from joligen_tpu_torch.ops import flash_attention as fa
-    return dict(fa.LAUNCHES)
+    return {name: (n if name in fa.LAUNCHES else 0) for name in launches}
 
 
 def write_dataset(root, n, size):
@@ -409,7 +656,7 @@ def training_phase(workdir):
     if n_params != EXPECTED_PARAMS or model.device_dtype != torch.bfloat16:
         raise AssertionError(f"trained {n_params} parameters in "
                              f"{model.device_dtype}")
-    if len(marks) != steps or any(n != steps for n in launches.values()):
+    if len(marks) != steps or launches != _attention_only(launches, steps):
         raise AssertionError(f"{len(marks)} steps, launches {launches}; "
                              f"expected {steps} of each kernel")
     if not all(np.isfinite(losses)):
@@ -527,7 +774,7 @@ def gradient_cross_check():
         g = torch.autograd.grad(loss, params)
         launched = read_launches()
         want = 1 if dev == "cuda" else 0
-        if any(n != want for n in launched.values()):
+        if launched != _attention_only(launched, want):
             raise AssertionError(f"{dev} step launched {launched}")
         grads[dev] = {n: x.detach().float().cpu() for n, x in zip(names, g)}
         grads[dev + "_loss"] = loss.item()
@@ -752,20 +999,18 @@ def main():
         return 2
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
+    from joligen_tpu_torch import card_line
     from joligen_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card_line(0))
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    built = _build.build(["flash_attention_fwd", "flash_attention_bwd"])
+    built = _build.build(["flash_attention_fwd", "flash_attention_bwd",
+                          "conv3x3_tap", "dma_copy"])
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(built)}")
     for name, (secs, ptxas) in built.items():
         log(f"build {name}: nvcc {secs:.2f} s")
@@ -775,23 +1020,32 @@ def main():
 
     k1 = kernel_phase()
     k2, k3 = backward_kernel_phase()
+    p1, p2, p3 = probe_kernel_phase()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         model, serving = slice_phase(workdir)
         k1["cross_check_fp32_max_abs_err"] = cross_check(model)
         del model
         training = training_phase(workdir)
     grad_check = gradient_cross_check()
+    probe_launches, probes = probe_paths()
     paths = {"serving": serving, "training": training["launches"],
              "trained_checkpoint_request":
-                 training["trained_request_launches"]}
-    for k in (k1, k2, k3):
+                 training["trained_request_launches"], **probe_launches}
+    kernels = [k1, k2, k3, p1, p2, p3]
+    for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
         k["launches"] = sum(per_path.values())
         k["launches_per_path"] = per_path
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was not launched on its path")
     log("training: " + json.dumps(training))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     k1["training_gradient_cross_check"] = grad_check
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    stage_a = probes["fused_resblock_probe"]
+    for k in (p1, p2):
+        k["stage_a"] = stage_a
+    p3["probe_cases"] = probes["bw_probe3"]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,6 +17,8 @@ run in fp32.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 __version__ = "0.1.0"
@@ -35,6 +37,16 @@ def resolve_device(cpu: bool = False, device=None) -> torch.device:
             "joligen_tpu_torch runs on CUDA and no CUDA device is available; "
             "pass --cpu (or device='cpu') to run on the CPU explicitly")
     return torch.device("cuda")
+
+
+def card_line(index: int = 0) -> str:
+    """The name and power limit of card ``index`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them, to
+    stand beside every time measured on it. Raises if the query fails."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[index]
 
 
 def compute_dtype(opt) -> torch.dtype:

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use with ``nvcc`` into a shared library under ``build/joligen_tpu_torch/`` at
-the repository root (listed in ``.gitignore``), then loaded with ``ctypes``.
+the repository root (listed in ``.gitignore``), then loaded with ``ctypes``;
+``launch`` calls an entry point on PyTorch's current stream.
 The library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and a stale library is never loaded. Nothing is compiled
 at import time.
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build",
@@ -25,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LOADED: dict = {}
+_FUNCTIONS: dict = {}
 
 
 def _nvcc():
@@ -84,3 +88,24 @@ def load_library(name):
         lib = ctypes.CDLL(library_path(name))
         _LOADED[name] = lib
     return lib
+
+
+def launch(name, symbol, argtypes, device, *args):
+    """Call the entry point ``symbol`` of ``csrc/<name>.cu`` (built and
+    loaded on first use; ``argtypes`` its ctypes signature, the stream last)
+    with ``args`` and the current stream of ``device``. Every entry point
+    returns its launch's ``cudaError_t``; raise if that is not 0."""
+    fn = _FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load_library(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _FUNCTIONS[(name, symbol)] = fn
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        estr = load_library(name).jg_cuda_error_string
+        estr.restype = ctypes.c_char_p
+        estr.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{symbol} kernel launch failed: "
+                           f"{estr(err).decode()} ({err})")

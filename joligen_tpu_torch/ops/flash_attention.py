@@ -31,7 +31,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
-from ._build import load_library
+from ._build import launch
 
 NEG_INF = -1e30
 BLOCK_K = 64          # key tile of the CUDA kernels (BLOCK_K in the .cu files)
@@ -155,36 +155,13 @@ _SIGNATURES = {
                 + [ctypes.c_longlong] * 8
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
 }
-_FN = {}
-
-
-def _kernel(name):
-    """The C entry point, built and loaded on first use, with its ctypes
-    signature."""
-    fn = _FN.get(name)
-    if fn is None:
-        lib, symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(load_library(lib), symbol)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        _FN[name] = fn
-    return fn
 
 
 def _call(name, counter, q, *args):
-    """Launch on the current stream of q's device, count the launch, raise if
-    the launch was refused."""
-    fn = _kernel(name)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*args, stream)
-        LAUNCHES[counter] += 1
-    if err != 0:
-        estr = load_library(_SIGNATURES[name][0]).jg_cuda_error_string
-        estr.restype = ctypes.c_char_p
-        estr.argtypes = [ctypes.c_int]
-        raise RuntimeError(f"{counter} kernel launch failed: "
-                           f"{estr(err).decode()} ({err})")
+    """Launch on the current stream of q's device and count the launch;
+    raises if the launch was refused."""
+    launch(*_SIGNATURES[name], q.device, *args)
+    LAUNCHES[counter] += 1
 
 
 def _launch(q, k, v, sm_scale, out=None):

@@ -19,7 +19,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import tempfile
 import time
 from collections import defaultdict
@@ -27,6 +26,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from .. import card_line
 from ..models import create_model
 from ..options import TrainOptions
 
@@ -110,10 +110,7 @@ def main(argv=None):
         by_name[e.name][1] += e.time_range.elapsed_us()
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_line(0)
     result = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "config": os.path.basename(args.config),

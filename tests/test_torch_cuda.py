@@ -1,8 +1,10 @@
 """Kernels K1 (csrc/flash_attention_fwd.cu), K2 and K3
-(csrc/flash_attention_bwd.cu) on the card, against their plain PyTorch
-versions, and one training step of a small palette model counting one launch
-of each. Marked ``cuda``: they skip without a CUDA device. This file imports
-neither jax nor the JAX package, so it runs on a machine with only PyTorch:
+(csrc/flash_attention_bwd.cu), P1 and P2 (csrc/conv3x3_tap.cu) and P3
+(csrc/dma_copy.cu) on the card, against their plain PyTorch versions; one
+training step of a small palette model counting one launch of each attention
+kernel; and one run of each probe counting its kernels' launches. Marked
+``cuda``: they skip without a CUDA device. This file imports neither jax nor
+the JAX package, so it runs on a machine with only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -11,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from joligen_tpu_torch.ops import conv3x3
+from joligen_tpu_torch.ops import copy as dma
 from joligen_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -169,3 +173,98 @@ def test_training_step_launches_each_kernel_once(cuda, tmp_path):
                            "flash_attention_bwd_dq": 1,
                            "flash_attention_bwd_dkv": 1}
     assert torch.isfinite(losses["G_tot"]).item()
+
+
+# P1/P2: the probe's hot site at batch 2, and a shape whose H, W and Co are
+# not multiples of the kernels' tiles (8 or 16 or 32 rows, 32 or 16 or 8
+# columns, 64 output channels)
+CONV_CHECKS = [((2, 128, 128, 128), 128), ((1, 37, 53, 64), 40)]
+CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # of max |y|
+
+
+@pytest.mark.parametrize("shape,co", CONV_CHECKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s2", [None, 8, 16, 32])       # None: P1
+def test_conv_kernels_match_plain_version(cuda, shape, co, dtype, s2):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + co)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w = (torch.randn((3, 3, shape[-1], co), generator=g, device=cuda)
+         / (9 * shape[-1]) ** 0.5).to(dtype)
+    before = dict(conv3x3.LAUNCHES)
+    if s2 is None:
+        name = "conv3x3_taps"
+        got = conv3x3.conv3x3_taps(x, w)
+        want = conv3x3.conv3x3_taps_reference(x, w)
+    else:
+        name = "conv3x3_taps_v2"
+        got = conv3x3.conv3x3_taps_v2(x, w, s2=s2)
+        want = conv3x3.conv3x3_taps_v2_reference(x, w)
+    torch.cuda.synchronize()
+    assert conv3x3.LAUNCHES[name] == before[name] + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err.item() <= CONV_TOL[dtype]
+
+
+# P3: single chunk, an odd chunk count, chunks ending in a partial 16 KiB
+# tile (24 KiB) and chunks of an odd tile count (48 KiB)
+COPY_CHECKS = [(4096, 1024, 256, torch.float32),
+               (4096, 1024, 1024, torch.bfloat16),
+               (4096, 1024, 4096, torch.float32),
+               (768, 1024, 256, torch.float32),
+               (1200, 1024, 12, torch.bfloat16),
+               (60, 1024, 12, torch.float32)]
+
+
+@pytest.mark.parametrize("n_rows,row,chunk_rows,dtype", COPY_CHECKS)
+def test_copy_kernel_is_bit_exact(cuda, n_rows, row, chunk_rows, dtype):
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    info = torch.iinfo(bits)
+    g = torch.Generator(device=cuda).manual_seed(n_rows + chunk_rows)
+    x = torch.randint(info.min, info.max, (n_rows, row), generator=g,
+                      device=cuda, dtype=bits).view(dtype)
+    run = dma.make_copy(n_rows, row, chunk_rows, dtype, cuda)
+    before = dma.LAUNCHES["dma_copy"]
+    y = run(x)
+    torch.cuda.synchronize()
+    assert dma.LAUNCHES["dma_copy"] == before + 1
+    assert torch.equal(y.view(bits), x.view(bits))
+    assert torch.equal(dma.copy_reference(x, chunk_rows).view(bits),
+                       x.view(bits))
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(cuda):
+    w = torch.zeros(3, 3, 16, 16, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3x3.conv3x3_taps(torch.zeros(1, 8, 8, 12, device=cuda),
+                             torch.zeros(3, 3, 12, 16, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3.conv3x3_taps(torch.zeros(1, 16, 8, 8, device=cuda)
+                             .permute(0, 2, 3, 1), w)
+    misaligned = torch.zeros(8 * 8 * 16 + 1, device=cuda)[1:].view(1, 8, 8, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        conv3x3.conv3x3_taps_v2(misaligned, w, s2=8)
+    with pytest.raises(ValueError, match="s2"):
+        conv3x3.conv3x3_taps_v2(torch.zeros(1, 8, 8, 16, device=cuda), w,
+                                s2=64)
+    x = torch.zeros(256, 1024, device=cuda)
+    out = torch.zeros(256 * 1024 + 1, device=cuda)[1:].view(256, 1024)
+    with pytest.raises(ValueError, match="aligned"):
+        dma._launch(x, 256, out)
+    run = dma.make_copy(256, 1024, 256, torch.float32, cuda)
+    with pytest.raises(ValueError, match="expected a contiguous"):
+        run(x.to(torch.bfloat16))
+
+
+def test_probes_launch_each_kernel_the_counted_times(cuda):
+    from joligen_tpu_torch.tools import bw_probe3
+    from joligen_tpu_torch.tools import fused_resblock_probe as probe
+    for counters in (conv3x3.LAUNCHES, dma.LAUNCHES):
+        for name in counters:
+            counters[name] = 0
+    r = probe.stage_a(iters=2, batch=2)
+    assert conv3x3.LAUNCHES == probe.stage_a_launches(2)
+    assert max(r["rel_err_v1"], *r["rel_err_v2"].values()) < 3e-2
+    records = bw_probe3.run_cases(mib=16)
+    assert dma.LAUNCHES == bw_probe3.RUN_LAUNCHES
+    assert all(r["exact"] for r in records)

@@ -1,5 +1,6 @@
 """The port stands alone: it imports with jax, flax, jaxlib, msgpack and the
-JAX package blocked (every module, the training slice's included), no source
+JAX package blocked (every module, the training slice's and the probes'
+included), no source
 file of it (nor chip_smoke.py) imports them, and without a CUDA device its
 entry points (model, serving script, train CLI) raise unless the CPU is
 asked for."""
@@ -54,6 +55,9 @@ print(" ".join(names))
 TRAINING_MODULES = ("data", "data.datasets", "data.image_folder",
                     "data.loader", "data.transforms", "train",
                     "utils.visualizer", "models.train_state")
+# the probes' modules (kernels P1-P3 and their entry points)
+PROBE_MODULES = ("ops.conv3x3", "ops.copy", "tools",
+                 "tools.fused_resblock_probe", "tools.bw_probe3")
 
 
 def test_package_imports_with_jax_blocked():
@@ -62,8 +66,8 @@ def test_package_imports_with_jax_blocked():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 28
-    for m in TRAINING_MODULES:
+    assert len(names) >= 33
+    for m in TRAINING_MODULES + PROBE_MODULES:
         assert "joligen_tpu_torch." + m in names, m
 
 
