@@ -16,7 +16,9 @@ GPU. Run from the repository root with no arguments:
    probe's own shape (batch 16); P3 (the double-buffered copy) bit for bit
    at six chunkings and at its path's 1 GiB. For each kernel its time, its
    bound, the plain version's time and one library call's time as a
-   yardstick, at its path's shape.
+   yardstick, at its path's shape: each as device time (the kernels' own
+   durations in a ``torch.profiler`` trace) and as wall time (CUDA events
+   around back-to-back calls, the host's pace where calls are short).
 4. Serving: palette inpainting at the full width of
    ``examples/example_ddpm_noglasses2glasses.json`` (128 px, ngf 64, 62.8M
    parameters, bf16) with seeded random weights, saved and reloaded through
@@ -28,8 +30,10 @@ GPU. Run from the repository root with no arguments:
    dataset of 64 images at 128 px written here, 16 steps (2 epochs of 8,
    batch 8, AdamW, EMA); launch counts, loss, attention gradients, the EMA
    lerp, step time and peak memory; then one DDIM-10 request served from the
-   trained ``latest`` checkpoint; then one fp32 training step's gradients,
-   card (K1-K3) against CPU (plain versions), over all 327 leaves.
+   trained ``latest`` checkpoint; then the config at 256 px, 6 steps over
+   48 images, with K1-K3's share of the step; then one fp32 training step's
+   gradients, card (K1-K3) against CPU (plain versions), over all 327
+   leaves.
 6. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
    bf16 and ``tools.bw_probe3`` over 1 GiB arrays, each with the launch
    counters set to 0 just before it and read just after.
@@ -41,6 +45,7 @@ Without a CUDA device it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import sys
@@ -66,11 +71,22 @@ GRAD_TOL_LEAF = 1e-2
 EXPECTED_LEAVES = 327
 TRAIN_IMAGES = 64
 TRAIN_EPOCHS = 2
-BWD_CHECKS = [((8, 256, 16, 32), "bfloat16"), ((8, 256, 16, 32), "float32"),
-              ((1, 256, 16, 32), "bfloat16"), ((8, 1024, 16, 32), "bfloat16"),
-              ((2, 100, 2, 64), "float32"), ((2, 5, 2, 16), "float32")]
+TRAIN_256_IMAGES = 48               # one epoch of 6 steps at 256 px
+PATH_SHAPE = (1, 256, 16, 32)       # the mid block of a 128 px request
 TRAIN_SHAPE = (8, 256, 16, 32)      # the mid block at 128 px, batch 8
 BIG_SHAPE = (8, 1024, 16, 32)       # the mid block at 256 px, batch 8
+# ragged S and B*H at the bf16 kernels' tile edges (64 queries or keys per
+# warpgroup) and the other head dims, checked beside the paths' shapes
+EDGE_CHECKS = [((3, 1, 1, 16), "bfloat16"), ((1, 63, 3, 64), "bfloat16"),
+               ((3, 65, 1, 16), "bfloat16"), ((2, 100, 2, 64), "bfloat16"),
+               ((1, 1000, 3, 64), "bfloat16"), ((2, 100, 2, 64), "float32"),
+               ((2, 5, 2, 16), "float32")]
+FWD_CHECKS = [(PATH_SHAPE, "bfloat16"), (PATH_SHAPE, "float32"),
+              (TRAIN_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
+              *EDGE_CHECKS]
+BWD_CHECKS = [(TRAIN_SHAPE, "bfloat16"), (TRAIN_SHAPE, "float32"),
+              (PATH_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
+              *EDGE_CHECKS]
 # P1/P2: the probe's hot site at batch 2, and a shape whose H, W and Co are
 # not multiples of the kernels' tiles; errors relative to max |y|
 CONV_CHECKS = [((2, 128, 128, 128), 128), ((1, 37, 53, 64), 40)]
@@ -83,15 +99,17 @@ COPY_CHECKS = [(4096, 1024, 256, "float32"), (4096, 1024, 1024, "bfloat16"),
                (1200, 1024, 12, "bfloat16"), (60, 1024, 12, "float32")]
 COPY_PATH = (262_144, 1024, 1024, "float32")     # 1 GiB, the probe's shape
 PROBE_ITERS = 32
+TRACE_ATTEMPTS = 4                  # traces of one timing, at most
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, iters):
-    """Mean device time of one call, by CUDA events over ``iters`` calls
-    after three warm-up calls."""
+def wall_ms(fn, iters):
+    """Mean time of one call by CUDA events around ``iters`` calls back to
+    back, after three warm-up calls. Where a call's kernels are shorter than
+    its launch on the host, this is the host's pace, not the device's."""
     import torch
     for _ in range(3):
         fn()
@@ -104,6 +122,63 @@ def time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_events(fn, iters):
+    """(name, µs) of every kernel, copy and fill that ``iters`` calls of
+    ``fn`` launched, from a ``torch.profiler`` trace with CUDA activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    # one warm-up step, traced and discarded, so that the tracing is running
+    # when the timed calls start (it misses launches at its start otherwise)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    # not the profiler step's own range
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(fn, iters, kernel=None):
+    """Mean device time of one call: each device name's mean duration times
+    its launches per call, summed, from a trace of ``iters`` calls. A trace
+    still loses a launch now and then (9 of 10 on an H100 once); one whose
+    counts are not whole multiples of ``iters`` is taken again, up to
+    ``TRACE_ATTEMPTS`` times, and the last is read with the counts per call
+    rounded. With ``kernel`` given, every launch must be of a kernel of that
+    name, one a call."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        events = _device_events(fn, iters)
+        counts = collections.Counter(name for name, _ in events)
+        if kernel is not None and not all(kernel in n for n in counts):
+            raise AssertionError(f"expected launches of {kernel} only, got "
+                                 f"{dict(counts)}")
+        if counts and all(c % iters == 0 for c in counts.values()):
+            break
+        log(f"trace {attempt} of {iters} calls lost launches: "
+            f"{dict(counts)}")
+    if not sum(us for _, us in events) > 0:
+        raise AssertionError("the profiler saw no device time")
+    per_call = {n: max(1, round(c / iters)) for n, c in counts.items()}
+    if kernel is not None and sum(per_call.values()) != 1:
+        raise AssertionError(f"expected one launch of {kernel} a call, got "
+                             f"{dict(counts)} in {iters} calls")
+    us = sum(dur / counts[n] * per_call[n] for n, dur in events)
+    return us / 1e3
+
+
+def timed(fn, iters, kernel=None):
+    """(device ms, wall ms) of one call: ``device_ms`` and ``wall_ms``."""
+    return device_ms(fn, iters, kernel), wall_ms(fn, iters)
 
 
 def attention_bound_ms(shape, dtype_name):
@@ -120,76 +195,93 @@ def attention_bound_ms(shape, dtype_name):
 
 
 def kernel_phase():
-    """K1 against its plain version; times at the two path shapes."""
+    """K1 against its plain version (each bf16 check at both query tilings);
+    times at the path shapes and at 256 px, for both tilings."""
     import torch
     import torch.nn.functional as F
     from joligen_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    checks = [((1, 256, 16, 32), torch.bfloat16),
-              ((1, 256, 16, 32), torch.float32),
-              ((8, 1024, 16, 32), torch.bfloat16),
-              ((2, 100, 2, 64), torch.float32),
-              ((2, 5, 2, 16), torch.float32)]
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     results, inputs = [], {}
-    for shape, dtype in checks:
+    for shape, name in FWD_CHECKS:
+        dtype = getattr(torch, name)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for _ in range(3))
-        inputs[(shape, dtype)] = (q, k, v)
-        o, lse = fa.flash_attention_fwd(q, k, v)
-        torch.cuda.synchronize()
+        inputs[(shape, name)] = (q, k, v)
         ref_o, ref_lse = fa.flash_attention_reference(q, k, v)
-        err_o = (o.float() - ref_o.float()).abs().max().item()
-        err_lse = (lse - ref_lse).abs().max().item()
-        name = str(dtype).split(".")[-1]
-        tol = TOL[name]
-        results.append({"shape": list(shape), "dtype": name,
-                        "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
-                        "tol": tol})
-        log(f"K1 check {shape} {name}: err o {err_o:.3e} lse {err_lse:.3e} "
-            f"(tol {tol})")
-        if not (err_o <= tol and err_lse <= tol):
-            raise AssertionError(f"K1 disagrees with its plain version at "
-                                 f"{shape} {name}")
+        tiles = fa.FWD_Q_TILES if name == "bfloat16" else (None,)
+        for tile in tiles:
+            o, lse = fa._launch(q, k, v, shape[-1] ** -0.5, q_tile=tile)
+            torch.cuda.synchronize()
+            err_o = (o.float() - ref_o.float()).abs().max().item()
+            err_lse = (lse - ref_lse).abs().max().item()
+            tol = TOL[name]
+            results.append({"shape": list(shape), "dtype": name,
+                            "route": fa.ROUTES["flash_attention_fwd"][name],
+                            "q_tile": tile, "max_abs_err_o": err_o,
+                            "max_abs_err_lse": err_lse, "tol": tol})
+            log(f"K1 check {shape} {name} q_tile {tile}: err o {err_o:.3e} "
+                f"lse {err_lse:.3e} (tol {tol})")
+            if not (err_o <= tol and err_lse <= tol):
+                raise AssertionError(f"K1 disagrees with its plain version "
+                                     f"at {shape} {name} q_tile {tile}")
 
     timings = {}
-    for label, shape, iters in (("128px_batch1", (1, 256, 16, 32), 200),
-                                ("256px_batch8", (8, 1024, 16, 32), 20)):
-        q, k, v = inputs[(shape, torch.bfloat16)]
+    for label, shape, iters in (("128px_batch1", PATH_SHAPE, 200),
+                                ("128px_batch8", TRAIN_SHAPE, 100),
+                                ("256px_batch8", BIG_SHAPE, 20)):
+        q, k, v = inputs[(shape, "bfloat16")]
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         scale = shape[-1] ** -0.5
         out = fa.flash_attention_fwd(q, k, v)
-        # the kernel alone (outputs allocated once), then through the wrapper
-        # (checks and allocation on the host every call)
-        ms = time_ms(lambda: fa._launch(q, k, v, scale, out), iters)
-        wrapper = time_ms(lambda: fa.flash_attention_fwd(q, k, v), iters)
-        plain = time_ms(lambda: fa.flash_attention_reference(q, k, v), iters)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
-                      iters)
-        bound, by = attention_bound_ms(shape, "bfloat16")
-        timings[label] = {"shape": list(shape), "dtype": "bfloat16",
-                          "ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
-                          "library_ms": lib, "bound_ms": bound,
-                          "bound_by": by}
-        log(f"K1 time {label} {shape} bf16: kernel {ms:.4f} ms, wrapper "
-            f"{wrapper:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-            f"bound {bound:.5f} ms ({by})")
-    main = next(r for r in results if r["shape"] == [1, 256, 16, 32]
-                and r["dtype"] == "bfloat16")
+        rec = {"shape": list(shape), "dtype": "bfloat16"}
+        # the kernel alone (outputs allocated once) at each query tiling
+        for tile in fa.FWD_Q_TILES:
+            rec[f"q_tile_{tile}_ms"], rec[f"q_tile_{tile}_wall_ms"] = timed(
+                lambda tile=tile: fa._launch(q, k, v, scale, out, tile),
+                iters, "flash_fwd_wgmma_kernel")
+        # the tiling the wrapper picks for this shape on this card
+        rec["q_tile"] = fa.fwd_q_tile(*shape[:3], sm_count)
+        rec["ms"] = rec[f"q_tile_{rec['q_tile']}_ms"]
+        rec["wall_ms"] = rec[f"q_tile_{rec['q_tile']}_wall_ms"]
+        # through the wrapper: checks and allocation on the host every call
+        rec["wrapper_wall_ms"] = wall_ms(
+            lambda: fa.flash_attention_fwd(q, k, v), iters)
+        rec["plain_ms"], rec["plain_wall_ms"] = timed(
+            lambda: fa.flash_attention_reference(q, k, v), iters)
+        rec["library_ms"], rec["library_wall_ms"] = timed(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh), iters)
+        rec["bound_ms"], rec["bound_by"] = attention_bound_ms(shape,
+                                                              "bfloat16")
+        timings[label] = rec
+        log(f"K1 time {label} {shape} bf16: " + ", ".join(
+            f"q_tile {t} {rec[f'q_tile_{t}_ms']:.4f} ms (wall "
+            f"{rec[f'q_tile_{t}_wall_ms']:.4f})" for t in fa.FWD_Q_TILES)
+            + f"; the wrapper picks {rec['q_tile']}, its wall "
+            f"{rec['wrapper_wall_ms']:.4f} ms; plain "
+            f"{rec['plain_ms']:.4f} ms; sdpa {rec['library_ms']:.4f} ms "
+            f"(wall {rec['library_wall_ms']:.4f}); bound "
+            f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    main = [r for r in results if r["shape"] == list(PATH_SHAPE)
+            and r["dtype"] == "bfloat16"]
     t = timings["128px_batch1"]
     return {"name": "flash_attention_fwd", "route": "cuda",
+            "dtype_routes": fa.ROUTES["flash_attention_fwd"],
+            "q_tile": t["q_tile"],
             "source": "joligen_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "joligen_tpu/ops/flash_attention.py:43",
             "launches": None,
-            "max_abs_err": max(main["max_abs_err_o"],
-                               main["max_abs_err_lse"]),
-            "ms": t["ms"], "wrapper_ms": t["wrapper_ms"],
+            "max_abs_err": max(max(r["max_abs_err_o"], r["max_abs_err_lse"])
+                               for r in main),
+            "ms": t["ms"], "wall_ms": t["wall_ms"],
+            "wrapper_wall_ms": t["wrapper_wall_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "shape": "(1, 256, 16, 32) bf16: 128 px, batch 1",
-            "at_256px_batch8": timings["256px_batch8"], "checks": results}
+            "timings": timings, "checks": results}
 
 
 def backward_bound_ms(shape, dtype_name, kernel):
@@ -274,46 +366,47 @@ def backward_kernel_phase():
         q, k, v, do, lse, delta, scale = inputs[(shape, "bfloat16")]
         dq = torch.empty_like(q)
         dkv = (torch.empty_like(q), torch.empty_like(q))
+        rec = {"shape": list(shape), "dtype": "bfloat16"}
         # the kernels alone (outputs allocated once), then through their
         # launch wrappers (checks and allocation on the host every call)
-        ms_dq = time_ms(lambda: fa._launch_bwd_dq(q, k, v, lse, delta, do,
-                                                  scale, dq), iters)
-        ms_dkv = time_ms(lambda: fa._launch_bwd_dkv(q, k, v, lse, delta, do,
-                                                    scale, dkv), iters)
-        w_dq = time_ms(lambda: fa._launch_bwd_dq(q, k, v, lse, delta, do,
-                                                 scale), iters)
-        w_dkv = time_ms(lambda: fa._launch_bwd_dkv(q, k, v, lse, delta, do,
-                                                   scale), iters)
-        plain = time_ms(lambda: fa.flash_attention_bwd_reference(
-            q, k, v, lse, delta, do, scale), iters)
-        # library: scaled_dot_product_attention's backward, as its
-        # forward + backward time less its forward time (B, H, S, D inputs)
+        rec["dq_ms"], rec["dq_wall_ms"] = timed(
+            lambda: fa._launch_bwd_dq(q, k, v, lse, delta, do, scale, dq),
+            iters, "flash_bwd_dq_kernel<")
+        rec["dkv_ms"], rec["dkv_wall_ms"] = timed(
+            lambda: fa._launch_bwd_dkv(q, k, v, lse, delta, do, scale, dkv),
+            iters, "flash_bwd_dkv_wgmma_kernel")
+        rec["dq_wrapper_wall_ms"] = wall_ms(
+            lambda: fa._launch_bwd_dq(q, k, v, lse, delta, do, scale), iters)
+        rec["dkv_wrapper_wall_ms"] = wall_ms(
+            lambda: fa._launch_bwd_dkv(q, k, v, lse, delta, do, scale), iters)
+        rec["plain_ms"], rec["plain_wall_ms"] = timed(
+            lambda: fa.flash_attention_bwd_reference(q, k, v, lse, delta, do,
+                                                     scale), iters)
+        # library: scaled_dot_product_attention's backward alone, run again
+        # and again through one retained graph (B, H, S, D inputs)
         qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
         doh = do.transpose(1, 2).contiguous()
-        fwd = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
-                      iters)
-        fwd_bwd = time_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qh, kh, vh), (qh, kh, vh), doh),
-            iters)
-        rec = {"shape": list(shape), "dtype": "bfloat16", "dq_ms": ms_dq,
-               "dkv_ms": ms_dkv, "dq_wrapper_ms": w_dq,
-               "dkv_wrapper_ms": w_dkv, "plain_ms": plain,
-               "library_fwd_ms": fwd, "library_fwd_bwd_ms": fwd_bwd,
-               "library_bwd_ms": fwd_bwd - fwd}
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh)
+        rec["library_bwd_ms"], rec["library_bwd_wall_ms"] = timed(
+            lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                        retain_graph=True), iters)
+        del lib_out
         for kern in ("dq", "dkv"):
             rec[kern + "_bound_ms"], rec[kern + "_bound_by"] = \
                 backward_bound_ms(shape, "bfloat16", kern)
         timings[label] = rec
-        log(f"K2 time {label} {shape} bf16: kernel {ms_dq:.4f} ms, wrapper "
-            f"{w_dq:.4f} ms, bound {rec['dq_bound_ms']:.5f} ms "
-            f"({rec['dq_bound_by']})")
-        log(f"K3 time {label} {shape} bf16: kernel {ms_dkv:.4f} ms, wrapper "
-            f"{w_dkv:.4f} ms, bound {rec['dkv_bound_ms']:.5f} ms "
-            f"({rec['dkv_bound_by']})")
-        log(f"backward {label}: plain (dq, dk, dv together) {plain:.4f} ms; "
-            f"sdpa fwd+bwd {fwd_bwd:.4f} ms - fwd {fwd:.4f} ms = bwd "
-            f"{fwd_bwd - fwd:.4f} ms")
+        for kern, kid in (("dq", "K2"), ("dkv", "K3")):
+            log(f"{kid} time {label} {shape} bf16: kernel "
+                f"{rec[kern + '_ms']:.4f} ms (wall "
+                f"{rec[kern + '_wall_ms']:.4f}), wrapper wall "
+                f"{rec[kern + '_wrapper_wall_ms']:.4f} ms, bound "
+                f"{rec[kern + '_bound_ms']:.5f} ms "
+                f"({rec[kern + '_bound_by']})")
+        log(f"backward {label}: plain (dq, dk, dv together) "
+            f"{rec['plain_ms']:.4f} ms (wall {rec['plain_wall_ms']:.4f}); "
+            f"sdpa backward {rec['library_bwd_ms']:.4f} ms (wall "
+            f"{rec['library_bwd_wall_ms']:.4f})")
 
     main = next(r for r in checks if r["shape"] == list(TRAIN_SHAPE)
                 and r["dtype"] == "bfloat16")
@@ -324,19 +417,20 @@ def backward_kernel_phase():
             ("dkv", "flash_attention_bwd_dkv", 143,
              ("max_abs_err_dk", "max_abs_err_dv"))):
         out.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "dtype_routes": fa.ROUTES[name],
             "source": "joligen_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"joligen_tpu/ops/flash_attention.py:{line}",
             "launches": None,
             "max_abs_err": max(main[e] for e in errs),
-            "ms": t[kern + "_ms"], "wrapper_ms": t[kern + "_wrapper_ms"],
+            "ms": t[kern + "_ms"], "wall_ms": t[kern + "_wall_ms"],
+            "wrapper_wall_ms": t[kern + "_wrapper_wall_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t[kern + "_bound_ms"],
             "bound_by": t[kern + "_bound_by"],
             "library_ms": t["library_bwd_ms"],
             "shape": "(8, 256, 16, 32) bf16: 128 px, batch 8",
             "plain_and_library_compute": "dq, dk and dv together",
-            "at_256px_batch8": timings["256px_batch8"], "checks": checks,
+            "timings": timings, "checks": checks,
             "autograd_max_abs_err": autograd_errs})
     return out
 
@@ -457,44 +551,46 @@ def probe_kernel_phase():
     del plain
     out = torch.empty_like(x)
     taps = {None: w.reshape(9, c, c), "v2": conv3x3.repack_v2(w).contiguous()}
-    conv_ms = {"P1": time_ms(lambda: conv3x3._launch(x, taps[None], 0, out),
-                             20)}
+    # each entry (device ms, wall ms)
+    conv_ms = {"P1": timed(lambda: conv3x3._launch(x, taps[None], 0, out),
+                           20)}
     for s2 in conv3x3.STRIPS:
-        conv_ms[f"P2 s2={s2}"] = time_ms(
+        conv_ms[f"P2 s2={s2}"] = timed(
             lambda s2=s2: conv3x3._launch(x, taps["v2"], s2, out), 20)
-    plain_ms = {"P1": time_ms(lambda: conv3x3.conv3x3_taps_reference(x, w),
-                              5),
-                "P2": time_ms(lambda: conv3x3.conv3x3_taps_v2_reference(x, w),
-                              5)}
+    plain_ms = {"P1": timed(lambda: conv3x3.conv3x3_taps_reference(x, w), 5),
+                "P2": timed(lambda: conv3x3.conv3x3_taps_v2_reference(x, w),
+                            5)}
     xn = x.permute(0, 3, 1, 2)                      # channels_last NCHW
     wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    lib_ms = time_ms(lambda: F.conv2d(xn, wn, padding=1), 20)
+    lib_ms = timed(lambda: F.conv2d(xn, wn, padding=1), 20)
     bound, by = conv_bound_ms(CONV_PATH_SHAPE, c, "bfloat16")
     bound32, _ = conv_bound_ms(CONV_PATH_SHAPE, c, "float32")
-    log(f"conv times {CONV_PATH_SHAPE} bf16: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in conv_ms.items())
-        + f"; plain P1 {plain_ms['P1']:.4f} ms, P2 {plain_ms['P2']:.4f} ms; "
-        f"cuDNN conv {lib_ms:.4f} ms; bound {bound:.5f} ms ({by}), on fp32 "
-        f"FMAs {bound32:.4f} ms")
+    log(f"conv times {CONV_PATH_SHAPE} bf16 (device ms, wall ms): " + ", ".join(
+        f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in conv_ms.items())
+        + f"; plain P1 {plain_ms['P1'][0]:.4f} / {plain_ms['P1'][1]:.4f}, "
+        f"P2 {plain_ms['P2'][0]:.4f} / {plain_ms['P2'][1]:.4f}; cuDNN conv "
+        f"{lib_ms[0]:.4f} / {lib_ms[1]:.4f}; bound {bound:.5f} ms ({by}), on "
+        f"fp32 FMAs {bound32:.4f} ms")
     del x, out, taps, xn, wn
 
     n_rows, row, chunk_rows, name = COPY_PATH
     dtype = getattr(torch, name)
     src = source(n_rows, row, dtype, dev)
     dst = torch.empty_like(src)
-    copy_ms = time_ms(lambda: dma._launch(src, chunk_rows, dst), 10)
+    copy_ms = timed(lambda: dma._launch(src, chunk_rows, dst), 10)
     copy_err = (dst.float() - src.float()).abs().max().item()
     if copy_err != 0:
         raise AssertionError(f"P3 is not an exact copy at {COPY_PATH}")
-    copy_plain = time_ms(lambda: dma.copy_reference(src, chunk_rows), 5)
-    copy_lib = time_ms(lambda: dst.copy_(src), 10)
+    copy_plain = timed(lambda: dma.copy_reference(src, chunk_rows), 5)
+    copy_lib = timed(lambda: dst.copy_(src), 10)
     nbytes = src.numel() * src.element_size()
     copy_bound = 2 * nbytes / PEAK_BYTES_PER_S * 1e3
     log(f"P3 time ({n_rows}, {row}) {name} chunk_rows {chunk_rows}: kernel "
-        f"{copy_ms:.4f} ms ({2 * nbytes / copy_ms / 1e6:.1f} GB/s), plain "
-        f"{copy_plain:.4f} ms, copy_ {copy_lib:.4f} ms "
-        f"({2 * nbytes / copy_lib / 1e6:.1f} GB/s), bound {copy_bound:.4f} "
-        f"ms (bytes)")
+        f"{copy_ms[0]:.4f} ms ({2 * nbytes / copy_ms[0] / 1e6:.1f} GB/s; "
+        f"wall {copy_ms[1]:.4f}), plain {copy_plain[0]:.4f} ms (wall "
+        f"{copy_plain[1]:.4f}), copy_ {copy_lib[0]:.4f} ms "
+        f"({2 * nbytes / copy_lib[0] / 1e6:.1f} GB/s; wall "
+        f"{copy_lib[1]:.4f}), bound {copy_bound:.4f} ms (bytes)")
     del src, dst
     torch.cuda.empty_cache()
 
@@ -504,26 +600,31 @@ def probe_kernel_phase():
           "replaces": "tools/fused_resblock_probe.py:43",
           "launches": None,
           "max_abs_err": path_checks[("P1", None)]["max_abs_err"],
-          "ms": conv_ms["P1"], "plain_ms": plain_ms["P1"],
+          "ms": conv_ms["P1"][0], "wall_ms": conv_ms["P1"][1],
+          "plain_ms": plain_ms["P1"][0], "plain_wall_ms": plain_ms["P1"][1],
           "bound_ms": bound, "bound_by": by, "bound_fp32_ms": bound32,
-          "library_ms": lib_ms, "shape": shape_note, "checks": conv_checks}
+          "library_ms": lib_ms[0], "library_wall_ms": lib_ms[1],
+          "shape": shape_note, "checks": conv_checks}
     p2 = {"name": "conv3x3_taps_v2", "route": "cuda",
           "source": "joligen_tpu_torch/csrc/conv3x3_tap.cu",
           "replaces": "tools/fused_resblock_probe.py:121",
           "launches": None,
           "max_abs_err": max(path_checks[("P2", s2)]["max_abs_err"]
                              for s2 in conv3x3.STRIPS),
-          "ms": conv_ms["P2 s2=16"], "ms_by_s2": {
-              s2: conv_ms[f"P2 s2={s2}"] for s2 in conv3x3.STRIPS},
-          "plain_ms": plain_ms["P2"], "bound_ms": bound, "bound_by": by,
-          "bound_fp32_ms": bound32, "library_ms": lib_ms,
+          "ms": conv_ms["P2 s2=16"][0], "wall_ms": conv_ms["P2 s2=16"][1],
+          "ms_by_s2": {s2: conv_ms[f"P2 s2={s2}"][0]
+                       for s2 in conv3x3.STRIPS},
+          "plain_ms": plain_ms["P2"][0], "plain_wall_ms": plain_ms["P2"][1],
+          "bound_ms": bound, "bound_by": by, "bound_fp32_ms": bound32,
+          "library_ms": lib_ms[0], "library_wall_ms": lib_ms[1],
           "shape": shape_note + "; ms at s2 = 16"}
     p3 = {"name": "dma_copy", "route": "cuda",
           "source": "joligen_tpu_torch/csrc/dma_copy.cu",
           "replaces": "tools/bw_probe3.py:24", "launches": None,
-          "max_abs_err": copy_err, "ms": copy_ms, "plain_ms": copy_plain,
+          "max_abs_err": copy_err, "ms": copy_ms[0], "wall_ms": copy_ms[1],
+          "plain_ms": copy_plain[0], "plain_wall_ms": copy_plain[1],
           "bound_ms": copy_bound, "bound_by": "bytes",
-          "library_ms": copy_lib,
+          "library_ms": copy_lib[0], "library_wall_ms": copy_lib[1],
           "shape": f"({n_rows}, {row}) {name}, chunk_rows {chunk_rows}: "
                    "1 GiB", "checks": copy_checks}
     return p1, p2, p3
@@ -609,39 +710,37 @@ def write_dataset(root, n, size):
         f.write("\n".join(lines) + "\n")
 
 
-def training_phase(workdir):
-    """The port's train entry point on the example config at full width:
-    16 steps; launch counts, loss, attention gradients, EMA, step time,
-    memory; then one DDIM-10 request served from the trained checkpoint."""
+def _train(workdir, size, n_images, epochs, hook=None):
+    """``launch_training`` on the example config at ``size`` px over
+    ``n_images`` synthetic images for ``epochs`` epochs, with the launch
+    counters at 0 just before it and read just after (one main path).
+    Checks the parameter count and dtype, one launch of each attention
+    kernel per step and finite losses. ``hook(model, iters, steps)`` runs
+    after each step. Returns (model, opt, record)."""
     import numpy as np
     import torch
     from joligen_tpu_torch.options import TrainOptions
-    from joligen_tpu_torch.scripts import gen_single_image_diffusion as gen
-    from joligen_tpu_torch.scripts.common import load_model_from_file
     from joligen_tpu_torch.train import launch_training
 
     with open(EXAMPLE) as f:
-        cfg = json.load(f)
-    opt = TrainOptions().parse_json(cfg, verbose=False)
-    size = opt.data_crop_size
-    dataroot = os.path.join(workdir, "train_data")
-    write_dataset(dataroot, TRAIN_IMAGES, size)
+        opt = TrainOptions().parse_json(json.load(f), verbose=False)
+    opt.data_load_size = opt.data_crop_size = size
+    dataroot = os.path.join(workdir, f"train_data_{size}")
+    write_dataset(dataroot, n_images, size)
     opt.dataroot = dataroot
     opt.checkpoints_dir = os.path.join(workdir, "train_ckpt")
-    opt.name = "smoke_train"
-    opt.train_n_epochs, opt.train_n_epochs_decay = TRAIN_EPOCHS, 0
+    opt.name = f"smoke_train_{size}px"
+    opt.train_n_epochs, opt.train_n_epochs_decay = epochs, 0
     opt.output_print_freq = opt.train_batch_size        # every step
-    steps = TRAIN_EPOCHS * TRAIN_IMAGES // opt.train_batch_size
-
-    marks, losses, ema_prev = [], [], {}
+    steps = epochs * n_images // opt.train_batch_size
+    marks, losses = [], []
 
     def on_step(model, iters):
         torch.cuda.synchronize()
         marks.append((iters, time.perf_counter()))
         losses.append(float(model.loss_log["G_tot"]))
-        if iters == (steps - 1) * opt.train_batch_size:
-            ema_prev.update({k: v.detach().clone() for k, v in
-                             model.ema_nets["G_A"].state_dict().items()})
+        if hook is not None:
+            hook(model, iters, steps)
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()                                 # main path starts here
@@ -661,6 +760,43 @@ def training_phase(workdir):
                              f"expected {steps} of each kernel")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
+    # warm steps: the step after another in the same epoch (the first of
+    # an epoch waits for the loader and follows the epoch's saves)
+    per_epoch = steps // epochs
+    warm = [t1 - t0 for (i0, t0), (i1, t1) in zip(marks, marks[1:])
+            if (i1 // opt.train_batch_size - 1) % per_epoch != 0]
+    step_s = float(np.median(warm))
+    rec = {"size": size, "batch": opt.train_batch_size, "steps": steps,
+           "launches": launches, "loss_first": losses[0],
+           "loss_last": losses[-1], "median_warm_step_s": step_s,
+           "warm_steps": len(warm),
+           "images_per_s": opt.train_batch_size / step_s,
+           "max_memory_allocated": peak, "wall_s": wall}
+    log(f"training {size} px: {steps} steps, launches {launches}, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, median warm step "
+        f"{step_s * 1e3:.1f} ms ({opt.train_batch_size / step_s:.1f} "
+        f"images/s), max_memory_allocated {peak} B, whole run {wall:.1f} s")
+    return model, opt, rec
+
+
+def training_phase(workdir):
+    """The port's train entry point on the example config at full width:
+    16 steps; launch counts, loss, attention gradients, EMA, step time,
+    memory; then one DDIM-10 request served from the trained checkpoint."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.scripts import gen_single_image_diffusion as gen
+    from joligen_tpu_torch.scripts.common import load_model_from_file
+
+    ema_prev = {}
+
+    def keep_ema(model, iters, steps):
+        if iters == (steps - 1) * model.opt.train_batch_size:
+            ema_prev.update({k: v.detach().clone() for k, v in
+                             model.ema_nets["G_A"].state_dict().items()})
+
+    model, opt, rec = _train(workdir, 128, TRAIN_IMAGES, TRAIN_EPOCHS,
+                             keep_ema)
     # qkv's gradient reaches it only through K2/K3: a non-zero second moment
     # means some step's gradient was non-zero
     tx = model.states["G_A"].tx
@@ -678,23 +814,8 @@ def training_phase(workdir):
     if not (lerp_err <= 1e-6 and ema_gap > 0):
         raise AssertionError(f"EMA is not the lerp: err {lerp_err}, gap "
                              f"{ema_gap}")
-    # warm steps: the step after another in the same epoch (the first of
-    # an epoch waits for the loader and follows the epoch's saves)
-    per_epoch = steps // TRAIN_EPOCHS
-    warm = [t1 - t0 for (i0, t0), (i1, t1) in zip(marks, marks[1:])
-            if (i1 // opt.train_batch_size - 1) % per_epoch != 0]
-    step_s = float(np.median(warm))
-    rec = {"steps": steps, "launches": launches, "loss_first": losses[0],
-           "loss_last": losses[-1], "median_warm_step_s": step_s,
-           "warm_steps": len(warm),
-           "images_per_s": opt.train_batch_size / step_s,
-           "max_memory_allocated": peak, "wall_s": wall,
-           "qkv_nu_max": qkv_nu, "ema_lerp_max_err": lerp_err,
-           "ema_param_max_gap": ema_gap}
-    log(f"training: {steps} steps, launches {launches}, loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}, median warm step "
-        f"{step_s * 1e3:.1f} ms ({opt.train_batch_size / step_s:.1f} "
-        f"images/s), max_memory_allocated {peak} B, whole run {wall:.1f} s")
+    rec.update({"qkv_nu_max": qkv_nu, "ema_lerp_max_err": lerp_err,
+                "ema_param_max_gap": ema_gap})
     del model
     torch.cuda.empty_cache()
 
@@ -722,6 +843,26 @@ def training_phase(workdir):
         f" s, launches {rec['trained_request_launches']}")
     del served
     torch.cuda.empty_cache()
+    return rec
+
+
+def training_256px_phase(workdir, attention_ms):
+    """The same config at 256 px (mid block S = 1024), the JAX package's
+    bench headline shape: one epoch of 6 steps at batch 8 over 48 synthetic
+    images. ``attention_ms`` maps K1, K2 and K3 to their device ms at that
+    attention shape, each launched once a step; their sum over the median
+    warm step is the attention's share of the step."""
+    import torch
+    model, _, rec = _train(workdir, 256, TRAIN_256_IMAGES, 1)
+    del model
+    torch.cuda.empty_cache()
+    per_step = sum(attention_ms.values())
+    rec.update({"attention_device_ms_per_step": attention_ms,
+                "attention_share_of_step":
+                    per_step / (rec["median_warm_step_s"] * 1e3)})
+    log(f"training 256 px: K1-K3 device time {per_step:.4f} ms a step "
+        f"({attention_ms}), {100 * rec['attention_share_of_step']:.2f} % of "
+        f"the median warm step")
     return rec
 
 
@@ -1015,7 +1156,8 @@ def main():
     for name, (secs, ptxas) in built.items():
         log(f"build {name}: nvcc {secs:.2f} s")
         for line in ptxas.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "(C7")):
                 log("  " + line.strip())
 
     k1 = kernel_phase()
@@ -1026,11 +1168,16 @@ def main():
         k1["cross_check_fp32_max_abs_err"] = cross_check(model)
         del model
         training = training_phase(workdir)
+        training_256 = training_256px_phase(workdir, {
+            "K1": k1["timings"]["256px_batch8"]["ms"],
+            "K2": k2["timings"]["256px_batch8"]["dq_ms"],
+            "K3": k3["timings"]["256px_batch8"]["dkv_ms"]})
     grad_check = gradient_cross_check()
     probe_launches, probes = probe_paths()
     paths = {"serving": serving, "training": training["launches"],
              "trained_checkpoint_request":
-                 training["trained_request_launches"], **probe_launches}
+                 training["trained_request_launches"],
+             "training_256px": training_256["launches"], **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -1039,6 +1186,7 @@ def main():
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its path")
     log("training: " + json.dumps(training))
+    log("training 256 px: " + json.dumps(training_256))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     k1["training_gradient_cross_check"] = grad_check
     stage_a = probes["fused_resblock_probe"]

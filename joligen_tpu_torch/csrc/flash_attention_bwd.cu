@@ -14,32 +14,47 @@
 // the TPU kernels' -1e30 mask gives. Outputs are written in the input dtype,
 // accumulation is fp32.
 //
-// Design. The TPU kernels keep a head's whole K/V (K2) or Q/dO (K3) panel
-// resident in VMEM and run their grid in order. A Hopper block has at most
-// 227 KB of shared memory and blocks run in parallel in no order, so each
-// block owns one cell of a 2-D grid -- (batch*head, 64-query tile) for K2,
+// The TPU kernels keep a head's whole K/V (K2) or Q/dO (K3) panel resident
+// in VMEM and run their grid in order. A Hopper block has at most 227 KB of
+// shared memory and blocks run in parallel in no order, so each block owns
+// one cell of a 2-D grid -- (batch*head, 64-query tile) for K2,
 // (batch*head, 64-key tile) for K3 -- and streams 64-row tiles of the other
-// side through shared memory in a loop, converted to fp32 once on load.
-// Writing the backward as two kernels, as the TPU does, keeps every output
-// tile owned by one block: no atomics. Four threads share a row of the
-// block's own tile (its q and dO rows, or its k and v rows, in registers):
-// each scores 16 rows of the streamed tile, and each accumulates a quarter of
-// the D output columns, taking the other three threads' P and dS by warp
-// shuffle (as K1 does). Ragged S is masked in the kernels: no host-side
-// padding, nothing read past S. Inputs are (B, S, H, D) with the last two
-// dims contiguous and arbitrary batch/sequence strides, so the q/k/v column
-// slices of a fused qkv projection are read in place.
+// side through shared memory. Writing the backward as two kernels, as the
+// TPU does, keeps every output tile owned by one block: no atomics. Ragged S
+// is masked in the kernels: no host-side padding, nothing read past S.
+// Inputs are (B, S, H, D) with the last two dims contiguous and arbitrary
+// batch/sequence strides, so the q/k/v column slices of a fused qkv
+// projection are read in place.
+//
+// K2, both dtypes, and K3 in fp32 run on FMAs on the CUDA cores: tiles of
+// the streamed side converted to fp32 in shared memory, four threads per
+// row of the block's own tile (its rows in registers), P and dS passed
+// between them by warp shuffles.
+//
+// K3 in bf16 runs on the tensor cores (flash_bwd_dkv_wgmma_kernel): one
+// warpgroup owns 64 keys, its K and V tiles in shared memory as bf16, and
+// 64-query tiles of Q and dO (with their lse and delta, fp32) stream through
+// a 2-stage ring by 16-byte cp.async, zero-filled past S. Per query tile,
+// four wgmma products accumulate in fp32: S^T = K.Q^T and dP^T = V.dO^T
+// (m64n64k16, both operands K-major from shared memory), then, from P^T and
+// dS^T converted to bf16 in registers as the A operand, dV += P^T.dO and
+// dK += dS^T.Q (m64nDk16, dO and Q read MN-major). lse and delta vary
+// along the accumulator's columns; queries at or past S get P = 0
+// explicitly. Tiles and descriptors: hopper_wgmma.cuh.
 //
 // Bound. At the training path's shape (B, S, H, D) = (8, 256, 16, 32) bf16,
 // K2 moves ~10.7 MB and does 6*B*H*S^2*D = 1.61 GFLOP, K3 ~12.8 MB and
 // 2.15 GFLOP: memory-bound on paper (~0.003-0.004 ms at 3.35 TB/s). At
-// 256 px, batch 8 (S = 1024) both are compute-bound. These first kernels
-// compute with fp32 FMAs on the CUDA cores (67 TFLOP/s peak), not on the
-// tensor cores; mma/wgmma and TMA are the next step.
+// 256 px, batch 8 (S = 1024) K3 does 34.4 GFLOP, 0.035 ms on the tensor
+// cores; its 134 M exponentials take about 0.03 ms on the special-function
+// units (16 per clock per SM), so the practical floor is near 2x the
+// tensor-core bound there too.
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -48,6 +63,7 @@ constexpr int BLOCK_K = 64;  // K3: keys per block; K2: keys per chunk
 constexpr int THREADS_PER_ROW = 4;
 constexpr int THREADS = 64 * THREADS_PER_ROW;
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -271,6 +287,173 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- K3, bf16 route: wgmma on the tensor cores -----------------------------
+
+using bf16 = __nv_bfloat16;
+
+// Shared memory of a K3 block: the K and V tiles, then 2 stages of the Q
+// and dO tiles (64 rows x D each, the core-matrix layout of hopper_wgmma.cuh)
+// and 2 stages of 64 lse and 64 delta values.
+template <int D>
+struct DkvSmem {
+  static constexpr int TILE = 64 * D * 2;
+  static constexpr int V = TILE;
+  static constexpr int Q = 2 * TILE;
+  static constexpr int DO = Q + 2 * TILE;
+  static constexpr int LSE = DO + 2 * TILE;
+  static constexpr int DELTA = LSE + 2 * 64 * 4;
+  static constexpr int BYTES = DELTA + 2 * 64 * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
+                           int H, long long q_sb, long long q_ss,
+                           long long k_sb, long long k_ss, long long v_sb,
+                           long long v_ss, long long do_sb, long long do_ss,
+                           float sm_scale) {
+  using namespace jg_hopper;
+  using L = DkvSmem<D>;
+  static_assert(D % 16 == 0 && D <= 64, "D: a multiple of 16, at most 64");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const float* s_lse = reinterpret_cast<const float*>(smem + L::LSE);
+  const float* s_delta = reinterpret_cast<const float*>(smem + L::DELTA);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.y * BLOCK_K;
+  const bf16* qb = q + b * q_sb + static_cast<long long>(h) * D;
+  const bf16* dob = dout + b * do_sb + static_cast<long long>(h) * D;
+  const float* lb = lse + static_cast<long long>(bh) * S;
+  const float* db = delta + static_cast<long long>(bh) * S;
+
+  // 64 queries' Q, dO, lse and delta into stage st
+  auto load_queries = [&](int q0, int st) {
+    load_rows<D, 128>(base + L::Q + st * L::TILE, qb, q_ss, q0, S);
+    load_rows<D, 128>(base + L::DO + st * L::TILE, dob, do_ss, q0, S);
+    const int i = tid & 63;
+    const bool ok = q0 + i < S;
+    if (tid < 64) {
+      cp_async4(base + L::LSE + (st * 64 + i) * 4, lb + (ok ? q0 + i : 0), ok);
+    } else {
+      cp_async4(base + L::DELTA + (st * 64 + i) * 4, db + (ok ? q0 + i : 0),
+                ok);
+    }
+  };
+
+  // the block's K and V tiles and the first query stage: one cp.async group
+  load_rows<D, 128>(base, k + b * k_sb + static_cast<long long>(h) * D, k_ss,
+                    k0, S);
+  load_rows<D, 128>(base + L::V, v + b * v_sb + static_cast<long long>(h) * D,
+                    v_ss, k0, S);
+  load_queries(0, 0);
+  cp_async_commit();
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const float scale_log2 = sm_scale * LOG2E;
+  const int n_tiles = (S + BLOCK_Q - 1) / BLOCK_Q;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles) {  // the next stage's copy overlaps this tile
+      load_queries((it + 1) * BLOCK_Q, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();  // this stage is in shared memory, visible to wgmma
+    const uint32_t sq = base + L::Q + st * L::TILE;
+    const uint32_t sdo = base + L::DO + st * L::TILE;
+
+    // S^T = K.Q^T and dP^T = V.dO^T: rows are keys, columns queries
+    float p[32], ds[32];
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t) {
+      wgmma_ss_n64(p, desc_k_major<64>(base, t), desc_k_major<64>(sq, t),
+                   t > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t) {
+      wgmma_ss_n64(ds, desc_k_major<64>(base + L::V, t),
+                   desc_k_major<64>(sdo, t), t > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(p);
+    fence_regs(ds);
+
+    // P^T and dS^T; register i holds query column 8 * (i / 4) +
+    // 2 * (lane % 4) + i % 2 of the tile
+    const int c0 = 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = c0 + 8 * (i >> 2) + (i & 1);
+      const float lse_c = s_lse[st * 64 + c];
+      const float pi = it * BLOCK_Q + c < S
+                           ? exp2f(fmaf(p[i], scale_log2, -lse_c * LOG2E))
+                           : 0.f;
+      p[i] = pi;
+      ds[i] = pi * (ds[i] - s_delta[st * 64 + c]) * sm_scale;
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    acc_to_a_frags(p, pa);
+    acc_to_a_frags(ds, dsa);
+
+    // dV += P^T.dO and dK += dS^T.Q: dO and Q read MN-major
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      wgmma_rs<D>(dv_acc, pa[t], desc_mn_major<64>(sdo, t));
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      wgmma_rs<D>(dk_acc, dsa[t], desc_mn_major<64>(sq, t));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    __syncthreads();  // the warpgroup is done with this stage
+  }
+
+  const int row0 = k0 + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = row0 + 8 * r;
+    if (kj >= S) continue;
+    const long long off =
+        ((static_cast<long long>(b) * S + kj) * H + h) * D + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+          __floats2bfloat162_rn(dk_acc[4 * j + 2 * r],
+                                dk_acc[4 * j + 2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+          __floats2bfloat162_rn(dv_acc[4 * j + 2 * r],
+                                dv_acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out0, *out1;
@@ -281,39 +464,55 @@ struct Args {
 };
 
 template <int D, typename T>
-int launch(const Args& a, bool dkv) {
-  const dim3 grid(a.B * a.H, (a.S + 63) / 64);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  const float* lse = static_cast<const float*>(a.lse);
-  const float* delta = static_cast<const float*>(a.delta);
-  if (dkv) {
-    flash_bwd_dkv_kernel<D, T><<<grid, THREADS, 0, a.stream>>>(
-        q, k, v, dout, lse, delta, static_cast<T*>(a.out0),
-        static_cast<T*>(a.out1), a.S, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss,
-        a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
-  } else {
-    flash_bwd_dq_kernel<D, T><<<grid, THREADS, 0, a.stream>>>(
-        q, k, v, dout, lse, delta, static_cast<T*>(a.out0), a.S, a.H, a.q_sb,
-        a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
-  }
+int launch_dq(const Args& a) {
+  const dim3 grid(a.B * a.H, (a.S + BLOCK_Q - 1) / BLOCK_Q);
+  flash_bwd_dq_kernel<D, T><<<grid, THREADS, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.out0), a.S, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss,
+      a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const Args& a, int D, bool dkv) {
-  switch (D) {
-    case 16:
-      return launch<16, T>(a, dkv);
-    case 32:
-      return launch<32, T>(a, dkv);
-    case 64:
-      return launch<64, T>(a, dkv);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+template <int D>
+int launch_dkv_fma(const Args& a) {
+  const dim3 grid(a.B * a.H, (a.S + BLOCK_K - 1) / BLOCK_K);
+  flash_bwd_dkv_kernel<D, float><<<grid, THREADS, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.S, a.H,
+      a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss,
+      a.sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_wgmma(const Args& a) {
+  using L = DkvSmem<D>;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
+  if (L::BYTES > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         L::BYTES);
   }
+  const dim3 grid(a.B * a.H, (a.S + BLOCK_K - 1) / BLOCK_K);
+  kernel<<<grid, 128, L::BYTES, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.S, a.H,
+      a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss,
+      a.sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 in either dtype on FMAs; K3 in fp32 on FMAs, in bf16 on wgmma.
+template <int D>
+int launch_d(const Args& a, int dtype, bool dkv) {
+  if (dtype == 0) return dkv ? launch_dkv_fma<D>(a) : launch_dq<D, float>(a);
+  if (dtype == 1) return dkv ? launch_dkv_wgmma<D>(a) : launch_dq<D, bf16>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int dispatch(const Args& a, int D, int dtype, bool dkv) {
@@ -321,9 +520,16 @@ int dispatch(const Args& a, int D, int dtype, bool dkv) {
       static_cast<long long>(a.B) * a.H > INT_MAX || (a.S + 63) / 64 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) return dispatch_d<float>(a, D, dkv);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(a, D, dkv);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 16:
+      return launch_d<16>(a, dtype, dkv);
+    case 32:
+      return launch_d<32>(a, dtype, dkv);
+    case 64:
+      return launch_d<64>(a, dtype, dkv);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -331,8 +537,8 @@ int dispatch(const Args& a, int D, int dtype, bool dkv) {
 // Plain C entry points (loaded with ctypes). q, k, v, dout: (B, S, H, D) with
 // element (b, s, h, d) at b * x_sb + s * x_ss + h * D + d; lse, delta:
 // contiguous (B, H, S) fp32; dq (K2) and dk, dv (K3): contiguous
-// (B, S, H, D) in the input dtype. dtype: 0 = float32, 1 = bfloat16.
-// Each returns the launch's cudaError_t.
+// (B, S, H, D) in the input dtype. dtype: 0 = float32, 1 = bfloat16 (K3 on
+// wgmma). Each returns the launch's cudaError_t.
 extern "C" int jg_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int S, int H, int D,

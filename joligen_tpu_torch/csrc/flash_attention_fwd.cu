@@ -4,34 +4,49 @@
 // (launched by _fwd, pallas_call at :84). Same function: non-causal softmax
 // attention with an online softmax over key tiles -- fp32 running max, running
 // sum and accumulator, keys at or past S masked to -1e30 -- writing O in the
-// input dtype and the per-row logsumexp m + log(l) in fp32 (kept for the
-// backward kernels of the training slice).
+// input dtype and the per-row logsumexp m + log(l) in fp32, contiguous
+// (B, H, S), which the backward kernels K2 and K3 read.
 //
-// Design. The TPU kernel keeps the whole per-head K/V panel resident in VMEM.
-// A Hopper block has at most 227 KB of shared memory and runs in parallel with
-// the others in no order, so here each thread block owns one
-// (batch*head, 64-query tile) cell of a 2-D grid and streams 64-key K/V tiles
-// through shared memory in a loop, converting them to fp32 once on load.
-// Four threads share a query row: each scores 16 keys of the tile against the
-// row (q kept in registers, pre-scaled by sm_scale as in the TPU kernel), the
-// row max and sum are combined with warp shuffles, and each thread accumulates
-// a quarter of the D output columns, taking the probabilities of the other
-// three threads by shuffle. Ragged S is masked in the kernel: no host-side
-// padding. Inputs are (B, S, H, D) with the last two dims contiguous and
-// arbitrary batch/sequence strides, so the q/k/v column slices of a fused qkv
-// projection are read in place.
+// Two routes, chosen by dtype in jg_flash_attention_fwd:
 //
-// Bound. At the main path's shapes the work is tiny: 128 px, batch 1 is
-// B*H = 16, S = 256, D = 32 in bf16, 134 MFLOP and 1.05 MB, about 0.3 us on
-// an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16) -- memory-bound on paper and
-// launch-bound in practice. At 256 px, batch 8 (S = 1024, B*H = 128) it is
-// 17.2 GFLOP against 33.5 MB: compute-bound. This first kernel computes with
-// fp32 FMAs on the CUDA cores (67 TFLOP/s peak), not on the tensor cores;
-// wgmma and TMA are the next step for the compute-bound shapes.
+// bf16 -- the tensor cores (flash_fwd_wgmma_kernel). The TPU kernel keeps a
+// head's whole K/V panel in VMEM; here each block owns WG x 64 queries of one
+// batch*head (WG = 1 or 2 warpgroups of 128 threads, sharing each K/V tile)
+// and streams 64-key K/V tiles through a 2-stage ring in shared memory, bf16
+// as loaded (16-byte cp.async, zero fill past S, the next tile's copy in
+// flight during this tile's math). Per tile and warpgroup: S = Q.K^T as D/16
+// wgmma m64n64k16 with Q and K read K-major from shared memory; the online
+// softmax in registers on the accumulator layout (a row lives in 4 lanes,
+// reduced by two xor shuffles), in the log2 domain, with the rescale of the
+// O accumulator; then O += P.V as 4 wgmma m64nDk16 with P converted to bf16
+// in registers as the A operand and V read MN-major (transposed) from
+// shared memory. l is summed from the fp32 probabilities. Queries past S are
+// computed on zero rows and not stored. Tiles and descriptors:
+// hopper_wgmma.cuh.
+//
+// fp32 -- the CUDA cores (flash_fwd_kernel, T = float), kept so that fp32
+// callers stay within 1e-4 of the plain version (TF32 would not): a block
+// owns (batch*head, 64 queries), converts each K/V tile to fp32 in shared
+// memory, four threads share a query row and combine by warp shuffles.
+//
+// Both routes read (B, S, H, D) inputs with the last two dims contiguous and
+// arbitrary batch/sequence strides, so the q/k/v column slices of a fused
+// qkv projection are read in place (the bf16 route needs 16-byte aligned
+// pointers and strides; the wrapper checks).
+//
+// Bound, bf16 at D = 32. At 256 px, batch 8 ((B*H, S) = (128, 1024)) one call
+// is 17.2 GFLOP against 33.5 MB: 0.0174 ms on the tensor cores (989 TFLOP/s)
+// against 0.010 ms of memory traffic, so compute-bound on paper. But its
+// 134 M exponentials run on the special-function units at 16 per clock per
+// SM, about 0.03 ms on 132 SMs: a practical floor about 2x the tensor-core
+// bound. At the 128 px request (16, 256) the work is 134 MFLOP and 1 MB, and
+// 64 blocks cannot fill 132 SMs: launch- and latency-bound.
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -42,19 +57,17 @@ constexpr int THREADS = BLOCK_Q * THREADS_PER_ROW;
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+
+// ---- fp32 route: FMAs on the CUDA cores -----------------------------------
 
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -174,37 +187,201 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int S, int H, long long q_sb, long long q_ss, long long k_sb,
-           long long k_ss, long long v_sb, long long v_ss, float sm_scale,
-           cudaStream_t stream) {
-  const dim3 grid(B * H, (S + BLOCK_Q - 1) / BLOCK_Q);
-  flash_fwd_kernel<D, T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
+// ---- bf16 route: wgmma on the tensor cores --------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// Shared memory of a block: WG Q tiles, then 2 K and 2 V stages; every tile
+// 64 rows x D in the core-matrix layout of hopper_wgmma.cuh.
+template <int D, int WG>
+struct FwdSmem {
+  static constexpr int TILE = 64 * D * 2;
+  static constexpr int K = WG * TILE;
+  static constexpr int V = K + 2 * TILE;
+  static constexpr int BYTES = V + 2 * TILE;
+};
+
+template <int D, int WG>
+__global__ void __launch_bounds__(WG * 128)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int S, int H, long long q_sb,
+                       long long q_ss, long long k_sb, long long k_ss,
+                       long long v_sb, long long v_ss, float scale_log2) {
+  using namespace jg_hopper;
+  using L = FwdSmem<D, WG>;
+  constexpr int NT = WG * 128;
+  static_assert(D % 16 == 0 && D <= 64, "D: a multiple of 16, at most 64");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.y * 64 * WG;
+  const bf16* qb = q + b * q_sb + static_cast<long long>(h) * D;
+  const bf16* kb = k + b * k_sb + static_cast<long long>(h) * D;
+  const bf16* vb = v + b * v_sb + static_cast<long long>(h) * D;
+
+  // the Q tiles and the first K/V stage: one cp.async group
+#pragma unroll
+  for (int w = 0; w < WG; ++w) {
+    load_rows<D, NT>(base + w * L::TILE, qb, q_ss, q0 + 64 * w, S);
+  }
+  load_rows<D, NT>(base + L::K, kb, k_ss, 0, S);
+  load_rows<D, NT>(base + L::V, vb, v_ss, 0, S);
+  cp_async_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // this thread's two rows (16 * warp + lane / 4, and 8 further) of the
+  // warpgroup's 64; m in the log2 domain
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+  const uint32_t sq = base + wg * L::TILE;
+  const int n_tiles = (S + BLOCK_K - 1) / BLOCK_K;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles) {  // the next stage's copy overlaps this tile
+      load_rows<D, NT>(base + L::K + (st ^ 1) * L::TILE, kb, k_ss,
+                       (it + 1) * BLOCK_K, S);
+      load_rows<D, NT>(base + L::V + (st ^ 1) * L::TILE, vb, v_ss,
+                       (it + 1) * BLOCK_K, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();  // this stage is in shared memory, visible to wgmma
+    const uint32_t sk = base + L::K + st * L::TILE;
+    const uint32_t sv = base + L::V + st * L::TILE;
+
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t) {
+      wgmma_ss_n64(s, desc_k_major<64>(sq, t), desc_k_major<64>(sk, t),
+                   t > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // online softmax; register i holds row (i / 2) % 2 and key
+    // 8 * (i / 4) + 2 * (lane % 4) + i % 2 of the tile
+    const int key0 = it * BLOCK_K + 2 * (lane & 3);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float x =
+          key0 + 8 * (i >> 2) + (i & 1) < S ? s[i] * scale_log2 : NEG_INF;
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float corr[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 2));
+      corr[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
+      ls[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ls[r] += __shfl_xor_sync(FULL_MASK, ls[r], 1);
+      ls[r] += __shfl_xor_sync(FULL_MASK, ls[r], 2);
+      l[r] = l[r] * corr[r] + ls[r];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    uint32_t pa[4][4];
+    acc_to_a_frags(s, pa);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t) wgmma_rs<D>(acc, pa[t], desc_mn_major<64>(sv, t));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every warpgroup is done with this stage
+  }
+
+  const int row0 = q0 + 64 * wg + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= S) continue;
+    const float l_safe = fmaxf(l[r], 1e-30f);
+    const float inv = 1.f / l_safe;
+    bf16* op = o + ((static_cast<long long>(b) * S + qi) * H + h) * D +
+               2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+    }
+    if ((lane & 3) == 0) {
+      lse[static_cast<long long>(bh) * S + qi] = (m[r] + log2f(l_safe)) * LN2;
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void *o, *lse;
+  int B, S, H;
+  long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <int D>
+int launch_fma(const Args& a) {
+  const dim3 grid(a.B * a.H, (a.S + BLOCK_Q - 1) / BLOCK_Q);
+  flash_fwd_kernel<D, float><<<grid, THREADS, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o),
+      static_cast<float*>(a.lse), a.S, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss,
+      a.v_sb, a.v_ss, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o,
-               void* lse, int B, int S, int H, int D, long long q_sb,
-               long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-               long long v_ss, float sm_scale, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<16, T>(q, k, v, o, lse, B, S, H, q_sb, q_ss, k_sb, k_ss,
-                           v_sb, v_ss, sm_scale, stream);
-    case 32:
-      return launch<32, T>(q, k, v, o, lse, B, S, H, q_sb, q_ss, k_sb, k_ss,
-                           v_sb, v_ss, sm_scale, stream);
-    case 64:
-      return launch<64, T>(q, k, v, o, lse, B, S, H, q_sb, q_ss, k_sb, k_ss,
-                           v_sb, v_ss, sm_scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+template <int D, int WG>
+int launch_wgmma(const Args& a) {
+  using L = FwdSmem<D, WG>;
+  auto kernel = flash_fwd_wgmma_kernel<D, WG>;
+  if (L::BYTES > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         L::BYTES);
   }
+  const dim3 grid(a.B * a.H, (a.S + 64 * WG - 1) / (64 * WG));
+  kernel<<<grid, WG * 128, L::BYTES, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
+      static_cast<float*>(a.lse), a.S, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss,
+      a.v_sb, a.v_ss, a.sm_scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(const Args& a, int dtype, int q_tile) {
+  if (dtype == 0) return launch_fma<D>(a);
+  if (dtype == 1 && q_tile == 64) return launch_wgmma<D, 1>(a);
+  if (dtype == 1 && q_tile == 128) return launch_wgmma<D, 2>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -212,27 +389,31 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o,
 // Plain C entry point (loaded with ctypes). q, k, v: (B, S, H, D) with
 // element (b, s, h, d) at b * x_sb + s * x_ss + h * D + d; o: contiguous
 // (B, S, H, D) in the input dtype; lse: contiguous (B, H, S) fp32.
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel, q_tile = 64
+// or 128 queries per block). Returns the launch's cudaError_t.
 extern "C" int jg_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int S, int H, int D, long long q_sb, long long q_ss, long long k_sb,
     long long k_ss, long long v_sb, long long v_ss, float sm_scale, int dtype,
-    void* stream) {
+    int q_tile, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 ||
       static_cast<long long>(B) * H > INT_MAX ||
       (S + BLOCK_Q - 1) / BLOCK_Q > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return dispatch_d<float>(q, k, v, o, lse, B, S, H, D, q_sb, q_ss, k_sb,
-                             k_ss, v_sb, v_ss, sm_scale, st);
+  const Args a{q,    k,    v,    o,    lse,  B,        S,
+               H,    q_sb, q_ss, k_sb, k_ss, v_sb,     v_ss,
+               sm_scale, static_cast<cudaStream_t>(stream)};
+  switch (D) {
+    case 16:
+      return launch_d<16>(a, dtype, q_tile);
+    case 32:
+      return launch_d<32>(a, dtype, q_tile);
+    case 64:
+      return launch_d<64>(a, dtype, q_tile);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, lse, B, S, H, D, q_sb, q_ss,
-                                     k_sb, k_ss, v_sb, v_ss, sm_scale, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* jg_cuda_error_string(int err) {

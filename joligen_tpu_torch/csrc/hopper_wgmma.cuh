@@ -1,0 +1,226 @@
+// Hopper (sm_90a) building blocks of the bf16 attention kernels: 16-byte
+// cp.async with zero fill, the proxy fence, warpgroup MMA (wgmma) with its
+// shared-memory descriptors, and the tile layout those descriptors read.
+//
+// Tile layout. A tile of R rows by C bf16 columns (C contiguous in device
+// memory, R and C multiples of 8) is kept in shared memory as 8x8 "core
+// matrices" of 128 contiguous bytes, one 16-byte line per row, with no
+// swizzle. Core matrix (row group g, column chunk c) sits at byte
+// (c * R/8 + g) * 128, so the R/8 core matrices of one column chunk are
+// contiguous. One 16-byte cp.async of a row's 8 columns fills one line.
+//
+// The same tile is read by wgmma in two ways (PTX "canonical layouts",
+// no-swizzle mode; LBO = leading byte offset, the step between core matrices
+// along K; SBO = stride byte offset, the step along M or N):
+//   K-major  (rows are M or N, columns are K):  LBO = R * 16, SBO = 128;
+//            the next k16 slice starts 2 column chunks on, R * 32 bytes.
+//   MN-major (rows are K, columns are N):       LBO = 128, SBO = R * 16;
+//            the next k16 slice starts 2 row groups on, 256 bytes.
+// So Q.K^T reads Q and K K-major, and P.V reads V MN-major (the transpose
+// bit of wgmma), from the very bytes the loads wrote.
+//
+// Accumulator layout of wgmma m64nNk16 with f32 D (per PTX): warp w of the
+// warpgroup, lane l, register i in [0, N/2) holds row 16w + l/4 + 8*((i/2)%2)
+// and column 8*(i/4) + 2*(l%4) + i%2. For bf16, registers 8t..8t+7 of an
+// m64n64 accumulator, packed in pairs, are exactly the A fragment of the k16
+// slice t of a following product with A from registers.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_bf16.h>
+
+namespace jg_hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of line (row r, 8-column chunk c) in a tile of R rows
+template <int R>
+__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
+  return static_cast<uint32_t>((c * (R / 8) + (r >> 3)) * 128 + (r & 7) * 16);
+}
+
+// 16 bytes from global to shared; zero-filled (nothing read) when !pred
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from global to shared; zero-filled (nothing read) when !pred
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+// Rows r0 .. r0+63 of one head of a (B, S, H, D) tensor (base points at row
+// 0 of that head, ss is the row stride in elements) into a 64-row tile at
+// shared address dst, by the block's THREADS threads; rows at or past S are
+// zero. Each thread issues 16-byte copies; nothing is awaited here.
+template <int D, int THREADS>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const __nv_bfloat16* base,
+                                          long long ss, int r0, int S) {
+  constexpr int CHUNKS = D / 8;
+  for (int idx = threadIdx.x; idx < 64 * CHUNKS; idx += THREADS) {
+    const int r = idx / CHUNKS;
+    const int c = idx % CHUNKS;
+    const bool ok = r0 + r < S;
+    const __nv_bfloat16* src =
+        base + static_cast<long long>(ok ? r0 + r : 0) * ss + c * 8;
+    cp_async16(dst + tile_offset<64>(r, c), src, ok);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory writes of this thread become visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma (issue ... wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  // no swizzle (bits 62-63 = 0), base offset 0
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// descriptors of a tile of R rows at shared address addr, k16 slice t
+template <int R>
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr, int t) {
+  return make_desc(addr + t * R * 32, R * 16, 128);
+}
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr, int t) {
+  return make_desc(addr + t * 256, 128, R * 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragments (4 k16 slices) of a 64-column f32 accumulator, in bf16.
+__device__ __forceinline__ void acc_to_a_frags(const float (&s)[32],
+                                               uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a[t][j] = pack_bf16(s[8 * t + 2 * j], s[8 * t + 2 * j + 1]);
+    }
+  }
+}
+
+// D(64x64, f32) (+)= A . B^T, A (64x16) and B (64x16) both K-major in shared
+// memory (descriptors); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64xN, f32) += A(64x16, bf16 registers) . B(16xN), B MN-major in shared
+// memory (the transpose bit), N in {16, 32, 64}.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+}  // namespace jg_hopper

@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use with ``nvcc`` into a shared library under ``build/joligen_tpu_torch/`` at
 the repository root (listed in ``.gitignore``), then loaded with ``ctypes``;
 ``launch`` calls an entry point on PyTorch's current stream.
-The library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded. Nothing is compiled
-at import time.
+The library's file name carries a hash of its source, the shared headers and
+the flags, so an edited source is rebuilt and a stale library is never
+loaded. Nothing is compiled at import time.
 """
 
 from __future__ import annotations
@@ -44,10 +44,14 @@ def _nvcc():
 
 
 def library_path(name):
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
+    """The library of ``csrc/<name>.cu``; its name hashes that source, every
+    ``csrc/*.cuh`` header and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
 def build(names):
@@ -101,8 +105,15 @@ def launch(name, symbol, argtypes, device, *args):
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
         _FUNCTIONS[(name, symbol)] = fn
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    # the raw current stream, as torch's own kernel launchers read it; the
+    # device switch only where the tensors are not on the current device
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         estr = load_library(name).jg_cuda_error_string
         estr.restype = ctypes.c_char_p

@@ -14,7 +14,9 @@ cast to ``q.dtype``. When a gradient is needed it runs through
 ``delta = rowsum(dO * O)`` and K2 + K3 backward.
 
 - On a CUDA tensor each step launches its hand-written kernel or raises.
-  There is no fallback to a library attention.
+  There is no fallback to a library attention. ``ROUTES`` says which kernel
+  a dtype takes: in bf16, K1 and K3 run on the tensor cores (``wgmma``), K2
+  on FMAs; in fp32 all three run on FMAs, which hold 1e-4 (TF32 would not).
 - On a CPU tensor each step runs its plain PyTorch version
   (``flash_attention_reference``, ``flash_attention_bwd_reference``): the same
   algorithm, which the tests hold against the JAX kernels and
@@ -26,6 +28,7 @@ cast to ``q.dtype``. When a gradient is needed it runs through
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -34,12 +37,20 @@ from torch.autograd.function import once_differentiable
 from ._build import launch
 
 NEG_INF = -1e30
-BLOCK_K = 64          # key tile of the CUDA kernels (BLOCK_K in the .cu files)
+# keys per tile of every CUDA kernel, both routes (BLOCK_K in the .cu files;
+# K3 owns a tile of this many keys), and of the plain versions' key chunks
+BLOCK_K = 64
 SUPPORTED_HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# queries per block of K1's bf16 route: one warpgroup of 64 queries, or two
+# sharing each K/V tile (``fwd_q_tile`` picks one)
+FWD_Q_TILES = (64, 128)
 
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0}
+ROUTES = {"flash_attention_fwd": {"float32": "fma", "bfloat16": "wgmma"},
+          "flash_attention_bwd_dq": {"float32": "fma", "bfloat16": "fma"},
+          "flash_attention_bwd_dkv": {"float32": "fma", "bfloat16": "wgmma"}}
 
 
 def flash_attention_reference(q, k, v, sm_scale=None, block_k=BLOCK_K):
@@ -119,9 +130,21 @@ def _check(q, k, v):
         raise ValueError("q, k, v must be on one device")
 
 
+def _check_aligned(name, t):
+    """The bf16 (wgmma) route copies 16-byte lines: every base pointer and
+    the batch and row strides must be multiples of 16 bytes."""
+    item = t.element_size()
+    if (t.data_ptr() | t.stride(0) * item | t.stride(1) * item) % 16:
+        raise ValueError(f"flash_attention kernel: {name} needs a 16-byte "
+                         f"aligned pointer and batch/row strides, got "
+                         f"{t.data_ptr() % 16} bytes off and strides "
+                         f"{t.stride()}")
+
+
 def _check_kernel_inputs(q, named):
     """What every kernel takes: a supported head dim and dtype, and (H, D)
-    dims contiguous in each (B, S, H, D) input."""
+    dims contiguous in each (B, S, H, D) input; in bf16 also 16-byte
+    alignment."""
     d = q.shape[-1]
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head dim {d} not in "
@@ -133,10 +156,13 @@ def _check_kernel_inputs(q, named):
         if t.stride(3) != 1 or t.stride(2) != d:
             raise ValueError(f"flash_attention kernel: {name} needs contiguous "
                              f"(H, D) dims, got strides {t.stride()}")
+        if q.dtype == torch.bfloat16:
+            _check_aligned(name, t)
 
 
 def _check_out(t, shape, dtype):
-    if t.shape != shape or t.dtype != dtype or not t.is_contiguous():
+    if t.shape != shape or t.dtype != dtype or not t.is_contiguous() or (
+            dtype == torch.bfloat16 and t.data_ptr() % 16):
         raise ValueError("flash_attention kernel: bad preallocated outputs")
 
 
@@ -145,7 +171,7 @@ _SIGNATURES = {
     "fwd": ("flash_attention_fwd", "jg_flash_attention_fwd",
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
             + [ctypes.c_longlong] * 6
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     "bwd_dq": ("flash_attention_bwd", "jg_flash_attention_bwd_dq",
                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                + [ctypes.c_longlong] * 8
@@ -164,10 +190,31 @@ def _call(name, counter, q, *args):
     LAUNCHES[counter] += 1
 
 
-def _launch(q, k, v, sm_scale, out=None):
-    """Launch K1 into ``out`` = (o, lse), allocated here if None."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fwd_q_tile(b, s, h, sm_count):
+    """Queries per block of K1's bf16 route: 128 (two warpgroups sharing
+    each K/V tile) where that grid still has a block for every SM, else 64.
+    On an H100 (132 SMs) ``chip_smoke.py`` timed 64 faster at a 128 px
+    request, (B, S, H) = (1, 256, 16): 64 blocks against 32 of 128; and 128
+    faster at (8, 256, 16) and (8, 1024, 16)."""
+    return 128 if b * h * -(-s // 128) >= sm_count else 64
+
+
+def _launch(q, k, v, sm_scale, out=None, q_tile=None):
+    """Launch K1 into ``out`` = (o, lse), allocated here if None; ``q_tile``
+    (bf16 only) overrides ``fwd_q_tile``."""
     b, s, h, d = q.shape
     _check_kernel_inputs(q, (("q", q), ("k", k), ("v", v)))
+    if q_tile is None:
+        q_tile = 64 if q.dtype != torch.bfloat16 else fwd_q_tile(
+            b, s, h, _sm_count(q.device.index or 0))
+    if q_tile not in FWD_Q_TILES:
+        raise ValueError(f"flash_attention kernel: q_tile {q_tile} not in "
+                         f"{FWD_Q_TILES}")
     if out is None:
         out = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device),
                torch.empty((b, h, s), dtype=torch.float32, device=q.device))
@@ -178,7 +225,8 @@ def _launch(q, k, v, sm_scale, out=None):
           q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
           lse.data_ptr(), b, s, h, d,
           q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-          v.stride(0), v.stride(1), float(sm_scale), _DTYPE_CODES[q.dtype])
+          v.stride(0), v.stride(1), float(sm_scale), _DTYPE_CODES[q.dtype],
+          q_tile)
     return o, lse
 
 

@@ -2,7 +2,8 @@
 
     python -m joligen_tpu_torch.scripts.profile_request \\
         [--config examples/example_ddpm_noglasses2glasses.json] \\
-        [--sampling_method ddim | --train] [--out profile_request.json]
+        [--sampling_method ddim | --train] [--size PX] \\
+        [--out profile_request.json]
 
 Builds the config's palette model at full width with seeded random weights
 and runs twice as warm-up, on a synthetic masked image, either one serving
@@ -62,6 +63,8 @@ def main(argv=None):
                    choices=["ddim", "ddpm"])
     p.add_argument("--train", action="store_true",
                    help="profile a training step instead of a request")
+    p.add_argument("--size", type=int, default=0,
+                   help="load and crop size in px instead of the config's")
     p.add_argument("--top", type=int, default=12)
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
@@ -71,6 +74,8 @@ def main(argv=None):
 
     with open(args.config) as f:
         opt = TrainOptions().parse_json(json.load(f), verbose=False)
+    if args.size:
+        opt.data_load_size = opt.data_crop_size = args.size
     if args.train:
         # phase train makes its checkpoint directory; nothing is saved there
         opt.checkpoints_dir = tempfile.mkdtemp(prefix="profile_")

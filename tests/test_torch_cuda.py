@@ -19,17 +19,23 @@ from joligen_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
+# ragged S and B*H at the edges of the bf16 kernels' 64-row tiles (S of 1,
+# 63, 65, 100 and 1000; B*H of 3), at each head dim
+EDGE_SHAPES = [(3, 1, 1, 16), (1, 63, 3, 64), (3, 65, 1, 16),
+               (1, 1000, 3, 64)]
 SHAPES = [(2, 128, 2, 64), (2, 256, 1, 32), (2, 100, 2, 64), (2, 5, 2, 16),
-          (1, 256, 16, 32)]
+          (1, 256, 16, 32), *EDGE_SHAPES]
 # the backward checks of chip_smoke.py: the training shape, batch 1, 256 px
-# batch 8, and two ragged ones
+# batch 8, and ragged ones
 BWD_CHECKS = [((8, 256, 16, 32), torch.bfloat16),
               ((8, 256, 16, 32), torch.float32),
               ((1, 256, 16, 32), torch.bfloat16),
               ((8, 1024, 16, 32), torch.bfloat16),
               ((2, 100, 2, 64), torch.float32),
               ((2, 5, 2, 16), torch.float32),
-              ((2, 160, 2, 16), torch.bfloat16)]
+              ((2, 160, 2, 16), torch.bfloat16),
+              ((2, 100, 2, 64), torch.bfloat16),
+              *((shape, torch.bfloat16) for shape in EDGE_SHAPES)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -59,6 +65,66 @@ def test_kernel_matches_plain_version(cuda, shape, dtype, tol):
     assert o.dtype == dtype and lse.dtype == torch.float32
     torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(8, 1024, 16, 32)])
+@pytest.mark.parametrize("q_tile", fa.FWD_Q_TILES)
+def test_bf16_forward_matches_plain_version_at_each_query_tiling(
+        cuda, shape, q_tile):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + q_tile)
+    q, k, v = _randn(shape, g, torch.bfloat16, 3)
+    o, lse = fa._launch(q, k, v, shape[-1] ** -0.5, q_tile=q_tile)
+    torch.cuda.synchronize()
+    ref_o, ref_lse = fa.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=2e-2)
+
+
+def _kernel_names(fn, attempts=4):
+    """The device kernels of one call of ``fn``, after a traced warm-up call
+    (the trace misses launches at its very start). A trace that lost the
+    call's launch altogether is taken again, up to ``attempts`` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        if names:
+            return names
+    return names
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_each_dtype_takes_its_route(cuda, dtype):
+    # bf16: K1 and K3 on wgmma, K2 on FMAs; fp32: all three on FMAs
+    name = str(dtype).split(".")[-1]
+    q, k, v, do = (torch.randn(2, 100, 2, 32, device=cuda).to(dtype)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = fa.attention_delta(o, do)
+    kernels = {"flash_attention_fwd": (
+                   lambda: fa.flash_attention_fwd(q, k, v),
+                   {"wgmma": "flash_fwd_wgmma_kernel",
+                    "fma": "flash_fwd_kernel<"}),
+               "flash_attention_bwd_dq": (
+                   lambda: fa._launch_bwd_dq(q, k, v, lse, delta, do, 0.2),
+                   {"fma": "flash_bwd_dq_kernel<"}),
+               "flash_attention_bwd_dkv": (
+                   lambda: fa._launch_bwd_dkv(q, k, v, lse, delta, do, 0.2),
+                   {"wgmma": "flash_bwd_dkv_wgmma_kernel",
+                    "fma": "flash_bwd_dkv_kernel<"})}
+    for kernel, (call, by_route) in kernels.items():
+        names = _kernel_names(call)
+        want = by_route[fa.ROUTES[kernel][name]]
+        assert len(names) == 1 and want in names[0], (kernel, names)
 
 
 @pytest.mark.parametrize("shape,dtype", BWD_CHECKS)
@@ -107,13 +173,70 @@ def test_autograd_function_matches_autograd_of_plain_version(cuda):
         before["flash_attention_bwd_dq"] + 1
 
 
-def test_kernel_reads_strided_slices(cuda):
-    n, s, h, d = 2, 77, 4, 32
-    qkv = torch.randn(n, s, 3 * h * d, device=cuda)
-    q, k, v = (t.reshape(n, s, h, d) for t in torch.split(qkv, h * d, -1))
-    o = fa.flash_attention(q, k, v)
-    ref, _ = fa.flash_attention_reference(q, k, v)
-    torch.testing.assert_close(o, ref, atol=1e-4, rtol=1e-4)
+@pytest.mark.parametrize("shape,dtype", [((2, 77, 4, 32), torch.float32),
+                                         ((8, 256, 16, 32), torch.bfloat16)])
+def test_kernel_reads_strided_slices(cuda, shape, dtype):
+    # q/k/v as column slices of one fused projection (row stride 3 H D), in
+    # fp32 and at the training shape in bf16; forward and gradients
+    n, s, h, d = shape
+    tol = TOL[dtype]
+    g = torch.Generator(device=cuda).manual_seed(s)
+    qkv = torch.randn(n, s, 3 * h * d, generator=g, device=cuda).to(
+        dtype).requires_grad_()
+    do = torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    def run(attn):
+        q, k, v = (t.reshape(shape) for t in torch.split(qkv, h * d, -1))
+        o = attn(q, k, v)
+        return o, torch.autograd.grad(o, qkv, do)[0]
+    o, grad = run(fa.flash_attention)
+    ref, ref_grad = run(lambda q, k, v: fa.flash_attention_reference(
+        q, k, v)[0])
+    torch.testing.assert_close(o.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(grad.float(), ref_grad.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_dq_kernel_matches_plain_version_on_the_wgmma_forward_lse(cuda):
+    # K2 (FMAs) reads the lse that K1's bf16 route (wgmma) writes
+    for shape in ((8, 256, 16, 32), (1, 1000, 3, 64)):
+        g = torch.Generator(device=cuda).manual_seed(sum(shape) + 7)
+        q, k, v, do = _randn(shape, g, torch.bfloat16, 4)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        ref_o, ref_lse = fa.flash_attention_reference(q, k, v)
+        torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=2e-2)
+        scale = shape[-1] ** -0.5
+        dq = fa._launch_bwd_dq(q, k, v, lse, fa.attention_delta(o, do), do,
+                               scale)
+        torch.cuda.synchronize()
+        for lse_, o_ in ((lse, o), (ref_lse, ref_o)):
+            want = fa.flash_attention_bwd_reference(
+                q, k, v, lse_, fa.attention_delta(o_, do), do, scale)[0]
+            torch.testing.assert_close(dq.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+
+
+def test_bf16_route_refuses_unaligned_inputs(cuda):
+    n, s, h, d = 1, 8, 2, 16
+    good = torch.randn(n, s, h, d, device=cuda, dtype=torch.bfloat16)
+    flat = torch.randn(n * s * h * d + 1, device=cuda, dtype=torch.bfloat16)
+    off_by_2 = flat[1:].view(n, s, h, d)           # base pointer 2 bytes off
+    padded = torch.randn(n, s, h * d + 4, device=cuda, dtype=torch.bfloat16)
+    odd_rows = padded[..., :h * d].unflatten(-1, (h, d))  # 72-byte rows
+    o, lse = fa.flash_attention_fwd(good, good, good)
+    delta = fa.attention_delta(o, good)
+    for bad in (off_by_2, odd_rows):
+        with pytest.raises(ValueError, match="aligned"):
+            fa.flash_attention(bad, good, good)
+        with pytest.raises(ValueError, match="aligned"):
+            fa._launch_bwd_dkv(good, good, bad, lse, delta, good, 0.25)
+    # the fp32 route takes rows that are not 16-byte multiples (132 bytes)
+    rows32 = torch.randn(n, s, h * d + 1, device=cuda)[..., :h * d].unflatten(
+        -1, (h, d))
+    torch.testing.assert_close(
+        fa.flash_attention(rows32, rows32, rows32),
+        fa.flash_attention_reference(rows32, rows32, rows32)[0],
+        atol=1e-4, rtol=1e-4)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
