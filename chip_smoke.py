@@ -9,12 +9,13 @@ GPU. Run from the repository root with no arguments:
    the probes from ``csrc/`` (one ``nvcc`` per source, started together).
 3. Kernels: K1 (flash-attention forward), K2 (dQ) and K3 (dK, dV) each
    against its plain PyTorch version on the same CUDA tensors at the paths'
-   shapes, the autograd Function against autograd through the plain
-   forward; P1 and P2 (the 3×3 tap conv, each s2) against their plain
-   versions in bf16 and fp32 at the conv probe's hot site (batch 2) and at
-   a ragged shape, and against the library conv, then in bf16 at the
-   probe's own shape (batch 16); P3 (the double-buffered copy) bit for bit
-   at six chunkings and at its path's 1 GiB. For each kernel its time, its
+   shapes (K1 and K2 in bf16 at both query tilings), the autograd Function
+   against autograd through the plain forward; P1 and P2 (the 3×3 tap
+   conv, each s2) against their plain versions in bf16 and fp32 at the conv
+   probe's hot site (batch 2) and at a ragged shape, and against the
+   library conv, then in bf16 at the probe's own shape (batch 16); P3 (the
+   double-buffered copy) bit for bit at six chunkings and at its path's
+   1 GiB. For each kernel its time, its
    bound, the plain version's time and one library call's time as a
    yardstick, at its path's shape: each as device time (the kernels' own
    durations in a ``torch.profiler`` trace) and as wall time (CUDA events
@@ -48,6 +49,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -211,7 +213,7 @@ def kernel_phase():
                    for _ in range(3))
         inputs[(shape, name)] = (q, k, v)
         ref_o, ref_lse = fa.flash_attention_reference(q, k, v)
-        tiles = fa.FWD_Q_TILES if name == "bfloat16" else (None,)
+        tiles = fa.Q_TILES if name == "bfloat16" else (None,)
         for tile in tiles:
             o, lse = fa._launch(q, k, v, shape[-1] ** -0.5, q_tile=tile)
             torch.cuda.synchronize()
@@ -238,7 +240,7 @@ def kernel_phase():
         out = fa.flash_attention_fwd(q, k, v)
         rec = {"shape": list(shape), "dtype": "bfloat16"}
         # the kernel alone (outputs allocated once) at each query tiling
-        for tile in fa.FWD_Q_TILES:
+        for tile in fa.Q_TILES:
             rec[f"q_tile_{tile}_ms"], rec[f"q_tile_{tile}_wall_ms"] = timed(
                 lambda tile=tile: fa._launch(q, k, v, scale, out, tile),
                 iters, "flash_fwd_wgmma_kernel")
@@ -258,7 +260,7 @@ def kernel_phase():
         timings[label] = rec
         log(f"K1 time {label} {shape} bf16: " + ", ".join(
             f"q_tile {t} {rec[f'q_tile_{t}_ms']:.4f} ms (wall "
-            f"{rec[f'q_tile_{t}_wall_ms']:.4f})" for t in fa.FWD_Q_TILES)
+            f"{rec[f'q_tile_{t}_wall_ms']:.4f})" for t in fa.Q_TILES)
             + f"; the wrapper picks {rec['q_tile']}, its wall "
             f"{rec['wrapper_wall_ms']:.4f} ms; plain "
             f"{rec['plain_ms']:.4f} ms; sdpa {rec['library_ms']:.4f} ms "
@@ -319,19 +321,26 @@ def backward_kernel_phase():
         delta = fa.attention_delta(o, do)
         scale = shape[-1] ** -0.5
         inputs[(shape, name)] = (q, k, v, do, lse, delta, scale)
-        dq = fa._launch_bwd_dq(q, k, v, lse, delta, do, scale)
+        tiles = fa.Q_TILES if name == "bfloat16" else (None,)
+        dqs = [fa._launch_bwd_dq(q, k, v, lse, delta, do, scale, q_tile=tile)
+               for tile in tiles]
         dk, dv = fa._launch_bwd_dkv(q, k, v, lse, delta, do, scale)
         torch.cuda.synchronize()
         want = fa.flash_attention_bwd_reference(q, k, v, lse, delta, do,
                                                 scale)
-        errs = [(a.float() - b.float()).abs().max().item()
-                for a, b in zip((dq, dk, dv), want)]
+        err_dq = {tile: (dq.float() - want[0].float()).abs().max().item()
+                  for tile, dq in zip(tiles, dqs)}
+        errs = [max(err_dq.values())] + [
+            (a.float() - b.float()).abs().max().item()
+            for a, b in zip((dk, dv), want[1:])]
         rec = {"shape": list(shape), "dtype": name, "max_abs_err_dq": errs[0],
+               "max_abs_err_dq_by_q_tile": err_dq,
                "max_abs_err_dk": errs[1], "max_abs_err_dv": errs[2],
                "tol": TOL[name]}
         checks.append(rec)
-        log(f"K2/K3 check {shape} {name}: err dq {errs[0]:.3e} dk "
-            f"{errs[1]:.3e} dv {errs[2]:.3e} (tol {TOL[name]})")
+        log(f"K2/K3 check {shape} {name}: err dq " + ", ".join(
+            f"{e:.3e} (q_tile {t})" for t, e in err_dq.items())
+            + f", dk {errs[1]:.3e}, dv {errs[2]:.3e} (tol {TOL[name]})")
         if max(errs) > TOL[name]:
             raise AssertionError(f"K2/K3 disagree with their plain version "
                                  f"at {shape} {name}")
@@ -360,6 +369,7 @@ def backward_kernel_phase():
         if err > TOL[name]:
             raise AssertionError("FlashAttention gradients disagree")
 
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     timings = {}
     for label, shape, iters in (("128px_batch8", TRAIN_SHAPE, 100),
                                 ("256px_batch8", BIG_SHAPE, 10)):
@@ -367,11 +377,18 @@ def backward_kernel_phase():
         dq = torch.empty_like(q)
         dkv = (torch.empty_like(q), torch.empty_like(q))
         rec = {"shape": list(shape), "dtype": "bfloat16"}
-        # the kernels alone (outputs allocated once), then through their
-        # launch wrappers (checks and allocation on the host every call)
-        rec["dq_ms"], rec["dq_wall_ms"] = timed(
-            lambda: fa._launch_bwd_dq(q, k, v, lse, delta, do, scale, dq),
-            iters, "flash_bwd_dq_kernel<")
+        # the kernels alone (outputs allocated once; K2 at each query
+        # tiling), then through their launch wrappers (checks and
+        # allocation on the host every call)
+        for tile in fa.Q_TILES:
+            rec[f"dq_q_tile_{tile}_ms"], rec[f"dq_q_tile_{tile}_wall_ms"] = \
+                timed(lambda tile=tile: fa._launch_bwd_dq(
+                    q, k, v, lse, delta, do, scale, dq, tile),
+                    iters, "flash_bwd_dq_wgmma_kernel")
+        # the tiling the wrapper picks for this shape on this card
+        rec["dq_q_tile"] = fa.bwd_dq_q_tile(*shape[:3], sm_count)
+        rec["dq_ms"] = rec[f"dq_q_tile_{rec['dq_q_tile']}_ms"]
+        rec["dq_wall_ms"] = rec[f"dq_q_tile_{rec['dq_q_tile']}_wall_ms"]
         rec["dkv_ms"], rec["dkv_wall_ms"] = timed(
             lambda: fa._launch_bwd_dkv(q, k, v, lse, delta, do, scale, dkv),
             iters, "flash_bwd_dkv_wgmma_kernel")
@@ -396,6 +413,10 @@ def backward_kernel_phase():
             rec[kern + "_bound_ms"], rec[kern + "_bound_by"] = \
                 backward_bound_ms(shape, "bfloat16", kern)
         timings[label] = rec
+        log(f"K2 tilings {label}: " + ", ".join(
+            f"q_tile {t} {rec[f'dq_q_tile_{t}_ms']:.4f} ms (wall "
+            f"{rec[f'dq_q_tile_{t}_wall_ms']:.4f})" for t in fa.Q_TILES)
+            + f"; the wrapper picks {rec['dq_q_tile']}")
         for kern, kid in (("dq", "K2"), ("dkv", "K3")):
             log(f"{kid} time {label} {shape} bf16: kernel "
                 f"{rec[kern + '_ms']:.4f} ms (wall "
@@ -406,7 +427,10 @@ def backward_kernel_phase():
         log(f"backward {label}: plain (dq, dk, dv together) "
             f"{rec['plain_ms']:.4f} ms (wall {rec['plain_wall_ms']:.4f}); "
             f"sdpa backward {rec['library_bwd_ms']:.4f} ms (wall "
-            f"{rec['library_bwd_wall_ms']:.4f})")
+            f"{rec['library_bwd_wall_ms']:.4f}); K2 + K3 "
+            f"{rec['dq_ms'] + rec['dkv_ms']:.4f} ms, "
+            f"{(rec['dq_ms'] + rec['dkv_ms']) / rec['library_bwd_ms']:.2f}x "
+            f"the sdpa backward")
 
     main = next(r for r in checks if r["shape"] == list(TRAIN_SHAPE)
                 and r["dtype"] == "bfloat16")
@@ -422,6 +446,10 @@ def backward_kernel_phase():
             "replaces": f"joligen_tpu/ops/flash_attention.py:{line}",
             "launches": None,
             "max_abs_err": max(main[e] for e in errs),
+            **({"q_tile": t["dq_q_tile"],
+                "ms_by_q_tile": {tile: t[f"dq_q_tile_{tile}_ms"]
+                                 for tile in fa.Q_TILES}}
+               if kern == "dq" else {}),
             "ms": t[kern + "_ms"], "wall_ms": t[kern + "_wall_ms"],
             "wrapper_wall_ms": t[kern + "_wrapper_wall_ms"],
             "plain_ms": t["plain_ms"],
@@ -1133,6 +1161,22 @@ def cross_check(model):
     return err
 
 
+def ptxas_spills(ptxas):
+    """The functions of a ``-Xptxas=-v`` log whose registers spill, each
+    with its log line."""
+    spilled, fn = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
+                      line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and (int(m.group(1)) or int(m.group(2))):
+            spilled[fn] = line.strip()
+    return spilled
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1159,6 +1203,11 @@ def main():
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "(C7")):
                 log("  " + line.strip())
+        # the tensor-core kernels keep every value in registers; the fp32
+        # FMA kernels of the backward spill a few bytes at D = 32 and 64
+        spilled = [f for f in ptxas_spills(ptxas) if "wgmma" in f]
+        if spilled:
+            raise AssertionError(f"{name}: ptxas spilled in {spilled}")
 
     k1 = kernel_phase()
     k2, k3 = backward_kernel_phase()

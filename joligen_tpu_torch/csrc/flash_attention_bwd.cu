@@ -17,38 +17,50 @@
 // The TPU kernels keep a head's whole K/V (K2) or Q/dO (K3) panel resident
 // in VMEM and run their grid in order. A Hopper block has at most 227 KB of
 // shared memory and blocks run in parallel in no order, so each block owns
-// one cell of a 2-D grid -- (batch*head, 64-query tile) for K2,
-// (batch*head, 64-key tile) for K3 -- and streams 64-row tiles of the other
-// side through shared memory. Writing the backward as two kernels, as the
-// TPU does, keeps every output tile owned by one block: no atomics. Ragged S
-// is masked in the kernels: no host-side padding, nothing read past S.
-// Inputs are (B, S, H, D) with the last two dims contiguous and arbitrary
-// batch/sequence strides, so the q/k/v column slices of a fused qkv
-// projection are read in place.
+// one cell of a 2-D grid -- (batch*head, 64-query tile; 64 or 128 in bf16)
+// for K2, (batch*head, 64-key tile) for K3 -- and streams 64-row tiles of
+// the other side through shared memory. Writing the backward as two
+// kernels, as the TPU does, keeps every output tile owned by one block: no
+// atomics. Ragged S is masked in the kernels: no host-side padding, nothing
+// read past S. Inputs are (B, S, H, D) with the last two dims contiguous
+// and arbitrary batch/sequence strides, so the q/k/v column slices of a
+// fused qkv projection are read in place.
 //
-// K2, both dtypes, and K3 in fp32 run on FMAs on the CUDA cores: tiles of
-// the streamed side converted to fp32 in shared memory, four threads per
-// row of the block's own tile (its rows in registers), P and dS passed
-// between them by warp shuffles.
+// K2 and K3 in fp32 run on FMAs on the CUDA cores (they hold 1e-4; TF32
+// would not): tiles of the streamed side converted to fp32 in shared
+// memory, four threads per row of the block's own tile (its rows in
+// registers), P and dS passed between them by warp shuffles.
 //
-// K3 in bf16 runs on the tensor cores (flash_bwd_dkv_wgmma_kernel): one
-// warpgroup owns 64 keys, its K and V tiles in shared memory as bf16, and
-// 64-query tiles of Q and dO (with their lse and delta, fp32) stream through
-// a 2-stage ring by 16-byte cp.async, zero-filled past S. Per query tile,
-// four wgmma products accumulate in fp32: S^T = K.Q^T and dP^T = V.dO^T
-// (m64n64k16, both operands K-major from shared memory), then, from P^T and
-// dS^T converted to bf16 in registers as the A operand, dV += P^T.dO and
-// dK += dS^T.Q (m64nDk16, dO and Q read MN-major). lse and delta vary
-// along the accumulator's columns; queries at or past S get P = 0
-// explicitly. Tiles and descriptors: hopper_wgmma.cuh.
+// In bf16 both run on the tensor cores, from tiles kept in shared memory as
+// bf16 in the core-matrix layout of hopper_wgmma.cuh, streamed through a
+// 2-stage ring by 16-byte cp.async (zero fill past S, the next tile's copy
+// in flight during this tile's math), products accumulated in fp32:
+//
+// K2 (flash_bwd_dq_wgmma_kernel<D, WG>): a block owns WG x 64 queries of
+// one batch*head (WG = 1 or 2 warpgroups sharing each K/V tile), their Q and
+// dO tiles loaded once; each thread keeps the lse and delta of its two
+// accumulator rows in registers. Per 64-key tile and warpgroup: S = Q.K^T
+// and dP = dO.V^T (m64n64k16, both operands K-major from shared memory);
+// P and dS / sm_scale on the accumulator layout, keys at or past S given
+// P = 0 explicitly; then dQ += dS.K (m64nDk16) with dS converted to bf16 in
+// registers as the A operand and the same K tile read MN-major. sm_scale
+// is applied once, in the epilogue.
+//
+// K3 (flash_bwd_dkv_wgmma_kernel): one warpgroup owns 64 keys, its K and V
+// tiles resident, and 64-query tiles of Q and dO (with their lse and delta,
+// fp32) stream by. Per query tile, four products: S^T = K.Q^T and
+// dP^T = V.dO^T (both operands K-major), then, from P^T and dS^T converted
+// to bf16 in registers as the A operand, dV += P^T.dO and dK += dS^T.Q (dO
+// and Q read MN-major). lse and delta vary along the accumulator's columns;
+// queries at or past S get P = 0 explicitly.
 //
 // Bound. At the training path's shape (B, S, H, D) = (8, 256, 16, 32) bf16,
 // K2 moves ~10.7 MB and does 6*B*H*S^2*D = 1.61 GFLOP, K3 ~12.8 MB and
 // 2.15 GFLOP: memory-bound on paper (~0.003-0.004 ms at 3.35 TB/s). At
-// 256 px, batch 8 (S = 1024) K3 does 34.4 GFLOP, 0.035 ms on the tensor
-// cores; its 134 M exponentials take about 0.03 ms on the special-function
-// units (16 per clock per SM), so the practical floor is near 2x the
-// tensor-core bound there too.
+// 256 px, batch 8 (S = 1024) K2 does 25.8 GFLOP and K3 34.4 GFLOP, 0.026
+// and 0.035 ms on the tensor cores; each recomputes P, 134 M exponentials,
+// about 0.03 ms on the special-function units (16 per clock per SM), so the
+// practical floor is near 1-2x the tensor-core bound.
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -66,17 +78,10 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Row r (< S) of head h in batch b of a (B, S, H, D) tensor, into registers.
@@ -111,7 +116,7 @@ __device__ __forceinline__ void load_tiles(float (*sa)[D + 1],
   }
 }
 
-// K2: one block per (batch*head, 64-query tile); K and V stream by.
+// K2 in fp32: one block per (batch*head, 64-query tile); K and V stream by.
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -195,7 +200,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// K3: one block per (batch*head, 64-key tile); Q, dO, lse, delta stream by.
+// K3 in fp32: one block per (batch*head, 64-key tile); Q, dO, lse, delta
+// stream by.
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -287,9 +293,164 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- K3, bf16 route: wgmma on the tensor cores -----------------------------
+// ---- K2, bf16 route: wgmma on the tensor cores -----------------------------
 
 using bf16 = __nv_bfloat16;
+
+// Shared memory of a K2 block: WG Q tiles, WG dO tiles, then 2 K and 2 V
+// stages; every tile 64 rows x D in the core-matrix layout.
+template <int D, int WG>
+struct DqSmem {
+  static constexpr int TILE = 64 * D * 2;
+  static constexpr int DO = WG * TILE;
+  static constexpr int K = 2 * WG * TILE;
+  static constexpr int V = K + 2 * TILE;
+  static constexpr int BYTES = V + 2 * TILE;
+};
+
+template <int D, int WG>
+__global__ void __launch_bounds__(WG * 128)
+flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int S, int H, long long q_sb,
+                          long long q_ss, long long k_sb, long long k_ss,
+                          long long v_sb, long long v_ss, long long do_sb,
+                          long long do_ss, float sm_scale) {
+  using namespace jg_hopper;
+  using L = DqSmem<D, WG>;
+  constexpr int NT = WG * 128;
+  static_assert(D % 16 == 0 && D <= 64, "D: a multiple of 16, at most 64");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.y * 64 * WG;
+  const bf16* kb = k + b * k_sb + static_cast<long long>(h) * D;
+  const bf16* vb = v + b * v_sb + static_cast<long long>(h) * D;
+
+  // the Q and dO tiles and the first K/V stage: one cp.async group
+#pragma unroll
+  for (int w = 0; w < WG; ++w) {
+    load_rows<D, NT>(base + w * L::TILE,
+                     q + b * q_sb + static_cast<long long>(h) * D, q_ss,
+                     q0 + 64 * w, S);
+    load_rows<D, NT>(base + L::DO + w * L::TILE,
+                     dout + b * do_sb + static_cast<long long>(h) * D, do_ss,
+                     q0 + 64 * w, S);
+  }
+  load_rows<D, NT>(base + L::K, kb, k_ss, 0, S);
+  load_rows<D, NT>(base + L::V, vb, v_ss, 0, S);
+  cp_async_commit();
+
+  // this thread's two rows (16 * warp + lane / 4, and 8 further) of the
+  // warpgroup's 64: lse in the log2 domain and delta; 0 past S
+  const int row0 = q0 + 64 * wg + 16 * warp + (lane >> 2);
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    const bool ok = qi < S;
+    const long long stat = static_cast<long long>(bh) * S + (ok ? qi : 0);
+    lse2[r] = ok ? lse[stat] * LOG2E : 0.f;
+    dlt[r] = ok ? delta[stat] : 0.f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const float scale_log2 = sm_scale * LOG2E;
+  const uint32_t sq = base + wg * L::TILE;
+  const uint32_t sdo = base + L::DO + wg * L::TILE;
+  const int n_tiles = (S + BLOCK_K - 1) / BLOCK_K;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles) {  // the next stage's copy overlaps this tile
+      load_rows<D, NT>(base + L::K + (st ^ 1) * L::TILE, kb, k_ss,
+                       (it + 1) * BLOCK_K, S);
+      load_rows<D, NT>(base + L::V + (st ^ 1) * L::TILE, vb, v_ss,
+                       (it + 1) * BLOCK_K, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();  // this stage is in shared memory, visible to wgmma
+    const uint32_t sk = base + L::K + st * L::TILE;
+    const uint32_t sv = base + L::V + st * L::TILE;
+
+    // S = Q.K^T and dP = dO.V^T: rows are queries, columns keys
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t) {
+      wgmma_ss_n64(s, desc_k_major<64>(sq, t), desc_k_major<64>(sk, t),
+                   t > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t) {
+      wgmma_ss_n64(dp, desc_k_major<64>(sdo, t), desc_k_major<64>(sv, t),
+                   t > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS / sm_scale = P * (dP - delta), into s; register i holds row
+    // (i / 2) % 2 and key 8 * (i / 4) + 2 * (lane % 4) + i % 2 of the tile
+    const int key0 = it * BLOCK_K + 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = key0 + 8 * (i >> 2) + (i & 1) < S
+                          ? exp2f(fmaf(s[i], scale_log2, -lse2[r]))
+                          : 0.f;
+      s[i] = p * (dp[i] - dlt[r]);
+    }
+    uint32_t dsa[4][4];
+    acc_to_a_frags(s, dsa);
+
+    // dQ += dS.K: the K tile read MN-major
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      wgmma_rs<D>(acc, dsa[t], desc_mn_major<64>(sk, t));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every warpgroup is done with this stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= S) continue;
+    bf16* out = dq + ((static_cast<long long>(b) * S + qi) * H + h) * D +
+                2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] * sm_scale, acc[4 * j + 2 * r + 1] * sm_scale);
+    }
+  }
+}
+
+// ---- K3, bf16 route: wgmma on the tensor cores -----------------------------
 
 // Shared memory of a K3 block: the K and V tiles, then 2 stages of the Q
 // and dO tiles (64 rows x D each, the core-matrix layout of hopper_wgmma.cuh)
@@ -460,17 +621,36 @@ struct Args {
   int B, S, H;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss;
   float sm_scale;
+  int q_tile;  // K2 in bf16: queries per block, 64 or 128
   cudaStream_t stream;
 };
 
-template <int D, typename T>
-int launch_dq(const Args& a) {
+template <int D>
+int launch_dq_fma(const Args& a) {
   const dim3 grid(a.B * a.H, (a.S + BLOCK_Q - 1) / BLOCK_Q);
-  flash_bwd_dq_kernel<D, T><<<grid, THREADS, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dq_kernel<D, float><<<grid, THREADS, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), a.S, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss,
+      static_cast<float*>(a.out0), a.S, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss,
+      a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int WG>
+int launch_dq_wgmma(const Args& a) {
+  using L = DqSmem<D, WG>;
+  auto kernel = flash_bwd_dq_wgmma_kernel<D, WG>;
+  if (L::BYTES > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         L::BYTES);
+  }
+  const dim3 grid(a.B * a.H, (a.S + 64 * WG - 1) / (64 * WG));
+  kernel<<<grid, WG * 128, L::BYTES, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), a.S, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss,
       a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -507,11 +687,13 @@ int launch_dkv_wgmma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2 in either dtype on FMAs; K3 in fp32 on FMAs, in bf16 on wgmma.
+// fp32 on FMAs, bf16 on wgmma.
 template <int D>
 int launch_d(const Args& a, int dtype, bool dkv) {
-  if (dtype == 0) return dkv ? launch_dkv_fma<D>(a) : launch_dq<D, float>(a);
-  if (dtype == 1) return dkv ? launch_dkv_wgmma<D>(a) : launch_dq<D, bf16>(a);
+  if (dtype == 0) return dkv ? launch_dkv_fma<D>(a) : launch_dq_fma<D>(a);
+  if (dtype == 1 && dkv) return launch_dkv_wgmma<D>(a);
+  if (dtype == 1 && a.q_tile == 64) return launch_dq_wgmma<D, 1>(a);
+  if (dtype == 1 && a.q_tile == 128) return launch_dq_wgmma<D, 2>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -537,17 +719,19 @@ int dispatch(const Args& a, int D, int dtype, bool dkv) {
 // Plain C entry points (loaded with ctypes). q, k, v, dout: (B, S, H, D) with
 // element (b, s, h, d) at b * x_sb + s * x_ss + h * D + d; lse, delta:
 // contiguous (B, H, S) fp32; dq (K2) and dk, dv (K3): contiguous
-// (B, S, H, D) in the input dtype. dtype: 0 = float32, 1 = bfloat16 (K3 on
-// wgmma). Each returns the launch's cudaError_t.
+// (B, S, H, D) in the input dtype. dtype: 0 = float32 (FMA kernels),
+// 1 = bfloat16 (wgmma kernels; K2 with q_tile = 64 or 128 queries per
+// block). Each returns the launch's cudaError_t.
 extern "C" int jg_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int S, int H, int D,
     long long q_sb, long long q_ss, long long k_sb, long long k_ss,
     long long v_sb, long long v_ss, long long do_sb, long long do_ss,
-    float sm_scale, int dtype, void* stream) {
-  const Args a{q,    k,    v,    dout, lse,  delta, dq,    nullptr,
-               B,    S,    H,    q_sb, q_ss, k_sb,  k_ss,  v_sb,
-               v_ss, do_sb, do_ss, sm_scale, static_cast<cudaStream_t>(stream)};
+    float sm_scale, int dtype, int q_tile, void* stream) {
+  const Args a{q,    k,     v,     dout,     lse,    delta,
+               dq,   nullptr, B,   S,        H,      q_sb,
+               q_ss, k_sb,  k_ss,  v_sb,     v_ss,   do_sb,
+               do_ss, sm_scale, q_tile, static_cast<cudaStream_t>(stream)};
   return dispatch(a, D, dtype, false);
 }
 
@@ -559,7 +743,8 @@ extern "C" int jg_flash_attention_bwd_dkv(
     long long do_ss, float sm_scale, int dtype, void* stream) {
   const Args a{q,    k,    v,    dout, lse,  delta, dk,    dv,
                B,    S,    H,    q_sb, q_ss, k_sb,  k_ss,  v_sb,
-               v_ss, do_sb, do_ss, sm_scale, static_cast<cudaStream_t>(stream)};
+               v_ss, do_sb, do_ss, sm_scale, 64,
+               static_cast<cudaStream_t>(stream)};
   return dispatch(a, D, dtype, true);
 }
 

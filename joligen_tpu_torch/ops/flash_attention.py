@@ -15,8 +15,9 @@ cast to ``q.dtype``. When a gradient is needed it runs through
 
 - On a CUDA tensor each step launches its hand-written kernel or raises.
   There is no fallback to a library attention. ``ROUTES`` says which kernel
-  a dtype takes: in bf16, K1 and K3 run on the tensor cores (``wgmma``), K2
-  on FMAs; in fp32 all three run on FMAs, which hold 1e-4 (TF32 would not).
+  a dtype takes: in bf16, K1, K2 and K3 run on the tensor cores
+  (``wgmma``); in fp32 all three run on FMAs, which hold 1e-4 (TF32 would
+  not).
 - On a CPU tensor each step runs its plain PyTorch version
   (``flash_attention_reference``, ``flash_attention_bwd_reference``): the same
   algorithm, which the tests hold against the JAX kernels and
@@ -42,14 +43,15 @@ NEG_INF = -1e30
 BLOCK_K = 64
 SUPPORTED_HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# queries per block of K1's bf16 route: one warpgroup of 64 queries, or two
-# sharing each K/V tile (``fwd_q_tile`` picks one)
-FWD_Q_TILES = (64, 128)
+# queries per block of K1's and K2's bf16 routes: one warpgroup of 64
+# queries, or two sharing each K/V tile (``fwd_q_tile`` and ``bwd_dq_q_tile``
+# pick one)
+Q_TILES = (64, 128)
 
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0}
 ROUTES = {"flash_attention_fwd": {"float32": "fma", "bfloat16": "wgmma"},
-          "flash_attention_bwd_dq": {"float32": "fma", "bfloat16": "fma"},
+          "flash_attention_bwd_dq": {"float32": "fma", "bfloat16": "wgmma"},
           "flash_attention_bwd_dkv": {"float32": "fma", "bfloat16": "wgmma"}}
 
 
@@ -175,7 +177,8 @@ _SIGNATURES = {
     "bwd_dq": ("flash_attention_bwd", "jg_flash_attention_bwd_dq",
                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                + [ctypes.c_longlong] * 8
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p]),
     "bwd_dkv": ("flash_attention_bwd", "jg_flash_attention_bwd_dkv",
                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                 + [ctypes.c_longlong] * 8
@@ -204,17 +207,32 @@ def fwd_q_tile(b, s, h, sm_count):
     return 128 if b * h * -(-s // 128) >= sm_count else 64
 
 
+# K2's bf16 route follows the same rule: ``chip_smoke.py`` timed 128
+# queries a block faster at both of its path shapes, (8, 256, 16) and
+# (8, 1024, 16) (by about 11 % and 7 % on an H100)
+bwd_dq_q_tile = fwd_q_tile
+
+
+def _q_tile(q, q_tile):
+    """``q_tile`` if given, else what ``fwd_q_tile`` picks for q's grid (64
+    in fp32, whose FMA kernels take 64 queries a block); raises outside
+    ``Q_TILES``."""
+    if q_tile is None:
+        b, s, h, _ = q.shape
+        q_tile = 64 if q.dtype != torch.bfloat16 else fwd_q_tile(
+            b, s, h, _sm_count(q.device.index or 0))
+    if q_tile not in Q_TILES:
+        raise ValueError(f"flash_attention kernel: q_tile {q_tile} not in "
+                         f"{Q_TILES}")
+    return q_tile
+
+
 def _launch(q, k, v, sm_scale, out=None, q_tile=None):
     """Launch K1 into ``out`` = (o, lse), allocated here if None; ``q_tile``
     (bf16 only) overrides ``fwd_q_tile``."""
     b, s, h, d = q.shape
     _check_kernel_inputs(q, (("q", q), ("k", k), ("v", v)))
-    if q_tile is None:
-        q_tile = 64 if q.dtype != torch.bfloat16 else fwd_q_tile(
-            b, s, h, _sm_count(q.device.index or 0))
-    if q_tile not in FWD_Q_TILES:
-        raise ValueError(f"flash_attention kernel: q_tile {q_tile} not in "
-                         f"{FWD_Q_TILES}")
+    q_tile = _q_tile(q, q_tile)
     if out is None:
         out = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device),
                torch.empty((b, h, s), dtype=torch.float32, device=q.device))
@@ -244,15 +262,19 @@ def _bwd_inputs(q, k, v, lse, delta, do):
              v.stride(0), v.stride(1), do.stride(0), do.stride(1)])
 
 
-def _launch_bwd_dq(q, k, v, lse, delta, do, sm_scale, out=None):
-    """Launch K2 into ``out`` (dq), allocated here if None."""
+def _launch_bwd_dq(q, k, v, lse, delta, do, sm_scale, out=None,
+                   q_tile=None):
+    """Launch K2 into ``out`` (dq), allocated here if None; ``q_tile`` (bf16
+    only) overrides ``bwd_dq_q_tile``."""
     b, s, h, d = q.shape
     ptrs, strides = _bwd_inputs(q, k, v, lse, delta, do)
+    q_tile = _q_tile(q, q_tile)
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) \
         if out is None else out
     _check_out(dq, (b, s, h, d), q.dtype)
     _call("bwd_dq", "flash_attention_bwd_dq", q, *ptrs, dq.data_ptr(),
-          b, s, h, d, *strides, float(sm_scale), _DTYPE_CODES[q.dtype])
+          b, s, h, d, *strides, float(sm_scale), _DTYPE_CODES[q.dtype],
+          q_tile)
     return dq
 
 

@@ -1,7 +1,8 @@
 """What the flash-attention wrapper checks before it launches a kernel, and
 how the kernels' libraries are named, on the CPU (no card needed): the bf16
-(wgmma) route's 16-byte alignment rule, the forward's query tiling option,
-the dtype routes, and the build hash over the shared headers."""
+(wgmma) route's 16-byte alignment rule, the query tiling option of the
+forward (K1) and of the dQ backward (K2), the dtype routes, and the build
+hash over the shared headers."""
 
 import os
 
@@ -64,13 +65,33 @@ def test_bf16_outputs_must_be_aligned():
 def test_forward_query_tiling_follows_the_grid(shape, tile):
     # two warpgroups a block only where that grid still fills 132 SMs
     assert fa.fwd_q_tile(*shape, sm_count=132) == tile
-    assert tile in fa.FWD_Q_TILES
+    assert tile in fa.Q_TILES
 
 
 def test_forward_refuses_an_unknown_query_tiling():
     q = torch.randn(1, 8, 2, 16).bfloat16()
     with pytest.raises(ValueError, match="q_tile"):
         fa._launch(q, q, q, 0.25, q_tile=96)
+
+
+@pytest.mark.parametrize("shape,tile", [((1, 256, 16), 64),
+                                        ((8, 256, 16), 128),
+                                        ((8, 1024, 16), 128),
+                                        ((3, 1000, 3), 64)])
+def test_backward_query_tiling_follows_the_grid(shape, tile):
+    # K2 takes two warpgroups a block only where that grid still fills 132
+    # SMs
+    assert fa.bwd_dq_q_tile(*shape, sm_count=132) == tile
+    assert tile in fa.Q_TILES
+
+
+@pytest.mark.parametrize("q_tile", [32, 96, 256])
+def test_dq_backward_refuses_an_unknown_query_tiling(q_tile):
+    b, s, h, d = 1, 8, 2, 16
+    q = torch.randn(b, s, h, d).bfloat16()
+    lse = torch.zeros(b, h, s)
+    with pytest.raises(ValueError, match="q_tile"):
+        fa._launch_bwd_dq(q, q, q, lse, lse, q, 0.25, q_tile=q_tile)
 
 
 def test_routes_name_each_kernel_and_dtype():
@@ -80,7 +101,7 @@ def test_routes_name_each_kernel_and_dtype():
         assert routes["float32"] == "fma"
     assert fa.ROUTES["flash_attention_fwd"]["bfloat16"] == "wgmma"
     assert fa.ROUTES["flash_attention_bwd_dkv"]["bfloat16"] == "wgmma"
-    assert fa.ROUTES["flash_attention_bwd_dq"]["bfloat16"] == "fma"
+    assert fa.ROUTES["flash_attention_bwd_dq"]["bfloat16"] == "wgmma"
 
 
 def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):

@@ -68,7 +68,7 @@ def test_kernel_matches_plain_version(cuda, shape, dtype, tol):
 
 
 @pytest.mark.parametrize("shape", SHAPES + [(8, 1024, 16, 32)])
-@pytest.mark.parametrize("q_tile", fa.FWD_Q_TILES)
+@pytest.mark.parametrize("q_tile", fa.Q_TILES)
 def test_bf16_forward_matches_plain_version_at_each_query_tiling(
         cuda, shape, q_tile):
     g = torch.Generator(device=cuda).manual_seed(sum(shape) + q_tile)
@@ -104,7 +104,7 @@ def _kernel_names(fn, attempts=4):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_each_dtype_takes_its_route(cuda, dtype):
-    # bf16: K1 and K3 on wgmma, K2 on FMAs; fp32: all three on FMAs
+    # bf16: K1, K2 and K3 on wgmma; fp32: all three on FMAs
     name = str(dtype).split(".")[-1]
     q, k, v, do = (torch.randn(2, 100, 2, 32, device=cuda).to(dtype)
                    for _ in range(4))
@@ -116,7 +116,8 @@ def test_each_dtype_takes_its_route(cuda, dtype):
                     "fma": "flash_fwd_kernel<"}),
                "flash_attention_bwd_dq": (
                    lambda: fa._launch_bwd_dq(q, k, v, lse, delta, do, 0.2),
-                   {"fma": "flash_bwd_dq_kernel<"}),
+                   {"wgmma": "flash_bwd_dq_wgmma_kernel",
+                    "fma": "flash_bwd_dq_kernel<"}),
                "flash_attention_bwd_dkv": (
                    lambda: fa._launch_bwd_dkv(q, k, v, lse, delta, do, 0.2),
                    {"wgmma": "flash_bwd_dkv_wgmma_kernel",
@@ -147,6 +148,28 @@ def test_backward_kernels_match_plain_version(cuda, shape, dtype):
         assert got.dtype == dtype and got.shape == shape
         torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
                                    rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(8, 256, 16, 32), (8, 1024, 16, 32),
+                                   (2, 160, 2, 16), (2, 100, 2, 64),
+                                   *EDGE_SHAPES])
+@pytest.mark.parametrize("q_tile", fa.Q_TILES)
+def test_bf16_dq_backward_matches_plain_version_at_each_query_tiling(
+        cuda, shape, q_tile):
+    # K2 on wgmma at 64 and 128 queries a block: ragged S of 1, 63, 65, 100,
+    # 160 and 1000 against both tilings, head dims 16, 32 and 64
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + q_tile)
+    q, k, v, do = _randn(shape, g, torch.bfloat16, 4)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = fa.attention_delta(o, do)
+    scale = shape[-1] ** -0.5
+    before = fa.LAUNCHES["flash_attention_bwd_dq"]
+    dq = fa._launch_bwd_dq(q, k, v, lse, delta, do, scale, q_tile=q_tile)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bwd_dq"] == before + 1
+    want = fa.flash_attention_bwd_reference(q, k, v, lse, delta, do, scale)[0]
+    assert dq.dtype == torch.bfloat16 and dq.shape == shape
+    torch.testing.assert_close(dq.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 def test_autograd_function_matches_autograd_of_plain_version(cuda):
@@ -198,7 +221,8 @@ def test_kernel_reads_strided_slices(cuda, shape, dtype):
 
 
 def test_dq_kernel_matches_plain_version_on_the_wgmma_forward_lse(cuda):
-    # K2 (FMAs) reads the lse that K1's bf16 route (wgmma) writes
+    # K2's bf16 route reads the lse that K1's bf16 route writes, both on
+    # wgmma
     for shape in ((8, 256, 16, 32), (1, 1000, 3, 64)):
         g = torch.Generator(device=cuda).manual_seed(sum(shape) + 7)
         q, k, v, do = _randn(shape, g, torch.bfloat16, 4)
