@@ -6,14 +6,17 @@ GPU. Run from the repository root with no arguments:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. Build: compiles every kernel of the serving and training paths and of
-   the probes from ``csrc/`` (one ``nvcc`` per source, started together).
+   the probes from ``csrc/`` (one ``nvcc`` per source, started together);
+   fails if ``ptxas`` spills in a ``wgmma`` kernel or injects a
+   ``warpgroup.wait`` (C7517) anywhere.
 3. Kernels: K1 (flash-attention forward), K2 (dQ) and K3 (dK, dV) each
    against its plain PyTorch version on the same CUDA tensors at the paths'
    shapes (K1 and K2 in bf16 at both query tilings), the autograd Function
    against autograd through the plain forward; P1 and P2 (the 3×3 tap
-   conv, each s2) against their plain versions in bf16 and fp32 at the conv
-   probe's hot site (batch 2) and at a ragged shape, and against the
-   library conv, then in bf16 at the probe's own shape (batch 16); P3 (the
+   conv, each s2; bf16 on wgmma, fp32 on FMAs) against their plain versions
+   in bf16 and fp32 at the conv probe's hot site (batch 2) and at ragged
+   shapes, and against the library conv, then at the probe's own shape
+   (batch 16) in bf16, timed there in bf16 and fp32; P3 (the
    double-buffered copy) bit for bit at six chunkings and at its path's
    1 GiB. For each kernel its time, its
    bound, the plain version's time and one library call's time as a
@@ -89,9 +92,13 @@ FWD_CHECKS = [(PATH_SHAPE, "bfloat16"), (PATH_SHAPE, "float32"),
 BWD_CHECKS = [(TRAIN_SHAPE, "bfloat16"), (TRAIN_SHAPE, "float32"),
               (PATH_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
               *EDGE_CHECKS]
-# P1/P2: the probe's hot site at batch 2, and a shape whose H, W and Co are
-# not multiples of the kernels' tiles; errors relative to max |y|
-CONV_CHECKS = [((2, 128, 128, 128), 128), ((1, 37, 53, 64), 40)]
+# P1/P2: the probe's hot site at batch 2; shapes whose H, W and Co are not
+# multiples of the kernels' tiles; C = 8 and 24 (part of a 64-channel K
+# step of the wgmma route), C = 256 (two K steps a tap); errors relative to
+# max |y|
+CONV_CHECKS = [((2, 128, 128, 128), 128), ((1, 37, 53, 64), 40),
+               ((1, 13, 16, 8), 8), ((3, 21, 65, 24), 16),
+               ((2, 45, 64, 256), 72)]
 CONV_PATH_SHAPE = (16, 128, 128, 128)
 LIBRARY_CONV_TOL = 3e-2             # the probe's own tolerance
 # P3: (n_rows, row, chunk_rows, dtype): the probe's chunkings, an odd chunk
@@ -578,13 +585,15 @@ def probe_kernel_phase():
         del got
     del plain
     out = torch.empty_like(x)
-    taps = {None: w.reshape(9, c, c), "v2": conv3x3.repack_v2(w).contiguous()}
-    # each entry (device ms, wall ms)
+    taps = {None: conv3x3.kernel_taps(w, v2=False),
+            "v2": conv3x3.kernel_taps(w, v2=True)}
+    # each entry (device ms, wall ms); every launch must be the wgmma kernel
     conv_ms = {"P1": timed(lambda: conv3x3._launch(x, taps[None], 0, out),
-                           20)}
+                           20, "conv3x3_wgmma_kernel")}
     for s2 in conv3x3.STRIPS:
         conv_ms[f"P2 s2={s2}"] = timed(
-            lambda s2=s2: conv3x3._launch(x, taps["v2"], s2, out), 20)
+            lambda s2=s2: conv3x3._launch(x, taps["v2"], s2, out), 20,
+            "conv3x3_wgmma_kernel")
     plain_ms = {"P1": timed(lambda: conv3x3.conv3x3_taps_reference(x, w), 5),
                 "P2": timed(lambda: conv3x3.conv3x3_taps_v2_reference(x, w),
                             5)}
@@ -593,13 +602,32 @@ def probe_kernel_phase():
     lib_ms = timed(lambda: F.conv2d(xn, wn, padding=1), 20)
     bound, by = conv_bound_ms(CONV_PATH_SHAPE, c, "bfloat16")
     bound32, _ = conv_bound_ms(CONV_PATH_SHAPE, c, "float32")
+    flops = 2 * 9 * x.numel() * c
+    tflops = {k: flops / v[0] / 1e9 for k, v in
+              [*conv_ms.items(), ("cuDNN", lib_ms)]}
     log(f"conv times {CONV_PATH_SHAPE} bf16 (device ms, wall ms): " + ", ".join(
         f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in conv_ms.items())
         + f"; plain P1 {plain_ms['P1'][0]:.4f} / {plain_ms['P1'][1]:.4f}, "
         f"P2 {plain_ms['P2'][0]:.4f} / {plain_ms['P2'][1]:.4f}; cuDNN conv "
         f"{lib_ms[0]:.4f} / {lib_ms[1]:.4f}; bound {bound:.5f} ms ({by}), on "
-        f"fp32 FMAs {bound32:.4f} ms")
-    del x, out, taps, xn, wn
+        f"fp32 FMAs {bound32:.4f} ms; TFLOP/s " + ", ".join(
+            f"{k} {v:.1f}" for k, v in tflops.items()))
+    # fp32 stays on the FMA kernel: its time at the same shape
+    x32, w32 = x.float(), w.float()
+    out32 = torch.empty_like(x32)
+    taps32 = {None: conv3x3.kernel_taps(w32, v2=False),
+              "v2": conv3x3.kernel_taps(w32, v2=True)}
+    conv_ms_fp32 = {"P1": timed(
+        lambda: conv3x3._launch(x32, taps32[None], 0, out32), 5,
+        "conv3x3_fma_kernel")}
+    for s2 in conv3x3.STRIPS:
+        conv_ms_fp32[f"P2 s2={s2}"] = timed(
+            lambda s2=s2: conv3x3._launch(x32, taps32["v2"], s2, out32), 5,
+            "conv3x3_fma_kernel")
+    log(f"conv times {CONV_PATH_SHAPE} fp32 on FMAs (device ms, wall ms): "
+        + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}"
+                    for k, v in conv_ms_fp32.items()))
+    del x, out, taps, xn, wn, x32, w32, out32, taps32
 
     n_rows, row, chunk_rows, name = COPY_PATH
     dtype = getattr(torch, name)
@@ -624,6 +652,7 @@ def probe_kernel_phase():
 
     shape_note = f"{CONV_PATH_SHAPE} -> {c} bf16 NHWC: the probe's hot site"
     p1 = {"name": "conv3x3_taps", "route": "cuda",
+          "dtype_routes": conv3x3.ROUTES["conv3x3_taps"],
           "source": "joligen_tpu_torch/csrc/conv3x3_tap.cu",
           "replaces": "tools/fused_resblock_probe.py:43",
           "launches": None,
@@ -632,8 +661,11 @@ def probe_kernel_phase():
           "plain_ms": plain_ms["P1"][0], "plain_wall_ms": plain_ms["P1"][1],
           "bound_ms": bound, "bound_by": by, "bound_fp32_ms": bound32,
           "library_ms": lib_ms[0], "library_wall_ms": lib_ms[1],
+          "tflops": tflops["P1"], "library_tflops": tflops["cuDNN"],
+          "fp32_ms": conv_ms_fp32["P1"][0],
           "shape": shape_note, "checks": conv_checks}
     p2 = {"name": "conv3x3_taps_v2", "route": "cuda",
+          "dtype_routes": conv3x3.ROUTES["conv3x3_taps_v2"],
           "source": "joligen_tpu_torch/csrc/conv3x3_tap.cu",
           "replaces": "tools/fused_resblock_probe.py:121",
           "launches": None,
@@ -642,6 +674,11 @@ def probe_kernel_phase():
           "ms": conv_ms["P2 s2=16"][0], "wall_ms": conv_ms["P2 s2=16"][1],
           "ms_by_s2": {s2: conv_ms[f"P2 s2={s2}"][0]
                        for s2 in conv3x3.STRIPS},
+          "wall_ms_by_s2": {s2: conv_ms[f"P2 s2={s2}"][1]
+                            for s2 in conv3x3.STRIPS},
+          "tflops": tflops["P2 s2=16"], "library_tflops": tflops["cuDNN"],
+          "fp32_ms_by_s2": {s2: conv_ms_fp32[f"P2 s2={s2}"][0]
+                            for s2 in conv3x3.STRIPS},
           "plain_ms": plain_ms["P2"][0], "plain_wall_ms": plain_ms["P2"][1],
           "bound_ms": bound, "bound_by": by, "bound_fp32_ms": bound32,
           "library_ms": lib_ms[0], "library_wall_ms": lib_ms[1],
@@ -1177,6 +1214,18 @@ def ptxas_spills(ptxas):
     return spilled
 
 
+def ptxas_injected_waits(ptxas):
+    """The functions of a ``-Xptxas=-v`` log where ptxas injected a
+    ``warpgroup.wait`` (C7517) because a register defined by a wgmma was
+    used before its wait, each with its log line."""
+    injected = {}
+    for line in ptxas.splitlines():
+        if "(C7517)" in line:
+            m = re.search(r"in function '(\w+)'", line)
+            injected[m.group(1) if m else line.strip()] = line.strip()
+    return injected
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1208,6 +1257,11 @@ def main():
         spilled = [f for f in ptxas_spills(ptxas) if "wgmma" in f]
         if spilled:
             raise AssertionError(f"{name}: ptxas spilled in {spilled}")
+        # a wait ptxas injects serialises what the source overlaps
+        injected = sorted(ptxas_injected_waits(ptxas))
+        if injected:
+            raise AssertionError(f"{name}: ptxas injected warpgroup.wait "
+                                 f"(C7517) in {injected}")
 
     k1 = kernel_phase()
     k2, k3 = backward_kernel_phase()

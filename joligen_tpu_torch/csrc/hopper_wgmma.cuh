@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the bf16 attention kernels: 16-byte
-// cp.async with zero fill, the proxy fence, warpgroup MMA (wgmma) with its
-// shared-memory descriptors, and the tile layout those descriptors read.
+// Hopper (sm_90a) building blocks of the bf16 attention and conv kernels:
+// 16-byte cp.async with zero fill, the proxy fence, warpgroup MMA (wgmma)
+// with its shared-memory descriptors, and the tile layout those descriptors
+// read.
 //
 // Tile layout. A tile of R rows by C bf16 columns (C contiguous in device
 // memory, R and C multiples of 8) is kept in shared memory as 8x8 "core
@@ -18,6 +19,14 @@
 //            the next k16 slice starts 2 row groups on, 256 bytes.
 // So Q.K^T reads Q and K K-major, and P.V reads V MN-major (the transpose
 // bit of wgmma), from the very bytes the loads wrote.
+//
+// 128-byte swizzle (the conv kernel). A K-major tile whose rows are 64 bf16
+// (128 bytes) keeps row r at byte r * 128 and its 16-byte chunk c at chunk
+// position c ^ (r % 8); the tile starts on a 1024-byte boundary. Its
+// descriptor (make_desc_sw128) has SBO = 1024 (8 rows on) and the swizzle
+// mode bits; the k16 slice t starts 32 * t bytes on, and the hardware
+// applies the same XOR to the address. The 8 chunks of a row then fall on
+// 8 different bank groups, for the copies and for wgmma's own reads.
 //
 // Accumulator layout of wgmma m64nNk16 with f32 D (per PTX): warp w of the
 // warpgroup, lane l, register i in [0, N/2) holds row 16w + l/4 + 8*((i/2)%2)
@@ -120,6 +129,20 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
+// byte offset of 16-byte chunk c of row r in a 128-byte swizzled tile
+__device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
+  return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// descriptor of a K-major, 128-byte swizzled tile from addr (the tile's
+// 1024-aligned start plus 32 bytes a k16 slice): LBO unused (1), SBO 1024
+__device__ __forceinline__ uint64_t make_desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
 // descriptors of a tile of R rows at shared address addr, k16 slice t
 template <int R>
 __device__ __forceinline__ uint64_t desc_k_major(uint32_t addr, int t) {
@@ -164,6 +187,35 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64x128, f32) (+)= A . B^T, A (64x16) and B (128x16) both K-major in
+// shared memory (descriptors); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, "
+      "0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -7,6 +7,11 @@ with every geometric op applied identically to image and mask. Output is
 NHWC float32 in [-1, 1]; masks are (H, W, 1) int32. The uint8 -> [-1, 1]
 normalisation is numpy (the JAX package's numpy path; its g++ helper
 ``native/batch_ops.cpp`` is not ported, ROADMAP Queue 1 item 1).
+
+Unlike the JAX package, the port imports neither cv2 nor tifffile: the
+photometric blur is ``gaussian_blur3`` (numpy, held against cv2 by the
+tests), and a >8-bit image that PIL cannot open raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,14 +28,17 @@ def load_image(path, img_bits=8):
     base_dataset.py:513-523) keeps its native integer mode so the bit
     depth survives until normalization."""
     if img_bits > 8:
+        # The JAX package falls back to tifffile where PIL cannot open the
+        # file (multi-channel >8-bit TIFF, reference data/utils.py:5-9); the
+        # port reads through PIL only and says so
         try:
             with Image.open(path) as img:
                 return img.copy()
-        except Exception:
-            import tifffile  # multi-channel >8-bit (reference data/utils.py:5-9)
-            # PIL cannot represent (H,W,3) uint16 — hand the raw array to
-            # PairedTransform.image, which has an ndarray path for it
-            return tifffile.imread(path)
+        except Exception as e:
+            raise NotImplementedError(
+                f"{path}: PIL cannot read this {img_bits}-bit image ({e}); "
+                f"multi-channel >8-bit TIFF needs tifffile, which the port "
+                f"does not use") from e
     img = Image.open(path)
     if img.mode != "RGB":
         img = img.convert("RGB")
@@ -178,12 +186,11 @@ class PairedTransform:
         u8 = np.asarray(img, dtype=np.uint8)
         photo = params.get("photo")
         if photo:
-            import cv2
             f = u8.astype(np.float32)
             f = (f - 127.5) * photo["contrast"] + 127.5 \
                 + photo["brightness"] * 255.0
             if photo["blur"]:
-                f = cv2.GaussianBlur(f, (3, 3), 0)
+                f = gaussian_blur3(f)
             if photo["noise"] > 0:
                 f = f + np.random.randn(*f.shape).astype(np.float32) \
                     * photo["noise"] * 255.0
@@ -201,6 +208,26 @@ class PairedTransform:
         if self.mask_all_one:
             arr = (arr > 0).astype(np.int32)
         return arr[:, :, None]  # (H, W, 1) int32
+
+
+def _blur_axis(f, axis):
+    """[1, 2, 1] / 4 along ``axis`` with reflect-101 borders; an axis of
+    length 1 is left as it is."""
+    if f.shape[axis] == 1:
+        return f
+    g = np.moveaxis(f, axis, 0)
+    p = np.pad(g, [(1, 1)] + [(0, 0)] * (g.ndim - 1), mode="reflect")
+    quarter, half = np.float32(0.25), np.float32(0.5)
+    out = p[:-2] * quarter + p[1:-1] * half + p[2:] * quarter
+    return np.moveaxis(out, 0, axis)
+
+
+def gaussian_blur3(f):
+    """``cv2.GaussianBlur(f, (3, 3), 0)`` in numpy, for float32 (H, W) or
+    (H, W, C): OpenCV's fixed 3-tap table for sigma <= 0 is [1, 2, 1] / 4,
+    applied along columns and then rows, and its default border
+    ``BORDER_REFLECT_101`` is numpy's ``mode="reflect"``."""
+    return _blur_axis(_blur_axis(f, 1), 0).astype(np.float32)
 
 
 def _affine_coeffs(w, h, angle, scale, shear, tx, ty):

@@ -14,7 +14,11 @@ over the weight repacked as the JAX wrapper repacks it
 ``fused_resblock_probe.py:172``).
 
 - On a CUDA tensor each wrapper launches its kernel or raises. There is no
-  fallback to a library convolution.
+  fallback to a library convolution, nor from one route to the other.
+  ``ROUTES`` says which kernel a dtype takes: in bf16 both run one implicit
+  GEMM on the tensor cores (``wgmma``: 64 pixels of a row by 128 output
+  channels a warpgroup, K = 9C in each kernel's tap order); in fp32 both run
+  on FMAs, which hold 1e-4 (TF32 would not).
 - On a CPU tensor it runs its plain PyTorch version
   (``conv3x3_taps_reference``, ``conv3x3_taps_v2_reference``): the same
   taps in the same order, which the tests hold against the Pallas kernels
@@ -38,12 +42,17 @@ import torch.nn.functional as F
 
 from ._build import launch
 
-CHANNEL_MULTIPLE = 8      # the kernel's CK (input chunk) and OT (output group)
-STRIPS = (8, 16, 32)      # P2's row-tile heights, the TPU's s2
+# C and Co: one 16-byte copy of 8 bf16 channels (the wgmma route zero-fills a
+# part-filled 64-channel K step or 128-channel N tile); the FMA route's
+# input chunk and output group
+CHANNEL_MULTIPLE = 8
+STRIPS = (8, 16, 32)      # P2's rows a block covers, the TPU's s2
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P1 = 0                   # the kernel's variant code for P1; P2's is s2
 
 LAUNCHES = {"conv3x3_taps": 0, "conv3x3_taps_v2": 0}
+ROUTES = {"conv3x3_taps": {"float32": "fma", "bfloat16": "wgmma"},
+          "conv3x3_taps_v2": {"float32": "fma", "bfloat16": "wgmma"}}
 
 
 def _padded(x):
@@ -105,12 +114,24 @@ def _check(x, w):
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
+def kernel_taps(w, v2):
+    """The nine taps of HWIO ``w`` as the kernel of its dtype reads them, in
+    P1's order (``v2`` False: tap 3*dy+dx) or P2's (the (dx, 3C, Co)
+    repack: tap 3*dx+dy): (9, C, Co) for the fp32 FMA kernel; for the bf16
+    wgmma kernel each tap transposed, (9, Co, C), so that its rows are the
+    K-major B operand."""
+    _, _, c, co = w.shape
+    taps = (repack_v2(w) if v2 else w).reshape(9, c, co)
+    if w.dtype == torch.bfloat16:
+        taps = taps.transpose(1, 2)
+    return taps.contiguous()
+
+
 def _launch(x, taps, variant, out=None):
-    """Launch P1 (``variant`` 0, ``taps`` (9, C, Co) from HWIO) or P2
-    (``variant`` = s2, ``taps`` the (3, 3C, Co) repack) into ``out``,
-    allocated here if None."""
+    """Launch P1 (``variant`` 0) or P2 (``variant`` = s2) on ``taps`` from
+    ``kernel_taps`` into ``out``, allocated here if None."""
     b, h, wd, c = x.shape
-    co = taps.shape[-1]
+    co = taps.shape[1] if x.dtype == torch.bfloat16 else taps.shape[-1]
     if out is None:
         out = torch.empty((b, h, wd, co), dtype=x.dtype, device=x.device)
     for name, t in (("x", x), ("taps", taps), ("out", out)):
@@ -118,7 +139,8 @@ def _launch(x, taps, variant, out=None):
             raise ValueError(f"conv3x3 kernel: {name} must be contiguous and "
                              f"16-byte aligned")
     if (out.shape != (b, h, wd, co) or out.dtype != x.dtype
-            or taps.numel() != 9 * c * co or taps.dtype != x.dtype):
+            or taps.numel() != 9 * c * co or taps.dtype != x.dtype
+            or taps.ndim != 3):
         raise ValueError("conv3x3 kernel: bad taps or preallocated output")
     launch("conv3x3_tap", "jg_conv3x3_tap", _ARGTYPES, x.device,
            x.data_ptr(), taps.data_ptr(), out.data_ptr(), b, h, wd, c, co,
@@ -133,8 +155,7 @@ def conv3x3_taps(x, w):
     _check(x, w)
     if x.device.type == "cpu":
         return conv3x3_taps_reference(x, w)
-    c, co = w.shape[2], w.shape[3]
-    return _launch(x, w.contiguous().reshape(9, c, co), _P1)
+    return _launch(x, kernel_taps(w, v2=False), _P1)
 
 
 def conv3x3_taps_v2(x, w, s2=16):
@@ -145,4 +166,4 @@ def conv3x3_taps_v2(x, w, s2=16):
         raise ValueError(f"conv3x3_taps_v2: s2 = {s2} not in {STRIPS}")
     if x.device.type == "cpu":
         return conv3x3_taps_v2_reference(x, w)
-    return _launch(x, repack_v2(w).contiguous(), s2)
+    return _launch(x, kernel_taps(w, v2=True), s2)

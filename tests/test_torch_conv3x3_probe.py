@@ -139,6 +139,45 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         conv3x3.conv3x3_taps_v2(x, torch.zeros(3, 3, 16, 16), s2=4)
 
 
+def test_routes_put_bf16_on_wgmma_and_fp32_on_fmas():
+    assert conv3x3.ROUTES == {
+        name: {"float32": "fma", "bfloat16": "wgmma"}
+        for name in ("conv3x3_taps", "conv3x3_taps_v2")}
+    assert set(conv3x3.ROUTES) == set(conv3x3.LAUNCHES)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_taps_follow_each_kernels_order_and_route(dtype):
+    # tap j of P1 is w[j // 3, j % 3], of P2 w[j % 3, j // 3] (dx outer);
+    # the fp32 kernel reads it as (C, Co), the bf16 one transposed (Co, C)
+    _, w = _inputs(12, shape=(1, 4, 4, 16), co=24)
+    tw = torch.from_numpy(w).to(getattr(torch, dtype))
+    for v2 in (False, True):
+        taps = conv3x3.kernel_taps(tw, v2=v2)
+        assert taps.is_contiguous() and taps.dtype == tw.dtype
+        for j in range(9):
+            dy, dx = (j % 3, j // 3) if v2 else (j // 3, j % 3)
+            want = tw[dy, dx] if dtype == "float32" else tw[dy, dx].T
+            assert torch.equal(taps[j], want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,co", [((1, 13, 16, 8), 8),
+                                      ((3, 21, 65, 24), 16)])
+def test_wrappers_take_channels_in_eights(shape, co, dtype):
+    # C = 8 and 24 fill part of the wgmma route's 64-channel K step (and
+    # half a k16 slice); the wrappers take them, as they did on FMAs
+    x, w = _inputs(9 + shape[-1], shape=shape, co=co)
+    want = _numpy_conv(x, w)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    tw = torch.from_numpy(w).to(getattr(torch, dtype))
+    for got in (conv3x3.conv3x3_taps(tx, tw),
+                *(conv3x3.conv3x3_taps_v2(tx, tw, s2=s2)
+                  for s2 in conv3x3.STRIPS)):
+        assert got.shape == (*shape[:3], co) and got.dtype == tx.dtype
+        assert _rel_err(got.float().numpy(), want) <= TOL[dtype]
+
+
 def test_library_conv_matches_xla_conv(jax_probe):
     x, w = _inputs(5)
     (jx, tx), (jw, tw) = _both(x, "bfloat16"), _both(w, "bfloat16")

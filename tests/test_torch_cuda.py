@@ -1,6 +1,7 @@
 """Kernels K1 (csrc/flash_attention_fwd.cu), K2 and K3
 (csrc/flash_attention_bwd.cu), P1 and P2 (csrc/conv3x3_tap.cu) and P3
-(csrc/dma_copy.cu) on the card, against their plain PyTorch versions; one
+(csrc/dma_copy.cu) on the card, against their plain PyTorch versions, each
+dtype on its route (``ROUTES``); one
 training step of a small palette model counting one launch of each attention
 kernel; and one run of each probe counting its kernels' launches. Marked
 ``cuda``: they skip without a CUDA device. This file imports neither jax nor
@@ -322,33 +323,89 @@ def test_training_step_launches_each_kernel_once(cuda, tmp_path):
     assert torch.isfinite(losses["G_tot"]).item()
 
 
-# P1/P2: the probe's hot site at batch 2, and a shape whose H, W and Co are
-# not multiples of the kernels' tiles (8 or 16 or 32 rows, 32 or 16 or 8
-# columns, 64 output channels)
-CONV_CHECKS = [((2, 128, 128, 128), 128), ((1, 37, 53, 64), 40)]
+# P1/P2: the probe's hot site at batch 2; shapes whose H, W and Co are not
+# multiples of the kernels' tiles (bf16: 8, 16 or 32 rows, 64 columns, 128
+# output channels; fp32: 32, 16 or 8 columns, 64 output channels); C = 8 and
+# 24, which fill part of a 64-channel K step (and one 16-channel k16 slice
+# by half); C = 256, two K steps a tap, beside Co = 72
+CONV_CHECKS = [((2, 128, 128, 128), 128), ((1, 37, 53, 64), 40),
+               ((1, 13, 16, 8), 8), ((3, 21, 65, 24), 16),
+               ((2, 45, 64, 256), 72)]
 CONV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # of max |y|
+
+
+def _conv_inputs(cuda, shape, co, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w = (torch.randn((3, 3, shape[-1], co), generator=g, device=cuda)
+         / (9 * shape[-1]) ** 0.5).to(dtype)
+    return x, w
+
+
+def _conv_call(s2):
+    """P1 (``s2`` None) or P2 at ``s2``: (kernel name, wrapper, plain
+    version)."""
+    if s2 is None:
+        return ("conv3x3_taps", conv3x3.conv3x3_taps,
+                conv3x3.conv3x3_taps_reference)
+    return ("conv3x3_taps_v2",
+            lambda x, w: conv3x3.conv3x3_taps_v2(x, w, s2=s2),
+            conv3x3.conv3x3_taps_v2_reference)
 
 
 @pytest.mark.parametrize("shape,co", CONV_CHECKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s2", [None, 8, 16, 32])       # None: P1
 def test_conv_kernels_match_plain_version(cuda, shape, co, dtype, s2):
-    g = torch.Generator(device=cuda).manual_seed(sum(shape) + co)
-    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
-    w = (torch.randn((3, 3, shape[-1], co), generator=g, device=cuda)
-         / (9 * shape[-1]) ** 0.5).to(dtype)
+    name, fn, plain = _conv_call(s2)
+    x, w = _conv_inputs(cuda, shape, co, dtype, sum(shape) + co)
     before = dict(conv3x3.LAUNCHES)
-    if s2 is None:
-        name = "conv3x3_taps"
-        got = conv3x3.conv3x3_taps(x, w)
-        want = conv3x3.conv3x3_taps_reference(x, w)
-    else:
-        name = "conv3x3_taps_v2"
-        got = conv3x3.conv3x3_taps_v2(x, w, s2=s2)
-        want = conv3x3.conv3x3_taps_v2_reference(x, w)
+    got = fn(x, w)
+    want = plain(x, w)
     torch.cuda.synchronize()
     assert conv3x3.LAUNCHES[name] == before[name] + 1
     assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err.item() <= CONV_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s2", [None, 8, 16, 32])
+def test_conv_dtype_takes_its_route(cuda, dtype, s2):
+    # bf16: the implicit GEMM on wgmma; fp32: the FMA kernel; one launch a
+    # call either way
+    name, fn, _ = _conv_call(s2)
+    x, w = _conv_inputs(cuda, (1, 16, 64, 32), 32, dtype, 3)
+    names = _kernel_names(lambda: fn(x, w))
+    want = {"wgmma": "conv3x3_wgmma_kernel",
+            "fma": "conv3x3_fma_kernel"}[
+        conv3x3.ROUTES[name][str(dtype).split(".")[-1]]]
+    # the wrapper lays the taps out on the card before the launch
+    kernels = [n for n in names if "conv3x3" in n]
+    assert len(kernels) == 1 and want in kernels[0], names
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s2", [None, 8, 16, 32])
+def test_conv_reads_nothing_beside_the_input(cuda, dtype, s2):
+    # x and w are views into buffers that hold NaN right after them (and
+    # before x): zero padding, ragged tiles and part-filled K steps must
+    # never read there. C = 24 fills half of a k16 slice; W = 65 and Co = 16
+    # are ragged.
+    _, fn, plain = _conv_call(s2)
+    shape, co = (2, 11, 65, 24), 16
+    x0, w0 = _conv_inputs(cuda, shape, co, dtype, 9)
+    nan = float("nan")
+    xbuf = torch.full((x0.numel() + 64,), nan, dtype=dtype, device=cuda)
+    x = xbuf[32:32 + x0.numel()].view(shape)
+    x.copy_(x0)
+    wbuf = torch.full((w0.numel() + 64,), nan, dtype=dtype, device=cuda)
+    w = wbuf[:w0.numel()].view(w0.shape)
+    w.copy_(w0)
+    got = fn(x, w)
+    torch.cuda.synchronize()
+    want = plain(x0, w0)
+    assert torch.isfinite(got).all()
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert err.item() <= CONV_TOL[dtype]
 

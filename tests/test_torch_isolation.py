@@ -1,7 +1,7 @@
-"""The port stands alone: it imports with jax, flax, jaxlib, msgpack and the
-JAX package blocked (every module, the training slice's and the probes'
-included), no source
-file of it (nor chip_smoke.py) imports them, and without a CUDA device its
+"""The port stands alone: it imports with jax, flax, jaxlib, msgpack, the
+JAX package, cv2 and tifffile blocked (every module, the training slice's
+and the probes' included), no source file of it (nor chip_smoke.py) imports
+them, and without a CUDA device its
 entry points (model, serving script, train CLI) raise unless the CPU is
 asked for."""
 
@@ -16,7 +16,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "joligen_tpu_torch")
-BLOCKED = ("jax", "flax", "jaxlib", "msgpack", "joligen_tpu")
+# cv2 and tifffile: outside the port's allowed set (torch, numpy, PIL and
+# the standard library), though the JAX package imports both
+BLOCKED = ("jax", "flax", "jaxlib", "msgpack", "joligen_tpu", "cv2",
+           "tifffile")
 
 
 def _blocked(name):
@@ -28,6 +31,8 @@ def test_blocked_names_are_exact():
     assert _blocked("joligen_tpu") and _blocked("joligen_tpu.ops")
     assert _blocked("jax.numpy") and not _blocked("joligen_tpu_torch")
     assert not _blocked("jaxtyping") and not _blocked("msgpack_numpy")
+    assert _blocked("cv2") and _blocked("tifffile")
+    assert not _blocked("cv2x") and not _blocked("tifffile_plugins")
 
 
 IMPORT_ALL = r"""
