@@ -16,9 +16,12 @@ GPU. Run from the repository root with no arguments:
    conv, each s2; bf16 on wgmma, fp32 on FMAs) against their plain versions
    in bf16 and fp32 at the conv probe's hot site (batch 2) and at ragged
    shapes, and against the library conv, then at the probe's own shape
-   (batch 16) in bf16, timed there in bf16 and fp32; P3 (the
-   double-buffered copy) bit for bit at six chunkings and at its path's
-   1 GiB. For each kernel its time, its
+   (batch 16) in bf16, timed there in bf16 and fp32; P3 (the chunked copy
+   through TMA bulk copies on a persistent grid) bit for bit on random
+   bits at fourteen chunkings, each with the grid it launched, then timed
+   and checked at its path's 1 GiB in both dtypes at 256, 1024 and 4096
+   rows a chunk, beside ``Tensor.copy_`` in both dtypes. For each kernel
+   its time, its
    bound, the plain version's time and one library call's time as a
    yardstick, at its path's shape: each as device time (the kernels' own
    durations in a ``torch.profiler`` trace) and as wall time (CUDA events
@@ -102,11 +105,19 @@ CONV_CHECKS = [((2, 128, 128, 128), 128), ((1, 37, 53, 64), 40),
 CONV_PATH_SHAPE = (16, 128, 128, 128)
 LIBRARY_CONV_TOL = 3e-2             # the probe's own tolerance
 # P3: (n_rows, row, chunk_rows, dtype): the probe's chunkings, an odd chunk
-# count, a single chunk, chunks ending in a partial tile, odd tile counts
+# count, a single chunk, chunks of 24 KiB and 48 KiB, chunks of 24000 and
+# 20000 bytes ending in a short tile; fewer items than blocks (one 2 KiB
+# chunk); a block that wraps the ring many times (256 MiB); blocks whose
+# items come from several chunks; chunks of one row, down to 16-byte items
 COPY_CHECKS = [(4096, 1024, 256, "float32"), (4096, 1024, 1024, "bfloat16"),
                (4096, 1024, 4096, "float32"), (768, 1024, 256, "float32"),
-               (1200, 1024, 12, "bfloat16"), (60, 1024, 12, "float32")]
-COPY_PATH = (262_144, 1024, 1024, "float32")     # 1 GiB, the probe's shape
+               (1200, 1024, 12, "bfloat16"), (60, 1024, 12, "float32"),
+               (1200, 1000, 12, "bfloat16"), (60, 1000, 5, "float32"),
+               (1, 1024, 1, "bfloat16"), (65536, 1024, 256, "float32"),
+               (16392, 1024, 12, "bfloat16"), (4800, 1024, 10, "float32"),
+               (1000, 1024, 1, "float32"), (2048, 8, 1, "bfloat16")]
+COPY_WRAP_CHECK = (65536, 1024, 256, "float32")
+COPY_PATH = (1024, 1024, "float32")     # the probe's 1 GiB, row, ms dtype
 PROBE_ITERS = 32
 TRACE_ATTEMPTS = 4                  # traces of one timing, at most
 
@@ -496,7 +507,7 @@ def probe_kernel_phase():
     import torch.nn.functional as F
     from joligen_tpu_torch.ops import conv3x3
     from joligen_tpu_torch.ops import copy as dma
-    from joligen_tpu_torch.tools.bw_probe3 import source
+    from joligen_tpu_torch.tools.bw_probe3 import CHUNK_ROWS
     from joligen_tpu_torch.tools.fused_resblock_probe import conv_library
 
     dev = torch.device("cuda")
@@ -537,23 +548,29 @@ def probe_kernel_phase():
 
     copy_checks = []
     for n_rows, row, chunk_rows, name in COPY_CHECKS:
-        dtype = getattr(torch, name)
-        bits = torch.int32 if name == "float32" else torch.int16
-        info = torch.iinfo(bits)
-        x = torch.randint(info.min, info.max, (n_rows, row), generator=gen,
-                          device=dev, dtype=bits).view(dtype)
-        y = dma.make_copy(n_rows, row, chunk_rows, dtype, dev)(x)
+        x, bits = dma.random_bits((n_rows, row), getattr(torch, name), gen)
+        y = dma.make_copy(n_rows, row, chunk_rows, x.dtype, dev)(x)
         plain = dma.copy_reference(x, chunk_rows)
         torch.cuda.synchronize()
         exact = torch.equal(y.view(bits), x.view(bits)) and torch.equal(
             plain.view(bits), x.view(bits))
+        plan = dma.launch_plan(n_rows // chunk_rows,
+                               chunk_rows * row * x.element_size(), dev)
         copy_checks.append({"n_rows": n_rows, "row": row,
                             "chunk_rows": chunk_rows, "dtype": name,
-                            "chunks": n_rows // chunk_rows, "exact": exact})
+                            "chunks": n_rows // chunk_rows, **plan,
+                            "exact": exact})
         log(f"P3 check ({n_rows}, {row}) {name} chunk_rows {chunk_rows} "
-            f"({n_rows // chunk_rows} chunks): exact {exact}")
+            f"({n_rows // chunk_rows} chunks, {plan['items']} items, grid "
+            f"{plan['grid']}, {plan['items'] // plan['grid']}+ items a "
+            f"block): exact {exact}")
         if not exact:
             raise AssertionError("P3 is not an exact copy")
+        if (n_rows, row, chunk_rows, name) == COPY_WRAP_CHECK and not (
+                plan["items"] // plan["grid"] > 3 * plan["stages"]):
+            raise AssertionError("P3's wrap check wraps the ring fewer "
+                                 "than three times a block")
+        del x, y, plain
 
     # the probe's shape: each wrapper against its plain version, then the
     # times of the kernels alone (outputs allocated once)
@@ -629,26 +646,53 @@ def probe_kernel_phase():
                     for k, v in conv_ms_fp32.items()))
     del x, out, taps, xn, wn, x32, w32, out32, taps32
 
-    n_rows, row, chunk_rows, name = COPY_PATH
-    dtype = getattr(torch, name)
-    src = source(n_rows, row, dtype, dev)
-    dst = torch.empty_like(src)
-    copy_ms = timed(lambda: dma._launch(src, chunk_rows, dst), 10)
-    copy_err = (dst.float() - src.float()).abs().max().item()
-    if copy_err != 0:
-        raise AssertionError(f"P3 is not an exact copy at {COPY_PATH}")
-    copy_plain = timed(lambda: dma.copy_reference(src, chunk_rows), 5)
-    copy_lib = timed(lambda: dst.copy_(src), 10)
-    nbytes = src.numel() * src.element_size()
+    # the probe's cases over 1 GiB, each dtype beside copy_: (device ms,
+    # wall ms), every launch the kernel; the output is set to the
+    # complement of the input before each case and held against it after
+    # its timed calls: the elements whose bits differ, and the largest
+    # |dst - src| among them (inf where only one is NaN), both 0 when exact
+    mib, row, path_name = COPY_PATH
+    nbytes = mib * 2**20
     copy_bound = 2 * nbytes / PEAK_BYTES_PER_S * 1e3
-    log(f"P3 time ({n_rows}, {row}) {name} chunk_rows {chunk_rows}: kernel "
-        f"{copy_ms[0]:.4f} ms ({2 * nbytes / copy_ms[0] / 1e6:.1f} GB/s; "
-        f"wall {copy_ms[1]:.4f}), plain {copy_plain[0]:.4f} ms (wall "
-        f"{copy_plain[1]:.4f}), copy_ {copy_lib[0]:.4f} ms "
-        f"({2 * nbytes / copy_lib[0] / 1e6:.1f} GB/s; wall "
-        f"{copy_lib[1]:.4f}), bound {copy_bound:.4f} ms (bytes)")
-    del src, dst
-    torch.cuda.empty_cache()
+    copy_ms, copy_lib, copy_plans, copy_diff = {}, {}, {}, {}
+    for name in ("float32", "bfloat16"):
+        n_rows = nbytes // (row * (4 if name == "float32" else 2))
+        src, bits = dma.random_bits((n_rows, row), getattr(torch, name), gen)
+        dst = torch.empty_like(src)
+        for chunk_rows in CHUNK_ROWS:
+            case = f"{name} {chunk_rows}"
+            torch.bitwise_not(src.view(bits), out=dst.view(bits))
+            copy_ms[case] = timed(lambda: dma._launch(src, chunk_rows, dst),
+                                  10, "dma_copy_kernel")
+            differ = dst.view(bits) != src.view(bits)
+            err = torch.where(differ, (dst.float() - src.float()).abs()
+                              .nan_to_num(nan=float("inf")), 0.0)
+            copy_diff[case] = {"elements": differ.count_nonzero().item(),
+                               "max_abs_err": err.max().item()}
+            del differ, err
+            if copy_diff[case]["elements"]:
+                raise AssertionError(f"P3 is not an exact copy at 1 GiB "
+                                     f"{case}: {copy_diff[case]}")
+            copy_plans[case] = dma.launch_plan(
+                n_rows // chunk_rows, chunk_rows * row * src.element_size(),
+                dev)
+            ms, wall = copy_ms[case]
+            log(f"P3 time ({n_rows}, {row}) {name} chunk_rows {chunk_rows}: "
+                f"{ms:.4f} ms ({2 * nbytes / ms / 1e6:.1f} GB/s, "
+                f"{copy_bound / ms:.1%} of the bound; wall {wall:.4f}), "
+                f"{copy_plans[case]}")
+        copy_lib[name] = timed(lambda: dst.copy_(src), 10)
+        log(f"copy_ time ({n_rows}, {row}) {name}: {copy_lib[name][0]:.4f} "
+            f"ms ({2 * nbytes / copy_lib[name][0] / 1e6:.1f} GB/s; wall "
+            f"{copy_lib[name][1]:.4f})")
+        if name == path_name:
+            # the plain version: one strided copy a tile of the chunk
+            copy_plain = timed(lambda: dma.copy_reference(src, 1024), 5)
+            log(f"P3 plain ({n_rows}, {row}) {name} chunk_rows 1024: "
+                f"{copy_plain[0]:.4f} ms (wall {copy_plain[1]:.4f})")
+        del src, dst
+        torch.cuda.empty_cache()
+    log(f"P3 bound over 1 GiB: {copy_bound:.4f} ms (bytes)")
 
     shape_note = f"{CONV_PATH_SHAPE} -> {c} bf16 NHWC: the probe's hot site"
     p1 = {"name": "conv3x3_taps", "route": "cuda",
@@ -683,15 +727,26 @@ def probe_kernel_phase():
           "bound_ms": bound, "bound_by": by, "bound_fp32_ms": bound32,
           "library_ms": lib_ms[0], "library_wall_ms": lib_ms[1],
           "shape": shape_note + "; ms at s2 = 16"}
+    path_case = f"{path_name} 1024"
     p3 = {"name": "dma_copy", "route": "cuda",
           "source": "joligen_tpu_torch/csrc/dma_copy.cu",
           "replaces": "tools/bw_probe3.py:24", "launches": None,
-          "max_abs_err": copy_err, "ms": copy_ms[0], "wall_ms": copy_ms[1],
+          "max_abs_err": max(d["max_abs_err"] for d in copy_diff.values()),
+          "bit_mismatches_by_case": {k: d["elements"]
+                                     for k, d in copy_diff.items()},
+          "ms": copy_ms[path_case][0],
+          "wall_ms": copy_ms[path_case][1],
+          "ms_by_case": {k: v[0] for k, v in copy_ms.items()},
+          "wall_ms_by_case": {k: v[1] for k, v in copy_ms.items()},
+          "plan_by_case": copy_plans,
           "plain_ms": copy_plain[0], "plain_wall_ms": copy_plain[1],
           "bound_ms": copy_bound, "bound_by": "bytes",
-          "library_ms": copy_lib[0], "library_wall_ms": copy_lib[1],
-          "shape": f"({n_rows}, {row}) {name}, chunk_rows {chunk_rows}: "
-                   "1 GiB", "checks": copy_checks}
+          "library_ms": copy_lib[path_name][0],
+          "library_wall_ms": copy_lib[path_name][1],
+          "library_ms_by_dtype": {k: v[0] for k, v in copy_lib.items()},
+          "shape": f"1 GiB of {row}-element rows, {path_name}, chunk_rows "
+                   "1024 (ms_by_case: 'dtype chunk_rows')",
+          "checks": copy_checks}
     return p1, p2, p3
 
 

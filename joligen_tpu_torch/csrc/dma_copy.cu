@@ -1,107 +1,218 @@
-// Double-buffered copy for Hopper (sm_90a): kernel P3 of the port.
+// Exact chunked copy for Hopper (sm_90a) through the Tensor Memory
+// Accelerator: kernel P3 of the port.
 //
 // Replaces the Pallas TPU kernel tools/bw_probe3.py::make_copy (kernel at
 // :28, pallas_call at :80): an exact copy of an (n_rows, row) array from
 // device memory through fast on-chip memory back to device memory, in chunks
-// of chunk_rows rows, double-buffered.
-//
-// Mapping. The TPU kernel is one program that walks the chunks in order and
-// DMAs a whole chunk (up to 4096 rows x 4 KiB = 16 MiB) into one of two VMEM
-// slots. A Hopper block has at most 227 KB of shared memory and blocks run in
-// parallel, so here a chunk is the unit of work of one block: block i copies
-// chunk i (grid = n_chunks) through two fixed 16 KiB tiles of shared memory.
-// Each thread moves 16-byte vectors: cp.async loads global -> shared into one
-// tile while the other tile is stored shared -> global with vectorised
-// stores. The WAR guard of the TPU kernel (:48-54: wait for a slot's
-// outgoing DMA before loading into the slot again) is the barrier after each
-// tile's store: the load that refills a tile is issued only after every
-// thread has read that tile out. A chunk whose bytes are not a multiple of
-// the tile ends in a partial tile (predicated).
+// of chunk_rows rows, a slot refilled only after its outgoing copy has read
+// it out (:48-54), every outgoing copy drained before the end (:65-69).
 //
 // Bound. 2 bytes move per byte of the array (each read once, written once):
-// 2 GiB for the probe's 1 GiB array, 0.64 ms at the 3.35 TB/s of the H100
-// SXM data sheet (700 W). The chunking sets the grid: 4096-row chunks of a
-// 1 GiB fp32 array are 64 blocks for 132 SMs, and 256-row chunks are 1024
-// blocks, more than the card holds at once (48 registers a thread allow 5
-// blocks a SM, 660 in all), so a partial second wave follows.
+// 2 GiB for the probe's 1 GiB array, 0.641 ms at the 3.35 TB/s of the H100
+// SXM data sheet (700 W). Nothing else bounds a copy, so the design is about
+// keeping every SM's copies in flight with nothing between them.
+//
+// Design. The TPU kernel walks the chunks in order on one core. Here:
+// - Work items, not chunks, set the grid. An item is one tile of TILE_BYTES
+//   of one chunk; a chunk whose bytes are not a multiple of the tile ends in
+//   one shorter item, so no item crosses a chunk edge (as the TPU's DMAs end
+//   at chunk edges). The grid is persistent: one block on each SM, never
+//   more blocks than items, and block b walks items b, b + grid, ...,
+//   so the whole grid moves through the array together. Every chunking
+//   keeps every SM busy (the earlier kernel, one block a chunk, left 68 of
+//   132 SMs idle at 4096-row chunks of 1 GiB: 2.35 TB/s against 2.80 at
+//   1024 rows).
+// - One thread issues everything: 1D TMA bulk copies (no tensor map) load
+//   items into a ring of STAGES tiles in dynamic shared memory, each stage
+//   with an mbarrier armed for its item's bytes, and bulk copies store each
+//   landed tile back. No thread touches the data, so no registers, address
+//   arithmetic or barriers sit between the copies (a cp.async copy through
+//   256 threads held 48 registers a thread and two barriers a tile).
+// - The WAR guard of the TPU kernel becomes cp.async.bulk.wait_group.read
+//   before a stage is refilled: the stage refilled after item k's store is
+//   item k-1's, so only the newest store may still be reading.
+// - Bytes in flight: seven 4 KiB loads a SM (28 KiB) while one tile's
+//   store reads out, in 32,832 bytes of shared memory (under the 48 KB a
+//   launch gets without opting in). On the H100 larger rings (up to 192 KiB
+//   of loads in flight a SM) or two blocks a SM were no faster
+//   (PERF.md section 6).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int VECS_PER_THREAD = 4;
-constexpr int TILE_VECS = THREADS * VECS_PER_THREAD;  // 16 KiB of uint4
+// ops/copy.py::TILE_BYTES holds the same value (its tiling of the plain
+// version); one mbarrier phase counts at most 2^20 - 1 bytes
+constexpr long long TILE_BYTES = 4096;
+constexpr int STAGES = 8;
+constexpr int THREADS = 32;
+constexpr int SMEM_BYTES = STAGES * TILE_BYTES + STAGES * 8;  // ring, barriers
+static_assert(SMEM_BYTES <= 48 * 1024, "above 48 KB a launch must opt in");
+static_assert(TILE_BYTES < (1 << 20), "one mbarrier phase's byte count");
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+
+// One block's walk over its items, blockIdx.x + k * gridDim.x for k = 0, 1,
+// ...: the item's chunk and its tile in the chunk, advanced by gridDim.x
+// items a step without a division.
+struct Walk {
+  long long chunk, tile;
+
+  __device__ long long offset(long long chunk_bytes) const {
+    return chunk * chunk_bytes + tile * TILE_BYTES;
+  }
+  __device__ uint32_t bytes(long long chunk_bytes) const {
+    const long long left = chunk_bytes - tile * TILE_BYTES;
+    return static_cast<uint32_t>(left < TILE_BYTES ? left : TILE_BYTES);
+  }
+  __device__ void step(long long chunk_step, long long tile_step,
+                       long long tiles_per_chunk) {
+    chunk += chunk_step;
+    tile += tile_step;
+    if (tile >= tiles_per_chunk) {
+      tile -= tiles_per_chunk;
+      ++chunk;
+    }
+  }
+};
 
 __global__ void __launch_bounds__(THREADS)
-dma_copy_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
-                long long chunk_vecs) {
-  __shared__ uint4 tile[2][TILE_VECS];
-  const long long base = static_cast<long long>(blockIdx.x) * chunk_vecs;
-  const int n_tiles = static_cast<int>((chunk_vecs + TILE_VECS - 1) / TILE_VECS);
-  const int tid = threadIdx.x;
+dma_copy_kernel(const char* __restrict__ src, char* __restrict__ dst,
+                long long chunk_bytes, long long tiles_per_chunk,
+                long long n_items) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if (threadIdx.x != 0) return;
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t bars = ring + STAGES * TILE_BYTES;
+  for (int s = 0; s < STAGES; ++s) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bars + 8 * s)
+                 : "memory");
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 
-  auto load = [&](int t, int slot) {
-    const long long off = static_cast<long long>(t) * TILE_VECS;
-#pragma unroll
-    for (int k = 0; k < VECS_PER_THREAD; ++k) {
-      const int v = k * THREADS + tid;
-      if (off + v < chunk_vecs) cp_async16(&tile[slot][v], src + base + off + v);
-    }
-    cp_async_commit();
+  const long long n_mine =
+      (n_items - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const long long chunk_step = gridDim.x / tiles_per_chunk;
+  const long long tile_step = gridDim.x % tiles_per_chunk;
+  // loads run up to STAGES items ahead of the stores
+  Walk in{blockIdx.x / tiles_per_chunk, blockIdx.x % tiles_per_chunk};
+  Walk out = in;
+  int in_stage = 0, out_stage = 0;
+  uint32_t out_phase = 0;
+  auto load = [&]() {
+    const uint32_t bar = bars + 8 * in_stage;
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%2], [%3], %1, [%0];\n" ::"r"(bar),
+        "r"(in.bytes(chunk_bytes)),
+        "r"(ring + in_stage * static_cast<uint32_t>(TILE_BYTES)),
+        "l"(src + in.offset(chunk_bytes))
+        : "memory");
+    in.step(chunk_step, tile_step, tiles_per_chunk);
+    in_stage = in_stage + 1 == STAGES ? 0 : in_stage + 1;
   };
 
-  load(0, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int slot = t & 1;
-    // the other tile was read out by tile t-1's store (barrier below)
-    if (t + 1 < n_tiles) {
-      load(t + 1, slot ^ 1);
-      cp_async_wait<1>();  // tile t has landed, tile t+1 may be in flight
-    } else {
-      cp_async_wait<0>();
+  long long issued = 0;
+  for (; issued < n_mine && issued < STAGES; ++issued) load();
+  for (long long k = 0; k < n_mine; ++k) {
+    mbar_wait(bars + 8 * out_stage, out_phase);
+    // the tile was written and is read by the async proxy only; the fence
+    // orders the two across this thread's wait at no measurable cost
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        "cp.async.bulk.commit_group;\n" ::"l"(dst + out.offset(chunk_bytes)),
+        "r"(ring + out_stage * static_cast<uint32_t>(TILE_BYTES)),
+        "r"(out.bytes(chunk_bytes))
+        : "memory");
+    out.step(chunk_step, tile_step, tiles_per_chunk);
+    if (++out_stage == STAGES) {
+      out_stage = 0;
+      out_phase ^= 1;
     }
-    __syncthreads();
-    const long long off = static_cast<long long>(t) * TILE_VECS;
-#pragma unroll
-    for (int k = 0; k < VECS_PER_THREAD; ++k) {
-      const int v = k * THREADS + tid;
-      if (off + v < chunk_vecs) dst[base + off + v] = tile[slot][v];
+    if (k >= 1 && issued < n_mine) {
+      // item k-1's stage (issued == k - 1 + STAGES) is refilled once its
+      // store has read it out; item k's store may still be reading
+      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+      load();
+      ++issued;
     }
-    __syncthreads();  // WAR guard: tile[slot] is read out before its refill
   }
+  // drain: no store may outlive the block's shared memory
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The launch's shape: plan[0..4] = grid, stages, dynamic shared memory
+// bytes, tile bytes, work items.
+int plan_launch(long long n_chunks, long long chunk_bytes, long long* plan) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles_per_chunk =
+      (chunk_bytes + TILE_BYTES - 1) / TILE_BYTES;
+  const long long n_items = n_chunks * tiles_per_chunk;
+  plan[0] = n_items < sms ? n_items : sms;
+  plan[1] = STAGES;
+  plan[2] = SMEM_BYTES;
+  plan[3] = TILE_BYTES;
+  plan[4] = n_items;
+  return 0;
+}
+
+bool valid(long long n_chunks, long long chunk_bytes) {
+  return n_chunks > 0 && n_chunks <= 0x7fffffffLL && chunk_bytes > 0 &&
+         chunk_bytes % 16 == 0;
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Copies n_chunks chunks of
-// chunk_bytes each from src to dst (both 16-byte aligned, chunk_bytes a
-// multiple of 16). Returns the launch's cudaError_t.
+// Plain C entry points (loaded with ctypes); each returns a cudaError_t.
+
+// Fills plan[0..4] with the grid, stages, dynamic shared memory bytes, tile
+// bytes and work items that jg_dma_copy launches with on the current device.
+extern "C" int jg_dma_copy_plan(long long n_chunks, long long chunk_bytes,
+                                long long* plan) {
+  if (!valid(n_chunks, chunk_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return plan_launch(n_chunks, chunk_bytes, plan);
+}
+
+// Copies n_chunks chunks of chunk_bytes each from src to dst (both 16-byte
+// aligned, chunk_bytes a multiple of 16), as TMA bulk copies need.
 extern "C" int jg_dma_copy(const void* src, void* dst, long long n_chunks,
                            long long chunk_bytes, void* stream) {
-  if (n_chunks <= 0 || n_chunks > 0x7fffffffLL || chunk_bytes <= 0 ||
-      chunk_bytes % 16 != 0 ||
+  if (!valid(n_chunks, chunk_bytes) ||
       (reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) %
               16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  dma_copy_kernel<<<static_cast<unsigned>(n_chunks), THREADS, 0,
+  long long plan[5];
+  int err = plan_launch(n_chunks, chunk_bytes, plan);
+  if (err != 0) return err;
+  dma_copy_kernel<<<static_cast<unsigned>(plan[0]), THREADS, SMEM_BYTES,
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(src), static_cast<uint4*>(dst), chunk_bytes / 16);
+      static_cast<const char*>(src), static_cast<char*>(dst), chunk_bytes,
+      plan[4] / n_chunks, plan[4]);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
 """The port's probes: ``fused_resblock_probe`` (kernels P1 and P2, the 3×3
-tap conv) and ``bw_probe3`` (kernel P3, the double-buffered copy), ports of
+tap conv) and ``bw_probe3`` (kernel P3, the chunked copy), ports of
 the JAX package's ``tools/`` scripts of the same names. Each runs on the card
 unless ``--cpu`` is given; without a card and without ``--cpu`` it raises.
 """

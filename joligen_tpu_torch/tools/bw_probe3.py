@@ -1,10 +1,11 @@
 """Copy-rate probe: the port of ``tools/bw_probe3.py``. It measures the rate
-at which the card moves device memory through an exact, double-buffered copy
-kernel (P3, ``ops/copy.py::make_copy``): device memory -> shared memory ->
-device memory, in chunks of 256, 1024 and 4096 rows of 1024 elements, over a
-1 GiB array in fp32 and in bf16. ``dst.copy_(src)`` is timed beside it as the
-library yardstick. The rates measured on the card are in ``PERF.md``, beside
-the card's name and power limit and the data sheet's memory rate.
+at which the card moves device memory through an exact chunked copy kernel
+(P3, ``ops/copy.py::make_copy``: TMA bulk copies device memory -> shared
+memory -> device memory through a ring of stages), in chunks of 256, 1024
+and 4096 rows of 1024 elements, over a 1 GiB array in fp32 and in bf16.
+``dst.copy_(src)`` is timed beside it as the library yardstick. The rates
+measured on the card are in ``PERF.md``, beside the card's name and power
+limit and the data sheet's memory rate.
 
 Each case: two warm calls, then ``REPS`` calls timed together by CUDA events
 (on the CPU, with ``--cpu``, by the host clock: no device metric). A call

@@ -1,13 +1,16 @@
-"""Kernel P3 of the port (``ops/copy.py``, the double-buffered copy) and the
-port of the copy-rate probe (``joligen_tpu_torch/tools/bw_probe3.py``): the
-plain version and the CPU path of ``make_copy`` against the Pallas
-``make_copy`` of ``tools/bw_probe3.py`` run in TPU interpret mode, bit for
-bit. The CUDA kernel is held against the same plain version on the card
+"""Kernel P3 of the port (``ops/copy.py``, the chunked copy through TMA bulk
+copies) and the port of the copy-rate probe
+(``joligen_tpu_torch/tools/bw_probe3.py``): the kernel's work items
+(``copy_tiles``), and the plain version and the CPU path of ``make_copy``,
+which walk those items, against the Pallas ``make_copy`` of
+``tools/bw_probe3.py`` run in TPU interpret mode, bit for bit. The CUDA
+kernel is held against the same plain version on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import functools
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -69,6 +72,70 @@ def test_copy_matches_pallas_copy_bit_for_bit(jax_bw, interpret, dtype,
         assert got.dtype == tx.dtype and got.data_ptr() != tx.data_ptr()
         np.testing.assert_array_equal(_bits_torch(got), want)
     assert dma.LAUNCHES == before       # CPU tensors launch nothing
+
+
+# chunks whose bytes are not a multiple of the 4 KiB tile: 6 KiB (a whole
+# tile and a short one), 20000 bytes (four whole and a short one), one
+# 4000-byte row and 576 bytes (one short tile each)
+@pytest.mark.parametrize("n_rows,row,chunk_rows,dtype", [
+    (240, 1024, 3, "bfloat16"), (240, 1000, 5, "float32"),
+    (240, 1000, 1, "float32"), (240, 24, 12, "bfloat16")])
+def test_copy_matches_pallas_copy_at_ragged_tiles(jax_bw, interpret, n_rows,
+                                                  row, chunk_rows, dtype):
+    chunk_bytes = chunk_rows * row * (4 if dtype == "float32" else 2)
+    assert chunk_bytes % dma.TILE_BYTES
+    src = np.random.default_rng(row + chunk_rows).standard_normal(
+        (n_rows, row)).astype(np.float32)
+    jx = jnp.asarray(src, getattr(jnp, dtype))
+    tx = torch.from_numpy(src).to(getattr(torch, dtype))
+    want = _bits_np(jax_bw.make_copy(n_rows, row, chunk_rows,
+                                     getattr(jnp, dtype))(jx))
+    np.testing.assert_array_equal(want, _bits_np(jx))
+    assert np.array_equal(_bits_torch(tx), want)
+    run = dma.make_copy(n_rows, row, chunk_rows, getattr(torch, dtype), "cpu")
+    for got in (run(tx), dma.copy_reference(tx, chunk_rows)):
+        np.testing.assert_array_equal(_bits_torch(got), want)
+
+
+@pytest.mark.parametrize("n_chunks,chunk_bytes", [
+    (1, 16), (3, 24576), (5, 49152), (2, 81920), (4, 2**20),
+    (7, dma.TILE_BYTES + 16), (64, 4096)])
+def test_copy_tiles_cover_every_byte_once_within_its_chunk(n_chunks,
+                                                           chunk_bytes):
+    tiles = dma.copy_tiles(chunk_bytes)
+    assert len(tiles) == -(-chunk_bytes // dma.TILE_BYTES)
+    # the kernel's items: item i is tile i % len(tiles) of chunk
+    # i // len(tiles)
+    items = [(c * chunk_bytes + off, n) for c in range(n_chunks)
+             for off, n in tiles]
+    covered = np.zeros(n_chunks * chunk_bytes, np.int32)
+    for off, n in items:
+        assert 0 < n <= dma.TILE_BYTES and off % 16 == 0 and n % 16 == 0
+        assert off // chunk_bytes == (off + n - 1) // chunk_bytes
+        covered[off:off + n] += 1
+    assert (covered == 1).all()
+    # in order, each chunk's last tile the only short one
+    assert [off for off, _ in items] == sorted(off for off, _ in items)
+    assert all(n == dma.TILE_BYTES for _, n in tiles[:-1])
+
+
+def test_copy_kernel_tiles_like_the_plain_version():
+    with open(os.path.join(ROOT, "joligen_tpu_torch", "csrc",
+                           "dma_copy.cu")) as f:
+        src = f.read()
+    # the kernel's tile is the plain version's; one mbarrier phase counts
+    # at most 2^20 - 1 bytes of transactions
+    tile = re.search(r"constexpr long long TILE_BYTES = (\d+);", src)
+    assert tile and int(tile.group(1)) == dma.TILE_BYTES
+    assert dma.TILE_BYTES < 2**20 and dma.TILE_BYTES % 16 == 0
+
+
+@pytest.mark.parametrize("view", ["transposed", "strided"])
+def test_copy_reference_refuses_a_non_contiguous_input(view):
+    x = torch.arange(64 * 32, dtype=torch.float32).view(64, 32)
+    x = x.t() if view == "transposed" else x[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        dma.copy_reference(x, 8)
 
 
 def test_probe_source_matches_the_jax_probe_content():

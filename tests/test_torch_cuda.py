@@ -410,23 +410,37 @@ def test_conv_reads_nothing_beside_the_input(cuda, dtype, s2):
     assert err.item() <= CONV_TOL[dtype]
 
 
-# P3: single chunk, an odd chunk count, chunks ending in a partial 16 KiB
-# tile (24 KiB) and chunks of an odd tile count (48 KiB)
+# P3: the probe's chunkings (a single chunk at 4096 rows), an odd chunk
+# count, chunks of 24 KiB and 48 KiB (whole 4 KiB tiles), chunks of 24000
+# and 20000 bytes ending in a short tile; fewer items than blocks (one
+# 2 KiB chunk); a block that wraps the ring many times (256 MiB); blocks
+# whose items come from several chunks; chunks of one row, down to 16-byte
+# items
 COPY_CHECKS = [(4096, 1024, 256, torch.float32),
                (4096, 1024, 1024, torch.bfloat16),
                (4096, 1024, 4096, torch.float32),
                (768, 1024, 256, torch.float32),
                (1200, 1024, 12, torch.bfloat16),
-               (60, 1024, 12, torch.float32)]
+               (60, 1024, 12, torch.float32),
+               (1200, 1000, 12, torch.bfloat16),
+               (60, 1000, 5, torch.float32),
+               (1, 1024, 1, torch.bfloat16),
+               (65536, 1024, 256, torch.float32),
+               (16392, 1024, 12, torch.bfloat16),
+               (4800, 1024, 10, torch.float32),
+               (1000, 1024, 1, torch.float32),
+               (2048, 8, 1, torch.bfloat16)]
+WRAP_CHECK = (65536, 1024, 256, torch.float32)
+
+
+def _copy_input(cuda, n_rows, row, dtype, seed):
+    return dma.random_bits((n_rows, row), dtype,
+                           torch.Generator(device=cuda).manual_seed(seed))
 
 
 @pytest.mark.parametrize("n_rows,row,chunk_rows,dtype", COPY_CHECKS)
 def test_copy_kernel_is_bit_exact(cuda, n_rows, row, chunk_rows, dtype):
-    bits = torch.int32 if dtype == torch.float32 else torch.int16
-    info = torch.iinfo(bits)
-    g = torch.Generator(device=cuda).manual_seed(n_rows + chunk_rows)
-    x = torch.randint(info.min, info.max, (n_rows, row), generator=g,
-                      device=cuda, dtype=bits).view(dtype)
+    x, bits = _copy_input(cuda, n_rows, row, dtype, n_rows + chunk_rows)
     run = dma.make_copy(n_rows, row, chunk_rows, dtype, cuda)
     before = dma.LAUNCHES["dma_copy"]
     y = run(x)
@@ -435,6 +449,44 @@ def test_copy_kernel_is_bit_exact(cuda, n_rows, row, chunk_rows, dtype):
     assert torch.equal(y.view(bits), x.view(bits))
     assert torch.equal(dma.copy_reference(x, chunk_rows).view(bits),
                        x.view(bits))
+
+
+@pytest.mark.parametrize("n_rows,row,chunk_rows,dtype", COPY_CHECKS)
+def test_copy_kernel_schedule(cuda, n_rows, row, chunk_rows, dtype):
+    # the persistent grid: a block on every SM, never more than the work
+    # items, which are copy_tiles' items
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n_chunks, chunk_bytes = n_rows // chunk_rows, chunk_rows * row * itemsize
+    plan = dma.launch_plan(n_chunks, chunk_bytes, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan["tile_bytes"] == dma.TILE_BYTES
+    assert plan["items"] == n_chunks * len(dma.copy_tiles(chunk_bytes))
+    assert plan["grid"] == min(plan["items"], sms)
+    assert plan["smem_bytes"] >= plan["stages"] * plan["tile_bytes"]
+    if (n_rows, row, chunk_rows, dtype) == WRAP_CHECK:
+        # every block walks the ring of stages at least three times over
+        assert plan["items"] // plan["grid"] > 3 * plan["stages"]
+
+
+@pytest.mark.parametrize("n_rows,row,chunk_rows,dtype", [
+    (60, 1000, 5, torch.float32), (1, 1024, 1, torch.bfloat16),
+    (2048, 8, 1, torch.bfloat16), (1200, 1000, 12, torch.bfloat16),
+    (4800, 1024, 10, torch.float32)])
+def test_copy_kernel_writes_nothing_beside_the_output(cuda, n_rows, row,
+                                                      chunk_rows, dtype):
+    # the output is a view into a buffer with a tile's worth of random
+    # bits on each side: they must come out untouched
+    x, bits = _copy_input(cuda, n_rows, row, dtype, n_rows + chunk_rows)
+    guard = dma.TILE_BYTES // x.element_size()
+    buf, _ = _copy_input(cuda, n_rows * row + 2 * guard, 1, dtype, row)
+    before = buf.clone()
+    out = buf[guard:guard + x.numel(), 0].view(n_rows, row)
+    assert dma._launch(x, chunk_rows, out) is out
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(bits), x.view(bits))
+    assert torch.equal(buf[:guard].view(bits), before[:guard].view(bits))
+    assert torch.equal(buf[guard + x.numel():].view(bits),
+                       before[guard + x.numel():].view(bits))
 
 
 def test_probe_kernels_refuse_what_they_do_not_take(cuda):
