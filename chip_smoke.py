@@ -11,7 +11,8 @@ GPU. Run from the repository root with no arguments:
    ``warpgroup.wait`` (C7517) anywhere.
 3. Kernels: K1 (flash-attention forward), K2 (dQ) and K3 (dK, dV) each
    against its plain PyTorch version on the same CUDA tensors at the paths'
-   shapes (K1 and K2 in bf16 at both query tilings), the autograd Function
+   shapes (K1 and K2 in bf16 at both query tilings; xview's 32 heads at
+   (1, 256, 32, 32) and (16, 256, 32, 32) among them), the autograd Function
    against autograd through the plain forward; P1 and P2 (the 3×3 tap
    conv, each s2; bf16 on wgmma, fp32 on FMAs) against their plain versions
    in bf16 and fp32 at the conv probe's hot site (batch 2) and at ragged
@@ -41,7 +42,22 @@ GPU. Run from the repository root with no arguments:
    48 images, with K1-K3's share of the step; then one fp32 training step's
    gradients, card (K1-K3) against CPU (plain versions), over all 327
    leaves.
-6. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
+6. The other palette configs, each over a synthetic dataset in its
+   on-disk layout written here (``tools/synthetic_datasets.py``):
+   ``example_ddpm_xview.json`` at full width (236,326,339 parameters, bf16,
+   batch 16, 128 px, online bbox crops of 320 px images), 8 steps with
+   loss, step time, images/s, peak memory and data wait; one DDIM-10
+   ``--bbox_in`` request from the trained checkpoint (10 K1 launches, the
+   image outside the crop window unchanged, ``_orig_bbox.json`` the window
+   of ``crop_image``'s meta); 2 steps with ``tpu_remat`` under each policy
+   (peak memory beside the run without it; K1 once a step under
+   ``"conv"``, which keeps its outputs, twice under ``"full"``); the
+   full-width denoiser in fp32 on the card against the CPU. Then 2 steps and
+   one request each of mapillary (canny sketch conditioning, checked on the
+   host batch; a request with fixed canny thresholds), df2kost
+   (``low_res`` super-resolution, no mask), SEN2VEN (``aligned`` pix2pix)
+   and mario (class conditioning; ``inference_per_class``).
+7. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
    bf16 and ``tools.bw_probe3`` over 1 GiB arrays, each with the launch
    counters set to 0 just before it and read just after.
 
@@ -54,8 +70,10 @@ from __future__ import annotations
 
 import collections
 import json
+import math
 import os
 import re
+import shutil
 import sys
 import tempfile
 import time
@@ -83,6 +101,24 @@ TRAIN_256_IMAGES = 48               # one epoch of 6 steps at 256 px
 PATH_SHAPE = (1, 256, 16, 32)       # the mid block of a 128 px request
 TRAIN_SHAPE = (8, 256, 16, 32)      # the mid block at 128 px, batch 8
 BIG_SHAPE = (8, 1024, 16, 32)       # the mid block at 256 px, batch 8
+# xview's mid block (1024 channels, 32 heads of 32) at 128 px: a request and
+# a training step at batch 16
+XVIEW_PATH_SHAPE = (1, 256, 32, 32)
+XVIEW_TRAIN_SHAPE = (16, 256, 32, 32)
+EXPECTED_PARAMS_XVIEW = 236_326_339
+XVIEW_STEPS = 8                     # one epoch of 128 images at batch 16
+REMAT_STEPS = 2
+ONLINE_SIZE = 320                   # the online configs' source images
+# the other configs, CONFIG_STEPS steps each: layout, image size, and the
+# writer's box classes (mario's embedding has one class besides the null
+# class)
+CONFIG_STEPS = 2
+CONFIG_RUNS = {
+    "mapillary": ("online", ONLINE_SIZE, (1, 2)),
+    "df2kost": ("single", 160, None),
+    "SEN2VEN": ("aligned", 256, None),
+    "mario": ("online", ONLINE_SIZE, (1,)),
+}
 # ragged S and B*H at the bf16 kernels' tile edges (64 queries or keys per
 # warpgroup) and the other head dims, checked beside the paths' shapes
 EDGE_CHECKS = [((3, 1, 1, 16), "bfloat16"), ((1, 63, 3, 64), "bfloat16"),
@@ -91,10 +127,12 @@ EDGE_CHECKS = [((3, 1, 1, 16), "bfloat16"), ((1, 63, 3, 64), "bfloat16"),
                ((2, 5, 2, 16), "float32")]
 FWD_CHECKS = [(PATH_SHAPE, "bfloat16"), (PATH_SHAPE, "float32"),
               (TRAIN_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
+              (XVIEW_PATH_SHAPE, "bfloat16"), (XVIEW_TRAIN_SHAPE, "bfloat16"),
               *EDGE_CHECKS]
 BWD_CHECKS = [(TRAIN_SHAPE, "bfloat16"), (TRAIN_SHAPE, "float32"),
               (PATH_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
-              *EDGE_CHECKS]
+              (XVIEW_PATH_SHAPE, "bfloat16"),
+              (XVIEW_TRAIN_SHAPE, "bfloat16"), *EDGE_CHECKS]
 # P1/P2: the probe's hot site at batch 2; shapes whose H, W and Co are not
 # multiples of the kernels' tiles; C = 8 and 24 (part of a 64-channel K
 # step of the wgmma route), C = 256 (two K steps a tap); errors relative to
@@ -251,7 +289,10 @@ def kernel_phase():
     timings = {}
     for label, shape, iters in (("128px_batch1", PATH_SHAPE, 200),
                                 ("128px_batch8", TRAIN_SHAPE, 100),
-                                ("256px_batch8", BIG_SHAPE, 20)):
+                                ("256px_batch8", BIG_SHAPE, 20),
+                                ("xview_128px_batch1", XVIEW_PATH_SHAPE, 200),
+                                ("xview_128px_batch16", XVIEW_TRAIN_SHAPE,
+                                 50)):
         q, k, v = inputs[(shape, "bfloat16")]
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         scale = shape[-1] ** -0.5
@@ -390,7 +431,9 @@ def backward_kernel_phase():
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     timings = {}
     for label, shape, iters in (("128px_batch8", TRAIN_SHAPE, 100),
-                                ("256px_batch8", BIG_SHAPE, 10)):
+                                ("256px_batch8", BIG_SHAPE, 10),
+                                ("xview_128px_batch16", XVIEW_TRAIN_SHAPE,
+                                 50)):
         q, k, v, do, lse, delta, scale = inputs[(shape, "bfloat16")]
         dq = torch.empty_like(q)
         dkv = (torch.empty_like(q), torch.empty_like(q))
@@ -832,15 +875,9 @@ def write_dataset(root, n, size):
 
 def _train(workdir, size, n_images, epochs, hook=None):
     """``launch_training`` on the example config at ``size`` px over
-    ``n_images`` synthetic images for ``epochs`` epochs, with the launch
-    counters at 0 just before it and read just after (one main path).
-    Checks the parameter count and dtype, one launch of each attention
-    kernel per step and finite losses. ``hook(model, iters, steps)`` runs
-    after each step. Returns (model, opt, record)."""
-    import numpy as np
-    import torch
+    ``n_images`` synthetic images for ``epochs`` epochs (``_train_run``).
+    Returns (model, opt, record)."""
     from joligen_tpu_torch.options import TrainOptions
-    from joligen_tpu_torch.train import launch_training
 
     with open(EXAMPLE) as f:
         opt = TrainOptions().parse_json(json.load(f), verbose=False)
@@ -853,6 +890,21 @@ def _train(workdir, size, n_images, epochs, hook=None):
     opt.train_n_epochs, opt.train_n_epochs_decay = epochs, 0
     opt.output_print_freq = opt.train_batch_size        # every step
     steps = epochs * n_images // opt.train_batch_size
+    return _train_run(opt, steps, epochs, f"training {size} px",
+                      EXPECTED_PARAMS, hook)
+
+
+def _train_run(opt, steps, epochs, label, expected_params=None, hook=None):
+    """``launch_training(opt)`` with the launch counters at 0 just before it
+    and read just after (one main path). Checks the step count, the
+    parameter count (when given) and bf16, one launch of each attention
+    kernel per step and finite losses. ``hook(model, iters, steps)`` runs
+    after each step. Returns (model, opt, record): losses, median warm step,
+    images/s, peak memory, the loop's data wait."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.train import launch_training
+
     marks, losses = [], []
 
     def on_step(model, iters):
@@ -872,30 +924,35 @@ def _train(workdir, size, n_images, epochs, hook=None):
     peak = torch.cuda.max_memory_allocated()
 
     n_params = model.param_count()["G_A"]
-    if n_params != EXPECTED_PARAMS or model.device_dtype != torch.bfloat16:
-        raise AssertionError(f"trained {n_params} parameters in "
+    if (expected_params is not None and n_params != expected_params) or \
+            model.device_dtype != torch.bfloat16:
+        raise AssertionError(f"{label}: trained {n_params} parameters in "
                              f"{model.device_dtype}")
     if len(marks) != steps or launches != _attention_only(launches, steps):
-        raise AssertionError(f"{len(marks)} steps, launches {launches}; "
-                             f"expected {steps} of each kernel")
+        raise AssertionError(f"{label}: {len(marks)} steps, launches "
+                             f"{launches}; expected {steps} of each kernel")
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
     # warm steps: the step after another in the same epoch (the first of
     # an epoch waits for the loader and follows the epoch's saves)
     per_epoch = steps // epochs
     warm = [t1 - t0 for (i0, t0), (i1, t1) in zip(marks, marks[1:])
             if (i1 // opt.train_batch_size - 1) % per_epoch != 0]
     step_s = float(np.median(warm))
-    rec = {"size": size, "batch": opt.train_batch_size, "steps": steps,
-           "launches": launches, "loss_first": losses[0],
-           "loss_last": losses[-1], "median_warm_step_s": step_s,
-           "warm_steps": len(warm),
+    data_s = model.loop_times["data_s"]
+    rec = {"batch": opt.train_batch_size, "steps": steps,
+           "parameters": n_params, "launches": launches,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "median_warm_step_s": step_s, "warm_steps": len(warm),
            "images_per_s": opt.train_batch_size / step_s,
-           "max_memory_allocated": peak, "wall_s": wall}
-    log(f"training {size} px: {steps} steps, launches {launches}, loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}, median warm step "
-        f"{step_s * 1e3:.1f} ms ({opt.train_batch_size / step_s:.1f} "
-        f"images/s), max_memory_allocated {peak} B, whole run {wall:.1f} s")
+           "max_memory_allocated": peak, "data_wait_s": data_s,
+           "data_wait_per_step_s": data_s / steps, "wall_s": wall}
+    log(f"{label}: {steps} steps, {n_params} parameters, launches "
+        f"{launches}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, median warm "
+        f"step {step_s * 1e3:.1f} ms ({opt.train_batch_size / step_s:.1f} "
+        f"images/s), max_memory_allocated {peak} B, data wait "
+        f"{data_s:.3f} s ({data_s / steps * 1e3:.1f} ms a step), whole run "
+        f"{wall:.1f} s")
     return model, opt, rec
 
 
@@ -917,6 +974,7 @@ def training_phase(workdir):
 
     model, opt, rec = _train(workdir, 128, TRAIN_IMAGES, TRAIN_EPOCHS,
                              keep_ema)
+    rec["size"] = 128
     # qkv's gradient reaches it only through K2/K3: a non-zero second moment
     # means some step's gradient was non-zero
     tx = model.states["G_A"].tx
@@ -974,6 +1032,7 @@ def training_256px_phase(workdir, attention_ms):
     warm step is the attention's share of the step."""
     import torch
     model, _, rec = _train(workdir, 256, TRAIN_256_IMAGES, 1)
+    rec["size"] = 256
     del model
     torch.cuda.empty_cache()
     per_step = sum(attention_ms.values())
@@ -1208,9 +1267,9 @@ def slice_phase(workdir):
     return model, main_launches
 
 
-def cross_check(model):
-    """The full-width denoiser in fp32: card (with K1) against the CPU
-    (plain attention), same weights and inputs."""
+def cross_check(opt, state, label="denoiser"):
+    """A full-width denoiser in fp32: card (with K1) against the CPU (plain
+    attention), the weights ``state`` and the same inputs."""
     import copy
     import numpy as np
     import torch
@@ -1220,10 +1279,8 @@ def cross_check(model):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    opt32 = copy.copy(model.opt)
+    opt32 = copy.copy(opt)
     opt32.tpu_bf16 = False
-    state = {k: v.detach().cpu()
-             for k, v in model.ema_nets["G_A"].state_dict().items()}
     rng = np.random.default_rng(SEED + 7)
     size = opt32.data_crop_size
     x = torch.from_numpy(rng.uniform(-1, 1, (1, size, size, 6)).astype(
@@ -1246,11 +1303,333 @@ def cross_check(model):
                                  "times")
     err = (outs["cuda"] - outs["cpu"]).abs().max().item()
     scale = outs["cpu"].abs().max().item()
-    log(f"cross-check fp32 denoiser card vs CPU: max abs err {err:.3e} "
+    log(f"cross-check fp32 {label} card vs CPU: max abs err {err:.3e} "
         f"(output max {scale:.3e}, tol {CROSS_CHECK_TOL})")
     if not (torch.isfinite(outs["cuda"]).all() and err <= CROSS_CHECK_TOL):
-        raise AssertionError("card and CPU denoisers disagree")
+        raise AssertionError(f"card and CPU {label}s disagree")
     return err
+
+
+def _config_opt(name, workdir, steps=None, layout=None, size=None,
+                classes=None):
+    """The example config ``name`` over a synthetic dataset in its layout of
+    ``steps`` batches, written here (``steps`` None: the one written
+    before): one epoch, the loss every step, no display inference,
+    ``latest`` saved at the epoch's end only."""
+    from joligen_tpu_torch.options import TrainOptions
+    from joligen_tpu_torch.tools import synthetic_datasets as synth
+
+    path = os.path.join(ROOT, "examples", f"example_ddpm_{name}.json")
+    with open(path) as f:
+        opt = TrainOptions().parse_json(json.load(f), verbose=False)
+    opt.dataroot = os.path.join(workdir, f"data_{name}")
+    if steps:
+        kw = {"classes": classes} if classes else {}
+        synth.WRITERS[layout](opt.dataroot, steps * opt.train_batch_size,
+                              size, seed=SEED + 11, **kw)
+    opt.checkpoints_dir = os.path.join(workdir, "config_ckpt")
+    opt.name = f"smoke_{name}"
+    opt.train_n_epochs, opt.train_n_epochs_decay = 1, 0
+    opt.output_print_freq = opt.train_batch_size
+    opt.output_display_freq = 0
+    opt.train_save_epoch_freq = 10 ** 6
+    # train-time metrics (df2kost's FID) are not ported
+    opt.train_compute_metrics_test = False
+    return opt
+
+
+def _capture_set_input():
+    """Patches ``PaletteModel.set_input`` to keep its first loader batch
+    and output (the host batch as the model builds it); returns (list of
+    (batch, output), undo)."""
+    from joligen_tpu_torch.models.palette_model import PaletteModel
+    seen, plain = [], PaletteModel.set_input
+
+    def spy(self, batch):
+        out = plain(self, batch)
+        if not seen:
+            seen.append((batch, out))
+        return out
+    PaletteModel.set_input = spy
+    return seen, lambda: setattr(PaletteModel, "set_input", plain)
+
+
+def _serve_request(ckpt, img, out_dir, extra, label):
+    """One DDIM-10 request through the serving script from ``ckpt``, with
+    the launch counters at 0 just before it and read just after: exactly 10
+    K1 launches and no other kernel. Returns (record, full image, crop
+    output, model)."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.scripts import gen_single_image_diffusion as gen
+    from joligen_tpu_torch.scripts.common import load_model_from_file
+
+    served, sopt = load_model_from_file(ckpt)
+    outputs, infer = [], served.inference
+
+    def recording_inference(*a, **kw):
+        outputs.append(infer(*a, **kw))
+        return outputs[-1]
+    served.inference = recording_inference
+    args = gen.build_parser().parse_args([
+        "--model_in_file", ckpt, "--img_in", img, "--dir_out", out_dir,
+        "--name", "req", "--sampling_method", "ddim", "--sampling_steps",
+        "10", "--seed", "0", *extra])
+    reset_launches()                             # the request starts here
+    t0 = time.perf_counter()
+    full, _, _ = gen.inference(args, lmodel=served, lopt=sopt)
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - t0
+    launches = read_launches()                   # and ends here
+    want = {n: (10 if n == "flash_attention_fwd" else 0) for n in launches}
+    crop = outputs[-1][0]
+    size = sopt.data_crop_size
+    rec = {"latency_s": latency, "launches": launches,
+           "finite": bool(np.isfinite(crop).all()),
+           "crop_shape": list(crop.shape)}
+    log(f"{label} request: {latency:.3f} s, launches {launches}")
+    if launches != want or not rec["finite"] or crop.shape != (size, size,
+                                                               3):
+        raise AssertionError(f"{label} request failed: {rec}")
+    return rec, full, crop, served
+
+
+def _check_outside_window(full, img_path, window, label):
+    """The served image equals its input bit for bit outside the crop
+    window [x1, y1, x2, y2]."""
+    import numpy as np
+    from PIL import Image
+    src = np.asarray(Image.open(img_path).convert("RGB"))
+    x1, y1, x2, y2 = window
+    outside = np.ones(src.shape[:2], bool)
+    outside[y1:y2, x1:x2] = False
+    ok = (full.shape == src.shape and outside.any()
+          and np.array_equal(full[outside], src[outside]))
+    if not ok:
+        raise AssertionError(f"{label}: the image changed outside the crop "
+                             f"window {window}")
+    return int(outside.sum())
+
+
+def xview_phase(workdir, attention_ms):
+    """xview at full width: 8 training steps, a DDIM-10 ``--bbox_in``
+    request from the trained checkpoint, 2 steps under each remat policy, and
+    the fp32 denoiser card against the CPU. ``attention_ms`` maps K1, K2
+    and K3 to their device ms at xview's step shape, each launched once a
+    step; their sum over the median warm step is attention's share."""
+    import random
+    import torch
+    from joligen_tpu_torch.data import create_dataloader, create_dataset
+    from joligen_tpu_torch.data.online_creation import crop_image
+    from joligen_tpu_torch.models import create_model
+    from joligen_tpu_torch.models.diffusion_networks import (define_G,
+                                                             init_weights)
+
+    opt = _config_opt("xview", workdir, XVIEW_STEPS, "online", ONLINE_SIZE,
+                      (1, 2))
+    model, opt, rec = _train_run(opt, XVIEW_STEPS, 1, "xview training",
+                                 EXPECTED_PARAMS_XVIEW)
+    del model
+    torch.cuda.empty_cache()
+    per_step = sum(attention_ms.values())
+    rec.update({"attention_device_ms_per_step": attention_ms,
+                "attention_share_of_step":
+                    per_step / (rec["median_warm_step_s"] * 1e3)})
+    log(f"xview training: K1-K3 device time {per_step:.4f} ms a step "
+        f"({attention_ms}), {100 * rec['attention_share_of_step']:.2f} % of "
+        f"the median warm step")
+
+    # the trained checkpoint serves a --bbox_in request on a dataset image
+    ckpt = os.path.join(opt.checkpoints_dir, opt.name, "latest_net_G_A.pth")
+    img = os.path.join(opt.dataroot, "trainA", "imgs", "0000.png")
+    bbox = os.path.join(opt.dataroot, "trainA", "bbox", "0000.txt")
+    out_dir = os.path.join(workdir, "out_xview")
+    req, full, _, served = _serve_request(
+        ckpt, img, out_dir, ["--bbox_in", bbox], "xview --bbox_in")
+    del served
+    # the checkpoint files (3.8 GB) are not read again
+    shutil.rmtree(os.path.join(opt.checkpoints_dir, opt.name))
+    with open(os.path.join(out_dir, "req_orig_bbox.json")) as f:
+        window = json.load(f)
+    # the window of crop_image's meta, cut as the script cuts it (seed 0)
+    random.seed(0)
+    meta = crop_image(
+        img, bbox, mask_delta=opt.data_online_creation_mask_delta_A,
+        crop_delta=0, crop_center=True,
+        mask_square=opt.data_online_creation_mask_square_A,
+        crop_dim=opt.data_online_creation_crop_size_A,
+        output_dim=opt.data_crop_size,
+        context_pixels=opt.data_online_context_pixels, return_meta=True)[-1]
+    want = [meta["x_crop"], meta["y_crop"], meta["x_crop"] + meta[
+        "crop_size"], meta["y_crop"] + meta["crop_size"]]
+    if window != want:
+        raise AssertionError(f"_orig_bbox.json {window}, crop meta {want}")
+    req["window"] = window
+    req["pixels_outside_window_unchanged"] = _check_outside_window(
+        full, img, window, "xview --bbox_in")
+    rec["bbox_request"] = req
+    torch.cuda.empty_cache()
+
+    # remat: 2 steps under each policy on the same loader, peak memory
+    # beside the run without it; "conv" keeps K1's outputs (one forward a
+    # step), "full" recomputes the block (two)
+    rec["remat"] = {}
+    for policy, k1_per_step in (("conv", 1), ("full", 2)):
+        ropt = _config_opt("xview", workdir)
+        ropt.tpu_remat, ropt.tpu_remat_policy = True, policy
+        ropt.name = f"smoke_xview_remat_{policy}"
+        m = create_model(ropt, phase="train")
+        if not (m.nets["G_A"].inner.remat
+                and m.param_count()["G_A"] == EXPECTED_PARAMS_XVIEW):
+            raise AssertionError("tpu_remat did not reach the network")
+        loader = create_dataloader(ropt, create_dataset(ropt))
+        batches = [b for _, b in zip(range(REMAT_STEPS), loader)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        reset_launches()                         # the remat path starts
+        for b in batches:
+            t0 = time.perf_counter()
+            losses.append(float(m.optimize_parameters(b)["G_tot"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = read_launches()               # and ends here
+        peak = torch.cuda.max_memory_allocated()
+        want = {n: 0 for n in launches}
+        want.update(flash_attention_fwd=k1_per_step * REMAT_STEPS,
+                    flash_attention_bwd_dq=REMAT_STEPS,
+                    flash_attention_bwd_dkv=REMAT_STEPS)
+        # the last step is warm (the first also loads the batch and warms
+        # up); the run without remat's warm steps include their data wait
+        r = {"steps": REMAT_STEPS, "launches": launches, "losses": losses,
+             "step_s": step_s, "max_memory_allocated": peak,
+             "peak_over_no_remat": peak / rec["max_memory_allocated"],
+             "warm_step_over_no_remat":
+                 step_s[-1] / rec["median_warm_step_s"]}
+        rec["remat"][policy] = r
+        log(f"xview remat {policy}: steps {[round(t * 1e3, 1) for t in step_s]}"
+            f" ms (the last {r['warm_step_over_no_remat']:.3f}x the median "
+            f"warm step without remat), launches {launches}, loss {losses}, "
+            f"max_memory_allocated {peak} B ({r['peak_over_no_remat']:.3f}x "
+            f"the run without remat, {rec['max_memory_allocated']} B)")
+        if launches != want or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"remat {policy}: launches {launches}, "
+                                 f"expected {want}; losses {losses}")
+        del m, loader, batches
+        torch.cuda.empty_cache()
+
+    # the full-width denoiser in fp32, card against CPU, seeded weights
+    net = define_G(opt)
+    init_weights(net, torch.Generator().manual_seed(SEED + 5),
+                 zero_init_std=0.01)
+    state = {k: v.detach() for k, v in net.state_dict().items()}
+    del net
+    rec["cross_check_fp32_max_abs_err"] = cross_check(opt, state,
+                                                      "xview denoiser")
+    rec["paths"] = {"xview_training": rec["launches"],
+                    "xview_bbox_request": req["launches"],
+                    **{f"xview_remat_{p}": r["launches"]
+                       for p, r in rec["remat"].items()}}
+    return rec
+
+
+def other_configs_phase(workdir):
+    """mapillary, df2kost, SEN2VEN and mario: 2 training steps each and one
+    request of the config's kind; the conditioning checked on the host
+    batch."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.data import create_dataset
+    from joligen_tpu_torch.data.loader import collate
+    from joligen_tpu_torch.ops.cv_resize import resize_area, resize_cubic
+
+    recs, paths = {}, {}
+    for name, (layout, size, classes) in CONFIG_RUNS.items():
+        opt = _config_opt(name, workdir, CONFIG_STEPS, layout, size, classes)
+        seen, undo = _capture_set_input()
+        try:
+            model, opt, rec = _train_run(opt, CONFIG_STEPS, 1,
+                                         f"{name} training")
+        finally:
+            undo()
+        batch, host = seen[0]
+        gt, cond = host["gt"], host["y_cond"]
+        if name == "mapillary":
+            inside = host["mask"][..., 0] > 0
+            ok = (np.array_equal(cond[~inside], gt[~inside])
+                  and set(np.unique(cond[inside])) <= {-1.0, 1.0}
+                  and inside.any())
+        elif name == "df2kost":
+            factor = int(opt.alg_diffusion_super_resolution_scale)
+            ok = "mask" not in host and all(
+                np.array_equal(c, resize_cubic(resize_area(g, factor),
+                                               g.shape[1::-1]))
+                for c, g in zip(cond, gt))
+        elif name == "SEN2VEN":           # pix2pix: domain A conditions
+            ok = "mask" not in host and np.array_equal(cond, batch["A"])
+        else:                             # mario: y_t, mask and class
+            ok = (np.array_equal(cond, batch["A"]) and "mask" in host
+                  and np.array_equal(host["cls"], batch["B_label_cls"]))
+        rec["host_batch_conditioning_ok"] = bool(ok)
+        log(f"{name}: host batch conditioning "
+            f"{opt.alg_diffusion_cond_image_creation} / "
+            f"{opt.alg_diffusion_task}: {'ok' if ok else 'WRONG'}")
+        if not ok:
+            raise AssertionError(f"{name}: wrong conditioning on the host "
+                                 "batch")
+        del model
+        torch.cuda.empty_cache()
+        paths[f"{name}_training"] = rec["launches"]
+
+        ckpt = os.path.join(opt.checkpoints_dir, opt.name,
+                            "latest_net_G_A.pth")
+        out_dir = os.path.join(workdir, f"out_{name}")
+        if layout == "online":
+            img = os.path.join(opt.dataroot, "trainA", "imgs", "0000.png")
+            extra = ["--bbox_in", os.path.join(opt.dataroot, "trainA",
+                                               "bbox", "0000.txt")]
+            if name == "mapillary":
+                extra += ["--alg_diffusion_sketch_canny_thresholds", "100",
+                          "400"]
+        else:
+            img = os.path.join(opt.dataroot, "trainA", "0000.png")
+            extra = (["--alg_diffusion_super_resolution_downsample"]
+                     if name == "df2kost" else [])
+        req, full, _, served = _serve_request(ckpt, img, out_dir, extra,
+                                              name)
+        if layout == "online":
+            with open(os.path.join(out_dir, "req_orig_bbox.json")) as f:
+                req["window"] = json.load(f)
+            req["pixels_outside_window_unchanged"] = _check_outside_window(
+                full, img, req["window"], name)
+        rec["request"] = req
+        paths[f"{name}_request"] = req["launches"]
+        if name == "mario":
+            # one DDIM-10 output per class on two dataset items
+            ds = create_dataset(served.opt)
+            batch = collate([ds[i] for i in range(2)])
+            reset_launches()
+            outs = served.inference_per_class(batch, sampling_method="ddim",
+                                              num_steps=10)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            classes = list(range(1, served.null_class + 1))
+            want = {n: (10 * len(classes) if n == "flash_attention_fwd"
+                        else 0) for n in launches}
+            ok = (sorted(outs) == classes and launches == want and all(
+                o.shape == (2, opt.data_crop_size, opt.data_crop_size, 3)
+                and np.isfinite(o).all() for o in outs.values()))
+            rec["per_class"] = {"classes": sorted(outs),
+                                "launches": launches}
+            log(f"mario inference_per_class: classes {sorted(outs)}, "
+                f"launches {launches}")
+            if not ok:
+                raise AssertionError("mario inference_per_class failed")
+            paths["mario_per_class"] = launches
+        del served
+        torch.cuda.empty_cache()
+        recs[name] = rec
+    return recs, paths
 
 
 def ptxas_spills(ptxas):
@@ -1323,19 +1702,27 @@ def main():
     p1, p2, p3 = probe_kernel_phase()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         model, serving = slice_phase(workdir)
-        k1["cross_check_fp32_max_abs_err"] = cross_check(model)
+        k1["cross_check_fp32_max_abs_err"] = cross_check(
+            model.opt, {k: v.detach().cpu() for k, v in
+                        model.ema_nets["G_A"].state_dict().items()})
         del model
         training = training_phase(workdir)
         training_256 = training_256px_phase(workdir, {
             "K1": k1["timings"]["256px_batch8"]["ms"],
             "K2": k2["timings"]["256px_batch8"]["dq_ms"],
             "K3": k3["timings"]["256px_batch8"]["dkv_ms"]})
+        xview = xview_phase(workdir, {
+            "K1": k1["timings"]["xview_128px_batch16"]["ms"],
+            "K2": k2["timings"]["xview_128px_batch16"]["dq_ms"],
+            "K3": k3["timings"]["xview_128px_batch16"]["dkv_ms"]})
+        configs, config_paths = other_configs_phase(workdir)
     grad_check = gradient_cross_check()
     probe_launches, probes = probe_paths()
     paths = {"serving": serving, "training": training["launches"],
              "trained_checkpoint_request":
                  training["trained_request_launches"],
-             "training_256px": training_256["launches"], **probe_launches}
+             "training_256px": training_256["launches"], **xview["paths"],
+             **config_paths, **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -1345,6 +1732,8 @@ def main():
             raise AssertionError(f"{k['name']} was not launched on its path")
     log("training: " + json.dumps(training))
     log("training 256 px: " + json.dumps(training_256))
+    log("xview: " + json.dumps(xview))
+    log("configs: " + json.dumps(configs))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     k1["training_gradient_cross_check"] = grad_check
     stage_a = probes["fused_resblock_probe"]

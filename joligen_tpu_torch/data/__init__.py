@@ -1,7 +1,9 @@
 """Host-side data pipeline (``joligen_tpu/data/__init__.py``).
 
 All randomness, PIL decoding and cropping stay on the host; the device sees
-fixed-shape NHWC batches. Only the labeled-mask dataset modes are ported.
+fixed-shape NHWC batches. Ported modes (``PORTED_MODES``): the labeled-mask
+modes, their online bbox-crop variants, ``aligned`` and ``single``; any other
+mode raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -9,20 +11,30 @@ from __future__ import annotations
 from .loader import DataLoader
 
 PORTED_MODES = ("unaligned_labeled_mask", "unaligned_labeled_mask_cls",
+                "unaligned_labeled_mask_online",
+                "unaligned_labeled_mask_cls_online",
                 "self_supervised_labeled_mask",
-                "self_supervised_labeled_mask_cls")
+                "self_supervised_labeled_mask_cls",
+                "self_supervised_labeled_mask_online",
+                "self_supervised_labeled_mask_cls_online",
+                "aligned", "single")
 
 
 def find_dataset_class(mode):
     from . import datasets as D
     table = dict(zip(PORTED_MODES, (D.UnalignedLabeledMaskDataset,
                                     D.UnalignedLabeledMaskClsDataset,
+                                    D.UnalignedLabeledMaskOnlineDataset,
+                                    D.UnalignedLabeledMaskClsOnlineDataset,
                                     D.SelfSupervisedLabeledMaskDataset,
-                                    D.SelfSupervisedLabeledMaskClsDataset)))
+                                    D.SelfSupervisedLabeledMaskClsDataset,
+                                    D.SelfSupervisedLabeledMaskOnlineDataset,
+                                    D.SelfSupervisedLabeledMaskClsOnlineDataset,
+                                    D.AlignedDataset, D.SingleDataset)))
     if mode not in table:
         raise NotImplementedError(
             f"dataset mode {mode} is not ported (ported: {PORTED_MODES}; "
-            "ROADMAP Queue 1 item 1)")
+            "ROADMAP Queue 1 item 4, dataset modes)")
     return table[mode]
 
 
@@ -36,7 +48,7 @@ def create_dataloader(opt, dataset, shuffle=None, batch_size=None,
     """One data-parallel rank on one card: the batch_size option is the
     batch (per device, as in the reference), capped at the dataset size so
     tiny eval sets still yield full batches. Multi-GPU is ROADMAP Queue 1
-    item 15."""
+    item 15 (multi-GPU)."""
     if batch_size is None:
         batch_size = (opt.train_batch_size if getattr(opt, "isTrain", True)
                       else opt.test_batch_size)

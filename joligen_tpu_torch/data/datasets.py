@@ -1,5 +1,7 @@
-"""Dataset modes (host-side sample producers): the labeled-mask modes of
-``joligen_tpu/data/datasets.py:31-227``, copied.
+"""Dataset modes (host-side sample producers), copied from
+``joligen_tpu/data/datasets.py``: the labeled-mask modes (``:31-227``), the
+online bbox-crop modes (``:229-357``) and the aligned and single modes
+(``:663-698``).
 
 Each dataset returns per-sample dicts of numpy arrays with keys matching the
 reference contract (data/base_dataset.py:120-195): ``A``, ``B`` (H,W,C float32
@@ -15,6 +17,7 @@ import random
 import numpy as np
 
 from .image_folder import make_dataset, make_labeled_path_dataset
+from .online_creation import crop_image, sample_rotation_state
 from .transforms import (PairedTransform, fill_mask_with_color,
                          fill_mask_with_random, load_image, load_mask)
 
@@ -184,3 +187,173 @@ class SelfSupervisedLabeledMaskDataset(UnalignedLabeledMaskDataset):
 
 class SelfSupervisedLabeledMaskClsDataset(SelfSupervisedLabeledMaskDataset):
     with_cls = True
+
+
+class _OnlineMixin:
+    """bbox-file-driven online crops (reference
+    data/unaligned_labeled_mask_online_dataset.py:81-247)."""
+
+    def _sanitize(self, img_paths, mask_paths):
+        """Drop unreadable samples upfront (reference
+        data_sanitize_paths, online_creation.py:1405-1488)."""
+        if not getattr(self.opt, "data_sanitize_paths", False):
+            return img_paths, mask_paths
+        from .online_creation import sanitize_paths
+        root = self.root if getattr(self.opt, "data_relative_paths",
+                                    False) else None
+        return sanitize_paths(img_paths, mask_paths, root=root, verbose=True)
+
+    def online_crop(self, img_path, bbox_path, domain="A", rotation_state=None):
+        opt = self.opt
+        # ratio deltas override pixel deltas when set (reference
+        # temporal_labeled_mask_online_dataset.py:141-145)
+        ratio = getattr(opt,
+                        f"data_online_creation_mask_delta_{domain}_ratio",
+                        [[]])
+        crop, mask, ref_bbox, cat = crop_image(
+            self._resolve(img_path),
+            self._resolve(bbox_path),
+            mask_delta=getattr(opt, f"data_online_creation_mask_delta_{domain}", [[]]),
+            mask_delta_ratio=ratio,
+            mask_random_offset=getattr(
+                opt, f"data_online_creation_mask_random_offset_{domain}", [0.0]),
+            crop_delta=getattr(opt, f"data_online_creation_crop_delta_{domain}", 50),
+            mask_square=getattr(opt, f"data_online_creation_mask_square_{domain}", False),
+            crop_dim=getattr(opt, f"data_online_creation_crop_size_{domain}", 512),
+            output_dim=opt.data_crop_size,
+            context_pixels=getattr(opt, "data_online_context_pixels", 0),
+            load_size=getattr(opt, f"data_online_creation_load_size_{domain}", []),
+            load_size_keep_ratio=getattr(
+                opt, f"data_online_creation_load_size_keep_ratio_{domain}", False),
+            select_cat=getattr(opt, "data_online_select_category", -1),
+            fixed_mask_size=getattr(opt, "data_online_fixed_mask_size", -1),
+            fixed_mask_size_model=getattr(
+                opt, f"data_online_creation_mask_fixed_size_{domain}", -1),
+            fixed_mask_min_unmasked_border_model=getattr(
+                opt, f"data_online_creation_mask_min_unmasked_border_{domain}", 4),
+            inverted_mask=getattr(opt, "data_inverted_mask", False),
+            single_bbox=getattr(opt, "data_online_single_bbox", False),
+            random_bbox=getattr(opt, "data_online_random_bbox", False),
+            broaden_rect_aug=getattr(
+                opt, f"data_online_creation_mask_broaden_rect_aug_{domain}", False),
+            rotation_state=rotation_state,
+        )
+        if getattr(opt, "f_s_all_classes_as_one", False):
+            # reference unaligned_labeled_mask_online_dataset.py:146
+            mask = (mask > 0).astype(np.int32)
+        return crop, mask, ref_bbox, cat
+
+
+class UnalignedLabeledMaskOnlineDataset(UnalignedLabeledMaskDataset, _OnlineMixin):
+    def __init__(self, opt, phase, name=""):
+        if getattr(opt, "data_refined_mask", False):
+            # raised here, not per sample: the loader would skip every
+            # sample whose crop raised
+            raise NotImplementedError(
+                "data_refined_mask: the SAM-refined object mask needs SAM "
+                "weights (ROADMAP Queue 1 item 14, metrics and frozen nets)")
+        super().__init__(opt, phase, name)
+        self.A_img_paths, self.A_mask_paths = self._sanitize(
+            self.A_img_paths, self.A_mask_paths)
+        self.A_size = len(self.A_img_paths)
+        if self.B_size:
+            self.B_img_paths, self.B_mask_paths = self._sanitize(
+                self.B_img_paths, self.B_mask_paths)
+            self.B_size = len(self.B_img_paths)
+
+    def get_img(self, A_path, A_mask_path, A_cls, B_path=None, B_mask_path=None,
+                B_cls=None):
+        try:
+            A, A_mask, A_ref_bbox, A_cat = self.online_crop(
+                A_path, A_mask_path, "A",
+                rotation_state=sample_rotation_state(self.opt))
+        except Exception as e:  # unreadable sample -> skip (collate filters None)
+            print(f"online crop failure {A_path}: {e}")
+            return None
+        out = {"A": A, "A_label_mask": A_mask, "A_ref_bbox": A_ref_bbox,
+               "A_img_paths": A_path,
+               "A_label_cls": np.int32(A_cat if self.with_cls else (A_cls or 0))}
+        if B_path is not None and B_mask_path:
+            try:
+                B, B_mask, B_ref_bbox, B_cat = self.online_crop(
+                    B_path, B_mask_path, "B",
+                    rotation_state=sample_rotation_state(self.opt))
+            except Exception as e:
+                print(f"online crop failure {B_path}: {e}")
+                return None
+            out.update({"B": B, "B_label_mask": B_mask, "B_ref_bbox": B_ref_bbox,
+                        "B_img_paths": B_path,
+                        "B_label_cls": np.int32(B_cat if self.with_cls else (B_cls or 0))})
+        return out
+
+
+class UnalignedLabeledMaskClsOnlineDataset(UnalignedLabeledMaskOnlineDataset):
+    with_cls = True
+
+
+class SelfSupervisedLabeledMaskOnlineDataset(UnalignedLabeledMaskOnlineDataset):
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self.use_domain_B = False
+
+    def __getitem__(self, index):
+        A_path = self.A_img_paths[index % self.A_size]
+        A_mask = self.A_mask_paths[index % self.A_size]
+        A_cls = self.A_cls[index % self.A_size] if self.A_cls else 0
+        out = self.get_img(A_path, A_mask, A_cls)
+        if out is None:
+            return None
+        img, mask = out["A"], out["A_label_mask"]
+        if getattr(self.opt, "data_online_creation_rand_mask_A", True):
+            noised = fill_mask_with_random(img, mask, -1)
+        else:
+            # color fill otherwise (reference
+            # self_supervised_*_dataset.py:45-53 raises when NEITHER flag is
+            # set; defaulting to the color fill keeps default configs
+            # trainable instead of failing every sample)
+            noised = fill_mask_with_color(img, mask)
+        out.update({"A": noised, "B": img, "B_img_paths": out["A_img_paths"],
+                    "B_label_mask": mask.copy(), "B_label_cls": out["A_label_cls"],
+                    "B_ref_bbox": out.get("A_ref_bbox")})
+        return out
+
+
+class SelfSupervisedLabeledMaskClsOnlineDataset(SelfSupervisedLabeledMaskOnlineDataset):
+    with_cls = True
+
+
+class AlignedDataset(BaseDataset):
+    """Paired A/B by sorted order (reference data/aligned_dataset.py)."""
+
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self.A_img_paths = make_dataset(self.dir_A, opt.data_max_dataset_size)
+        self.B_img_paths = make_dataset(self.dir_B, opt.data_max_dataset_size)
+        self.A_size = len(self.A_img_paths)
+        self.B_size = len(self.B_img_paths)
+
+    def __getitem__(self, index):
+        p = self.transform.sample_params()
+        A_path = self.A_img_paths[index % self.A_size]
+        B_path = self.B_img_paths[index % self.B_size]
+        return {
+            "A": self.transform.image(self._load_img(A_path), p),
+            "B": self.transform.image(self._load_img(B_path), p),
+            "A_img_paths": A_path, "B_img_paths": B_path,
+        }
+
+
+class SingleDataset(BaseDataset):
+    """Single-domain (reference data/single_dataset.py); B = A."""
+
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self.A_img_paths = make_dataset(self.dir_A, opt.data_max_dataset_size)
+        self.A_size = len(self.A_img_paths)
+
+    def __getitem__(self, index):
+        p = self.transform.sample_params()
+        img = self.transform.image(
+            self._load_img(self.A_img_paths[index % self.A_size]), p)
+        return {"A": img, "B": img,
+                "A_img_paths": self.A_img_paths[index % self.A_size]}

@@ -1,6 +1,7 @@
 """Threaded prefetching batch loader producing fixed-shape numpy batches: a
 copy of ``joligen_tpu/data/loader.py``, stacking with numpy (the g++ helper
-``native/batch_ops.cpp`` is not ported, ROADMAP Queue 1 item 1).
+``native/batch_ops.cpp`` is not ported, ROADMAP Queue 1 item 4, dataset
+modes).
 
 Replaces the reference's torch DataLoader (data/__init__.py:109-162) for
 one rank: worker threads decode/crop samples (PIL releases the GIL),

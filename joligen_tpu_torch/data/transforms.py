@@ -6,7 +6,8 @@ get_transform_seg (:611): resize -> (random) crop -> flip -> normalize,
 with every geometric op applied identically to image and mask. Output is
 NHWC float32 in [-1, 1]; masks are (H, W, 1) int32. The uint8 -> [-1, 1]
 normalisation is numpy (the JAX package's numpy path; its g++ helper
-``native/batch_ops.cpp`` is not ported, ROADMAP Queue 1 item 1).
+``native/batch_ops.cpp`` is not ported, ROADMAP Queue 1 item 4, dataset
+modes).
 
 Unlike the JAX package, the port imports neither cv2 nor tifffile: the
 photometric blur is ``gaussian_blur3`` (numpy, held against cv2 by the

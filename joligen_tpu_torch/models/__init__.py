@@ -9,4 +9,5 @@ def create_model(opt, phase="train", device=None, cpu=False):
         from .palette_model import PaletteModel
         return PaletteModel(opt, phase=phase, device=device, cpu=cpu)
     raise NotImplementedError(
-        f"model type {opt.model_type}: only palette is ported (ROADMAP Queue 1)")
+        f"model type {opt.model_type}: only palette is ported (ROADMAP "
+        "Queue 1 items 8 to 13, the model families after the main path)")

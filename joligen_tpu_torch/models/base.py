@@ -59,7 +59,7 @@ class _PlainUnpickler(pickle.Unpickler):
         raise NotImplementedError(
             f"optimizer state file holds {module}.{name}: reading the JAX "
             "package's optax _optim.pkl is not ported (ROADMAP Queue 1 item "
-            "5); resume without it (load_optim=False, as "
+            "6, training state, the rest); resume without it (load_optim=False, as "
             "--train_continue_from does)")
 
 

@@ -2,7 +2,8 @@
 ``joligen_tpu/models/diffusion_networks.py:20-45,119-134``, plus the seeded
 flax-style weight init. torch convs need their input channel count, so the
 mask embedding's ``cond_embed_dim`` channels are added to ``in_channel``
-here (flax infers it lazily)."""
+here (flax infers it lazily). ``tpu_remat`` and ``tpu_remat_policy`` reach
+``UNetMHA`` as in ``diffusion_networks.py:42-43``."""
 
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ def define_inner_G(opt):
     if netG != "unet_mha":
         raise NotImplementedError(
             f"diffusion generator {netG}: only unet_mha is ported "
-            "(ROADMAP Queue 1)")
+            "(ROADMAP Queue 1 items 8 to 13, the model families after the "
+            "main path)")
     cond = getattr(opt, "alg_diffusion_cond_embed", "") or ""
     extra = opt.alg_diffusion_cond_embed_dim if "mask" in cond else 0
     return UNetMHA(
@@ -38,6 +40,8 @@ def define_inner_G(opt):
         group_size=opt.G_unet_mha_group_norm_size,
         attn_norm=getattr(opt, "G_unet_mha_attn_norm", "group"),
         freq_space=getattr(opt, "train_feat_wavelet", False),
+        remat=bool(getattr(opt, "tpu_remat", False)),
+        remat_policy=getattr(opt, "tpu_remat_policy", "conv") or "conv",
         dtype=compute_dtype(opt),
     )
 

@@ -42,7 +42,8 @@ class PaletteDenoiser(nn.Module):
         super().__init__()
         if "ref" in conditioning:
             raise NotImplementedError(
-                "ref conditioning (ROADMAP Queue 1 item 4)")
+                "ref conditioning (ROADMAP Queue 1 item 9, ref conditioning, "
+                "UViT and frequency space)")
         self.inner = inner
         self.cond_embed_dim = cond_embed_dim
         self.conditioning = conditioning

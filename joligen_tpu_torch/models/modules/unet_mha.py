@@ -9,18 +9,50 @@ NHWC out). The submodules below take and return NCHW.
 Dtype policy: conv and dense layers keep fp32 parameters and compute in
 ``dtype`` (bf16 under ``tpu_bf16``); GroupNorm takes fp32 statistics and
 returns the input dtype; the network output is fp32.
+
+Remat (``tpu_remat``, ``unet_mha.py:383-397``): each ResBlock and
+AttentionBlock call runs under ``torch.utils.checkpoint``. Modules are not
+wrapped, so parameter names, and checkpoints, are the same with and without
+it. ``remat_policy="full"`` recomputes the whole block in the backward;
+``"conv"`` keeps the outputs of the matrix units (``REMAT_SAVE``: the convs,
+the dense layers and K1) and recomputes the norm, FiLM and SiLU chains
+between them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ...ops.flash_attention import flash_attention
 from ...ops.resize import nearest_up2
+
+
+# The ops whose outputs ``remat_policy="conv"`` keeps (the JAX package's
+# ``REMAT_SAVE`` names: conv outputs, the qkv projection and attention).
+# ``Dense`` always reaches ``addmm``: a saved output must not be changed in
+# place later, as ``matmul`` followed by an in-place bias add would.
+REMAT_SAVE = (torch.ops.aten.convolution.default,
+              torch.ops.aten.addmm.default,
+              torch.ops.joligen_tpu_torch.flash_attention_fwd.default)
+
+
+def _save_mxu_outputs(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in REMAT_SAVE
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT_CONTEXTS = {
+    "full": {},
+    "conv": {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_mxu_outputs)},
+}
 
 
 class Conv(nn.Module):
@@ -52,8 +84,11 @@ class Dense(nn.Module):
         self.zero_init = zero_init
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        # one 2-D product with the bias fused (addmm) whatever x's rank and
+        # strides
+        y = F.linear(x.reshape(-1, x.shape[-1]).to(self.dtype),
+                     self.weight.to(self.dtype), self.bias.to(self.dtype))
+        return y.reshape(x.shape[:-1] + y.shape[-1:])
 
 
 class GroupNorm(nn.Module):
@@ -223,14 +258,22 @@ class UNetMHA(nn.Module):
                  num_heads=1, num_head_channels=32, norm="groupnorm",
                  group_size=32, use_scale_shift_norm=True,
                  resblock_updown=True, transformer_blocks=0,
-                 attn_norm="group", freq_space=False, dtype=torch.float32):
+                 attn_norm="group", freq_space=False, remat=False,
+                 remat_policy="conv", dtype=torch.float32):
         super().__init__()
+        if remat and remat_policy not in _REMAT_CONTEXTS:
+            raise ValueError(f"tpu_remat_policy {remat_policy!r} not in "
+                             f"{tuple(_REMAT_CONTEXTS)}")
+        self.remat = remat
+        self.remat_policy = remat_policy
         if transformer_blocks > 0:
             raise NotImplementedError(
-                "UViT transformer middle stack (ROADMAP Queue 1 item 3)")
+                "UViT transformer middle stack (ROADMAP Queue 1 item 9, ref "
+                "conditioning, UViT and frequency space)")
         if freq_space:
             raise NotImplementedError(
-                "freq_space / train_feat_wavelet (ROADMAP Queue 1 item 3)")
+                "freq_space / train_feat_wavelet (ROADMAP Queue 1 item 9, ref "
+                "conditioning, UViT and frequency space)")
         self.dtype = dtype
         counters = {}
 
@@ -298,26 +341,32 @@ class UNetMHA(nn.Module):
         self.GroupNorm32_0 = _norm(norm, group_size, ch)
         self.out_proj = Conv(ch, out_channel, 3, dtype=dtype, zero_init=True)
 
+    def _block(self, name, *args):
+        """Call block ``name``, under activation checkpointing with
+        ``remat`` when a gradient is being taken."""
+        m = getattr(self, name)
+        if not (self.remat and torch.is_grad_enabled()):
+            return m(*args)
+        return checkpoint(m, *args, use_reentrant=False,
+                          **_REMAT_CONTEXTS[self.remat_policy])
+
     def forward(self, x, emb):
         emb = emb.to(self.dtype)
         h = self.in_conv(x.to(self.dtype).permute(0, 3, 1, 2))
         hs = [h]
         for r, a, plain in self._enc:
-            m = getattr(self, r)
-            h = m(h) if plain else m(h, emb)
+            h = getattr(self, r)(h) if plain else self._block(r, h, emb)
             if a is not None:
-                h = getattr(self, a)(h)
+                h = self._block(a, h)
             hs.append(h)
         r0, a0, r1 = self._mid
-        h = getattr(self, r1)(getattr(self, a0)(getattr(self, r0)(h, emb)), emb)
+        h = self._block(r1, self._block(a0, self._block(r0, h, emb)), emb)
         for r, a, up, plain in self._dec:
             h = torch.cat([h, hs.pop().to(h.dtype)], dim=1)
-            h = getattr(self, r)(h, emb)
+            h = self._block(r, h, emb)
             if a is not None:
-                h = getattr(self, a)(h)
+                h = self._block(a, h)
             if up is not None:
-                m = getattr(self, up)
-                h = m(h) if plain else m(h, emb)
+                h = getattr(self, up)(h) if plain else self._block(up, h, emb)
         out = self.out_proj(F.silu(self.GroupNorm32_0(h)))
         return out.float().permute(0, 2, 3, 1)
-

@@ -1,5 +1,5 @@
-"""Palette DDPM inpainting: training and DDPM/DDIM sampling
-(``joligen_tpu/models/palette_model.py:33-346``).
+"""Palette DDPM: inpainting, pix2pix and super-resolution training and
+DDPM/DDIM sampling (``joligen_tpu/models/palette_model.py:33-366``).
 
 ``optimize_parameters`` = ``prepare_batch`` (set_input, uint8 wire step,
 device put) then ``optimize_prepared``: decode on the device, q_sample, the
@@ -7,14 +7,23 @@ denoiser, the masked loss, its gradients (through K1 forward and K2/K3
 backward on the card), AdamW and the EMA. ``inference`` = ``prepare_batch``
 then ``sample`` (the DDPM or DDIM chain with the EMA weights); ``sample``'s
 first random draw is ``y_t`` from the model's generator.
+
+``set_input`` builds the conditioning image as the JAX package does: ``y_t``
+(dataset A), the canny sketch of ``computed_sketch`` / ``canny`` (the port's
+numpy ``canny``, drawing its thresholds from ``random`` in the JAX order), or
+``low_res`` (INTER_AREA down, INTER_CUBIC up, in numpy; no mask).
 """
 
 from __future__ import annotations
 
+import random
+
 import numpy as np
 import torch
 
+from ..ops.cv_resize import resize_area, resize_cubic
 from ..ops.schedules import NoiseSchedule
+from ..utils.mask_generation import random_edge_mask
 from .base import BaseModel, dequantize, quantize_batch
 from .diffusion_networks import define_G, init_weights
 from .modules.palette_diffusion import (ddim_sample, ddpm_sample,
@@ -22,8 +31,29 @@ from .modules.palette_diffusion import (ddim_sample, ddpm_sample,
                                         palette_training_outputs)
 from .train_state import apply_updates
 
-UNPORTED_COND_CREATION = ("computed_sketch", "sketch", "canny", "depth",
-                          "hed", "hough", "sam", "low_res", "previous_frame")
+EDGE_MODES = ("computed_sketch", "sketch", "canny", "depth", "hed", "hough",
+              "sam")
+# creations that still raise: the sketch fillers that run frozen nets, and
+# the video one
+UNPORTED_COND_CREATION = {
+    **{m: "ROADMAP Queue 1 item 14, metrics and frozen nets"
+       for m in ("sketch", "depth", "hed", "hough", "sam")},
+    "previous_frame": "ROADMAP Queue 1 item 11, video diffusion",
+}
+
+
+def check_cond_creation(opt, creation):
+    """Raise for a conditioning creation, or a computed_sketch list entry,
+    that the port does not build."""
+    kinds = [creation]
+    if creation == "computed_sketch":
+        kinds = (getattr(opt, "alg_diffusion_cond_computed_sketch_list",
+                         None) or ["canny"])
+    for kind in kinds:
+        if kind in UNPORTED_COND_CREATION:
+            raise NotImplementedError(
+                f"conditioning image creation {kind!r} "
+                f"({UNPORTED_COND_CREATION[kind]})")
 
 
 class PaletteModel(BaseModel):
@@ -40,6 +70,8 @@ class PaletteModel(BaseModel):
         self.ema_beta = float(getattr(opt, "train_G_ema_beta", 0.999))
         self.use_ema = bool(getattr(opt, "train_G_ema", False))
         self.conditioning = getattr(opt, "alg_diffusion_cond_embed", "") or ""
+        check_cond_creation(opt, getattr(
+            opt, "alg_diffusion_cond_image_creation", "y_t") or "y_t")
         # "the highest class is the unconditioned one" (palette_model.py:
         # 565-584)
         self.null_class = max(getattr(opt, "f_s_semantic_nclasses", 2),
@@ -53,8 +85,8 @@ class PaletteModel(BaseModel):
 
     # ------------------------------------------------------------------
     def set_input(self, batch):
-        """Collated numpy batch -> (y_cond, gt, mask, cls), image path with
-        ``y_t`` conditioning (reference palette_model.py:287-556)."""
+        """Collated numpy batch -> (y_cond, gt, mask, cls), image path
+        (reference palette_model.py:287-556)."""
         gt = batch["B"]
         cond = batch["A"]
         mask = batch.get("B_label_mask")
@@ -65,10 +97,42 @@ class PaletteModel(BaseModel):
             cls = None
         creation = getattr(self.opt, "alg_diffusion_cond_image_creation",
                            "y_t") or "y_t"
-        if creation in UNPORTED_COND_CREATION:
-            raise NotImplementedError(
-                f"conditioning image creation {creation!r} "
-                "(ROADMAP Queue 1 item 6)")
+        if creation in EDGE_MODES and mask is not None:
+            # the masked region of gt filled with an edge map, one draw of
+            # the list and the thresholds per image (palette_model.py:
+            # 117-150)
+            fns = ((getattr(self.opt,
+                            "alg_diffusion_cond_computed_sketch_list", None)
+                    or ["canny"]) if creation == "computed_sketch"
+                   else [creation])
+            rng_canny = getattr(self.opt,
+                                "alg_diffusion_cond_sketch_canny_range",
+                                [0, 765]) or [0, 765]
+            canny_drop = getattr(self.opt, "alg_diffusion_vid_canny_dropout",
+                                 [[]]) or [[]]
+            drop_lo = (float(canny_drop[0][0])
+                       if canny_drop and canny_drop[0] else 0.0)
+            sketches = []
+            for g_i, m_i in zip(gt.reshape((-1,) + gt.shape[-3:]),
+                                mask.reshape((-1,) + mask.shape[-3:])):
+                if drop_lo > 0.0 and random.random() < drop_lo:
+                    sketches.append(np.zeros_like(g_i))
+                    continue
+                sketches.append(random_edge_mask(
+                    fns, g_i, m_i, opt=self.opt,
+                    low_threshold_random=int(min(rng_canny)),
+                    high_threshold_random=int(max(rng_canny))))
+            cond = np.stack(sketches).reshape(cond.shape)
+        elif creation == "low_res":
+            # super-resolution: gt down by the scale (INTER_AREA) and back up
+            # (INTER_CUBIC), palette_model.py:152-166
+            factor = max(2, int(getattr(
+                self.opt, "alg_diffusion_super_resolution_scale", 2) or 2))
+            lows = [resize_cubic(resize_area(g_i, factor),
+                                 (g_i.shape[1], g_i.shape[0]))
+                    for g_i in gt.reshape((-1,) + gt.shape[-3:])]
+            cond = np.stack(lows).reshape(gt.shape).astype(np.float32)
+            mask = None
         out = {"y_cond": cond, "gt": gt}
         if mask is not None:
             out["mask"] = mask
@@ -170,3 +234,20 @@ class PaletteModel(BaseModel):
             out = torch.round((out + 1.0) * 127.5).clamp(0, 255).to(
                 torch.uint8)
         return out.cpu().numpy()
+
+    def inference_per_class(self, batch, nb_classes=None, **kwargs):
+        """One sampled output per semantic class: the class and mask labels
+        are set to each class id in turn (reference palette_model.py:650-690,
+        alg_diffusion_generate_per_class). Returns {class_id: (B,H,W,C)}."""
+        nb_classes = nb_classes or self.null_class
+        outs = {}
+        for i in range(1, nb_classes + 1):
+            b2 = dict(batch)
+            if "class" in self.conditioning and "B_label_cls" in batch:
+                b2["B_label_cls"] = np.full_like(
+                    np.asarray(batch["B_label_cls"]), i)
+            if "mask" in self.conditioning and "B_label_mask" in batch:
+                m = np.clip(np.asarray(batch["B_label_mask"]), 0, 1) * i
+                b2["B_label_mask"] = m.astype(np.int32)
+            outs[i] = self.inference(b2, **kwargs)
+        return outs

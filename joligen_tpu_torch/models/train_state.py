@@ -208,7 +208,8 @@ def make_optimizer(opt, lr, params, iter_size=None):
     name = getattr(opt, "train_optim", "adam")
     if name not in ("adam", "adamw", "adam8bit"):
         raise NotImplementedError(
-            f"optimizer {name} is not ported (ROADMAP Queue 1 item 5)")
+            f"optimizer {name} is not ported (ROADMAP Queue 1 item 6, "
+            "training state, the rest)")
     mu_dtype = (torch.bfloat16
                 if getattr(opt, "tpu_optim_moment_dtype", "") == "bfloat16"
                 else torch.float32)

@@ -328,6 +328,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, sm_scale=None):
     return dq, dk, dv
 
 
+@torch.library.custom_op("joligen_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           sm_scale: float) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """``flash_attention_fwd`` as one dispatcher op: a selective activation
+    checkpoint (``remat_policy="conv"`` of ``UNetMHA``) can then keep its
+    outputs, so that the recomputation of a block does not launch K1
+    again."""
+    return flash_attention_fwd(q, k, v, sm_scale)
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention with the flash backward (the JAX ``custom_vjp``,
     ``flash_attention.py:247-262``): forward K1, saving q, k, v, O and lse;
@@ -336,7 +348,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
-        o, lse = flash_attention_fwd(q, k, v, sm_scale)
+        o, lse = flash_attention_fwd_op(q, k, v, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.sm_scale = sm_scale
         return o

@@ -1,27 +1,42 @@
 """Diffusion single-image inference on the port
-(``scripts/gen_single_image_diffusion.py``), whole-image mode.
+(``scripts/gen_single_image_diffusion.py``).
 
     python -m joligen_tpu_torch.scripts.gen_single_image_diffusion \\
         --model_in_file ckpt/latest_net_G_A.pth --img_in img.png \\
-        --mask_in mask.png --dir_out out --sampling_method ddim --seed 0
+        --bbox_in img.txt --dir_out out --sampling_method ddim --seed 0
 
 Same CLI and outputs as the JAX script: ``<name>_orig.png``,
 ``<name>_cond.png``, ``<name>_generated.png``, ``<name>_generated_crop.png``,
-``<name>_y_t.png``, ``<name>_mask.png``. The image is resized to the crop
-size, the masked region (``--mask_in``, or the whole image) is filled with
-noise (``y_t`` conditioning), sampled, and the generated crop is resized
-back into the full image. Runs on CUDA unless ``--cpu``.
+``<name>_y_t.png``, ``<name>_mask.png``, and with ``--bbox_in``
+``<name>_orig_bbox.json`` (the crop window in full-image coordinates).
+
+- ``--bbox_in``: the crop around a box of the file, cut as training cuts it
+  (``data/online_creation.crop_image`` centred, with its meta giving the
+  window); otherwise the whole image resized to the crop size, with
+  ``--mask_in`` (or everything) as the mask.
+- Conditioning: ``y_t`` (the masked region filled with noise), the canny
+  sketch (``--alg_diffusion_sketch_canny_thresholds``), ``low_res``
+  (``--alg_diffusion_super_resolution_downsample``: PIL bicubic down by the
+  scale and back up) and ``pix2pix`` (the crop itself).
+- The generated crop is resized back into the window of the full image.
+
+``--cond_in`` (exemplar insertion) and ``--ref_in`` (ref conditioning) raise.
+Runs on CUDA unless ``--cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import random
 
 import numpy as np
 
-from ..models.palette_model import UNPORTED_COND_CREATION
+from ..data.online_creation import crop_image
+from ..data.transforms import fill_mask_with_random
+from ..models.palette_model import EDGE_MODES, check_cond_creation
+from ..utils.mask_generation import random_edge_mask
 from .common import load_image_rgb, load_model_from_file, save_image_rgb, \
     to_m1p1, to_uint8
 
@@ -29,14 +44,32 @@ from .common import load_image_rgb, load_model_from_file, save_image_rgb, \
 def build_inputs(args, opt):
     """Returns (full_img_uint8, crop [-1,1], mask (H,W,1) int32,
     bbox_select [x1,y1,x2,y2] in full-image coords)."""
-    if args.bbox_in:
-        raise NotImplementedError(
-            "--bbox_in crop mode (ROADMAP Queue 1 item 7)")
     from PIL import Image
 
     img = load_image_rgb(args.img_in)
     H, W = img.shape[:2]
     size = opt.data_crop_size
+
+    if args.bbox_in:
+        crop, mask, _, _, meta = crop_image(
+            args.img_in, args.bbox_in,
+            mask_delta=[args.mask_delta] if args.mask_delta else
+            getattr(opt, "data_online_creation_mask_delta_A", [[]]),
+            crop_delta=0, crop_center=True,
+            mask_square=getattr(opt, "data_online_creation_mask_square_A",
+                                False),
+            crop_dim=(args.crop_width or
+                      getattr(opt, "data_online_creation_crop_size_A", 512)),
+            output_dim=size,
+            context_pixels=getattr(opt, "data_online_context_pixels", 0),
+            bbox_ref_id=args.bbox_ref_id,
+            min_crop_bbox_ratio=args.min_crop_bbox_ratio or None,
+            return_meta=True,
+        )
+        # the crop window the call used, in full-image coordinates
+        cx, cy, cdim = meta["x_crop"], meta["y_crop"], meta["crop_size"]
+        return img, crop, mask, [cx, cy, cx + cdim, cy + cdim]
+
     pil = Image.fromarray(img).resize((size, size), Image.BICUBIC)
     crop = to_m1p1(np.asarray(pil, np.uint8))
     if args.mask_in:
@@ -52,19 +85,52 @@ def _check_supported(args, opt):
     cond_creation = (args.alg_diffusion_cond_image_creation or
                      getattr(opt, "alg_diffusion_cond_image_creation", "y_t")
                      or "y_t")
-    if cond_creation in UNPORTED_COND_CREATION:
-        raise NotImplementedError(
-            f"{cond_creation} conditioning (ROADMAP Queue 1 item 7)")
+    check_cond_creation(opt, cond_creation)
     if args.cond_in:
         raise NotImplementedError(
-            "--cond_in exemplar insertion (ROADMAP Queue 1 item 7)")
+            "--cond_in exemplar insertion needs a perspective warp "
+            "(ROADMAP Queue 1 item 7, entry points, the rest)")
     if args.ref_in:
         raise NotImplementedError(
-            "--ref_in ref conditioning (ROADMAP Queue 1 item 7)")
+            "--ref_in ref conditioning (ROADMAP Queue 1 item 9, ref "
+            "conditioning, UViT and frequency space)")
     if opt.model_type != "palette":
         raise NotImplementedError(
-            f"model type {opt.model_type} (ROADMAP Queue 1 item 7)")
+            f"model type {opt.model_type} (ROADMAP Queue 1 items 8 to 13, "
+            "the model families after the main path)")
     return cond_creation
+
+
+def build_cond(args, opt, cond_creation, crop, mask):
+    """The conditioning image of the request (reference
+    scripts/gen_single_image_diffusion.py:127-166)."""
+    if cond_creation in EDGE_MODES:
+        fns = ((getattr(opt, "alg_diffusion_cond_computed_sketch_list", None)
+                or ["canny"]) if cond_creation == "computed_sketch"
+               else [cond_creation])
+        kw = {}
+        thr = args.alg_diffusion_sketch_canny_thresholds
+        if thr and len(thr) == 2 and fns == ["canny"]:
+            kw = dict(low_threshold=int(thr[0]), high_threshold=int(thr[1]))
+        return random_edge_mask(fns, crop, mask, opt=opt, **kw)
+    if cond_creation == "low_res":
+        from PIL import Image
+        cond = crop
+        if args.alg_diffusion_super_resolution_downsample:
+            size = crop.shape[0]
+            scale = float(getattr(
+                opt, "alg_diffusion_super_resolution_scale", 2.0) or 2.0)
+            low = max(1, int(size / scale))
+            u8 = ((cond + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+            u8 = np.asarray(Image.fromarray(u8).resize((low, low),
+                                                       Image.BICUBIC))
+            u8 = np.asarray(Image.fromarray(u8).resize((size, size),
+                                                       Image.BICUBIC))
+            cond = u8.astype(np.float32) / 127.5 - 1.0
+        return cond
+    if cond_creation == "pix2pix":
+        return crop
+    return fill_mask_with_random(crop, mask, -1)     # y_t
 
 
 def inference(args, lmodel=None, lopt=None):
@@ -81,11 +147,7 @@ def inference(args, lmodel=None, lopt=None):
         model.generator.manual_seed(args.seed)
 
     img, crop, mask, bbox_select = build_inputs(args, opt)
-    if cond_creation == "pix2pix":
-        cond = crop
-    else:  # y_t: randomize the masked region
-        from ..data.transforms import fill_mask_with_random
-        cond = fill_mask_with_random(crop, mask, -1)
+    cond = build_cond(args, opt, cond_creation, crop, mask)
 
     outs = []
     for _ in range(max(1, args.nb_samples)):
@@ -128,6 +190,10 @@ def inference(args, lmodel=None, lopt=None):
                    to_uint8(crop))
     save_image_rgb(os.path.join(args.dir_out, f"{name}_mask.png"),
                    (mask[:, :, 0] > 0).astype(np.uint8) * 255)
+    if args.bbox_in:
+        with open(os.path.join(args.dir_out, f"{name}_orig_bbox.json"),
+                  "w") as f:
+            json.dump(bbox_select, f)
     print("Successfully generated image", name)
     return last_full, model, opt
 
@@ -151,6 +217,22 @@ def build_parser():
     p.add_argument("--sampling_method", default="",
                    choices=["", "ddpm", "ddim"])
     p.add_argument("--alg_diffusion_cond_image_creation", default="")
+    p.add_argument("--alg_diffusion_sketch_canny_thresholds", type=int,
+                   nargs=2, default=None,
+                   help="fixed canny thresholds for sketch conditioning")
+    p.add_argument("--alg_diffusion_super_resolution_downsample",
+                   action="store_true",
+                   help="downsample the input by the SR scale before "
+                        "low_res conditioning")
+    p.add_argument("--mask_delta", type=int, nargs="*", default=[])
+    p.add_argument("--bbox_ref_id", type=int, default=-1,
+                   help="bbox id to use (reference "
+                        "inference_diffusion_options.py:124)")
+    p.add_argument("--min_crop_bbox_ratio", type=float, default=0,
+                   help="minimum crop-to-bbox size ratio (reference "
+                        "inference_diffusion_options.py:133)")
+    p.add_argument("--crop_width", type=int, default=0)
+    p.add_argument("--crop_height", type=int, default=0)
     p.add_argument("--seed", type=int, default=-1)
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (default: CUDA, raising without it)")

@@ -91,7 +91,7 @@ def launch_training(opt, cpu=False, step_callback=None):
     if getattr(opt, "train_compute_metrics_test", False):
         raise NotImplementedError(
             "train-time metrics (train_compute_metrics_test) are not ported "
-            "(ROADMAP Queue 1 item 14)")
+            "(ROADMAP Queue 1 item 14, metrics and frozen nets)")
     if getattr(opt, "tpu_profile_dir", ""):
         raise NotImplementedError(
             "tpu_profile_dir: traces inside training are not ported; "
@@ -170,6 +170,8 @@ def _train_loop(opt, model, dataloader, visualizer, stop, step_callback):
             t_compute += t1 - t0
             t_prev = t1
             total_iters += batch
+            # seconds the loop has waited for batches and spent in steps
+            model.loop_times = {"data_s": t_data, "compute_s": t_compute}
 
             if total_iters % print_every == 0:
                 # the one host read of the device loss

@@ -1,7 +1,7 @@
 """Training observability: loss_log.txt, losses.json/metrics.json persistence
 and an HTML gallery (``joligen_tpu/utils/visualizer.py``, reference
 util/visualizer.py:55-716), numpy and PIL only. The visdom and aim display
-adapters are not ported (ROADMAP Queue 1 item 16): ``output_display_type``
+adapters are not ported (ROADMAP Queue 1 item 16, export and serving): ``output_display_type``
 entries naming them are reported once and ignored."""
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 (csrc/dma_copy.cu) on the card, against their plain PyTorch versions, each
 dtype on its route (``ROUTES``); one
 training step of a small palette model counting one launch of each attention
-kernel; and one run of each probe counting its kernels' launches. Marked
+kernel, and one of an online bbox-crop batch with and without remat; and
+one run of each probe counting its kernels' launches. Marked
 ``cuda``: they skip without a CUDA device. This file imports neither jax nor
 the JAX package, so it runs on a machine with only PyTorch:
 
@@ -24,8 +25,10 @@ pytestmark = pytest.mark.cuda
 # 63, 65, 100 and 1000; B*H of 3), at each head dim
 EDGE_SHAPES = [(3, 1, 1, 16), (1, 63, 3, 64), (3, 65, 1, 16),
                (1, 1000, 3, 64)]
+# xview's mid block (32 heads of 32) at 128 px: a request and a batch-16 step
+XVIEW_SHAPES = [(1, 256, 32, 32), (16, 256, 32, 32)]
 SHAPES = [(2, 128, 2, 64), (2, 256, 1, 32), (2, 100, 2, 64), (2, 5, 2, 16),
-          (1, 256, 16, 32), *EDGE_SHAPES]
+          (1, 256, 16, 32), *XVIEW_SHAPES, *EDGE_SHAPES]
 # the backward checks of chip_smoke.py: the training shape, batch 1, 256 px
 # batch 8, and ragged ones
 BWD_CHECKS = [((8, 256, 16, 32), torch.bfloat16),
@@ -36,6 +39,7 @@ BWD_CHECKS = [((8, 256, 16, 32), torch.bfloat16),
               ((2, 5, 2, 16), torch.float32),
               ((2, 160, 2, 16), torch.bfloat16),
               ((2, 100, 2, 64), torch.bfloat16),
+              *((shape, torch.bfloat16) for shape in XVIEW_SHAPES),
               *((shape, torch.bfloat16) for shape in EDGE_SHAPES)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -153,7 +157,7 @@ def test_backward_kernels_match_plain_version(cuda, shape, dtype):
 
 @pytest.mark.parametrize("shape", [(8, 256, 16, 32), (8, 1024, 16, 32),
                                    (2, 160, 2, 16), (2, 100, 2, 64),
-                                   *EDGE_SHAPES])
+                                   *XVIEW_SHAPES, *EDGE_SHAPES])
 @pytest.mark.parametrize("q_tile", fa.Q_TILES)
 def test_bf16_dq_backward_matches_plain_version_at_each_query_tiling(
         cuda, shape, q_tile):
@@ -318,6 +322,46 @@ def test_training_step_launches_each_kernel_once(cuda, tmp_path):
     losses = model.optimize_parameters(batch)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {"flash_attention_fwd": 1,
+                           "flash_attention_bwd_dq": 1,
+                           "flash_attention_bwd_dkv": 1}
+    assert torch.isfinite(losses["G_tot"]).item()
+
+
+@pytest.mark.parametrize("remat,k1", [(None, 1), ("conv", 1), ("full", 2)])
+def test_online_batch_trains_on_the_card(cuda, tmp_path, remat, k1):
+    """A batch of the online bbox-crop mode with canny sketch conditioning
+    through one bf16 training step: one launch of each attention kernel,
+    and with remat K1 once more under "full" (its block recomputed)."""
+    from joligen_tpu_torch.data import create_dataloader, create_dataset
+    from joligen_tpu_torch.models import create_model
+    from joligen_tpu_torch.options import TrainOptions
+    from joligen_tpu_torch.tools.synthetic_datasets import write_online
+
+    write_online(str(tmp_path / "data"), 4, 96, seed=1)
+    cfg = {"model_type": "palette", "name": "cuda_online",
+           "checkpoints_dir": str(tmp_path), "dataroot": str(tmp_path / "data"),
+           "data": {"dataset_mode": "self_supervised_labeled_mask_online",
+                    "crop_size": 32, "load_size": 32, "relative_paths": True,
+                    "online_creation": {"crop_size_A": 48,
+                                        "crop_delta_A": 8}},
+           "G": {"netG": "unet_mha", "ngf": 32,
+                 "unet_mha": {"channel_mults": [1, 2], "res_blocks": [1, 1],
+                              "num_head_channels": 32}},
+           "alg": {"diffusion": {"task": "inpainting",
+                                 "cond_image_creation": "computed_sketch",
+                                 "cond_computed_sketch_list": ["canny"],
+                                 "cond_sketch_canny_range": [100, 400]}},
+           "train": {"G_ema": True, "optim": "adamw", "batch_size": 4},
+           "tpu": {"bf16": True, "remat": remat is not None,
+                   "remat_policy": remat or "conv"}}
+    opt = TrainOptions().parse_json(cfg, verbose=False)
+    batch = next(iter(create_dataloader(opt, create_dataset(opt))))
+    model = create_model(opt, phase="train")
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    losses = model.optimize_parameters(batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention_fwd": k1,
                            "flash_attention_bwd_dq": 1,
                            "flash_attention_bwd_dkv": 1}
     assert torch.isfinite(losses["G_tot"]).item()

@@ -1,5 +1,5 @@
 """The port stands alone: it imports with jax, flax, jaxlib, msgpack, the
-JAX package, cv2 and tifffile blocked (every module, the training slice's
+JAX package, cv2, tifffile and scipy blocked (every module, the training slice's
 and the probes' included), no source file of it (nor chip_smoke.py) imports
 them, and without a CUDA device its
 entry points (model, serving script, train CLI) raise unless the CPU is
@@ -16,10 +16,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "joligen_tpu_torch")
-# cv2 and tifffile: outside the port's allowed set (torch, numpy, PIL and
-# the standard library), though the JAX package imports both
+# cv2, tifffile and scipy: outside the port's allowed set (torch, numpy, PIL
+# and the standard library), though the JAX package imports them
 BLOCKED = ("jax", "flax", "jaxlib", "msgpack", "joligen_tpu", "cv2",
-           "tifffile")
+           "tifffile", "scipy")
 
 
 def _blocked(name):
@@ -33,6 +33,7 @@ def test_blocked_names_are_exact():
     assert not _blocked("jaxtyping") and not _blocked("msgpack_numpy")
     assert _blocked("cv2") and _blocked("tifffile")
     assert not _blocked("cv2x") and not _blocked("tifffile_plugins")
+    assert _blocked("scipy.special") and not _blocked("scipyx")
 
 
 IMPORT_ALL = r"""
@@ -63,6 +64,9 @@ TRAINING_MODULES = ("data", "data.datasets", "data.image_folder",
 # the probes' modules (kernels P1-P3 and their entry points)
 PROBE_MODULES = ("ops.conv3x3", "ops.copy", "tools",
                  "tools.fused_resblock_probe", "tools.bw_probe3")
+# the online crops, the canny and low_res conditioning, the datasets
+CONDITIONING_MODULES = ("data.online_creation", "utils.mask_generation",
+                        "ops.cv_resize", "tools.synthetic_datasets")
 
 
 def test_package_imports_with_jax_blocked():
@@ -71,8 +75,8 @@ def test_package_imports_with_jax_blocked():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 33
-    for m in TRAINING_MODULES + PROBE_MODULES:
+    assert len(names) >= 37
+    for m in TRAINING_MODULES + PROBE_MODULES + CONDITIONING_MODULES:
         assert "joligen_tpu_torch." + m in names, m
 
 

@@ -8,11 +8,16 @@
 2. The port's ``inference`` with a seeded generator equals that composition
    when its first draw is y_t.
 3. The port's gen_single_image_diffusion script serves a request end to
-   end from a checkpoint directory.
+   end from a checkpoint directory; a ``--bbox_in`` request cuts the crop,
+   mask and window that the JAX script's ``build_inputs`` cuts (exactly),
+   and its output equals the JAX DDIM-10 run on those inputs from the same
+   y_t (1e-3); ``--cond_in`` raises.
 """
 
+import importlib.util
 import json
 import os
+import random
 
 import numpy as np
 import pytest
@@ -22,6 +27,7 @@ import jax
 import jax.numpy as jnp
 from PIL import Image
 
+from joligen_tpu.data.transforms import fill_mask_with_random
 from joligen_tpu.models import create_model as jax_create_model
 from joligen_tpu.models.modules.palette_diffusion import ddim_sample
 from joligen_tpu.options import TrainOptions as JaxTrainOptions
@@ -185,7 +191,95 @@ def test_script_serves_a_request_on_cpu(checkpoint, tmp_path):
     gen.inference(args, lmodel=model, lopt=model.opt)
     bad = gen.build_parser().parse_args([
         "--model_in_file", str(d / "latest_net_G_A.pth"),
-        "--img_in", str(tmp_path / "img.png"), "--bbox_in", "b.txt",
-        "--cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        "--img_in", str(tmp_path / "img.png"), "--cond_in",
+        str(tmp_path / "img.png"), "--cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
         gen.inference(bad, lmodel=model, lopt=model.opt)
+
+
+def _jax_script():
+    """The JAX package's scripts/gen_single_image_diffusion.py."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "gen_single_image_diffusion.py")
+    spec = importlib.util.spec_from_file_location("jax_gen_single", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("extra", [[], ["--mask_delta", "2", "--crop_width",
+                                        "30", "--bbox_ref_id", "1"],
+                                   ["--min_crop_bbox_ratio", "2.0"]])
+def test_bbox_request_matches_jax_script(checkpoint, tmp_path, extra):
+    jm, d = checkpoint
+    rng = np.random.default_rng(6)
+    img = rng.integers(0, 256, (56, 72, 3), dtype=np.uint8)
+    Image.fromarray(img).save(tmp_path / "img.png")
+    (tmp_path / "img.txt").write_text("1 10 12 24 26\n1 40 20 58 44\n")
+    argv = ["--model_in_file", str(d / "latest_net_G_A.pth"),
+            "--img_in", str(tmp_path / "img.png"),
+            "--bbox_in", str(tmp_path / "img.txt"),
+            "--dir_out", str(tmp_path / "out"), "--sampling_method", "ddim",
+            "--sampling_steps", "10", "--seed", "3", "--cpu", *extra]
+    # the JAX script's inputs, with random seeded as its inference seeds it
+    jgen = _jax_script()
+    jargs = jgen.build_parser().parse_args(argv)
+    random.seed(3)
+    np.random.seed(3)
+    want = jgen.build_inputs(jargs, jm.opt)
+
+    model = _port_model(d)
+    got_inputs, outs = [], []
+    build, infer = gen.build_inputs, model.inference
+
+    def recording_build(*a):
+        got_inputs.append(build(*a))
+        return got_inputs[-1]
+
+    def recording_inference(*a, **kw):
+        outs.append(infer(*a, **kw))
+        return outs[-1]
+    model.inference = recording_inference
+    gen.build_inputs = recording_build
+    try:
+        full, _, _ = gen.inference(gen.build_parser().parse_args(argv),
+                                   lmodel=model, lopt=model.opt)
+    finally:
+        gen.build_inputs = build
+    (g_img, g_crop, g_mask, g_box), = got_inputs
+    np.testing.assert_array_equal(g_img, want[0])
+    np.testing.assert_array_equal(g_crop, want[1])
+    np.testing.assert_array_equal(g_mask, want[2])
+    assert g_box == want[3]
+    x1, y1, x2, y2 = g_box
+    with open(tmp_path / "out" / "img_orig_bbox.json") as f:
+        assert json.load(f) == g_box
+    outside = np.ones(img.shape[:2], bool)
+    outside[y1:y2, x1:x2] = False
+    assert outside.any() and not outside.all()
+    np.testing.assert_array_equal(full[outside], img[outside])
+
+    # the JAX DDIM-10 run on the JAX inputs from the port's first draw
+    np.random.seed(3)
+    batch = {"A": fill_mask_with_random(want[1], want[2], -1)[None],
+             "B": want[1][None], "B_label_mask": want[2][None]}
+    y_t = torch.randn((1, SIZE, SIZE, 3),
+                      generator=torch.Generator().manual_seed(3))
+    inp = quantize_batch(jm.set_input(batch), float_keys=("y_cond", "gt"),
+                         int_keys=("mask",))
+    net = jm.netG
+
+    def apply_fn(p, x, g, cls=None, mask=None, ref=None, zero_gamma=False):
+        return net.apply(p, x, g, cls=cls, mask=mask, ref=ref,
+                         zero_gamma=zero_gamma)
+
+    expect = ddim_sample(
+        apply_fn, jm.states["G_A"].ema_params, jax.random.PRNGKey(0),
+        jm.sched_test, dequantize_on_device(jnp.asarray(inp["y_cond"]),
+                                            "image"),
+        y_t=jnp.asarray(y_t.numpy()),
+        y_0=dequantize_on_device(jnp.asarray(inp["gt"]), "image"),
+        mask=dequantize_on_device(jnp.asarray(inp["mask"]), "label"),
+        num_steps=10, eta=0.5, out_channel=3)
+    np.testing.assert_allclose(outs[0], np.asarray(expect), atol=1e-3,
+                               rtol=0)

@@ -146,7 +146,7 @@ def test_port_refuses_the_jax_optimizer_file(run, tmp_path):
     jm.save_dir = str(tmp_path)
     jm.save_networks("latest")
     model = _port_model(run_dir, save_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         model.load_networks("latest")
     model.load_networks("latest", load_optim=False)
     want = flax_to_torch(jax.device_get(jm.states["G_A"].params))

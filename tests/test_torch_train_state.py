@@ -171,6 +171,6 @@ def test_optimizer_state_converter_round_trip(moment, iter_size):
 def test_unported_optimizers_raise():
     net = _Net()
     for name in ("radam", "lion", "madgrad", "muon"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             tts.make_optimizer(_opt(train_optim=name), 1e-3,
                                dict(net.named_parameters()))
