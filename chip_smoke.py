@@ -57,7 +57,17 @@ GPU. Run from the repository root with no arguments:
    host batch; a request with fixed canny thresholds), df2kost
    (``low_res`` super-resolution, no mask), SEN2VEN (``aligned`` pix2pix)
    and mario (class conditioning; ``inference_per_class``).
-7. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
+7. The CUT GANs, over synthetic unaligned datasets written here:
+   ``example_gan_horse2zebra.json`` at full width (resnet_attn G, ngf 64, 9
+   blocks; projected and basic Ds, ndf 64; MoNCE; DiffAugment color,cutout;
+   batch 4, 256 px crops, bf16), 8 steps with every loss finite, the
+   parameters of each net, step time, images/s, peak memory and data wait;
+   two requests through ``scripts/gen_single_image.inference`` from the
+   trained checkpoint (output finite, of the input's size); its G forward
+   and its G loss with every G gradient in fp32, card against CPU; then
+   ``example_gan_mnist2USPS.json``, 2 steps and one request. No kernel of
+   the port runs on these paths (their launch counts are 0).
+8. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
    bf16 and ``tools.bw_probe3`` over 1 GiB arrays, each with the launch
    counters set to 0 just before it and read just after.
 
@@ -156,6 +166,13 @@ COPY_CHECKS = [(4096, 1024, 256, "float32"), (4096, 1024, 1024, "bfloat16"),
                (1000, 1024, 1, "float32"), (2048, 8, 1, "bfloat16")]
 COPY_WRAP_CHECK = (65536, 1024, 256, "float32")
 COPY_PATH = (1024, 1024, "float32")     # the probe's 1 GiB, row, ms dtype
+# horse2zebra: one epoch of CUT_STEPS steps at batch 4, then CUT_REQUESTS
+# requests; its fp32 G loss card against CPU to CUT_LOSS_TOL (relative), its
+# G gradient against float64 on the CPU to twice the CPU fp32's error plus
+# GRAD_TOL_GLOBAL of the largest gradient
+CUT_STEPS = 8
+CUT_REQUESTS = 2
+CUT_LOSS_TOL = 1e-3
 PROBE_ITERS = 32
 TRACE_ATTEMPTS = 4                  # traces of one timing, at most
 
@@ -894,23 +911,26 @@ def _train(workdir, size, n_images, epochs, hook=None):
                       EXPECTED_PARAMS, hook)
 
 
-def _train_run(opt, steps, epochs, label, expected_params=None, hook=None):
+def _train_run(opt, steps, epochs, label, expected_params=None, hook=None,
+               attention_per_step=1):
     """``launch_training(opt)`` with the launch counters at 0 just before it
     and read just after (one main path). Checks the step count, the
-    parameter count (when given) and bf16, one launch of each attention
-    kernel per step and finite losses. ``hook(model, iters, steps)`` runs
-    after each step. Returns (model, opt, record): losses, median warm step,
-    images/s, peak memory, the loop's data wait."""
+    parameter count (when given) and bf16, ``attention_per_step`` launches
+    of each attention kernel a step (none for the GANs) and finite losses,
+    every loss the model logs. ``hook(model, iters, steps)`` runs after each
+    step. Returns (model, opt, record): losses, median warm step, images/s,
+    peak memory, the loop's data wait."""
     import numpy as np
     import torch
     from joligen_tpu_torch.train import launch_training
 
-    marks, losses = [], []
+    marks, losses, all_losses = [], [], []
 
     def on_step(model, iters):
         torch.cuda.synchronize()
         marks.append((iters, time.perf_counter()))
         losses.append(float(model.loss_log["G_tot"]))
+        all_losses.append({k: float(v) for k, v in model.loss_log.items()})
         if hook is not None:
             hook(model, iters, steps)
 
@@ -928,11 +948,12 @@ def _train_run(opt, steps, epochs, label, expected_params=None, hook=None):
             model.device_dtype != torch.bfloat16:
         raise AssertionError(f"{label}: trained {n_params} parameters in "
                              f"{model.device_dtype}")
-    if len(marks) != steps or launches != _attention_only(launches, steps):
+    want = _attention_only(launches, steps * attention_per_step)
+    if len(marks) != steps or launches != want:
         raise AssertionError(f"{label}: {len(marks)} steps, launches "
-                             f"{launches}; expected {steps} of each kernel")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"{label}: non-finite loss: {losses}")
+                             f"{launches}; expected {want}")
+    if not all(np.isfinite(v) for d in all_losses for v in d.values()):
+        raise AssertionError(f"{label}: non-finite loss: {all_losses}")
     # warm steps: the step after another in the same epoch (the first of
     # an epoch waits for the loader and follows the epoch's saves)
     per_epoch = steps // epochs
@@ -943,6 +964,7 @@ def _train_run(opt, steps, epochs, label, expected_params=None, hook=None):
     rec = {"batch": opt.train_batch_size, "steps": steps,
            "parameters": n_params, "launches": launches,
            "loss_first": losses[0], "loss_last": losses[-1],
+           "losses_last": all_losses[-1],
            "median_warm_step_s": step_s, "warm_steps": len(warm),
            "images_per_s": opt.train_batch_size / step_s,
            "max_memory_allocated": peak, "data_wait_s": data_s,
@@ -1632,6 +1654,205 @@ def other_configs_phase(workdir):
     return recs, paths
 
 
+def _cut_opt(example, workdir, n_images, size, name):
+    """A GAN example config over a synthetic unaligned dataset of
+    ``n_images`` a domain, ``size`` px, written here: one epoch, losses
+    read every step."""
+    from joligen_tpu_torch.options import TrainOptions
+    from joligen_tpu_torch.tools.synthetic_datasets import write_unaligned
+
+    with open(os.path.join(ROOT, "examples", example)) as f:
+        opt = TrainOptions().parse_json(json.load(f), verbose=False)
+    opt.dataroot = os.path.join(workdir, f"data_{name}")
+    write_unaligned(opt.dataroot, n_images, size, seed=SEED + 11)
+    opt.checkpoints_dir = os.path.join(workdir, "cut_ckpt")
+    opt.name = f"smoke_{name}"
+    opt.train_n_epochs, opt.train_n_epochs_decay = 1, 0
+    opt.output_print_freq = opt.train_batch_size
+    opt.output_display_freq = 0
+    return opt
+
+
+def _serve_gan(ckpt, img, out_dir, n):
+    """``n`` requests through ``scripts/gen_single_image.inference`` from
+    one load of ``ckpt``, launch counters at 0 just before them and read
+    just after. Each output is finite and of the input's size."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.scripts import gen_single_image as gen
+    from joligen_tpu_torch.scripts.common import (load_image_rgb,
+                                                  load_model_from_file)
+
+    served, sopt = load_model_from_file(ckpt)
+    src = load_image_rgb(img)
+    reset_launches()
+    secs = []
+    for i in range(n):
+        args = gen.parser().parse_args([
+            "--model_in_file", ckpt, "--img_in", img,
+            "--img_out", os.path.join(out_dir, f"req{i}.png")])
+        t0 = time.perf_counter()
+        out = gen.inference(args, served, sopt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if out.shape != src.shape or not np.isfinite(out).all():
+            raise AssertionError(f"request {i}: output {out.shape}, input "
+                                 f"{src.shape}")
+    launches = read_launches()
+    del served
+    torch.cuda.empty_cache()
+    return {"request_s": secs, "launches": launches}
+
+
+def cut_phase(workdir):
+    """horse2zebra (``example_gan_horse2zebra.json``) at full width: CUT_STEPS
+    steps over a synthetic unaligned dataset (batch 4, 256 px crops of 286
+    px loads, bf16, resnet_attn G, projected and basic Ds, MoNCE,
+    DiffAugment color,cutout), then CUT_REQUESTS requests from the trained
+    checkpoint; then mnist2USPS (``example_gan_mnist2USPS.json``, 1 channel,
+    28 px, batch 16), 2 steps and one request. No kernel of the port runs
+    on these paths."""
+    import torch
+
+    recs, paths = {}, {}
+    for name, example, n_images, size, steps, n_req in (
+            ("horse2zebra", "example_gan_horse2zebra.json",
+             CUT_STEPS * 4, 300, CUT_STEPS, CUT_REQUESTS),
+            ("mnist2USPS", "example_gan_mnist2USPS.json", 32, 32, 2, 1)):
+        opt = _cut_opt(example, workdir, n_images, size, name)
+        model, opt, rec = _train_run(opt, steps, 1, f"{name} training",
+                                     attention_per_step=0)
+        rec["parameters_per_net"] = model.param_count()
+        log(f"{name}: parameters per net {rec['parameters_per_net']}")
+        if name == "horse2zebra":
+            want = {"G_A", "F", "D_B_projected_d", "D_B_basic"}
+            if (set(rec["parameters_per_net"]) != want
+                    or opt.data_crop_size != 256 or opt.G_ngf != 64
+                    or opt.G_nblocks != 9 or opt.D_ndf != 64
+                    or opt.train_batch_size != 4):
+                raise AssertionError("horse2zebra is not at full width")
+        del model
+        torch.cuda.empty_cache()
+        paths[f"{name}_training"] = rec["launches"]
+        ckpt = os.path.join(opt.checkpoints_dir, opt.name,
+                            "latest_net_G_A.pth")
+        out_dir = os.path.join(workdir, f"out_{name}")
+        os.makedirs(out_dir)
+        req = _serve_gan(ckpt, os.path.join(opt.dataroot, "trainA",
+                                            "0000.png"), out_dir, n_req)
+        log(f"{name}: {n_req} requests from the trained checkpoint, "
+            f"{[round(s, 4) for s in req['request_s']]} s, launches "
+            f"{req['launches']}")
+        rec["requests"] = req
+        paths[f"{name}_requests"] = req["launches"]
+        recs[name] = rec
+    return recs, paths
+
+
+def _float64(model):
+    """A port model's nets in float64 (parameters and compute dtype), for an
+    exact-arithmetic reference on the CPU."""
+    import torch
+    for net in model.nets.values():
+        net.double()
+        for mod in net.modules():
+            if getattr(mod, "dtype", None) == torch.float32:
+                mod.dtype = torch.float64
+
+
+def cut_cross_check():
+    """horse2zebra at full width in fp32, TF32 off: one G forward (batch 1,
+    256 px) and one G loss (both Ds and MoNCE on the same draws, batch 1)
+    with every G gradient, the card against the CPU on the same weights.
+    fp32 itself leaves gradient errors of a few 1e-3 of the largest
+    gradient here, so both are also held against the same loss in float64
+    on the CPU: the card must be as close to it as the CPU's fp32 is."""
+    import copy
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models import create_model
+    from joligen_tpu_torch.ops.diff_aug import draw_diff_augment
+    from joligen_tpu_torch.options import TrainOptions
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    with open(os.path.join(ROOT, "examples",
+                           "example_gan_horse2zebra.json")) as f:
+        opt = TrainOptions().parse_json(json.load(f), verbose=False)
+    opt.tpu_bf16 = False
+    opt.checkpoints_dir = tempfile.mkdtemp(prefix="cut_xcheck_")
+    size = opt.data_crop_size
+    rng = np.random.default_rng(SEED + 13)
+    real_A, real_B = (torch.from_numpy(rng.uniform(-1, 1, (1, size, size, 3))
+                                       .astype(np.float32)) for _ in range(2))
+    g = torch.Generator().manual_seed(SEED + 14)
+    # the NCE taps 0, 4, 8, 12, 16: the input, then res1, res5, res8 twice
+    hw = [size * size] + [(size // 4) ** 2] * 4
+    draws = {"g_aug": draw_diff_augment(g, (1, 3, size, size),
+                                        opt.dataaug_diff_aug_policy,
+                                        opt.dataaug_diff_aug_proba),
+             "nce": [torch.randperm(n, generator=g)[:256] for n in hw],
+             "nce_idt": [torch.randperm(n, generator=g)[:256] for n in hw]}
+
+    def moved(dev, dtype):
+        def cast(t):
+            return t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
+        return {k: ([cast(t) for t in v] if isinstance(v, list) else
+                    {kk: cast(vv) for kk, vv in v.items()})
+                for k, v in draws.items()}
+
+    res, state = {}, None
+    for run, dev, dtype in (("cuda", "cuda", torch.float32),
+                            ("cpu", "cpu", torch.float32),
+                            ("cpu_fp64", "cpu", torch.float64)):
+        model = create_model(copy.copy(opt), phase="train", device=dev)
+        if state is None:
+            state = {n: {k: v.detach().cpu() for k, v in
+                         net.state_dict().items()}
+                     for n, net in model.nets.items()}
+        for n, net in model.nets.items():
+            net.load_state_dict(state[n])
+        if dtype == torch.float64:
+            _float64(model)
+        a, b = real_A.to(dev, dtype), real_B.to(dev, dtype)
+        with torch.inference_mode():
+            fwd = model.nets["G_A"](a).double().cpu()
+        total, losses, _ = model._g_loss(a, b, moved(dev, dtype))
+        names = [n for n, _ in model.nets["G_A"].named_parameters()]
+        grads = torch.autograd.grad(total, model.states["G_A"].params)
+        res[run] = {"fwd": fwd,
+                    "loss": {k: float(v.detach()) for k, v in losses.items()},
+                    "grads": {n: x.detach().double().cpu()
+                              for n, x in zip(names, grads)}}
+        del model
+
+    def grad_err(x, y):
+        return max((res[x]["grads"][n] - v).abs().max().item()
+                   for n, v in res[y]["grads"].items())
+
+    fwd_err = (res["cuda"]["fwd"] - res["cpu"]["fwd"]).abs().max().item()
+    scale = max(v.abs().max().item()
+                for v in res["cpu_fp64"]["grads"].values())
+    loss_err = max(abs(res["cuda"]["loss"][k] - v) / max(1.0, abs(v))
+                   for k, v in res["cpu"]["loss"].items())
+    rec = {"forward_max_abs_err": fwd_err, "losses_cuda": res["cuda"]["loss"],
+           "losses_cpu": res["cpu"]["loss"], "loss_max_rel_err": loss_err,
+           "leaves": len(res["cpu"]["grads"]), "max_abs_grad": scale,
+           "grad_err_card_vs_cpu": grad_err("cuda", "cpu") / scale,
+           "grad_err_card_vs_fp64": grad_err("cuda", "cpu_fp64") / scale,
+           "grad_err_cpu_vs_fp64": grad_err("cpu", "cpu_fp64") / scale,
+           "tol_forward": CROSS_CHECK_TOL, "tol_loss": CUT_LOSS_TOL}
+    log("horse2zebra fp32 card vs CPU (gradient errors over the largest "
+        "gradient): " + json.dumps(rec))
+    if not (fwd_err <= CROSS_CHECK_TOL and loss_err <= CUT_LOSS_TOL
+            and rec["grad_err_card_vs_fp64"]
+            <= 2 * rec["grad_err_cpu_vs_fp64"] + GRAD_TOL_GLOBAL
+            and all(np.isfinite(v) for v in rec["losses_cuda"].values())):
+        raise AssertionError("card and CPU horse2zebra disagree")
+    return rec
+
+
 def ptxas_spills(ptxas):
     """The functions of a ``-Xptxas=-v`` log whose registers spill, each
     with its log line."""
@@ -1716,13 +1937,15 @@ def main():
             "K2": k2["timings"]["xview_128px_batch16"]["dq_ms"],
             "K3": k3["timings"]["xview_128px_batch16"]["dkv_ms"]})
         configs, config_paths = other_configs_phase(workdir)
+        gans, gan_paths = cut_phase(workdir)
     grad_check = gradient_cross_check()
+    gans["horse2zebra"]["cross_check_fp32"] = cut_cross_check()
     probe_launches, probes = probe_paths()
     paths = {"serving": serving, "training": training["launches"],
              "trained_checkpoint_request":
                  training["trained_request_launches"],
              "training_256px": training_256["launches"], **xview["paths"],
-             **config_paths, **probe_launches}
+             **config_paths, **gan_paths, **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -1734,6 +1957,7 @@ def main():
     log("training 256 px: " + json.dumps(training_256))
     log("xview: " + json.dumps(xview))
     log("configs: " + json.dumps(configs))
+    log("gans: " + json.dumps(gans))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     k1["training_gradient_cross_check"] = grad_check
     stage_a = probes["fused_resblock_probe"]

@@ -2,8 +2,8 @@
 
 All randomness, PIL decoding and cropping stay on the host; the device sees
 fixed-shape NHWC batches. Ported modes (``PORTED_MODES``): the labeled-mask
-modes, their online bbox-crop variants, ``aligned`` and ``single``; any other
-mode raises ``NotImplementedError``.
+modes, their online bbox-crop variants, ``unaligned``, ``aligned`` and
+``single``; any other mode raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ PORTED_MODES = ("unaligned_labeled_mask", "unaligned_labeled_mask_cls",
                 "self_supervised_labeled_mask_cls",
                 "self_supervised_labeled_mask_online",
                 "self_supervised_labeled_mask_cls_online",
-                "aligned", "single")
+                "aligned", "single", "unaligned")
 
 
 def find_dataset_class(mode):
@@ -30,7 +30,8 @@ def find_dataset_class(mode):
                                     D.SelfSupervisedLabeledMaskClsDataset,
                                     D.SelfSupervisedLabeledMaskOnlineDataset,
                                     D.SelfSupervisedLabeledMaskClsOnlineDataset,
-                                    D.AlignedDataset, D.SingleDataset)))
+                                    D.AlignedDataset, D.SingleDataset,
+                                    D.UnalignedDataset)))
     if mode not in table:
         raise NotImplementedError(
             f"dataset mode {mode} is not ported (ported: {PORTED_MODES}; "

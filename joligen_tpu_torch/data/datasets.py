@@ -1,7 +1,7 @@
 """Dataset modes (host-side sample producers), copied from
 ``joligen_tpu/data/datasets.py``: the labeled-mask modes (``:31-227``), the
-online bbox-crop modes (``:229-357``) and the aligned and single modes
-(``:663-698``).
+online bbox-crop modes (``:229-357``), the unaligned mode (``:74-97``) and
+the aligned and single modes (``:663-698``).
 
 Each dataset returns per-sample dicts of numpy arrays with keys matching the
 reference contract (data/base_dataset.py:120-195): ``A``, ``B`` (H,W,C float32
@@ -63,6 +63,33 @@ class BaseDataset:
 
     def __getitem__(self, index):
         raise NotImplementedError
+
+
+class UnalignedDataset(BaseDataset):
+    """Unpaired A/B: A by index, B at random (from ``random``) or, with
+    ``data_serial_batches``, by the same index."""
+
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self.A_img_paths = make_dataset(self.dir_A, opt.data_max_dataset_size)
+        self.B_img_paths = make_dataset(self.dir_B, opt.data_max_dataset_size)
+        self.A_size = len(self.A_img_paths)
+        self.B_size = len(self.B_img_paths)
+
+    def __getitem__(self, index):
+        A_path = self.A_img_paths[index % self.A_size]
+        if getattr(self.opt, "data_serial_batches", False):
+            B_path = self.B_img_paths[index % self.B_size]
+        else:
+            B_path = self.B_img_paths[random.randint(0, self.B_size - 1)]
+        pA = self.transform.sample_params()
+        pB = self.transform.sample_params()
+        return {
+            "A": self.transform.image(self._load_img(A_path), pA),
+            "B": self.transform.image(self._load_img(B_path), pB),
+            "A_img_paths": A_path,
+            "B_img_paths": B_path,
+        }
 
 
 class _LabeledPathsMixin:

@@ -3,11 +3,18 @@
 
 def create_model(opt, phase="train", device=None, cpu=False):
     """Name -> model class (``joligen_tpu/models/__init__.py``) for phase
-    ``train`` or ``test``. Only the palette model is ported; the device is
+    ``train`` or ``test``: palette, cut and test are ported. The device is
     CUDA unless ``cpu`` or an explicit ``device`` is given."""
     if opt.model_type == "palette":
         from .palette_model import PaletteModel
         return PaletteModel(opt, phase=phase, device=device, cpu=cpu)
+    if opt.model_type == "cut":
+        from .cut_model import CUTModel
+        return CUTModel(opt, phase=phase, device=device, cpu=cpu)
+    if opt.model_type == "test":
+        from .test_model import TestModel
+        return TestModel(opt, phase=phase, device=device, cpu=cpu)
     raise NotImplementedError(
-        f"model type {opt.model_type}: only palette is ported (ROADMAP "
-        "Queue 1 items 8 to 13, the model families after the main path)")
+        f"model type {opt.model_type}: palette, cut and test are ported "
+        "(ROADMAP Queue 1 items 8 to 13, the model families after the main "
+        "path)")

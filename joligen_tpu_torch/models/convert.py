@@ -9,6 +9,13 @@ port's modules carry the flax names. Leaf mappings:
 - norm ``scale`` <-> ``weight``; ``bias`` <-> ``bias``;
 - embedding tables (modules named ``embedder_*``) ``embedding`` <-> ``weight``.
 
+The GAN trees need no other rule: a depthwise kernel (``feature_group_count``
+= C, HWIO with I = 1) is the OIHW weight with I = 1; ``TorchConvTranspose``
+keeps its kernel as the flipped direct-conv kernel the JAX package stores,
+so it transposes as any conv (and is not flipped again); spectral
+normalisation keeps no state (``SNConv`` is ``kernel`` and ``bias``); the
+projected D's frozen trunk and projections are plain convs and GroupNorms.
+
 Both directions only transpose, so they are exact. The same mapping carries
 an optax adam/adamw state (count, mu, nu) to the port's optimizer state and
 back.

@@ -1,0 +1,125 @@
+"""GAN network factories (``joligen_tpu/models/gan_networks.py``): the
+resnet generators, the ``basic`` / ``n_layers`` / ``pixel`` /
+``projected_d`` discriminators and the ``PatchSampleF`` projector. Any
+other generator or discriminator raises, naming its ROADMAP item.
+
+torch layers need their input sizes, which flax infers: the factories take
+them from the options (``model_input_nc``, ``model_output_nc``, the crop)
+and ``define_F`` from the generator's encoder taps.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .. import compute_dtype
+from .modules.cut_networks import PatchSampleF
+from .modules.discriminators import NLayerDiscriminator, PixelDiscriminator
+from .modules.resnet_generator import ResnetGenerator, ResnetGeneratorAttn
+
+_ROADMAP_ZOO = "ROADMAP Queue 1 item 13, rest of the zoo"
+UNPORTED_G = {
+    **{n: "ROADMAP Queue 1 item 9 (UViT) and item 10 (GAN families)"
+       for n in ("unet_mha", "uvit", "unet_256", "unet_128")},
+    **{n: _ROADMAP_ZOO for n in ("segformer_attn_conv", "segformer_conv",
+                                 "hdit", "hat", "ittr")},
+}
+UNPORTED_D = {
+    "temporal": "ROADMAP Queue 1 item 11, video diffusion",
+    "vision_aided": _ROADMAP_ZOO, "depth": _ROADMAP_ZOO, "sam": _ROADMAP_ZOO,
+    "mask": "ROADMAP Queue 1 item 10, semantic networks",
+}
+
+
+def define_G(opt):
+    netG = opt.G_netG
+    dtype = compute_dtype(opt)
+    common = dict(
+        in_channels=opt.model_input_nc, out_channels=opt.model_output_nc,
+        ngf=opt.G_ngf, n_blocks=opt.G_nblocks, norm=opt.G_norm,
+        padding_type=opt.G_padding_type, mobile="mobile" in netG,
+        freq_space=getattr(opt, "train_feat_wavelet", False),
+        use_spectral=getattr(opt, "G_spectral", False),
+        up_mode=getattr(opt, "G_resnet_up_mode", "resize"), dtype=dtype)
+    if netG in ("resnet", "mobile_resnet", "resnet_9blocks", "resnet_6blocks"):
+        return ResnetGenerator(dropout=0.5 if opt.G_dropout else 0.0,
+                               **common)
+    if netG in ("resnet_attn", "mobile_resnet_attn"):
+        return ResnetGeneratorAttn(
+            nb_mask_attn=opt.G_attn_nb_mask_attn,
+            nb_mask_input=opt.G_attn_nb_mask_input, **common)
+    where = UNPORTED_G.get(netG) or (
+        _ROADMAP_ZOO if "segformer" in netG else "ROADMAP Queue 1 item 10")
+    raise NotImplementedError(f"GAN generator {netG} is not ported ({where})")
+
+
+def define_D(opt, names=None):
+    """name -> discriminator, one per ``D_netDs`` entry, named ``D_B_<entry>``
+    as in the JAX package."""
+    dtype = compute_dtype(opt)
+    names = names if names is not None else list(opt.D_netDs)
+    cin = opt.model_output_nc
+    ds = {}
+    for name in names:
+        if name in ("basic", "n_layers"):
+            ds["D_B_" + name] = NLayerDiscriminator(
+                in_channels=cin, ndf=opt.D_ndf, n_layers=opt.D_n_layers,
+                norm=opt.D_norm,
+                antialias=not getattr(opt, "D_no_antialias", False),
+                use_dropout=getattr(opt, "D_dropout", False),
+                use_spectral=getattr(opt, "D_spectral", False),
+                freq_space=getattr(opt, "train_feat_wavelet", False),
+                dtype=dtype)
+        elif name == "pixel":
+            ds["D_B_" + name] = PixelDiscriminator(
+                in_channels=cin, ndf=opt.D_ndf, norm=opt.D_norm, dtype=dtype)
+        elif name == "projected_d":
+            from .modules.projected_d import (_LITE0_STAGES, _LITE3_STAGES,
+                                              ProjectedDiscriminator)
+            ptype = getattr(opt, "D_proj_network_type",
+                            "efficientnet") or "efficientnet"
+            if ptype in ("vitbase", "vitsmall", "vitclip16", "siglip",
+                         "dinov2_vitb14"):
+                raise NotImplementedError(
+                    f"D_proj_network_type={ptype}: ViT-feature "
+                    f"discriminators are not ported ({_ROADMAP_ZOO})")
+            ds["D_B_" + name] = ProjectedDiscriminator(
+                size=opt.data_crop_size,
+                interp=getattr(opt, "D_proj_interp", -1),
+                network_type=ptype,
+                trunk_stages=(_LITE3_STAGES if ptype == "depth"
+                              else _LITE0_STAGES), dtype=dtype)
+        else:
+            where = UNPORTED_D.get(name, _ROADMAP_ZOO)
+            raise NotImplementedError(
+                f"discriminator {name} is not ported ({where})")
+    return ds
+
+
+def define_F(opt, in_channels):
+    """``PatchSampleF`` over taps of ``in_channels`` channels."""
+    netF = getattr(opt, "alg_cut_netF", "mlp_sample")
+    return PatchSampleF(in_channels, nc=opt.alg_cut_netF_nc,
+                        use_mlp="mlp" in netF, dtype=compute_dtype(opt))
+
+
+def flax_default_init(module, generator):
+    """flax's default init: lecun-normal (truncated at 2 std) kernels, zero
+    biases, unit norm scales; drawn from the CPU ``generator``."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "bias":
+                p.zero_()
+            elif p.ndim == 1:
+                p.fill_(1.0)
+            else:
+                std = math.sqrt(1.0 / p[0].numel()) / 0.87962566103423978
+                t = torch.empty(p.shape, dtype=torch.float32)
+                nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                p.copy_(t)
+    return module

@@ -252,3 +252,50 @@ def apply_updates(state, grads, ema_beta=0.0):
         torch._foreach_add_(ema, torch._foreach_mul(state.params,
                                                     1.0 - ema_beta))
     state.step += 1
+
+
+def apply_init_scheme(module, generator, init_type, init_gain=0.02):
+    """Re-draw every conv and dense kernel (a ``weight`` of rank >= 2) with
+    the pix2pix-lineage scheme and zero every bias
+    (``joligen_tpu/models/train_state.py:208-249``): ``normal`` N(0, gain),
+    ``xavier`` N(0, gain·sqrt(2 / (fan_in + fan_out))), ``kaiming``
+    N(0, sqrt(2 / fan_in)) or ``orthogonal`` (scaled by gain); fans count
+    the receptive field, as torch's do. Norm scales stay as they are.
+    ``generator`` is a CPU generator: the values are drawn on the CPU, so
+    they do not depend on the module's device. The JAX package draws from
+    its own keys, so the two inits agree in law, not in value."""
+    if not init_type or init_type == "default":
+        return module
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "bias":
+                p.zero_()
+                continue
+            if leaf != "weight" or p.ndim < 2:
+                continue
+            receptive = p[0, 0].numel() if p.ndim > 2 else 1
+            fan_in, fan_out = p.shape[1] * receptive, p.shape[0] * receptive
+            t = torch.empty(p.shape, dtype=torch.float32)
+            if init_type == "orthogonal":
+                torch.nn.init.orthogonal_(t, init_gain, generator=generator)
+            else:
+                std = {"normal": init_gain,
+                       "xavier": init_gain * np.sqrt(2.0 / (fan_in + fan_out)),
+                       "kaiming": np.sqrt(2.0 / fan_in)}.get(init_type)
+                if std is None:
+                    raise NotImplementedError(
+                        f"initialization method [{init_type}] is not "
+                        "implemented")
+                t.normal_(0.0, float(std), generator=generator)
+            p.copy_(t)
+    return module
+
+
+def scheme_from_opt(module, generator, opt):
+    """``apply_init_scheme`` from ``model_init_type`` / ``model_init_gain``
+    (the GAN models' rule, ``train_state.py:252-260``)."""
+    return apply_init_scheme(
+        module, generator,
+        getattr(opt, "model_init_type", "normal") or "normal",
+        float(getattr(opt, "model_init_gain", 0.02) or 0.02))

@@ -5,11 +5,13 @@
         [--sampling_method ddim | --train] [--size PX] \\
         [--out profile_request.json]
 
-Builds the config's palette model at full width with seeded random weights
-and runs twice as warm-up, on a synthetic masked image, either one serving
-request or (``--train``) one training step on a batch of
-``train_batch_size`` such images; then times one run by the host clock and
-traces another with ``torch.profiler``. Prints one JSON object: latency,
+Builds the config's model (palette, or a GAN such as
+``examples/example_gan_horse2zebra.json``) at full width with seeded random
+weights and runs twice as warm-up, on a synthetic masked image, either one
+serving request or (``--train``) one training step on a batch of
+``train_batch_size`` such images (a GAN reads its ``A`` and ``B``); then
+times one run by the host clock and traces another with
+``torch.profiler``. Prints one JSON object: latency,
 kernels launched per run, the device's busy time (the union of the kernels'
 intervals) and idle share of the untraced latency, and the kernels that
 take the most device time. Needs a CUDA device.
@@ -88,11 +90,15 @@ def main(argv=None):
         model = create_model(opt, phase="test")
         batch = synthetic_batch(opt.data_crop_size, model.seed)
 
+    palette = opt.model_type == "palette"
+
     def request():
         if args.train:
             model.optimize_parameters(batch)
-        else:
+        elif palette:
             model.inference(batch, sampling_method=args.sampling_method)
+        else:
+            model.inference(batch)
         torch.cuda.synchronize()
 
     for _ in range(2):
@@ -120,7 +126,8 @@ def main(argv=None):
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "config": os.path.basename(args.config),
         "run": ("training step, batch %d" % opt.train_batch_size
-                if args.train else args.sampling_method + " request"),
+                if args.train else (args.sampling_method + " request"
+                                    if palette else "request")),
         "crop_size": opt.data_crop_size,
         "latency_ms": latency_us / 1e3,
         "device_launches": len(kernels),

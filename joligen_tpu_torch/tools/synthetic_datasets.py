@@ -1,7 +1,8 @@
 """Synthetic datasets in the on-disk layouts of the palette example configs,
 made from a seed: the online bbox-crop layout (``xview``, ``mapillary``,
-``mario``), ``single`` (``df2kost``) and ``aligned`` (``SEN2VEN``). Paths
-in ``paths.txt`` are relative to the root (``data_relative_paths``).
+``mario``), ``single`` (``df2kost``) and ``aligned`` (``SEN2VEN``); and of
+the GAN example configs: ``unaligned`` (``horse2zebra``, ``mnist2USPS``).
+Paths in ``paths.txt`` are relative to the root (``data_relative_paths``).
 
     python -m joligen_tpu_torch.tools.synthetic_datasets online DIR [N [SIZE]]
 """
@@ -79,8 +80,24 @@ def write_aligned(root, n, size, seed=0):
         Image.fromarray(b).save(os.path.join(root, "trainB", f"{i:04d}.png"))
 
 
+def write_unaligned(root, n, size, seed=0):
+    """``trainA/*.png`` and ``trainB/*.png``, ``n`` unrelated images each;
+    B's are striped, a domain A's do not show."""
+    rng = np.random.default_rng(seed)
+    for dom in "AB":
+        os.makedirs(os.path.join(root, f"train{dom}"), exist_ok=True)
+    stripes = ((np.arange(size) // max(1, size // 16)) % 2 * 90)[None, :,
+                                                                 None]
+    for i in range(n):
+        Image.fromarray(_image(rng, size)).save(
+            os.path.join(root, "trainA", f"{i:04d}.png"))
+        b = np.clip(_image(rng, size).astype(np.int16) + stripes - 45, 0,
+                    255).astype(np.uint8)
+        Image.fromarray(b).save(os.path.join(root, "trainB", f"{i:04d}.png"))
+
+
 WRITERS = {"online": write_online, "single": write_single,
-           "aligned": write_aligned}
+           "aligned": write_aligned, "unaligned": write_unaligned}
 
 
 if __name__ == "__main__":

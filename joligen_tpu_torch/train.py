@@ -9,8 +9,10 @@ What it keeps of the JAX loop: the epoch loop; a feed thread that runs
 the loss from the device only every ``output_print_freq`` images; display
 inference every ``output_display_freq`` images; ``latest`` / epoch /
 ``iter_%d`` saves; ``--train_continue`` and ``--train_continue_from``; and a
-save of ``latest`` on SIGINT/SIGTERM. Train-time metrics and profiling are
-not ported and raise.
+save of ``latest`` on SIGINT/SIGTERM; for the GANs, the attention masks
+among the visuals (``output_display_G_attention_masks``) and the D accuracy
+every ``train_D_accuracy_every`` images (``train_compute_D_accuracy``).
+Train-time metrics and profiling are not ported and raise.
 """
 
 from __future__ import annotations
@@ -189,6 +191,10 @@ def _train_loop(opt, model, dataloader, visualizer, stop, step_callback):
                     fake = model.inference(data)
                     vis = {"real_A": data["A"], "fake_B": fake,
                            "real_B": data["B"]}
+                    if getattr(opt, "output_display_G_attention_masks",
+                               False) and hasattr(model,
+                                                  "attention_visuals"):
+                        vis.update(model.attention_visuals(data))
                     if getattr(opt, "output_display_diff_fake_real", False):
                         vis["diff_real_fake"] = np.abs(
                             np.asarray(fake, np.float32)
@@ -196,6 +202,15 @@ def _train_loop(opt, model, dataloader, visualizer, stop, step_callback):
                     visualizer.save_images(vis, epoch)
                 except Exception as e:  # visuals never stop training (JAX)
                     print(f"visuals failed: {e!r}")
+
+            if (getattr(opt, "train_compute_D_accuracy", False)
+                    and hasattr(model, "compute_D_accuracy")
+                    and total_iters % _every(batch, getattr(
+                        opt, "train_D_accuracy_every", 1000)) == 0):
+                acc = model.compute_D_accuracy(data)
+                print("D accuracy: " + " ".join(
+                    f"{k}: {v:.3f}" for k, v in acc.items()), flush=True)
+                visualizer.log_metrics(epoch, total_iters, acc)
 
             if total_iters % save_every == 0:
                 model.save_networks("iter_%d" % total_iters

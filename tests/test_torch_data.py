@@ -120,8 +120,9 @@ def test_loader_yields_full_batches(dataroot):
 
 def test_unported_modes_raise(dataroot):
     assert "self_supervised_labeled_mask" in PORTED_MODES
-    opt = TrainOptions().parse_json(_cfg(dataroot, "unaligned", False),
-                                    verbose=False)
+    assert "unaligned" in PORTED_MODES
+    opt = TrainOptions().parse_json(_cfg(dataroot, "unaligned_labeled_cls",
+                                         False), verbose=False)
     with pytest.raises(NotImplementedError, match="not ported"):
         create_dataset(opt)
 

@@ -67,6 +67,13 @@ PROBE_MODULES = ("ops.conv3x3", "ops.copy", "tools",
 # the online crops, the canny and low_res conditioning, the datasets
 CONDITIONING_MODULES = ("data.online_creation", "utils.mask_generation",
                         "ops.cv_resize", "tools.synthetic_datasets")
+# the CUT GAN family: ops, networks, models, the serving script
+GAN_MODULES = ("ops.upfirdn2d", "ops.diff_aug", "ops.resize",
+               "models.modules.resnet_generator", "models.modules.spectral",
+               "models.modules.discriminators", "models.modules.projected_d",
+               "models.modules.cut_networks", "models.modules.image_pool",
+               "models.gan_networks", "models.cut_model",
+               "models.test_model", "scripts.gen_single_image")
 
 
 def test_package_imports_with_jax_blocked():
@@ -75,8 +82,9 @@ def test_package_imports_with_jax_blocked():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 37
-    for m in TRAINING_MODULES + PROBE_MODULES + CONDITIONING_MODULES:
+    assert len(names) >= 49
+    for m in (TRAINING_MODULES + PROBE_MODULES + CONDITIONING_MODULES
+              + GAN_MODULES):
         assert "joligen_tpu_torch." + m in names, m
 
 
