@@ -12,7 +12,8 @@ GPU. Run from the repository root with no arguments:
 3. Kernels: K1 (flash-attention forward), K2 (dQ) and K3 (dK, dV) each
    against its plain PyTorch version on the same CUDA tensors at the paths'
    shapes (K1 and K2 in bf16 at both query tilings; xview's 32 heads at
-   (1, 256, 32, 32) and (16, 256, 32, 32) among them), the autograd Function
+   (1, 256, 32, 32) and (16, 256, 32, 32), cm's (16, 256, 16, 32) and
+   cm_gan's (4, 256, 16, 32) among them), the autograd Function
    against autograd through the plain forward; P1 and P2 (the 3×3 tap
    conv, each s2; bf16 on wgmma, fp32 on FMAs) against their plain versions
    in bf16 and fp32 at the conv probe's hot site (batch 2) and at ragged
@@ -67,7 +68,21 @@ GPU. Run from the repository root with no arguments:
    and its G loss with every G gradient in fp32, card against CPU; then
    ``example_gan_mnist2USPS.json``, 2 steps and one request. No kernel of
    the port runs on these paths (their launch counts are 0).
-8. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
+8. The consistency and shortcut models, over a synthetic labeled-mask
+   dataset of 128 px images written here: ``example_cm_noglasses2glasses
+   .json`` at full width (63,084,611 parameters in 327 leaves, the trunk's
+   input [A, x] of 6 channels, bf16, batch 16, AdamW, EMA), 8 steps with K1
+   twice (student and teacher) and K2 and K3 once a step, its checkpoint
+   reloaded (the EMA bit for bit), 2 requests of the 5-sigma consistency
+   sampler through ``scripts/gen_single_image_diffusion`` (K1 5 times each,
+   the image outside the mask the input's to 1e-6), the fp32 denoiser card
+   against the CPU; ``example_cm_gan_noglasses2glasses.json`` (the same G,
+   projected and basic Ds, batch 4, iter_size 16), 32 micro-steps, every
+   net changing at the 16th and 32nd only, one request; the cm config as
+   ``sc`` (62,822,083 parameters), 2 steps with K1 three times a step and
+   one 16-step request (K1 16 times). Step time, images/s, peak memory,
+   data wait and request latency for each.
+9. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
    bf16 and ``tools.bw_probe3`` over 1 GiB arrays, each with the launch
    counters set to 0 just before it and read just after.
 
@@ -116,6 +131,8 @@ BIG_SHAPE = (8, 1024, 16, 32)       # the mid block at 256 px, batch 8
 XVIEW_PATH_SHAPE = (1, 256, 32, 32)
 XVIEW_TRAIN_SHAPE = (16, 256, 32, 32)
 EXPECTED_PARAMS_XVIEW = 236_326_339
+CM_TRAIN_SHAPE = (16, 256, 16, 32)      # the cm mid block, batch 16
+CM_GAN_TRAIN_SHAPE = (4, 256, 16, 32)   # and at cm_gan's batch 4
 XVIEW_STEPS = 8                     # one epoch of 128 images at batch 16
 REMAT_STEPS = 2
 ONLINE_SIZE = 320                   # the online configs' source images
@@ -138,11 +155,13 @@ EDGE_CHECKS = [((3, 1, 1, 16), "bfloat16"), ((1, 63, 3, 64), "bfloat16"),
 FWD_CHECKS = [(PATH_SHAPE, "bfloat16"), (PATH_SHAPE, "float32"),
               (TRAIN_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
               (XVIEW_PATH_SHAPE, "bfloat16"), (XVIEW_TRAIN_SHAPE, "bfloat16"),
+              (CM_TRAIN_SHAPE, "bfloat16"), (CM_GAN_TRAIN_SHAPE, "bfloat16"),
               *EDGE_CHECKS]
 BWD_CHECKS = [(TRAIN_SHAPE, "bfloat16"), (TRAIN_SHAPE, "float32"),
               (PATH_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
               (XVIEW_PATH_SHAPE, "bfloat16"),
-              (XVIEW_TRAIN_SHAPE, "bfloat16"), *EDGE_CHECKS]
+              (XVIEW_TRAIN_SHAPE, "bfloat16"), (CM_TRAIN_SHAPE, "bfloat16"),
+              (CM_GAN_TRAIN_SHAPE, "bfloat16"), *EDGE_CHECKS]
 # P1/P2: the probe's hot site at batch 2; shapes whose H, W and Co are not
 # multiples of the kernels' tiles; C = 8 and 24 (part of a 64-channel K
 # step of the wgmma route), C = 256 (two K steps a tap); errors relative to
@@ -173,6 +192,30 @@ COPY_PATH = (1024, 1024, "float32")     # the probe's 1 GiB, row, ms dtype
 CUT_STEPS = 8
 CUT_REQUESTS = 2
 CUT_LOSS_TOL = 1e-3
+# the consistency and shortcut models on the cm configs: cm one epoch of
+# CM_STEPS steps at batch 16, then CM_REQUESTS requests; cm_gan CM_GAN_STEPS
+# micro-steps at batch 4 (two real updates at iter_size 16), one request; sc
+# SC_STEPS steps at batch 16, one request
+CM_EXAMPLE = "example_cm_noglasses2glasses.json"
+CM_GAN_EXAMPLE = "example_cm_gan_noglasses2glasses.json"
+EXPECTED_PARAMS_CM = 63_084_611
+EXPECTED_PARAMS_SC = 62_822_083
+EXPECTED_PARAMS_CM_D = {"D_B_projected_d": 5_948_532,
+                        "D_B_basic": 2_764_737}
+CM_STEPS = 8
+CM_REQUESTS = 2
+CM_GAN_STEPS = 32
+SC_STEPS = 2
+CM_IMAGES = 128         # an epoch of cm (8 x 16) and of cm_gan (32 x 4)
+# attention launches a step: cm's student (K1, then K2 and K3 in its
+# backward) and teacher (K1 without a graph); sc's two bootstrap forwards
+# and its student; and a request: one K1 a sigma (cm's 5) or a step (sc's
+# 16)
+CM_PER_STEP = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 1,
+               "flash_attention_bwd_dkv": 1}
+SC_PER_STEP = dict(CM_PER_STEP, flash_attention_fwd=3)
+CM_REQUEST_K1 = 5
+SC_REQUEST_K1 = 16
 PROBE_ITERS = 32
 TRACE_ATTEMPTS = 4                  # traces of one timing, at most
 
@@ -309,7 +352,8 @@ def kernel_phase():
                                 ("256px_batch8", BIG_SHAPE, 20),
                                 ("xview_128px_batch1", XVIEW_PATH_SHAPE, 200),
                                 ("xview_128px_batch16", XVIEW_TRAIN_SHAPE,
-                                 50)):
+                                 50),
+                                ("cm_128px_batch16", CM_TRAIN_SHAPE, 50)):
         q, k, v = inputs[(shape, "bfloat16")]
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         scale = shape[-1] ** -0.5
@@ -450,7 +494,8 @@ def backward_kernel_phase():
     for label, shape, iters in (("128px_batch8", TRAIN_SHAPE, 100),
                                 ("256px_batch8", BIG_SHAPE, 10),
                                 ("xview_128px_batch16", XVIEW_TRAIN_SHAPE,
-                                 50)):
+                                 50),
+                                ("cm_128px_batch16", CM_TRAIN_SHAPE, 50)):
         q, k, v, do, lse, delta, scale = inputs[(shape, "bfloat16")]
         dq = torch.empty_like(q)
         dkv = (torch.empty_like(q), torch.empty_like(q))
@@ -856,38 +901,10 @@ def read_launches():
 
 def _attention_only(launches, n):
     """The launch counts expected where each attention kernel ran ``n``
-    times and no probe kernel ran."""
+    times (``n`` a dict: ``n[kernel]`` times) and no probe kernel ran."""
     from joligen_tpu_torch.ops import flash_attention as fa
-    return {name: (n if name in fa.LAUNCHES else 0) for name in launches}
-
-
-def write_dataset(root, n, size):
-    """A synthetic dataset in the self_supervised_labeled_mask layout:
-    trainA/imgs/*.png, trainA/masks/*.png (a rectangle of label 1) and
-    trainA/paths.txt lines 'img cls mask', paths relative to ``root``."""
-    import numpy as np
-    from PIL import Image
-    rng = np.random.default_rng(SEED + 2)
-    for sub in ("imgs", "masks"):
-        os.makedirs(os.path.join(root, "trainA", sub))
-    yy, xx = np.mgrid[0:size, 0:size]
-    lines = []
-    for i in range(n):
-        base = np.stack([xx * 2, yy * 2, (xx + yy)], -1) + rng.integers(
-            0, 128, 3)
-        img = np.clip(base + rng.normal(0, 15, base.shape), 0, 255).astype(
-            np.uint8)
-        mask = np.zeros((size, size), np.uint8)
-        x0, y0 = rng.integers(8, size // 2, 2)
-        w, h = rng.integers(size // 6, size // 3, 2)
-        mask[y0:y0 + h, x0:x0 + w] = 1
-        ipath = f"trainA/imgs/{i:03d}.png"
-        mpath = f"trainA/masks/{i:03d}.png"
-        Image.fromarray(img).save(os.path.join(root, ipath))
-        Image.fromarray(mask).save(os.path.join(root, mpath))
-        lines.append(f"{ipath} 0 {mpath}")
-    with open(os.path.join(root, "trainA", "paths.txt"), "w") as f:
-        f.write("\n".join(lines) + "\n")
+    counts = n if isinstance(n, dict) else dict.fromkeys(fa.LAUNCHES, n)
+    return {name: counts.get(name, 0) for name in launches}
 
 
 def _train(workdir, size, n_images, epochs, hook=None):
@@ -895,12 +912,13 @@ def _train(workdir, size, n_images, epochs, hook=None):
     ``n_images`` synthetic images for ``epochs`` epochs (``_train_run``).
     Returns (model, opt, record)."""
     from joligen_tpu_torch.options import TrainOptions
+    from joligen_tpu_torch.tools.synthetic_datasets import write_labeled
 
     with open(EXAMPLE) as f:
         opt = TrainOptions().parse_json(json.load(f), verbose=False)
     opt.data_load_size = opt.data_crop_size = size
     dataroot = os.path.join(workdir, f"train_data_{size}")
-    write_dataset(dataroot, n_images, size)
+    write_labeled(dataroot, n_images, size, seed=SEED + 2)
     opt.dataroot = dataroot
     opt.checkpoints_dir = os.path.join(workdir, "train_ckpt")
     opt.name = f"smoke_train_{size}px"
@@ -916,10 +934,11 @@ def _train_run(opt, steps, epochs, label, expected_params=None, hook=None,
     """``launch_training(opt)`` with the launch counters at 0 just before it
     and read just after (one main path). Checks the step count, the
     parameter count (when given) and bf16, ``attention_per_step`` launches
-    of each attention kernel a step (none for the GANs) and finite losses,
-    every loss the model logs. ``hook(model, iters, steps)`` runs after each
-    step. Returns (model, opt, record): losses, median warm step, images/s,
-    peak memory, the loop's data wait."""
+    of each attention kernel a step (a dict: per kernel; none for the GANs)
+    and finite losses, every loss the model logs. ``hook(model, iters,
+    steps)`` runs after each step, outside the step times. Returns (model,
+    opt, record): losses, median warm step, images/s, peak memory, the
+    loop's data wait."""
     import numpy as np
     import torch
     from joligen_tpu_torch.train import launch_training
@@ -928,11 +947,14 @@ def _train_run(opt, steps, epochs, label, expected_params=None, hook=None,
 
     def on_step(model, iters):
         torch.cuda.synchronize()
-        marks.append((iters, time.perf_counter()))
+        t_end = time.perf_counter()
         losses.append(float(model.loss_log["G_tot"]))
         all_losses.append({k: float(v) for k, v in model.loss_log.items()})
         if hook is not None:
             hook(model, iters, steps)
+            torch.cuda.synchronize()
+        # the step's end, and the next step's start: after this callback
+        marks.append((iters, t_end, time.perf_counter()))
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()                                 # main path starts here
@@ -948,7 +970,9 @@ def _train_run(opt, steps, epochs, label, expected_params=None, hook=None,
             model.device_dtype != torch.bfloat16:
         raise AssertionError(f"{label}: trained {n_params} parameters in "
                              f"{model.device_dtype}")
-    want = _attention_only(launches, steps * attention_per_step)
+    per = attention_per_step
+    want = _attention_only(launches, {k: steps * v for k, v in per.items()}
+                           if isinstance(per, dict) else steps * per)
     if len(marks) != steps or launches != want:
         raise AssertionError(f"{label}: {len(marks)} steps, launches "
                              f"{launches}; expected {want}")
@@ -957,7 +981,7 @@ def _train_run(opt, steps, epochs, label, expected_params=None, hook=None,
     # warm steps: the step after another in the same epoch (the first of
     # an epoch waits for the loader and follows the epoch's saves)
     per_epoch = steps // epochs
-    warm = [t1 - t0 for (i0, t0), (i1, t1) in zip(marks, marks[1:])
+    warm = [t1 - t0 for (_, _, t0), (i1, t1, _) in zip(marks, marks[1:])
             if (i1 // opt.train_batch_size - 1) % per_epoch != 0]
     step_s = float(np.median(warm))
     data_s = model.loop_times["data_s"]
@@ -1289,36 +1313,24 @@ def slice_phase(workdir):
     return model, main_launches
 
 
-def cross_check(opt, state, label="denoiser"):
-    """A full-width denoiser in fp32: card (with K1) against the CPU (plain
-    attention), the weights ``state`` and the same inputs."""
-    import copy
-    import numpy as np
+def _card_vs_cpu(build, args, kwargs, label):
+    """One forward of the fp32 net that ``build()`` returns (seeded or
+    loaded weights, on the CPU), TF32 off: on the card (with K1, launched
+    once) against the CPU (plain attention), on the same inputs, to
+    CROSS_CHECK_TOL. Returns (max abs error, the CPU output)."""
     import torch
-    from joligen_tpu_torch.models.diffusion_networks import define_G
     from joligen_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    opt32 = copy.copy(opt)
-    opt32.tpu_bf16 = False
-    rng = np.random.default_rng(SEED + 7)
-    size = opt32.data_crop_size
-    x = torch.from_numpy(rng.uniform(-1, 1, (1, size, size, 6)).astype(
-        np.float32))
-    gam = torch.tensor([0.37], dtype=torch.float32)
-    mask = torch.zeros(1, size, size, 1, dtype=torch.int32)
-    mask[:, 32:96, 40:88] = 1
-    outs = {}
+    net, outs = build(), {}
     for dev in ("cuda", "cpu"):
-        net = define_G(opt32)
-        net.load_state_dict(state)
         net = net.to(dev).eval()
         before = fa.LAUNCHES["flash_attention_fwd"]
         with torch.inference_mode():
-            outs[dev] = net(x.to(dev), gam.to(dev),
-                            mask=mask.to(dev)).float().cpu()
+            outs[dev] = net(*(a.to(dev) for a in args), **{
+                k: v.to(dev) for k, v in kwargs.items()}).float().cpu()
         launched = fa.LAUNCHES["flash_attention_fwd"] - before
         if launched != (1 if dev == "cuda" else 0):
             raise AssertionError(f"{dev} forward launched K1 {launched} "
@@ -1329,7 +1341,37 @@ def cross_check(opt, state, label="denoiser"):
         f"(output max {scale:.3e}, tol {CROSS_CHECK_TOL})")
     if not (torch.isfinite(outs["cuda"]).all() and err <= CROSS_CHECK_TOL):
         raise AssertionError(f"card and CPU {label}s disagree")
-    return err
+    return err, outs["cpu"]
+
+
+def _fp32(opt):
+    import copy
+    opt32 = copy.copy(opt)
+    opt32.tpu_bf16 = False
+    return opt32
+
+
+def cross_check(opt, state, label="denoiser"):
+    """A full-width palette denoiser in fp32, card against CPU
+    (``_card_vs_cpu``), the weights ``state``."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.diffusion_networks import define_G
+
+    opt32 = _fp32(opt)
+    rng = np.random.default_rng(SEED + 7)
+    size = opt32.data_crop_size
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, size, size, 6)).astype(
+        np.float32))
+    gam = torch.tensor([0.37], dtype=torch.float32)
+    mask = torch.zeros(1, size, size, 1, dtype=torch.int32)
+    mask[:, 32:96, 40:88] = 1
+
+    def build():
+        net = define_G(opt32)
+        net.load_state_dict(state)
+        return net
+    return _card_vs_cpu(build, (x, gam), {"mask": mask}, label)[0]
 
 
 def _config_opt(name, workdir, steps=None, layout=None, size=None,
@@ -1853,6 +1895,236 @@ def cut_cross_check():
     return rec
 
 
+def _cm_opt(example, workdir, n_images, name, model_type=None):
+    """A cm example config (``model_type`` in place of the config's, if
+    given) over the first ``n_images`` of a synthetic labeled-mask dataset
+    of CM_IMAGES images at the crop size, written here once: one epoch, the
+    loss every step, no display inference."""
+    from joligen_tpu_torch.options import TrainOptions
+    from joligen_tpu_torch.tools.synthetic_datasets import write_labeled
+
+    with open(os.path.join(ROOT, "examples", example)) as f:
+        cfg = json.load(f)
+    if model_type:
+        cfg["model_type"] = model_type
+    opt = TrainOptions().parse_json(cfg, verbose=False)
+    opt.dataroot = os.path.join(workdir, "data_cm")
+    if not os.path.exists(opt.dataroot):
+        write_labeled(opt.dataroot, CM_IMAGES, opt.data_crop_size,
+                      seed=SEED + 17)
+    opt.data_max_dataset_size = n_images
+    opt.checkpoints_dir = os.path.join(workdir, "cm_ckpt")
+    opt.name = f"smoke_{name}"
+    opt.train_n_epochs, opt.train_n_epochs_decay = 1, 0
+    opt.output_print_freq = opt.train_batch_size
+    opt.output_display_freq = 0
+    return opt
+
+
+def _serve_masked(ckpt, workdir, n, k1, label, trained_ema=None):
+    """``n`` requests through ``scripts/gen_single_image_diffusion`` from
+    one load of ``ckpt`` (its EMA equal to ``trained_ema`` bit for bit, when
+    given), with the launch counters at 0 just before them and read just
+    after: ``k1`` K1 launches a request and no other kernel; each output
+    finite, and equal to the input crop outside the mask to 1e-6."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from joligen_tpu_torch.scripts import gen_single_image_diffusion as gen
+    from joligen_tpu_torch.scripts.common import (load_model_from_file,
+                                                  to_m1p1)
+
+    served, sopt = load_model_from_file(ckpt)
+    if trained_ema is not None:
+        for k, v in served.ema_nets["G_A"].state_dict().items():
+            if not torch.equal(v.cpu(), trained_ema[k]):
+                raise AssertionError(f"{label}: reloaded EMA differs at {k}")
+    outputs, infer = [], served.inference
+
+    def recording_inference(*a, **kw):
+        outputs.append(infer(*a, **kw))
+        return outputs[-1]
+    served.inference = recording_inference
+    img = _write_inputs(workdir)
+    size = sopt.data_crop_size
+    crop = to_m1p1(np.asarray(Image.fromarray(img).resize(
+        (size, size), Image.BICUBIC)))
+    keep = np.asarray(Image.open(os.path.join(workdir, "mask.png")).convert(
+        "L").resize((size, size), Image.NEAREST)) == 0
+    secs = []
+    reset_launches()                             # the requests start here
+    for i in range(n):
+        args = gen.build_parser().parse_args([
+            "--model_in_file", ckpt,
+            "--img_in", os.path.join(workdir, "img.png"),
+            "--mask_in", os.path.join(workdir, "mask.png"),
+            "--dir_out", os.path.join(workdir, f"out_{label}"),
+            "--name", f"req{i}", "--seed", str(i)])
+        before = read_launches()
+        t0 = time.perf_counter()
+        full, _, _ = gen.inference(args, lmodel=served, lopt=sopt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        after = read_launches()
+        got = {k: after[k] - before[k] for k in after}
+        out = outputs[-1][0]
+        err = float(np.abs(out[keep] - crop[keep]).max())
+        log(f"{label} request {i}: {secs[-1]:.4f} s, launches {got}, "
+            f"outside the mask max abs err {err:.1e}")
+        if got != _attention_only(got, {"flash_attention_fwd": k1}) or not (
+                np.isfinite(out).all() and out.shape == (size, size, 3)
+                and full.shape == img.shape and err <= 1e-6):
+            raise AssertionError(f"{label} request {i} failed")
+    launches = read_launches()                   # and end here
+    del served
+    torch.cuda.empty_cache()
+    return {"request_s": secs, "launches": launches}
+
+
+def cm_cross_check(opt):
+    """cm's full-width denoiser (``CMDenoiser``) in fp32 at batch 1, card
+    against CPU (``_card_vs_cpu``), with the training scalings, seeded
+    weights and small values in the zero-initialised output layers (trained
+    ones are still near 0 after a few steps, and the output would be the
+    skip term alone)."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.cm_model import (is_conditional,
+                                                   trunk_in_channels)
+    from joligen_tpu_torch.models.diffusion_networks import (define_inner_G,
+                                                             init_weights)
+    from joligen_tpu_torch.models.modules.cm import CMDenoiser, skip_scaling
+
+    opt32 = _fp32(opt)
+    size = opt32.data_crop_size
+    rng = np.random.default_rng(SEED + 19)
+    x, cond = (torch.from_numpy(rng.uniform(-1, 1, (1, size, size, 3))
+                                .astype(np.float32)) for _ in range(2))
+    sigma = torch.tensor([2.5])
+    cin = trunk_in_channels(opt32, is_conditional(opt32, "inpainting"))
+
+    def build():
+        net = CMDenoiser(define_inner_G(opt32, cin),
+                         opt32.alg_diffusion_cond_embed_dim)
+        return init_weights(net, torch.Generator().manual_seed(SEED + 20),
+                            zero_init_std=0.01)
+    err, out = _card_vs_cpu(build, (x, sigma), {"x_cond": cond},
+                            "cm denoiser")
+    skip = (skip_scaling(sigma, True) * x).abs().max().item()
+    if not out.abs().max().item() > 2 * skip:
+        raise AssertionError("the cm cross-check's output is its skip term")
+    return err
+
+
+def _snapshot(model):
+    return {n: [p.detach().clone() for p in net.parameters()]
+            for n, net in model.nets.items()}
+
+
+def cm_phase(workdir):
+    """The consistency and shortcut models at full width over a synthetic
+    labeled-mask dataset (128 px): cm (``example_cm_noglasses2glasses``:
+    63,084,611 parameters, trunk input [A, x] of 6 channels, bf16, batch 16,
+    AdamW, EMA) CM_STEPS steps, its checkpoint reloaded, CM_REQUESTS
+    5-sigma requests, the fp32 denoiser card against the CPU; cm_gan
+    (``example_cm_gan_noglasses2glasses``: the same G, the projected and
+    basic Ds, batch 4, iter_size 16) CM_GAN_STEPS micro-steps, each net
+    changing on the 16th and 32nd only, one request; sc (the cm config with
+    ``model_type sc``, 62,822,083 parameters) SC_STEPS steps and one
+    16-step request. Returns (records, launch counts per path)."""
+    import torch
+    from joligen_tpu_torch.models.cm_model import CMModel
+
+    recs, paths = {}, {}
+    final = {}
+
+    def keep_ema(model, iters, steps):
+        if iters == steps * model.opt.train_batch_size:
+            final.update({k: v.detach().cpu() for k, v in
+                          model.ema_nets["G_A"].state_dict().items()})
+
+    opt = _cm_opt(CM_EXAMPLE, workdir, CM_STEPS * 16, "cm")
+    model, opt, rec = _train_run(opt, CM_STEPS, 1, "cm training",
+                                 EXPECTED_PARAMS_CM, keep_ema, CM_PER_STEP)
+    net = model.nets["G_A"]
+    leaves = len(list(net.parameters()))
+    if (net.inner.in_conv.weight.shape[1] != 6 or leaves != EXPECTED_LEAVES
+            or opt.train_batch_size != 16 or opt.data_crop_size != 128):
+        raise AssertionError(f"cm is not the example config: {leaves} "
+                             f"leaves, in_conv "
+                             f"{tuple(net.inner.in_conv.weight.shape)}")
+    rec["leaves"] = leaves
+    del model, net
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(opt.checkpoints_dir, opt.name, "latest_net_G_A.pth")
+    rec["requests"] = _serve_masked(ckpt, workdir, CM_REQUESTS,
+                                    CM_REQUEST_K1, "cm", trained_ema=final)
+    rec["cross_check_fp32_max_abs_err"] = cm_cross_check(opt)
+    recs["cm"] = rec
+    paths["cm_training"] = rec["launches"]
+    paths["cm_requests"] = rec["requests"]["launches"]
+
+    # cm_gan: snapshot the nets before the first micro-step, then compare
+    # after each (outside the step times)
+    snaps, moved = [], []
+    plain = CMModel.optimize_prepared
+
+    def first_snapshot(self, dev, draws=None):
+        if not snaps:
+            snaps.append(_snapshot(self))
+        return plain(self, dev, draws)
+
+    def watch(model, iters, steps):
+        cur = _snapshot(model)
+        moved.append({n: bool(torch.stack([
+            (a != b).any() for a, b in zip(snaps[-1][n], cur[n])]).any())
+            for n in cur})
+        snaps[-1] = cur
+
+    opt = _cm_opt(CM_GAN_EXAMPLE, workdir, CM_GAN_STEPS * 4, "cm_gan")
+    CMModel.optimize_prepared = first_snapshot
+    try:
+        model, opt, rec = _train_run(opt, CM_GAN_STEPS, 1, "cm_gan training",
+                                     EXPECTED_PARAMS_CM, watch, CM_PER_STEP)
+    finally:
+        CMModel.optimize_prepared = plain
+    rec["parameters_per_net"] = model.param_count()
+    every = opt.train_iter_size
+    updates = [i + 1 for i, m in enumerate(moved) if any(m.values())]
+    log(f"cm_gan: parameters per net {rec['parameters_per_net']}, nets "
+        f"changed at micro-steps {updates} (iter_size {every})")
+    want = {"G_A": EXPECTED_PARAMS_CM, **EXPECTED_PARAMS_CM_D}
+    if rec["parameters_per_net"] != want or opt.train_batch_size != 4:
+        raise AssertionError(f"cm_gan is not the example config: "
+                             f"{rec['parameters_per_net']}")
+    for i, m in enumerate(moved):
+        if set(m.values()) != {(i + 1) % every == 0}:
+            raise AssertionError(f"cm_gan micro-step {i + 1}: nets changed "
+                                 f"{m}, iter_size {every}")
+    rec["updates_at_micro_steps"] = updates
+    snaps.clear()
+    del model
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(opt.checkpoints_dir, opt.name, "latest_net_G_A.pth")
+    rec["requests"] = _serve_masked(ckpt, workdir, 1, CM_REQUEST_K1,
+                                    "cm_gan")
+    recs["cm_gan"] = rec
+    paths["cm_gan_training"] = rec["launches"]
+    paths["cm_gan_requests"] = rec["requests"]["launches"]
+
+    opt = _cm_opt(CM_EXAMPLE, workdir, SC_STEPS * 16, "sc", "sc")
+    model, opt, rec = _train_run(opt, SC_STEPS, 1, "sc training",
+                                 EXPECTED_PARAMS_SC, None, SC_PER_STEP)
+    del model
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(opt.checkpoints_dir, opt.name, "latest_net_G_A.pth")
+    rec["requests"] = _serve_masked(ckpt, workdir, 1, SC_REQUEST_K1, "sc")
+    recs["sc"] = rec
+    paths["sc_training"] = rec["launches"]
+    paths["sc_requests"] = rec["requests"]["launches"]
+    return recs, paths
+
+
 def ptxas_spills(ptxas):
     """The functions of a ``-Xptxas=-v`` log whose registers spill, each
     with its log line."""
@@ -1938,6 +2210,7 @@ def main():
             "K3": k3["timings"]["xview_128px_batch16"]["dkv_ms"]})
         configs, config_paths = other_configs_phase(workdir)
         gans, gan_paths = cut_phase(workdir)
+        cms, cm_paths = cm_phase(workdir)
     grad_check = gradient_cross_check()
     gans["horse2zebra"]["cross_check_fp32"] = cut_cross_check()
     probe_launches, probes = probe_paths()
@@ -1945,7 +2218,7 @@ def main():
              "trained_checkpoint_request":
                  training["trained_request_launches"],
              "training_256px": training_256["launches"], **xview["paths"],
-             **config_paths, **gan_paths, **probe_launches}
+             **config_paths, **gan_paths, **cm_paths, **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -1958,6 +2231,7 @@ def main():
     log("xview: " + json.dumps(xview))
     log("configs: " + json.dumps(configs))
     log("gans: " + json.dumps(gans))
+    log("cm, cm_gan, sc: " + json.dumps(cms))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     k1["training_gradient_cross_check"] = grad_check
     stage_a = probes["fused_resblock_probe"]

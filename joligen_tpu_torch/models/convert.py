@@ -7,7 +7,9 @@ port's modules carry the flax names. Leaf mappings:
 - conv ``kernel`` HWIO <-> ``weight`` OIHW;
 - dense ``kernel`` (in, out) <-> ``weight`` (out, in);
 - norm ``scale`` <-> ``weight``; ``bias`` <-> ``bias``;
-- embedding tables (modules named ``embedder_*``) ``embedding`` <-> ``weight``.
+- embedding tables (modules named ``embedder_*``) ``embedding`` <-> ``weight``;
+- the consistency model's Fourier features ``sigma_embed/W`` (1-D) <-> ``W``,
+  as they are.
 
 The GAN trees need no other rule: a depthwise kernel (``feature_group_count``
 = C, HWIO with I = 1) is the OIHW weight with I = 1; ``TorchConvTranspose``
@@ -50,8 +52,8 @@ def flax_to_torch(params):
             arr, tname = arr.T, "weight"
         elif name in ("scale", "embedding"):
             tname = "weight"
-        elif name == "bias":
-            tname = "bias"
+        elif name in ("bias", "W"):
+            tname = name
         else:
             raise ValueError(f"unmapped flax leaf {'/'.join(path)} "
                              f"{arr.shape}")
@@ -132,8 +134,8 @@ def torch_to_flax(state_dict):
         parts = key.split(".")
         arr = t.detach().cpu().numpy()
         name, module = parts[-1], parts[-2]
-        if name == "bias":
-            fname = "bias"
+        if name in ("bias", "W"):
+            fname = name
         elif name != "weight":
             raise ValueError(f"unmapped torch parameter {key}")
         elif arr.ndim == 4:

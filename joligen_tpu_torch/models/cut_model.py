@@ -40,7 +40,7 @@ from .modules.cut_networks import (gan_loss, monce_loss, patch_nce_loss,
                                    sample_patch_ids, src_hdce_loss)
 from .modules.image_pool import ImagePool
 from .modules.projected_d import load_efficientnet_trunk
-from .train_state import apply_updates, scheme_from_opt
+from .train_state import apply_updates, param_grads, scheme_from_opt
 
 _LEFT = "ROADMAP Queue 1 item 10, what is left of the GAN families"
 # option -> where its port stands; each raises when it is set
@@ -263,14 +263,6 @@ class CUTModel(BaseModel):
         total = sum(losses.values())
         return total, losses, fake_B
 
-    @staticmethod
-    def _grads(loss, params):
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        # a parameter the loss does not reach (the projected D's frozen
-        # trunk) gets a zero gradient, as in JAX
-        return [torch.zeros_like(p) if gr is None else gr
-                for gr, p in zip(grads, params)]
-
     def optimize_prepared(self, dev, draws=None):
         """One step on a prepared batch (see the module doc). Losses stay
         on the device."""
@@ -279,7 +271,7 @@ class CUTModel(BaseModel):
         real_B = dequantize(dev["real_B"], "image")
         sG, sF = self.states["G_A"], self.states["F"]
         total, losses, fake_B = self._g_loss(real_A, real_B, draws)
-        grads = self._grads(total, sG.params + sF.params)
+        grads = param_grads(total, sG.params + sF.params)
         apply_updates(sG, grads[:len(sG.params)], self.ema_beta)
         apply_updates(sF, grads[len(sG.params):])
         losses["G_tot"] = total
@@ -306,7 +298,7 @@ class CUTModel(BaseModel):
                                    smooth=self.d_label_smooth)
                           + gan_loss(logits_fake, False, self.gan_mode))
             state = self.states[name]
-            apply_updates(state, self._grads(loss, state.params))
+            apply_updates(state, param_grads(loss, state.params))
             losses[f"D_{name}"] = loss.detach()
         self.loss_log = losses
         return losses

@@ -1,9 +1,11 @@
 """Diffusion denoiser factory: the ``unet_mha`` branch of
 ``joligen_tpu/models/diffusion_networks.py:20-45,119-134``, plus the seeded
-flax-style weight init. torch convs need their input channel count, so the
-mask embedding's ``cond_embed_dim`` channels are added to ``in_channel``
-here (flax infers it lazily). ``tpu_remat`` and ``tpu_remat_policy`` reach
-``UNetMHA`` as in ``diffusion_networks.py:42-43``."""
+flax-style weight init. torch convs need their input channel count, which
+flax infers lazily: palette's trunk takes ``[y_cond, y_t]`` and, with mask
+conditioning, the mask embedding's ``cond_embed_dim`` channels; the
+consistency and shortcut denoisers pass their own ``in_channel``.
+``tpu_remat`` and ``tpu_remat_policy`` reach ``UNetMHA`` as in
+``diffusion_networks.py:42-43``."""
 
 from __future__ import annotations
 
@@ -13,21 +15,26 @@ import torch
 from torch import nn
 
 from .. import compute_dtype
+from .modules.cm import NoiseLevelEmbedding
 from .modules.palette_diffusion import LabelEmbedder, PaletteDenoiser
 from .modules.unet_mha import Conv, Dense, GroupNorm, UNetMHA
 
 
-def define_inner_G(opt):
+def define_inner_G(opt, in_channel=None):
+    """The trunk; ``in_channel`` (default: palette's) is its first conv's
+    input channel count."""
     netG = opt.G_netG
     if netG != "unet_mha":
         raise NotImplementedError(
             f"diffusion generator {netG}: only unet_mha is ported "
-            "(ROADMAP Queue 1 items 8 to 13, the model families after the "
+            "(ROADMAP Queue 1 items 9 to 13, the model families after the "
             "main path)")
-    cond = getattr(opt, "alg_diffusion_cond_embed", "") or ""
-    extra = opt.alg_diffusion_cond_embed_dim if "mask" in cond else 0
+    if in_channel is None:
+        cond = getattr(opt, "alg_diffusion_cond_embed", "") or ""
+        extra = opt.alg_diffusion_cond_embed_dim if "mask" in cond else 0
+        in_channel = opt.model_input_nc + opt.model_output_nc + extra
     return UNetMHA(
-        in_channel=opt.model_input_nc + opt.model_output_nc + extra,
+        in_channel=in_channel,
         out_channel=opt.model_output_nc,
         inner_channel=opt.G_ngf,
         cond_embed_dim=opt.alg_diffusion_cond_embed_dim,
@@ -62,7 +69,8 @@ def define_G(opt):
 
 def init_weights(module, generator, zero_init_std=0.0):
     """Seeded flax-style init: lecun-normal (truncated) conv and dense
-    kernels, zero biases, unit norm scales, N(0, 0.02) embedding tables.
+    kernels, zero biases, unit norm scales, N(0, 0.02) embedding tables,
+    N(0, scale) Fourier features of a ``NoiseLevelEmbedding``.
     Layers that flax zero-initialises (``out_conv``, ``proj_out``,
     ``out_proj``) stay zero unless ``zero_init_std`` > 0, which gives them a
     small seeded N(0, zero_init_std) value instead. ``generator`` is a CPU
@@ -100,4 +108,6 @@ def init_weights(module, generator, zero_init_std=0.0):
                 m.bias.zero_()
             elif isinstance(m, LabelEmbedder):
                 fill(m.weight, normal(0.02))
+            elif isinstance(m, NoiseLevelEmbedding):
+                fill(m.W, normal(m.scale))
     return module

@@ -29,7 +29,7 @@ from .diffusion_networks import define_G, init_weights
 from .modules.palette_diffusion import (ddim_sample, ddpm_sample,
                                         masked_elementwise_loss,
                                         palette_training_outputs)
-from .train_state import apply_updates
+from .train_state import apply_updates, param_grads
 
 EDGE_MODES = ("computed_sketch", "sketch", "canny", "depth", "hed", "hough",
               "sam")
@@ -171,11 +171,7 @@ class PaletteModel(BaseModel):
         stays on the device: the host reads it only when it prints."""
         state = self.states["G_A"]
         loss = self._loss_fn(dev, draws)
-        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
-        # a parameter the loss does not reach gets a zero gradient, as in JAX
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, state.params)]
-        apply_updates(state, grads, self.ema_beta)
+        apply_updates(state, param_grads(loss, state.params), self.ema_beta)
         self.loss_log = {"G_tot": loss.detach()}
         return self.loss_log
 

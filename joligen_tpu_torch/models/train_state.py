@@ -240,6 +240,15 @@ class NetState:
         self.params = [p for _, p in net.named_parameters()]
 
 
+def param_grads(loss, params):
+    """The gradient of ``loss`` for each of ``params``; a parameter the loss
+    does not reach (a frozen trunk, a detached table) gets zeros, as in
+    JAX."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, params)]
+
+
 @torch.no_grad()
 def apply_updates(state, grads, ema_beta=0.0):
     """Optimizer update from ``grads`` (aligned with ``state.params``), then

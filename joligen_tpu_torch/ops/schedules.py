@@ -141,3 +141,9 @@ def gamma_embedding(gammas, dim, max_period=10000.0):
     reduced = dim // k
     return torch.cat([gamma_embedding_1d(gammas[:, i], reduced, max_period)
                       for i in range(k)], dim=1)
+
+
+def timestep_embedding(timesteps, dim, max_period=10000.0):
+    """The sinusoidal embedding of (integer or fractional) timesteps
+    (``joligen_tpu/ops/schedules.py:151-153``)."""
+    return gamma_embedding_1d(timesteps.float(), dim, max_period)

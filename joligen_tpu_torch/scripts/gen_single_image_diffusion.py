@@ -19,6 +19,9 @@ Same CLI and outputs as the JAX script: ``<name>_orig.png``,
   (``--alg_diffusion_super_resolution_downsample``: PIL bicubic down by the
   scale and back up) and ``pix2pix`` (the crop itself).
 - The generated crop is resized back into the window of the full image.
+- Model types palette (DDPM/DDIM), cm and cm_gan (the 5-sigma consistency
+  sampler) and sc (Euler, ``--sampling_steps`` or
+  ``--alg_sc_denoise_inferstep`` steps).
 
 ``--cond_in`` (exemplar insertion) and ``--ref_in`` (ref conditioning) raise.
 Runs on CUDA unless ``--cpu``.
@@ -94,9 +97,9 @@ def _check_supported(args, opt):
         raise NotImplementedError(
             "--ref_in ref conditioning (ROADMAP Queue 1 item 9, ref "
             "conditioning, UViT and frequency space)")
-    if opt.model_type != "palette":
+    if opt.model_type not in ("palette", "cm", "cm_gan", "sc"):
         raise NotImplementedError(
-            f"model type {opt.model_type} (ROADMAP Queue 1 items 8 to 13, "
+            f"model type {opt.model_type} (ROADMAP Queue 1 items 9 to 13, "
             "the model families after the main path)")
     return cond_creation
 
@@ -133,6 +136,27 @@ def build_cond(args, opt, cond_creation, crop, mask):
     return fill_mask_with_random(crop, mask, -1)     # y_t
 
 
+def _inference_kwargs(args, opt):
+    """The sampler's arguments by model type (reference
+    scripts/gen_single_image_diffusion.py:233-244): palette's method, steps
+    and guidance; sc's step count (``--sampling_steps``, else
+    ``--alg_sc_denoise_inferstep``, else the model's); none for cm."""
+    kwargs = {}
+    if opt.model_type == "palette":
+        if args.sampling_method:
+            kwargs["sampling_method"] = args.sampling_method
+        if args.sampling_steps > 0:
+            kwargs["num_steps"] = args.sampling_steps
+        if args.alg_diffusion_guidance_scale > 0:
+            kwargs["guidance_scale"] = args.alg_diffusion_guidance_scale
+    elif opt.model_type == "sc":
+        steps = (args.sampling_steps if args.sampling_steps > 0
+                 else args.alg_sc_denoise_inferstep)
+        if steps > 0:
+            kwargs["denoise_timesteps"] = steps
+    return kwargs
+
+
 def inference(args, lmodel=None, lopt=None):
     """Run one generation; ``lmodel``/``lopt`` reuse a loaded model across
     calls. Returns (full_frame_uint8, model, opt)."""
@@ -153,14 +177,7 @@ def inference(args, lmodel=None, lopt=None):
     for _ in range(max(1, args.nb_samples)):
         batch = {"A": cond[None], "B": crop[None],
                  "B_label_mask": mask[None]}
-        kwargs = {}
-        if args.sampling_method:
-            kwargs["sampling_method"] = args.sampling_method
-        if args.sampling_steps > 0:
-            kwargs["num_steps"] = args.sampling_steps
-        if args.alg_diffusion_guidance_scale > 0:
-            kwargs["guidance_scale"] = args.alg_diffusion_guidance_scale
-        fake = model.inference(batch, **kwargs)
+        fake = model.inference(batch, **_inference_kwargs(args, opt))
         outs.append(fake[0])
 
     name = args.name or os.path.splitext(os.path.basename(args.img_in))[0]
@@ -216,6 +233,9 @@ def build_parser():
                    help="classifier-free guidance scale at sampling")
     p.add_argument("--sampling_method", default="",
                    choices=["", "ddpm", "ddim"])
+    p.add_argument("--alg_sc_denoise_inferstep", type=int, default=-1,
+                   help="sc: the sampler's step count (default: the "
+                        "model's alg_sc_denoise_timesteps)")
     p.add_argument("--alg_diffusion_cond_image_creation", default="")
     p.add_argument("--alg_diffusion_sketch_canny_thresholds", type=int,
                    nargs=2, default=None,

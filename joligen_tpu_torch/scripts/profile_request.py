@@ -2,17 +2,19 @@
 
     python -m joligen_tpu_torch.scripts.profile_request \\
         [--config examples/example_ddpm_noglasses2glasses.json] \\
-        [--sampling_method ddim | --train] [--size PX] \\
+        [--model_type sc] [--sampling_method ddim | --train] [--size PX] \\
         [--out profile_request.json]
 
-Builds the config's model (palette, or a GAN such as
-``examples/example_gan_horse2zebra.json``) at full width with seeded random
-weights and runs twice as warm-up, on a synthetic masked image, either one
-serving request or (``--train``) one training step on a batch of
-``train_batch_size`` such images (a GAN reads its ``A`` and ``B``); then
-times one run by the host clock and traces another with
-``torch.profiler``. Prints one JSON object: latency,
-kernels launched per run, the device's busy time (the union of the kernels'
+Builds the config's model (palette; a GAN such as
+``examples/example_gan_horse2zebra.json``; cm or cm_gan from
+``examples/example_cm*_noglasses2glasses.json``, or sc from the cm config
+with ``--model_type sc``; a cm_gan step is one micro-step) at full width
+with seeded random weights and runs twice as warm-up, on a synthetic
+masked image, either one serving request or (``--train``) one training
+step on a batch of ``train_batch_size`` such images (a GAN reads its ``A``
+and ``B``); then times one run by the host clock and traces another with
+``torch.profiler``. Prints one JSON object: latency, kernels launched per
+run, the device's busy time (the union of the kernels'
 intervals) and idle share of the untraced latency, and the kernels that
 take the most device time. Needs a CUDA device.
 """
@@ -65,6 +67,8 @@ def main(argv=None):
                    choices=["ddim", "ddpm"])
     p.add_argument("--train", action="store_true",
                    help="profile a training step instead of a request")
+    p.add_argument("--model_type", default="",
+                   help="model type instead of the config's")
     p.add_argument("--size", type=int, default=0,
                    help="load and crop size in px instead of the config's")
     p.add_argument("--top", type=int, default=12)
@@ -75,7 +79,10 @@ def main(argv=None):
                            "device is available")
 
     with open(args.config) as f:
-        opt = TrainOptions().parse_json(json.load(f), verbose=False)
+        cfg = json.load(f)
+    if args.model_type:
+        cfg["model_type"] = args.model_type
+    opt = TrainOptions().parse_json(cfg, verbose=False)
     if args.size:
         opt.data_load_size = opt.data_crop_size = args.size
     if args.train:
@@ -125,6 +132,7 @@ def main(argv=None):
     result = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "config": os.path.basename(args.config),
+        "model_type": opt.model_type,
         "run": ("training step, batch %d" % opt.train_batch_size
                 if args.train else (args.sampling_method + " request"
                                     if palette else "request")),

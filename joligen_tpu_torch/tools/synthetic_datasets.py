@@ -1,7 +1,9 @@
-"""Synthetic datasets in the on-disk layouts of the palette example configs,
-made from a seed: the online bbox-crop layout (``xview``, ``mapillary``,
-``mario``), ``single`` (``df2kost``) and ``aligned`` (``SEN2VEN``); and of
-the GAN example configs: ``unaligned`` (``horse2zebra``, ``mnist2USPS``).
+"""Synthetic datasets in the on-disk layouts of the diffusion example
+configs, made from a seed: ``labeled`` (``self_supervised_labeled_mask``:
+``noglasses2glasses``, ``viton_tutorial``, the cm configs), the online
+bbox-crop layout (``xview``, ``mapillary``, ``mario``), ``single``
+(``df2kost``) and ``aligned`` (``SEN2VEN``); and of the GAN example configs:
+``unaligned`` (``horse2zebra``, ``mnist2USPS``).
 Paths in ``paths.txt`` are relative to the root (``data_relative_paths``).
 
     python -m joligen_tpu_torch.tools.synthetic_datasets online DIR [N [SIZE]]
@@ -24,6 +26,28 @@ def _image(rng, size):
     base = base + rng.integers(0, 96, 3)
     return np.clip(base + rng.normal(0, 12, base.shape), 0, 255).astype(
         np.uint8)
+
+
+def write_labeled(root, n, size, seed=0):
+    """``trainA/imgs/*.png`` of ``size``² px, ``trainA/masks/*.png`` (a
+    rectangle of label 1 on 0) and ``trainA/paths.txt`` lines
+    'img 0 mask'."""
+    rng = np.random.default_rng(seed)
+    for sub in ("imgs", "masks"):
+        os.makedirs(os.path.join(root, "trainA", sub), exist_ok=True)
+    lines = []
+    for i in range(n):
+        mask = np.zeros((size, size), np.uint8)
+        x0, y0 = rng.integers(size // 16, size // 2, 2)
+        w, h = rng.integers(size // 6, size // 3 + 1, 2)
+        mask[y0:y0 + h, x0:x0 + w] = 1
+        ipath = f"trainA/imgs/{i:04d}.png"
+        mpath = f"trainA/masks/{i:04d}.png"
+        Image.fromarray(_image(rng, size)).save(os.path.join(root, ipath))
+        Image.fromarray(mask).save(os.path.join(root, mpath))
+        lines.append(f"{ipath} 0 {mpath}")
+    with open(os.path.join(root, "trainA", "paths.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def write_online(root, n, size, seed=0, domains=("A",), classes=(1, 2)):
@@ -96,7 +120,7 @@ def write_unaligned(root, n, size, seed=0):
         Image.fromarray(b).save(os.path.join(root, "trainB", f"{i:04d}.png"))
 
 
-WRITERS = {"online": write_online, "single": write_single,
+WRITERS = {"labeled": write_labeled, "online": write_online, "single": write_single,
            "aligned": write_aligned, "unaligned": write_unaligned}
 
 

@@ -15,6 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from joligen_tpu.models.train_state import NetState
 from joligen_tpu_torch.models.convert import flax_to_torch
 
 jaug = importlib.import_module("joligen_tpu.ops.diff_aug")
@@ -129,6 +130,28 @@ def seeded_tree(shapes, seed, scale=0.1, lecun=False):
             out[k] = a + 1.0 if k == "scale" else a
         return out
     return walk(shapes)
+
+
+def fast_init_net_state(seed_base):
+    """``init_net_state`` without XLA: shapes from ``jax.eval_shape``,
+    seeded values of flax's default law (the JAX package's own init and init
+    scheme compile every net; the port gets the same values by
+    conversion)."""
+    counter = [seed_base]
+
+    def init(rng, module, example_inputs, tx, use_ema=False,
+             init_kwargs=None):
+        shapes = jax.eval_shape(lambda r: module.init(
+            r, *example_inputs, **(init_kwargs or {})), rng)
+        counter[0] += 1
+        params = jax.tree.map(jnp.asarray,
+                              seeded_tree(shapes, counter[0], 0.05,
+                                          lecun=True))
+        return NetState(params=params, opt_state=tx.init(params),
+                        ema_params=(jax.tree.map(jnp.copy, params)
+                                    if use_ema else None),
+                        step=jnp.zeros((), jnp.int32))
+    return init
 
 
 def load_flax(module, params):

@@ -38,12 +38,12 @@ import jax
 import jax.numpy as jnp
 
 # few_torch_threads: an autouse fixture, active once imported
-from _torch_gan_common import (BATCH, SIZE, aug_draws, few_torch_threads,
+from _torch_gan_common import (BATCH, SIZE, aug_draws,
+                               fast_init_net_state, few_torch_threads,
                                grads_close, h2z_cfg, load_flax, patch_ids,
-                               pool_draws, seeded_tree, to_np)
+                               pool_draws, to_np)
 from joligen_tpu.models import create_model as jax_create_model
 from joligen_tpu.models import cut_model as jcut_model
-from joligen_tpu.models.train_state import NetState
 from joligen_tpu.options import TrainOptions as JaxTrainOptions
 from joligen_tpu.parallel.mesh import dequantize_on_device, quantize_batch
 from joligen_tpu_torch.models import create_model
@@ -70,31 +70,10 @@ CASES = {
 }
 
 
-def _fast_init(seed_base):
-    """``init_net_state`` without XLA: shapes from ``jax.eval_shape``,
-    seeded values of flax's default law (the JAX package's own init and init
-    scheme compile every net; the port gets the same values by
-    conversion)."""
-    counter = [seed_base]
-
-    def init(rng, module, example_inputs, tx, use_ema=False,
-             init_kwargs=None):
-        shapes = jax.eval_shape(lambda r: module.init(
-            r, *example_inputs, **(init_kwargs or {})), rng)
-        counter[0] += 1
-        params = jax.tree.map(jnp.asarray,
-                              seeded_tree(shapes, counter[0], 0.05,
-                                          lecun=True))
-        return NetState(params=params, opt_state=tx.init(params),
-                        ema_params=(jax.tree.map(jnp.copy, params)
-                                    if use_ema else None),
-                        step=jnp.zeros((), jnp.int32))
-    return init
-
-
 @pytest.fixture
 def fast_jax_init(monkeypatch):
-    monkeypatch.setattr(jcut_model, "init_net_state", _fast_init(100))
+    monkeypatch.setattr(jcut_model, "init_net_state",
+                        fast_init_net_state(100))
     monkeypatch.setattr(jcut_model, "scheme_from_opt",
                         lambda state, key, opt: state)
 

@@ -74,6 +74,10 @@ GAN_MODULES = ("ops.upfirdn2d", "ops.diff_aug", "ops.resize",
                "models.modules.cut_networks", "models.modules.image_pool",
                "models.gan_networks", "models.cut_model",
                "models.test_model", "scripts.gen_single_image")
+# the consistency and shortcut models (their host tables take math.erf where
+# the JAX package takes scipy's)
+CM_MODULES = ("models.modules.cm", "models.modules.sc", "models.cm_model",
+              "models.sc_model")
 
 
 def test_package_imports_with_jax_blocked():
@@ -84,7 +88,7 @@ def test_package_imports_with_jax_blocked():
     names = out.stdout.split()
     assert len(names) >= 49
     for m in (TRAINING_MODULES + PROBE_MODULES + CONDITIONING_MODULES
-              + GAN_MODULES):
+              + GAN_MODULES + CM_MODULES):
         assert "joligen_tpu_torch." + m in names, m
 
 

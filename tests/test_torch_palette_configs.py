@@ -1,5 +1,5 @@
-"""The five palette example configs that this slice runs (xview, mapillary,
-mario, df2kost, SEN2VEN), each cut to a small width on the CPU (crop 32,
+"""Six palette example configs (xview, mapillary, mario, df2kost, SEN2VEN,
+viton_tutorial), each cut to a small width on the CPU (crop 32,
 ngf 16, mults 1,2, one res block a level, attention at ds 2 and in the mid
 block, fp32) over a synthetic dataset in its on-disk layout
 (``joligen_tpu_torch/tools/synthetic_datasets.py``), against the JAX
@@ -18,7 +18,8 @@ package:
    request through ``scripts/gen_single_image_diffusion.py`` from the trained
    checkpoint in the config's request mode (``--bbox_in`` for the online
    configs, with fixed canny thresholds for mapillary; super-resolution and
-   pix2pix whole images), and for mario ``inference_per_class``.
+   pix2pix whole images; viton_tutorial with ``--mask_in``), and for mario
+   ``inference_per_class``.
 """
 
 import copy
@@ -68,6 +69,8 @@ CONFIGS = {
     # train-time metrics (FID on the test set) are not ported
     "df2kost": ("single", 40, {"train": {"compute_metrics_test": False}}),
     "SEN2VEN": ("aligned", 48, {"data": {"load_size": 40}}),
+    # the noglasses2glasses layout, with random masks (rand_mask_A)
+    "viton_tutorial": ("labeled", 40, {}),
 }
 SMALL = {
     "data": {"load_size": SIZE, "crop_size": SIZE, "num_threads": 1},
@@ -297,6 +300,10 @@ def _request_args(name, root, ckpt, out):
     elif name == "df2kost":
         img = os.path.join(root, "trainA", "0000.png")
         extra = ["--alg_diffusion_super_resolution_downsample"]
+    elif name == "viton_tutorial":
+        img = os.path.join(root, "trainA", "imgs", "0000.png")
+        extra = ["--mask_in", os.path.join(root, "trainA", "masks",
+                                           "0000.png")]
     else:
         img = os.path.join(root, "trainA", "0000.png")
         extra = []
