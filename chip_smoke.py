@@ -66,8 +66,17 @@ GPU. Run from the repository root with no arguments:
    two requests through ``scripts/gen_single_image.inference`` from the
    trained checkpoint (output finite, of the input's size); its G forward
    and its G loss with every G gradient in fp32, card against CPU; then
-   ``example_gan_mnist2USPS.json``, 2 steps and one request. No kernel of
-   the port runs on these paths (their launch counts are 0).
+   ``example_gan_mnist2USPS.json``, 2 steps and one request. Then the
+   glasses configs, over synthetic ``unaligned_labeled_mask`` datasets
+   (masks of both domains): ``example_gan_noglasses2glasses.json`` at full
+   width (mobile_resnet_attn G, 2,462,565 parameters; projected, basic and
+   vision-aided Ds, the last 175,001,860 with its frozen CLIP ViT-B/16 and
+   DINOv2 ViT-B/14 towers; the unet f_s, 3,469,506; the out-mask loss; G
+   EMA; batch 2, 256 px, bf16), 8 steps, the towers bit for bit after them
+   and every head and f_s changed, two requests; the vision-aided D in
+   fp32, card against CPU; ``example_gan_glasses2noglasses.json`` (128 px)
+   2 steps and one request. No kernel of the port runs on these paths
+   (their launch counts are 0).
 8. The consistency and shortcut models, over a synthetic labeled-mask
    dataset of 128 px images written here: ``example_cm_noglasses2glasses
    .json`` at full width (63,084,611 parameters in 327 leaves, the trunk's
@@ -192,6 +201,19 @@ COPY_PATH = (1024, 1024, "float32")     # the probe's 1 GiB, row, ms dtype
 CUT_STEPS = 8
 CUT_REQUESTS = 2
 CUT_LOSS_TOL = 1e-3
+# the glasses configs (CUT with the semantic-mask branch and the
+# vision-aided D): noglasses2glasses one epoch of GLASSES_STEPS steps at
+# batch 2 (256 px), then GLASSES_REQUESTS requests; glasses2noglasses
+# GLASSES2_STEPS steps (128 px), one request. Full width: the JAX modules'
+# parameter counts (jax.eval_shape)
+GLASSES_STEPS = 8
+GLASSES_REQUESTS = 2
+GLASSES2_STEPS = 2
+EXPECTED_PARAMS_GLASSES_G = 2_462_565      # mobile_resnet_attn, ngf 64
+EXPECTED_PARAMS_GLASSES = {"D_B_vision_aided": 175_001_860,
+                           "f_s": 3_469_506}
+EXPECTED_PARAMS_TOWERS = {"freezenet_clip": 86_192_640,
+                          "freezenet_dino": 86_579_712}
 # the consistency and shortcut models on the cm configs: cm one epoch of
 # CM_STEPS steps at batch 16, then CM_REQUESTS requests; cm_gan CM_GAN_STEPS
 # micro-steps at batch 4 (two real updates at iter_size 16), one request; sc
@@ -1895,6 +1917,185 @@ def cut_cross_check():
     return rec
 
 
+def _glasses_opt(example, workdir, n_images, size, name):
+    """A glasses config over a synthetic ``unaligned_labeled_mask`` dataset
+    of ``n_images`` a domain, ``size`` px, written here: one epoch, losses
+    read every step, ``latest`` saved at the epoch's end only (each D
+    checkpoint holds the 172.8M frozen tower parameters)."""
+    from joligen_tpu_torch.options import TrainOptions
+    from joligen_tpu_torch.tools.synthetic_datasets import \
+        write_unaligned_labeled
+
+    with open(os.path.join(ROOT, "examples", example)) as f:
+        opt = TrainOptions().parse_json(json.load(f), verbose=False)
+    opt.dataroot = os.path.join(workdir, f"data_{name}")
+    write_unaligned_labeled(opt.dataroot, n_images, size, seed=SEED + 17)
+    opt.checkpoints_dir = os.path.join(workdir, "glasses_ckpt")
+    opt.name = f"smoke_{name}"
+    opt.train_n_epochs, opt.train_n_epochs_decay = 1, 0
+    opt.output_print_freq = opt.train_batch_size
+    opt.output_display_freq = 0
+    opt.train_save_epoch_freq = 10 ** 6
+    return opt
+
+
+def _glasses_widths(name, opt, model, size):
+    """The trained glasses model at full width: the JAX modules' parameter
+    counts (G is checked by ``_train_run``), its nets, the config's crop,
+    widths and batch, the semantic branch. Returns (counts per net, counts
+    per tower)."""
+    counts = model.param_count()
+    netD = model.nets["D_B_vision_aided"]
+    towers = {t: sum(p.numel() for p in getattr(netD, t).parameters())
+              for t in EXPECTED_PARAMS_TOWERS}
+    if ({k: counts.get(k) for k in EXPECTED_PARAMS_GLASSES}
+            != EXPECTED_PARAMS_GLASSES or towers != EXPECTED_PARAMS_TOWERS
+            or set(counts) != {"G_A", "F", "D_B_projected_d", "D_B_basic",
+                               "D_B_vision_aided", "f_s"}
+            or opt.data_crop_size != size or opt.G_ngf != 64
+            or opt.G_nblocks != 9 or opt.train_batch_size != 2
+            or not model.semantic_mask
+            or model.out_mask != (name == "noglasses2glasses")):
+        raise AssertionError(f"{name} is not at full width: {counts}, "
+                             f"towers {towers}")
+    return counts, towers
+
+
+def _frozen_check(before, model):
+    """Which tower parameters of the vision-aided D changed since
+    ``before`` (a ``_snapshot``), and which head or f_s parameters did not,
+    but for clip's ``glob0.weight``: without a weights file CLIP's
+    embedding is exactly 0 (its ``proj`` is), so that kernel's gradient is
+    exactly 0 too and it must not move."""
+    import torch
+    from joligen_tpu_torch.utils.clip_vit import clip_weights_path
+    still = set() if clip_weights_path() else {"D_B_vision_aided.glob0.weight"}
+    out = {"towers_changed": [], "heads_or_f_s_unchanged": []}
+    for net in ("D_B_vision_aided", "f_s"):
+        named = model.nets[net].named_parameters()
+        for (k, p), p0 in zip(named, before[net]):
+            same = torch.equal(p0, p)
+            if k.startswith("freezenet_") and not same:
+                out["towers_changed"].append(k)
+            elif not k.startswith("freezenet_") and same:
+                out["heads_or_f_s_unchanged"].append(f"{net}.{k}")
+    out["heads_or_f_s_unchanged"] = sorted(
+        set(out["heads_or_f_s_unchanged"]) ^ still)
+    return out
+
+
+def glasses_phase(workdir):
+    """CUT's semantic-mask branch and the vision-aided D on the glasses
+    configs: ``example_gan_noglasses2glasses.json`` at full width
+    (mobile_resnet_attn G, ngf 64, 9 blocks; projected, basic and
+    vision-aided Ds, the last with its frozen CLIP ViT-B/16 and DINOv2
+    ViT-B/14 towers at a seeded init; the unet f_s; the L1 out-mask loss; G
+    EMA; batch 2, 256 px, bf16) for GLASSES_STEPS steps over a synthetic
+    dataset with masks of both domains, then GLASSES_REQUESTS requests from
+    the trained checkpoint; the parameter counts of the JAX modules; the
+    towers bit for bit as they started (adam gives them zero updates), every
+    head and f_s changed. Then ``example_gan_glasses2noglasses.json`` (128
+    px) GLASSES2_STEPS steps and one request. No kernel of the port runs on
+    these paths. Returns (records, launch counts per path)."""
+    import torch
+    from joligen_tpu_torch.models.cut_model import CUTModel
+
+    recs, paths, snaps = {}, {}, []
+    plain = CUTModel.optimize_prepared
+
+    def first_snapshot(self, dev, draws=None):
+        if not snaps:
+            snaps.append(_snapshot(self))
+        return plain(self, dev, draws)
+
+    for name, example, size, steps, n_req in (
+            ("noglasses2glasses", "example_gan_noglasses2glasses.json", 256,
+             GLASSES_STEPS, GLASSES_REQUESTS),
+            ("glasses2noglasses", "example_gan_glasses2noglasses.json", 128,
+             GLASSES2_STEPS, 1)):
+        opt = _glasses_opt(example, workdir, 2 * steps, size, name)
+        CUTModel.optimize_prepared = first_snapshot
+        try:
+            model, opt, rec = _train_run(opt, steps, 1, f"{name} training",
+                                         EXPECTED_PARAMS_GLASSES_G,
+                                         attention_per_step=0)
+        finally:
+            CUTModel.optimize_prepared = plain
+        rec["parameters_per_net"], rec["tower_parameters"] = \
+            _glasses_widths(name, opt, model, size)
+        frozen = _frozen_check(snaps.pop(), model)
+        rec["frozen_check"] = frozen
+        log(f"{name}: parameters per net {rec['parameters_per_net']}, "
+            f"towers {rec['tower_parameters']}, frozen check {frozen}")
+        if any(frozen.values()):
+            raise AssertionError(f"{name}: {frozen}")
+        del model
+        torch.cuda.empty_cache()
+        paths[f"{name}_training"] = rec["launches"]
+        ckpt = os.path.join(opt.checkpoints_dir, opt.name,
+                            "latest_net_G_A.pth")
+        out_dir = os.path.join(workdir, f"out_{name}")
+        os.makedirs(out_dir)
+        req = _serve_gan(ckpt, os.path.join(opt.dataroot, "trainA", "imgs",
+                                            "0000.png"), out_dir, n_req)
+        log(f"{name}: {n_req} requests from the trained checkpoint, "
+            f"{[round(s, 4) for s in req['request_s']]} s, launches "
+            f"{req['launches']}")
+        rec["requests"] = req
+        paths[f"{name}_requests"] = req["launches"]
+        recs[name] = rec
+    return recs, paths
+
+
+def vision_aided_cross_check():
+    """The full-width vision-aided D of noglasses2glasses in fp32, TF32 off,
+    batch 1 at 256 px (the resize shrinks), the card against the CPU on the
+    same seeded weights: flax's default init with the zero-initialised
+    tables (CLIP's ``proj`` among them) filled with N(0, 0.02), so that both
+    towers' embeddings count; to CROSS_CHECK_TOL of the largest logit."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.gan_networks import (ZERO_INIT, define_D,
+                                                       flax_default_init)
+    from joligen_tpu_torch.options import TrainOptions
+    from joligen_tpu_torch.utils.clip_vit import preprocess
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    with open(os.path.join(ROOT, "examples",
+                           "example_gan_noglasses2glasses.json")) as f:
+        opt = TrainOptions().parse_json(json.load(f), verbose=False)
+    opt.tpu_bf16 = False
+    gen = torch.Generator().manual_seed(SEED + 19)
+    net = flax_default_init(
+        define_D(opt, ["vision_aided"])["D_B_vision_aided"], gen)
+    with torch.no_grad():
+        for k, p in net.named_parameters():
+            if k.rsplit(".", 1)[-1] in ZERO_INIT:
+                p.normal_(0.0, 0.02, generator=gen)
+    size = opt.data_crop_size
+    x = torch.from_numpy(np.random.default_rng(SEED + 20).uniform(
+        -1, 1, (1, size, size, 3)).astype(np.float32))
+    outs, emb = {}, 0.0
+    for dev in ("cuda", "cpu"):
+        net = net.to(dev).eval()
+        with torch.inference_mode():
+            outs[dev] = net(x.to(dev)).cpu()
+            if dev == "cpu":
+                emb = net.freezenet_clip(preprocess(x))[0].abs().max().item()
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    scale = outs["cpu"].abs().max().item()
+    rec = {"shape": list(outs["cuda"].shape), "max_abs_err": err,
+           "max_abs_logit": scale, "clip_embedding_max": emb,
+           "tol": CROSS_CHECK_TOL}
+    log("vision-aided D fp32 card vs CPU: " + json.dumps(rec))
+    if not (torch.isfinite(outs["cuda"]).all() and rec["shape"] == [1, 115]
+            and emb > 0 and err <= CROSS_CHECK_TOL * scale):
+        raise AssertionError("card and CPU vision-aided Ds disagree")
+    return rec
+
+
 def _cm_opt(example, workdir, n_images, name, model_type=None):
     """A cm example config (``model_type`` in place of the config's, if
     given) over the first ``n_images`` of a synthetic labeled-mask dataset
@@ -2210,15 +2411,19 @@ def main():
             "K3": k3["timings"]["xview_128px_batch16"]["dkv_ms"]})
         configs, config_paths = other_configs_phase(workdir)
         gans, gan_paths = cut_phase(workdir)
+        glasses, glasses_paths = glasses_phase(workdir)
         cms, cm_paths = cm_phase(workdir)
     grad_check = gradient_cross_check()
     gans["horse2zebra"]["cross_check_fp32"] = cut_cross_check()
+    glasses["noglasses2glasses"]["cross_check_fp32"] = \
+        vision_aided_cross_check()
     probe_launches, probes = probe_paths()
     paths = {"serving": serving, "training": training["launches"],
              "trained_checkpoint_request":
                  training["trained_request_launches"],
              "training_256px": training_256["launches"], **xview["paths"],
-             **config_paths, **gan_paths, **cm_paths, **probe_launches}
+             **config_paths, **gan_paths, **glasses_paths, **cm_paths,
+             **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -2231,6 +2436,7 @@ def main():
     log("xview: " + json.dumps(xview))
     log("configs: " + json.dumps(configs))
     log("gans: " + json.dumps(gans))
+    log("glasses: " + json.dumps(glasses))
     log("cm, cm_gan, sc: " + json.dumps(cms))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     k1["training_gradient_cross_check"] = grad_check

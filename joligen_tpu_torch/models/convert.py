@@ -9,7 +9,13 @@ port's modules carry the flax names. Leaf mappings:
 - norm ``scale`` <-> ``weight``; ``bias`` <-> ``bias``;
 - embedding tables (modules named ``embedder_*``) ``embedding`` <-> ``weight``;
 - the consistency model's Fourier features ``sigma_embed/W`` (1-D) <-> ``W``,
-  as they are.
+  as they are;
+- the ViT towers' raw leaves (``RAW_LEAVES``: CLIP's ``class_embedding``,
+  ``positional_embedding`` and its output projection ``proj`` (D, 512),
+  applied as ``out @ proj``, so not a Dense and not transposed; DINOv2's
+  ``cls_token``, ``pos_embed`` and LayerScales ``ls1``/``ls2``) and the
+  attention's ``DenseGeneral`` kernels (rank 3: (D, H, hd), (H, hd, D)),
+  as they are, under their own names.
 
 The GAN trees need no other rule: a depthwise kernel (``feature_group_count``
 = C, HWIO with I = 1) is the OIHW weight with I = 1; ``TorchConvTranspose``
@@ -27,6 +33,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+RAW_LEAVES = ("W", "class_embedding", "positional_embedding", "proj",
+              "cls_token", "pos_embed", "ls1", "ls2")
 
 
 def _flatten(tree, prefix=()):
@@ -52,7 +61,8 @@ def flax_to_torch(params):
             arr, tname = arr.T, "weight"
         elif name in ("scale", "embedding"):
             tname = "weight"
-        elif name in ("bias", "W"):
+        elif name == "bias" or name in RAW_LEAVES or (
+                name == "kernel" and arr.ndim == 3):
             tname = name
         else:
             raise ValueError(f"unmapped flax leaf {'/'.join(path)} "
@@ -134,7 +144,7 @@ def torch_to_flax(state_dict):
         parts = key.split(".")
         arr = t.detach().cpu().numpy()
         name, module = parts[-1], parts[-2]
-        if name in ("bias", "W"):
+        if name in ("bias", "kernel") or name in RAW_LEAVES:
             fname = name
         elif name != "weight":
             raise ValueError(f"unmapped torch parameter {key}")

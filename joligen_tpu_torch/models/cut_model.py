@@ -2,17 +2,27 @@
 (``joligen_tpu/models/cut_model.py``) along the options the ``cut`` example
 configs reach: a resnet generator G, the ``PatchSampleF`` projector F with
 the PatchNCE, MoNCE or SRC + hDCE loss (identity NCE, ``MSE_idt``), and one
-or more discriminators with the fake pool, DiffAugment, ``D_noise``,
-one-sided label smoothing and ``D_dropout``; G EMA with ``train_G_ema``.
+or more discriminators (the vision-aided one among them) with the fake
+pool, DiffAugment, ``D_noise``, one-sided label smoothing and
+``D_dropout``; G EMA with ``train_G_ema``; and the semantic-mask branch
+(``train_semantic_mask``): the segmenter f_s, trained on the label masks of
+A (and of B with ``train_mask_f_s_B``), whose cross-entropy on G's fake
+(and identity) joins G's loss, and the out-of-mask identity loss
+(``train_mask_out_mask``).
 
 One step (``optimize_prepared``), in the JAX step's order
 (``cut_model.py:685-950``):
 
-1. G and F together: G's loss (the GAN terms of every D on the augmented
-   fake, the NCE terms) and its gradients, then Adam on G (and its EMA) and
-   on F;
-2. the fake (before G's update) through the pool;
-3. each D on the augmented real and pooled images, with its own Adam.
+1. with ``train_semantic_mask``, f_s (and ``f_s_B``) on the real images and
+   their masks, with its own Adam; its loss at or below
+   ``f_s_semantic_threshold`` opens the gate of G's semantic terms (a
+   device tensor: nothing waits for the host);
+2. G and F together: G's loss (the GAN terms of every D on the augmented
+   fake, the NCE terms, the semantic terms through the updated f_s, whose
+   parameters take no gradient) and its gradients, then Adam on G (and its
+   EMA) and on F;
+3. the fake (before G's update) through the pool;
+4. each D on the augmented real and pooled images, with its own Adam.
 
 Images are NHWC at the networks' boundaries, as in the JAX package. The
 random draws (DiffAugment, patch ids, the pool, ``D_noise``, dropout) come
@@ -24,29 +34,34 @@ lists), ``pool``, ``d_noise`` ((real, fake)), ``d_real_aug``,
 
 In phase ``test`` only G (and its EMA) is built and loaded.
 
-Options off this path raise ``NotImplementedError`` naming the option
-(``UNPORTED_OPTIONS``).
+``train_sem_use_label_B``, which the glasses configs set, is read by
+nothing in the JAX package; the port reads it nowhere either. Options off
+this path raise ``NotImplementedError`` naming the option
+(``UNPORTED_OPTIONS``), as does an ``f_s_net`` other than ``unet``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.diff_aug import apply_diff_augment, draw_diff_augment
+from ..utils.clip_vit import load_clip_ref_encoder
+from ..utils.dinov2 import load_dino_into
 from .base import BaseModel, dequantize, quantize_batch
 from .gan_networks import define_D, define_F, define_G, flax_default_init
 from .modules.cut_networks import (gan_loss, monce_loss, patch_nce_loss,
                                    sample_patch_ids, src_hdce_loss)
 from .modules.image_pool import ImagePool
 from .modules.projected_d import load_efficientnet_trunk
+from .modules.semantic_networks import check_f_s_net, define_f
 from .train_state import apply_updates, param_grads, scheme_from_opt
 
 _LEFT = "ROADMAP Queue 1 item 10, what is left of the GAN families"
 # option -> where its port stands; each raises when it is set
 UNPORTED_OPTIONS = {
-    "train_semantic_cls": _LEFT + " (semantic networks)",
-    "train_semantic_mask": _LEFT + " (semantic networks)",
+    "train_semantic_cls": _LEFT + " (semantic networks: the classifier)",
     "dataaug_APA": _LEFT + " (adaptive pseudo augmentation)",
     "dataaug_D_diffusion": _LEFT + " (diffusion-noise D augmentation)",
     "train_use_contrastive_loss_D": _LEFT + " (contrastive D loss)",
@@ -66,6 +81,8 @@ def check_unported(opt):
             v = any(s for s in v)
         if v:
             raise NotImplementedError(f"option {name} is not ported ({where})")
+    if getattr(opt, "train_semantic_mask", False):
+        check_f_s_net(opt)
 
 
 def select_nce_layers(opt):
@@ -112,6 +129,25 @@ class CUTModel(BaseModel):
         self.d_noise = float(g("dataaug_D_noise", 0.0) or 0.0)
         self.context = int(g("data_online_context_pixels", 0) or 0)
         self.nce_layers = select_nce_layers(opt)
+        # the semantic-mask branch (cut_model.py:58-92)
+        self.semantic_mask = bool(g("train_semantic_mask", False))
+        self.mask_lambda = float(g("train_sem_mask_lambda", 1.0))
+        self.out_mask = bool(g("train_mask_out_mask", False))
+        self.lambda_out_mask = float(g("train_mask_lambda_out_mask", 10.0))
+        self.sem_idt = bool(g("train_sem_idt", False))
+        self.mask_for_removal = bool(g("train_mask_for_removal", False))
+        self.sem_net_output = bool(g("train_sem_net_output", False))
+        self.fs_threshold = float(g("f_s_semantic_threshold", 1.0) or 1.0)
+        self.no_train_f_s_A = bool(g("train_mask_no_train_f_s_A", False))
+        self.disjoint_f_s = bool(g("train_mask_disjoint_f_s", False))
+        # disjoint segmenters force B's training (base_model.py:304)
+        self.mask_f_s_B = (bool(g("train_mask_f_s_B", False))
+                           or self.disjoint_f_s)
+        self.fs_weights = [float(w) for w in (g("f_s_class_weights", [])
+                                              or [])]
+        self.out_mask_loss = g("train_mask_loss_out_mask", "L1") or "L1"
+        self.charbonnier_eps = float(g("train_mask_charbonnier_eps", 1e-6)
+                                     or 1e-6)
 
         init_gen = torch.Generator().manual_seed(self.seed)
         netG = scheme_from_opt(define_G(opt), init_gen, opt)
@@ -126,25 +162,98 @@ class CUTModel(BaseModel):
         for name, netD in define_D(opt).items():
             if any(t in name for t in PATCH_DS):
                 # only the PatchGAN Ds take the init scheme (cut_model.py:
-                # 194-197); the projected D keeps flax's default init
+                # 194-197); the projected and vision-aided Ds keep flax's
+                # default init, then their frozen trunks load their weights
+                # files where those exist (:199-217)
                 scheme_from_opt(netD, init_gen, opt)
+            elif "vision_aided" in name:
+                flax_default_init(netD, init_gen)
+                load_clip_ref_encoder(netD)
+                load_dino_into(netD)
             else:
                 flax_default_init(netD, init_gen)
                 load_efficientnet_trunk(netD.feature_network)
+            # the frozen towers stay in the optimizer, as in optax's tree:
+            # zero gradients, so adam leaves them as they are
             self.add_net(name, netD, lr=g("train_D_lr", 2e-4))
             self.d_names.append(name)
+        if self.semantic_mask:
+            # f_s (and, disjoint, f_s_B) at flax's default init, with its
+            # own Adam (cut_model.py:241-279)
+            for name in ("f_s", "f_s_B")[:1 + self.disjoint_f_s]:
+                self.add_net(name, flax_default_init(define_f(opt), init_gen),
+                             lr=g("train_sem_lr_f_s", 2e-4))
         size = opt.data_crop_size
         self.pool = ImagePool(int(g("train_pool_size", 50)),
                               (size, size, opt.model_output_nc), self.device)
 
     # ------------------------------------------------------------------
     def set_input(self, batch):
-        return {"real_A": batch["A"], "real_B": batch["B"]}
+        """The images, and the label masks (``cut_model.py:330-345``): A's
+        when the batch has them, B's with ``train_mask_f_s_B`` or
+        ``train_sem_idt``."""
+        out = {"real_A": batch["A"], "real_B": batch["B"]}
+        if "A_label_mask" in batch:
+            out["mask_A"] = batch["A_label_mask"]
+        if "B_label_mask" in batch and (self.mask_f_s_B or self.sem_idt):
+            out["mask_B"] = batch["B_label_mask"]
+        return out
 
     def prepare_batch(self, batch):
-        """set_input, uint8 wire compression, device upload."""
+        """set_input, uint8 wire compression (the masks as labels), device
+        upload."""
         return self.put_batch(quantize_batch(
-            self.set_input(batch), float_keys=("real_A", "real_B")))
+            self.set_input(batch), float_keys=("real_A", "real_B"),
+            int_keys=("mask_A", "mask_B")))
+
+    def _ce(self, logits, labels):
+        """Softmax cross-entropy over the last axis of ``logits`` (fp32) with
+        integer ``labels``, mean over pixels; with ``f_s_class_weights``
+        torch's weighted form sum(w·ce) / sum(w) (``cut_model.py:383-391``).
+        A label out of range has an all-zero one-hot, as ``jax.nn.one_hot``
+        gives: its cross-entropy is 0."""
+        n = logits.shape[-1]
+        classes = torch.arange(n, device=labels.device)
+        onehot = (labels[..., None] == classes).to(logits.dtype)
+        ce = -(onehot * F.log_softmax(logits, dim=-1)).sum(-1)
+        if not self.fs_weights:
+            return ce.mean()
+        table = torch.tensor(self.fs_weights, dtype=ce.dtype,
+                             device=ce.device)
+        w = table[labels.clamp(0, len(self.fs_weights) - 1)]
+        return (ce * w).sum() / torch.clamp(w.sum(), min=1e-8)
+
+    def _out_mask_crit(self, a, b):
+        """L1, MSE or Charbonnier (``cut_model.py:403-412``)."""
+        d = a - b
+        if self.out_mask_loss == "MSE":
+            return torch.mean(d * d)
+        if self.out_mask_loss == "Charbonnier":
+            return torch.mean(torch.sqrt(d * d + self.charbonnier_eps ** 2))
+        return torch.mean(torch.abs(d))
+
+    def _f_s_update(self, real_A, real_B, mask_A, mask_B):
+        """f_s's step before G's (``cut_model.py:719-748``): its loss on A
+        (unless ``train_mask_no_train_f_s_A``) and on B (with
+        ``train_mask_f_s_B`` and B's masks; f_s_B's when disjoint), Adam on
+        each segmenter. Returns the loss (a device scalar)."""
+        states = [self.states["f_s"]]
+        if self.disjoint_f_s:
+            states.append(self.states["f_s_B"])
+        loss = torch.zeros((), device=real_A.device)
+        if not self.no_train_f_s_A:
+            loss = loss + self._ce(self.nets["f_s"](real_A), mask_A[..., 0])
+        if self.mask_f_s_B and mask_B is not None:
+            net = self.nets["f_s_B" if self.disjoint_f_s else "f_s"]
+            loss = loss + self._ce(net(real_B), mask_B[..., 0])
+        params = [p for st in states for p in st.params]
+        grads = (param_grads(loss, params) if loss.requires_grad
+                 else [torch.zeros_like(p) for p in params])
+        start = 0
+        for st in states:
+            apply_updates(st, grads[start:start + len(st.params)])
+            start += len(st.params)
+        return loss.detach()
 
     def _augment(self, img, draws):
         """DiffAugment of an NHWC batch (``draws`` None: drawn here)."""
@@ -227,8 +336,11 @@ class CUTModel(BaseModel):
         return src_hdce_loss(fq, fk, self.nce_T, batch, self.num_patches,
                              include_all_neg, gamma=self.hdce_gamma)
 
-    def _g_loss(self, real_A, real_B, draws):
-        """G's losses on NHWC fp32 images. Returns (total, losses, fake_B)."""
+    def _g_loss(self, real_A, real_B, draws, mask_A=None, mask_B=None,
+                fs_gate=None):
+        """G's losses on NHWC fp32 images; the semantic terms where
+        ``mask_A`` (int, NHWC) is given, scaled by ``fs_gate``. Returns
+        (total, losses, fake_B)."""
         netG = self.nets["G_A"]
         fake_B, feats_A = netG(real_A, with_features=self.nce_layers)
         fake_for_D = self._augment(self._compose_context(fake_B, real_A),
@@ -245,7 +357,8 @@ class CUTModel(BaseModel):
                                          smooth=self.d_label_smooth)
         losses = {"G_GAN": g_gan * self.lambda_gan}
         groups = [self._nce_features(feats_A, fake_B, draws.get("nce"))]
-        if self.nce_idt or self.mse_idt:
+        idt_B = None
+        if self.nce_idt or self.mse_idt or self.sem_idt:
             idt_B, feats_B = netG(real_B, with_features=self.nce_layers)
         if self.nce_idt:
             groups.append(self._nce_features(feats_B, idt_B,
@@ -260,8 +373,51 @@ class CUTModel(BaseModel):
         if self.mse_idt:
             losses["G_MSE_idt"] = self.lambda_mse_idt * torch.mean(
                 torch.abs(real_B - idt_B))
+        if self.semantic_mask and mask_A is not None:
+            losses.update(self._semantic_terms(real_A, real_B, fake_B, idt_B,
+                                               mask_A, mask_B, fs_gate))
         total = sum(losses.values())
         return total, losses, fake_B
+
+    def _semantic_terms(self, real_A, real_B, fake_B, idt_B, mask_A, mask_B,
+                        gate):
+        """G's semantic-mask terms (``cut_model.py:644-681``) through the
+        updated f_s, whose parameters take no gradient: f_s's cross-entropy
+        on the fake against A's mask (all 0 with ``train_mask_for_removal``;
+        f_s's own prediction on A with ``train_sem_net_output``), on the
+        identity with ``train_sem_idt``, and the out-of-mask identity loss
+        with ``train_mask_out_mask``."""
+        f_s = self.nets["f_s"]
+        f_s_B = self.nets["f_s_B" if self.disjoint_f_s else "f_s"]
+        label_A = mask_A[..., 0]
+        terms = {}
+
+        def predicted(net, img):
+            with torch.no_grad():
+                return torch.argmax(net(img), dim=-1)
+
+        if self.mask_for_removal:
+            label_fake = torch.zeros_like(label_A)
+        elif self.sem_net_output:
+            label_fake = predicted(f_s, real_A)
+        else:
+            label_fake = label_A
+        terms["G_sem_mask"] = gate * self.mask_lambda * self._ce(
+            f_s_B(fake_B), label_fake)
+        if self.sem_idt and idt_B is not None:
+            if self.mask_for_removal:
+                label_idt = torch.zeros_like(label_A)
+            elif self.sem_net_output or mask_B is None:
+                label_idt = predicted(f_s_B, real_B)
+            else:
+                label_idt = mask_B[..., 0]
+            terms["G_sem_mask_idt"] = gate * self.mask_lambda * self._ce(
+                f_s_B(idt_B), label_idt)
+        if self.out_mask:
+            m = torch.clamp(mask_A.to(fake_B.dtype), 0, 1)
+            terms["G_out_mask"] = self.lambda_out_mask * self._out_mask_crit(
+                fake_B * (1 - m), real_A * (1 - m))
+        return terms
 
     def optimize_prepared(self, dev, draws=None):
         """One step on a prepared batch (see the module doc). Losses stay
@@ -269,8 +425,15 @@ class CUTModel(BaseModel):
         draws = draws or {}
         real_A = dequantize(dev["real_A"], "image")
         real_B = dequantize(dev["real_B"], "image")
+        mask_A = dequantize(dev.get("mask_A"), "label")
+        mask_B = dequantize(dev.get("mask_B"), "label")
+        heads, fs_gate = {}, None
+        if self.semantic_mask and mask_A is not None:
+            heads["f_s"] = self._f_s_update(real_A, real_B, mask_A, mask_B)
+            fs_gate = (heads["f_s"] <= self.fs_threshold).float()
         sG, sF = self.states["G_A"], self.states["F"]
-        total, losses, fake_B = self._g_loss(real_A, real_B, draws)
+        total, losses, fake_B = self._g_loss(real_A, real_B, draws, mask_A,
+                                             mask_B, fs_gate)
         grads = param_grads(total, sG.params + sF.params)
         apply_updates(sG, grads[:len(sG.params)], self.ema_beta)
         apply_updates(sF, grads[len(sG.params):])
@@ -300,6 +463,8 @@ class CUTModel(BaseModel):
             state = self.states[name]
             apply_updates(state, param_grads(loss, state.params))
             losses[f"D_{name}"] = loss.detach()
+        # the semantic heads were updated before G (their gate)
+        losses.update(heads)
         self.loss_log = losses
         return losses
 
@@ -329,6 +494,38 @@ class CUTModel(BaseModel):
         att = att.cpu().numpy()
         return {f"attention_{i}": att[..., i:i + 1] * 2.0 - 1.0
                 for i in range(min(att.shape[-1], max_masks))}
+
+    def compute_miou(self, batch):
+        """Soft mIoU of f_s on a batch (``cut_model.py:971-1001``): on real A
+        against its mask, on real B against B's (when the batch has it,
+        through f_s_B when disjoint) and on G's fake against A's mask; {}
+        without the semantic branch or A's masks."""
+        if not self.semantic_mask or "A_label_mask" not in batch:
+            return {}
+        f_s = self.nets["f_s"]
+        f_s_B = self.nets.get("f_s_B", f_s)
+
+        def iou(logits, target):
+            pred = torch.softmax(logits.float(), dim=-1)
+            n = pred.shape[-1]
+            onehot = (target.clamp(0, n - 1)[..., None] == torch.arange(
+                n, device=target.device)).float()
+            inter = (pred * onehot).sum()
+            union = (pred + onehot).sum() - inter
+            return float(inter / torch.clamp(union, min=1e-8))
+
+        dev = self.put_batch({k: np.asarray(batch[s]) for k, s in (
+            ("real_A", "A"), ("real_B", "B"), ("mask_A", "A_label_mask"),
+            ("mask_B", "B_label_mask")) if s in batch})
+        mask_A = dev["mask_A"][..., 0]
+        with torch.inference_mode():
+            out = {"miou_real_A": iou(f_s(dev["real_A"]), mask_A)}
+            if "mask_B" in dev:
+                out["miou_real_B"] = iou(f_s_B(dev["real_B"]),
+                                         dev["mask_B"][..., 0])
+            out["miou_fake_B"] = iou(f_s_B(self.nets["G_A"](dev["real_A"])),
+                                     mask_A)
+        return out
 
     def compute_D_accuracy(self, batch):
         """Precision, recall and accuracy of each D on a batch, logits

@@ -1,7 +1,8 @@
 """GAN network factories (``joligen_tpu/models/gan_networks.py``): the
 resnet generators, the ``basic`` / ``n_layers`` / ``pixel`` /
-``projected_d`` discriminators and the ``PatchSampleF`` projector. Any
-other generator or discriminator raises, naming its ROADMAP item.
+``projected_d`` / ``vision_aided`` discriminators and the ``PatchSampleF``
+projector. Any other generator or discriminator raises, naming its ROADMAP
+item.
 
 torch layers need their input sizes, which flax infers: the factories take
 them from the options (``model_input_nc``, ``model_output_nc``, the crop)
@@ -29,7 +30,7 @@ UNPORTED_G = {
 }
 UNPORTED_D = {
     "temporal": "ROADMAP Queue 1 item 11, video diffusion",
-    "vision_aided": _ROADMAP_ZOO, "depth": _ROADMAP_ZOO, "sam": _ROADMAP_ZOO,
+    "depth": _ROADMAP_ZOO, "sam": _ROADMAP_ZOO,
     "mask": "ROADMAP Queue 1 item 10, semantic networks",
 }
 
@@ -92,11 +93,41 @@ def define_D(opt, names=None):
                 network_type=ptype,
                 trunk_stages=(_LITE3_STAGES if ptype == "depth"
                               else _LITE0_STAGES), dtype=dtype)
+        elif name == "vision_aided":
+            from ..utils.clip_vit import clip_weights_path
+            from .modules.vision_aided_d import VisionAidedDiscriminator
+            bks = vision_aided_backbones(opt)
+            if clip_weights_path() is None and "clip" in bks:
+                print("vision_aided D: clip_vitb16.npz not found in "
+                      "JOLIGEN_TPU_WEIGHTS_DIR — using frozen random CLIP "
+                      "features")
+            ds["D_B_" + name] = VisionAidedDiscriminator(backbones=bks,
+                                                         dtype=dtype)
         else:
             where = UNPORTED_D.get(name, _ROADMAP_ZOO)
             raise NotImplementedError(
                 f"discriminator {name} is not ported ({where})")
     return ds
+
+
+def vision_aided_backbones(opt):
+    """The towers of ``D_vision_aided_backbones`` (``gan_networks.py:
+    145-168``): ``clip*`` is clip, ``dino*`` dino, any other name is skipped
+    with a notice (swin is not ported in the JAX package either); none left
+    falls back to clip."""
+    spec = (getattr(opt, "D_vision_aided_backbones", "clip+dino+swin")
+            or "clip").lower()
+    bks = []
+    for tok in spec.split("+"):
+        tok = tok.strip()
+        if tok.startswith("clip"):
+            bks.append("clip")
+        elif tok.startswith("dino"):
+            bks.append("dino")
+        elif tok:
+            print(f"vision_aided D: backbone '{tok}' not ported — skipped "
+                  "(available: clip, dino)")
+    return tuple(dict.fromkeys(bks)) or ("clip",)
 
 
 def define_F(opt, in_channels):
@@ -106,20 +137,33 @@ def define_F(opt, in_channels):
                         use_mlp="mlp" in netF, dtype=compute_dtype(opt))
 
 
+# parameters flax initialises to zeros (the ViT towers' embeddings and
+# CLIP's output projection)
+ZERO_INIT = ("class_embedding", "positional_embedding", "proj", "cls_token",
+             "pos_embed")
+
+
 def flax_default_init(module, generator):
     """flax's default init: lecun-normal (truncated at 2 std) kernels, zero
-    biases, unit norm scales; drawn from the CPU ``generator``."""
+    biases and ``ZERO_INIT`` tables, unit norm scales (and LayerScales);
+    drawn from the CPU ``generator``. A ``DenseGeneral`` kernel (flax's
+    layout) divides by its ``fan_in``."""
     with torch.no_grad():
-        for name, p in module.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "bias":
-                p.zero_()
-            elif p.ndim == 1:
-                p.fill_(1.0)
-            else:
-                std = math.sqrt(1.0 / p[0].numel()) / 0.87962566103423978
-                t = torch.empty(p.shape, dtype=torch.float32)
-                nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                p.copy_(t)
+        for mod in module.modules():
+            for leaf, p in mod.named_parameters(recurse=False):
+                _flax_init(mod, leaf, p, generator)
     return module
+
+
+def _flax_init(mod, leaf, p, generator):
+    if leaf == "bias" or leaf in ZERO_INIT:
+        p.zero_()
+    elif p.ndim == 1:
+        p.fill_(1.0)
+    else:
+        fan_in = getattr(mod, "fan_in", None) or p[0].numel()
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        t = torch.empty(p.shape, dtype=torch.float32)
+        nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        p.copy_(t)

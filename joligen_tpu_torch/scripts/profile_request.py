@@ -6,7 +6,10 @@
         [--out profile_request.json]
 
 Builds the config's model (palette; a GAN such as
-``examples/example_gan_horse2zebra.json``; cm or cm_gan from
+``examples/example_gan_horse2zebra.json``, or
+``examples/example_gan_noglasses2glasses.json`` with its semantic-mask
+branch, whose batch then carries the mask as A's and B's label; cm or
+cm_gan from
 ``examples/example_cm*_noglasses2glasses.json``, or sc from the cm config
 with ``--model_type sc``; a cm_gan step is one micro-step) at full width
 with seeded random weights and runs twice as warm-up, on a synthetic
@@ -96,6 +99,8 @@ def main(argv=None):
     else:
         model = create_model(opt, phase="test")
         batch = synthetic_batch(opt.data_crop_size, model.seed)
+    if getattr(model, "semantic_mask", False):
+        batch["A_label_mask"] = batch["B_label_mask"]
 
     palette = opt.model_type == "palette"
 

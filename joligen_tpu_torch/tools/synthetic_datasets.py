@@ -3,7 +3,8 @@ configs, made from a seed: ``labeled`` (``self_supervised_labeled_mask``:
 ``noglasses2glasses``, ``viton_tutorial``, the cm configs), the online
 bbox-crop layout (``xview``, ``mapillary``, ``mario``), ``single``
 (``df2kost``) and ``aligned`` (``SEN2VEN``); and of the GAN example configs:
-``unaligned`` (``horse2zebra``, ``mnist2USPS``).
+``unaligned`` (``horse2zebra``, ``mnist2USPS``) and ``unaligned_labeled``
+(``unaligned_labeled_mask``: the glasses configs).
 Paths in ``paths.txt`` are relative to the root (``data_relative_paths``).
 
     python -m joligen_tpu_torch.tools.synthetic_datasets online DIR [N [SIZE]]
@@ -120,8 +121,42 @@ def write_unaligned(root, n, size, seed=0):
         Image.fromarray(b).save(os.path.join(root, "trainB", f"{i:04d}.png"))
 
 
+def _rect_mask(rng, size):
+    """A rectangle of label 1 on 0."""
+    mask = np.zeros((size, size), np.uint8)
+    x0, y0 = rng.integers(size // 16, size // 2, 2)
+    w, h = rng.integers(size // 6, size // 3 + 1, 2)
+    mask[y0:y0 + h, x0:x0 + w] = 1
+    return mask
+
+
+def write_unaligned_labeled(root, n, size, seed=0):
+    """``trainA`` and ``trainB`` in the ``unaligned_labeled_mask`` layout,
+    ``n`` images of ``size``² px each: ``imgs/*.png``, ``masks/*.png`` (a
+    rectangle of label 1 on 0) and ``paths.txt`` lines 'img mask'. B's
+    images carry a dark band inside their masks (the object A lacks)."""
+    rng = np.random.default_rng(seed)
+    for dom in "AB":
+        base = os.path.join(root, f"train{dom}")
+        for sub in ("imgs", "masks"):
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        lines = []
+        for i in range(n):
+            img, mask = _image(rng, size), _rect_mask(rng, size)
+            if dom == "B":
+                img[mask > 0] = img[mask > 0] // 4
+            ipath = f"train{dom}/imgs/{i:04d}.png"
+            mpath = f"train{dom}/masks/{i:04d}.png"
+            Image.fromarray(img).save(os.path.join(root, ipath))
+            Image.fromarray(mask).save(os.path.join(root, mpath))
+            lines.append(f"{ipath} {mpath}")
+        with open(os.path.join(base, "paths.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
 WRITERS = {"labeled": write_labeled, "online": write_online, "single": write_single,
-           "aligned": write_aligned, "unaligned": write_unaligned}
+           "aligned": write_aligned, "unaligned": write_unaligned,
+           "unaligned_labeled": write_unaligned_labeled}
 
 
 if __name__ == "__main__":

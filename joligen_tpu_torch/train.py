@@ -10,8 +10,10 @@ the loss from the device only every ``output_print_freq`` images; display
 inference every ``output_display_freq`` images; ``latest`` / epoch /
 ``iter_%d`` saves; ``--train_continue`` and ``--train_continue_from``; and a
 save of ``latest`` on SIGINT/SIGTERM; for the GANs, the attention masks
-among the visuals (``output_display_G_attention_masks``) and the D accuracy
-every ``train_D_accuracy_every`` images (``train_compute_D_accuracy``).
+among the visuals (``output_display_G_attention_masks``), the D accuracy
+every ``train_D_accuracy_every`` images (``train_compute_D_accuracy``) and
+f_s's mIoU every ``train_mask_miou_every`` images
+(``train_mask_compute_miou``).
 Train-time metrics and profiling are not ported and raise.
 """
 
@@ -211,6 +213,20 @@ def _train_loop(opt, model, dataloader, visualizer, stop, step_callback):
                 print("D accuracy: " + " ".join(
                     f"{k}: {v:.3f}" for k, v in acc.items()), flush=True)
                 visualizer.log_metrics(epoch, total_iters, acc)
+
+            if (getattr(opt, "train_mask_compute_miou", False)
+                    and hasattr(model, "compute_miou")
+                    and total_iters % _every(batch, getattr(
+                        opt, "train_mask_miou_every", 1000)) == 0):
+                try:  # a diagnostic: never stops training (JAX)
+                    miou = model.compute_miou(data)
+                    if miou:
+                        print("mIoU: " + " ".join(
+                            f"{k}: {v:.3f}" for k, v in miou.items()),
+                            flush=True)
+                        visualizer.log_metrics(epoch, total_iters, miou)
+                except Exception as e:
+                    print(f"mIoU failed: {e!r}")
 
             if total_iters % save_every == 0:
                 model.save_networks("iter_%d" % total_iters

@@ -78,6 +78,10 @@ GAN_MODULES = ("ops.upfirdn2d", "ops.diff_aug", "ops.resize",
 # the JAX package takes scipy's)
 CM_MODULES = ("models.modules.cm", "models.modules.sc", "models.cm_model",
               "models.sc_model")
+# CUT's semantic-mask branch and the vision-aided D with its frozen towers
+GLASSES_MODULES = ("models.modules.semantic_networks",
+                   "models.modules.vision_aided_d", "utils.vit_layers",
+                   "utils.clip_vit", "utils.dinov2")
 
 
 def test_package_imports_with_jax_blocked():
@@ -88,7 +92,7 @@ def test_package_imports_with_jax_blocked():
     names = out.stdout.split()
     assert len(names) >= 49
     for m in (TRAINING_MODULES + PROBE_MODULES + CONDITIONING_MODULES
-              + GAN_MODULES + CM_MODULES):
+              + GAN_MODULES + CM_MODULES + GLASSES_MODULES):
         assert "joligen_tpu_torch." + m in names, m
 
 
