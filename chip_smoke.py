@@ -91,7 +91,22 @@ GPU. Run from the repository root with no arguments:
    ``sc`` (62,822,083 parameters), 2 steps with K1 three times a step and
    one 16-step request (K1 16 times). Step time, images/s, peak memory,
    data wait and request latency for each.
-9. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
+9. Segformer and ref-conditioned palette, each over a synthetic dataset
+   in its config's layout: ``example_gan_mario2sonic.json`` at full width
+   (the segformer G, 3,931,824 parameters; the unet f_s of 7 classes; the
+   projected, basic and vision-aided Ds; batch 2, 128 px online crops of
+   180 px images in both domains, bf16), 8 steps and 2 requests through
+   ``scripts/gen_single_image``; its segformer G and a segformer f_s of
+   19 classes at 512 px in fp32, card against CPU (1e-4 of the largest
+   output); ``example_ddpm_unetref_viton.json`` at full width
+   (unet_mha_ref_attn, 147,557,059 parameters; batch 16, 128 px online
+   crops with a reference each; EMA; bf16), 8 steps, two DDIM-10 and one
+   DDPM (its test schedule, 1000 steps) ``--bbox_in --ref_in`` requests,
+   the memory of the legacy attention's fp32 logits at ds 4, and the
+   full-width ``UNetRefAttn`` in fp32, card against CPU. Step time,
+   images/s, peak memory, data wait and request latency for each. No
+   kernel of the port runs on these paths (their launch counts are 0).
+10. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
    bf16 and ``tools.bw_probe3`` over 1 GiB arrays, each with the launch
    counters set to 0 just before it and read just after.
 
@@ -238,6 +253,28 @@ CM_PER_STEP = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 1,
 SC_PER_STEP = dict(CM_PER_STEP, flash_attention_fwd=3)
 CM_REQUEST_K1 = 5
 SC_REQUEST_K1 = 16
+# mario2sonic (CUT with the segformer G, the unet f_s of 7 classes, the
+# projected, basic and vision-aided Ds): one epoch of MARIO_STEPS steps at
+# batch 2 over 128 px online crops of MARIO_IMAGE px images, then
+# MARIO_REQUESTS requests; the segformer G (128 px) and a bdd100k-wide
+# segformer f_s (512 px, 19 classes) in fp32, card against CPU, to
+# MIT_TOL of the largest output
+MARIO_STEPS = 8
+MARIO_REQUESTS = 2
+MARIO_IMAGE = 180
+EXPECTED_PARAMS_MARIO_G = 3_931_824
+MIT_TOL = 1e-4
+# unetref_viton (palette with the unet_mha_ref_attn G): one epoch of
+# UNETREF_STEPS steps at batch 16 over 128 px online crops of ONLINE_SIZE px
+# images with a reference each, then UNETREF_REQUESTS DDIM-10 --ref_in
+# requests and one with the config's DDPM sampler at its test schedule; the
+# full-width UNetRefAttn in fp32, card against CPU
+UNETREF_STEPS = 8
+UNETREF_REQUESTS = 2
+EXPECTED_PARAMS_UNETREF = 147_557_059
+# the ref UNet's legacy attention at ds 4 of a 128 px training batch: 16
+# images, 8 heads of 32 over 1024 tokens (qkv of 3 x 256 rows)
+UNETREF_ATTN_QKV = (16, 768, 1024)
 PROBE_ITERS = 32
 TRACE_ATTEMPTS = 4                  # traces of one timing, at most
 
@@ -1335,11 +1372,11 @@ def slice_phase(workdir):
     return model, main_launches
 
 
-def _card_vs_cpu(build, args, kwargs, label):
+def _card_vs_cpu(build, args, kwargs, label, k1=1, tol=CROSS_CHECK_TOL):
     """One forward of the fp32 net that ``build()`` returns (seeded or
     loaded weights, on the CPU), TF32 off: on the card (with K1, launched
-    once) against the CPU (plain attention), on the same inputs, to
-    CROSS_CHECK_TOL. Returns (max abs error, the CPU output)."""
+    ``k1`` times) against the CPU (plain attention), on the same inputs, to
+    ``tol`` (absolute). Returns (max abs error, the CPU output)."""
     import torch
     from joligen_tpu_torch.ops import flash_attention as fa
 
@@ -1354,14 +1391,14 @@ def _card_vs_cpu(build, args, kwargs, label):
             outs[dev] = net(*(a.to(dev) for a in args), **{
                 k: v.to(dev) for k, v in kwargs.items()}).float().cpu()
         launched = fa.LAUNCHES["flash_attention_fwd"] - before
-        if launched != (1 if dev == "cuda" else 0):
+        if launched != (k1 if dev == "cuda" else 0):
             raise AssertionError(f"{dev} forward launched K1 {launched} "
                                  "times")
     err = (outs["cuda"] - outs["cpu"]).abs().max().item()
     scale = outs["cpu"].abs().max().item()
     log(f"cross-check fp32 {label} card vs CPU: max abs err {err:.3e} "
-        f"(output max {scale:.3e}, tol {CROSS_CHECK_TOL})")
-    if not (torch.isfinite(outs["cuda"]).all() and err <= CROSS_CHECK_TOL):
+        f"(output max {scale:.3e}, tol {tol})")
+    if not (torch.isfinite(outs["cuda"]).all() and err <= tol):
         raise AssertionError(f"card and CPU {label}s disagree")
     return err, outs["cpu"]
 
@@ -1718,22 +1755,31 @@ def other_configs_phase(workdir):
     return recs, paths
 
 
-def _cut_opt(example, workdir, n_images, size, name):
-    """A GAN example config over a synthetic unaligned dataset of
-    ``n_images`` a domain, ``size`` px, written here: one epoch, losses
-    read every step."""
+def _example_opt(example, workdir, name):
+    """An example config: one epoch, the loss every step, no display
+    inference, ``latest`` saved at the epoch's end only; its dataset is
+    ``workdir/data_<name>``, written by the caller."""
     from joligen_tpu_torch.options import TrainOptions
-    from joligen_tpu_torch.tools.synthetic_datasets import write_unaligned
 
     with open(os.path.join(ROOT, "examples", example)) as f:
         opt = TrainOptions().parse_json(json.load(f), verbose=False)
     opt.dataroot = os.path.join(workdir, f"data_{name}")
-    write_unaligned(opt.dataroot, n_images, size, seed=SEED + 11)
-    opt.checkpoints_dir = os.path.join(workdir, "cut_ckpt")
+    opt.checkpoints_dir = os.path.join(workdir, f"{name}_ckpt")
     opt.name = f"smoke_{name}"
     opt.train_n_epochs, opt.train_n_epochs_decay = 1, 0
     opt.output_print_freq = opt.train_batch_size
     opt.output_display_freq = 0
+    opt.train_save_epoch_freq = 10 ** 6
+    return opt
+
+
+def _cut_opt(example, workdir, n_images, size, name):
+    """A GAN example config over a synthetic unaligned dataset of
+    ``n_images`` a domain, ``size`` px, written here (``_example_opt``)."""
+    from joligen_tpu_torch.tools.synthetic_datasets import write_unaligned
+
+    opt = _example_opt(example, workdir, name)
+    write_unaligned(opt.dataroot, n_images, size, seed=SEED + 11)
     return opt
 
 
@@ -1919,23 +1965,14 @@ def cut_cross_check():
 
 def _glasses_opt(example, workdir, n_images, size, name):
     """A glasses config over a synthetic ``unaligned_labeled_mask`` dataset
-    of ``n_images`` a domain, ``size`` px, written here: one epoch, losses
-    read every step, ``latest`` saved at the epoch's end only (each D
-    checkpoint holds the 172.8M frozen tower parameters)."""
-    from joligen_tpu_torch.options import TrainOptions
+    of ``n_images`` a domain, ``size`` px, written here (``_example_opt``;
+    ``latest`` alone is saved: each D checkpoint holds the 172.8M frozen
+    tower parameters)."""
     from joligen_tpu_torch.tools.synthetic_datasets import \
         write_unaligned_labeled
 
-    with open(os.path.join(ROOT, "examples", example)) as f:
-        opt = TrainOptions().parse_json(json.load(f), verbose=False)
-    opt.dataroot = os.path.join(workdir, f"data_{name}")
+    opt = _example_opt(example, workdir, name)
     write_unaligned_labeled(opt.dataroot, n_images, size, seed=SEED + 17)
-    opt.checkpoints_dir = os.path.join(workdir, "glasses_ckpt")
-    opt.name = f"smoke_{name}"
-    opt.train_n_epochs, opt.train_n_epochs_decay = 1, 0
-    opt.output_print_freq = opt.train_batch_size
-    opt.output_display_freq = 0
-    opt.train_save_epoch_freq = 10 ** 6
     return opt
 
 
@@ -2326,6 +2363,259 @@ def cm_phase(workdir):
     return recs, paths
 
 
+def mario2sonic_phase(workdir):
+    """``example_gan_mario2sonic.json`` as it is (segformer_attn_conv G,
+    3,931,824 parameters; the unet f_s of 7 classes; the projected, basic
+    and vision-aided Ds, CLIP and DINOv2 at a seeded init; batch 2, 128 px
+    online crops of MARIO_IMAGE px images in both domains, boxes of classes
+    1 to 6; bf16) for MARIO_STEPS steps, then MARIO_REQUESTS requests
+    through ``scripts/gen_single_image`` from the trained checkpoint. No
+    kernel of the port runs on this path. Returns (record, launch counts
+    per path)."""
+    import torch
+    from joligen_tpu_torch.tools.synthetic_datasets import write_online_ab
+
+    opt = _example_opt("example_gan_mario2sonic.json", workdir,
+                       "mario2sonic")
+    write_online_ab(opt.dataroot, MARIO_STEPS * opt.train_batch_size,
+                    MARIO_IMAGE, seed=SEED + 23)
+    model, opt, rec = _train_run(opt, MARIO_STEPS, 1, "mario2sonic training",
+                                 EXPECTED_PARAMS_MARIO_G,
+                                 attention_per_step=0)
+    counts = rec["parameters_per_net"] = model.param_count()
+    f_s = model.nets["f_s"]
+    log(f"mario2sonic: parameters per net {counts}, NCE taps "
+        f"{model.nce_layers}")
+    if (set(counts) != {"G_A", "F", "D_B_projected_d", "D_B_basic",
+                        "D_B_vision_aided", "f_s"}
+            or type(model.nets["G_A"]).__name__ != "SegformerGeneratorAttn"
+            or type(f_s).__name__ != "UNetSegmenter"
+            or f_s.Conv_7.weight.shape[0] != 7
+            or model.nce_layers != [0, 1, 2, 3] or not model.semantic_mask
+            or opt.data_crop_size != 128 or opt.train_batch_size != 2):
+        raise AssertionError("mario2sonic is not the example config")
+    del model, f_s
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(opt.checkpoints_dir, opt.name, "latest_net_G_A.pth")
+    out_dir = os.path.join(workdir, "out_mario2sonic")
+    os.makedirs(out_dir)
+    req = rec["requests"] = _serve_gan(
+        ckpt, os.path.join(opt.dataroot, "trainA", "imgs", "0000.png"),
+        out_dir, MARIO_REQUESTS)
+    log(f"mario2sonic: {MARIO_REQUESTS} requests from the trained "
+        f"checkpoint, {[round(t, 4) for t in req['request_s']]} s, launches "
+        f"{req['launches']}")
+    return rec, {"mario2sonic_training": rec["launches"],
+                 "mario2sonic_requests": req["launches"]}
+
+
+def mit_cross_check():
+    """mario2sonic's segformer G (128 px) and a segformer f_s at bdd100k's
+    width (512 px, 19 classes) in fp32, TF32 off, batch 1, flax's default
+    init from a seed: the card against the CPU to MIT_TOL of the largest
+    output."""
+    import copy
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.gan_networks import (define_G,
+                                                       flax_default_init)
+    from joligen_tpu_torch.models.modules.semantic_networks import define_f
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    opt = _fp32(_example_opt("example_gan_mario2sonic.json",
+                             tempfile.gettempdir(), "mit"))
+    opt_fs = copy.copy(opt)
+    opt_fs.f_s_net, opt_fs.f_s_semantic_nclasses = "segformer", 19
+    recs = {}
+    for label, build, size in (("segformer_G", lambda: define_G(opt), 128),
+                               ("segformer_f_s", lambda: define_f(opt_fs),
+                                512)):
+        net = flax_default_init(build(),
+                                torch.Generator().manual_seed(SEED + 29))
+        x = torch.from_numpy(np.random.default_rng(SEED + 30).uniform(
+            -1, 1, (1, size, size, 3)).astype(np.float32))
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            net = net.to(dev).eval()
+            with torch.inference_mode():
+                outs[dev] = net(x.to(dev)).float().cpu()
+        err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+        scale = outs["cpu"].abs().max().item()
+        recs[label] = {"shape": list(outs["cpu"].shape), "max_abs_err": err,
+                       "max_abs_output": scale, "tol": MIT_TOL}
+        log(f"cross-check fp32 {label} card vs CPU: " + json.dumps(
+            recs[label]))
+        if not (torch.isfinite(outs["cuda"]).all() and scale > 0
+                and err <= MIT_TOL * scale):
+            raise AssertionError(f"card and CPU {label}s disagree")
+        del net
+    return recs
+
+
+def _serve_ref(ckpt, root, out_dir, n, extra, label):
+    """``n`` ``--bbox_in`` ``--ref_in`` requests (image, box and reference
+    ``i`` of the dataset) through ``scripts/gen_single_image_diffusion``
+    from one load of ``ckpt``, with ``extra`` sampler arguments, the launch
+    counters at 0 just before them and read just after: no kernel of the
+    port runs. Each request carries its reference to the model, its crop
+    output is finite and the image is unchanged outside the crop window.
+    Returns latencies, launches and the sampler that ran."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.scripts import gen_single_image_diffusion as gen
+    from joligen_tpu_torch.scripts.common import load_model_from_file
+
+    served, sopt = load_model_from_file(ckpt)
+    seen, infer = [], served.inference
+
+    def recording_inference(batch, **kw):
+        seen.append(("ref_A" in batch, kw, infer(batch, **kw)))
+        return seen[-1][2]
+    served.inference = recording_inference
+    secs = []
+    reset_launches()                             # the requests start here
+    for i in range(n):
+        img = os.path.join(root, "trainA", "imgs", f"{i:04d}.png")
+        args = gen.build_parser().parse_args([
+            "--model_in_file", ckpt, "--img_in", img,
+            "--bbox_in", os.path.join(root, "trainA", "bbox", f"{i:04d}.txt"),
+            "--ref_in", os.path.join(root, "trainA", "ref", f"{i:04d}.png"),
+            "--dir_out", out_dir, "--name", f"{label}{i}", "--seed", str(i),
+            *extra])
+        t0 = time.perf_counter()
+        full, _, _ = gen.inference(args, lmodel=served, lopt=sopt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        with open(os.path.join(out_dir, f"{label}{i}_orig_bbox.json")) as f:
+            _check_outside_window(full, img, json.load(f), label)
+        had_ref, _, out = seen[-1]
+        size = sopt.data_crop_size
+        if not (had_ref and out.shape == (1, size, size, 3)
+                and np.isfinite(out).all()):
+            raise AssertionError(f"{label} request {i} failed")
+    launches = read_launches()                   # and end here
+    kw = seen[-1][1]
+    method, steps, _ = served._sampling_args(kw.get("sampling_method"),
+                                             kw.get("num_steps"), None)
+    if method == "ddpm":
+        steps = served.sched_test.num_timesteps
+    log(f"{label}: {n} --ref_in requests ({method}, {steps} steps) "
+        f"{[round(t, 4) for t in secs]} s, launches {launches}")
+    if launches != _attention_only(launches, 0):
+        raise AssertionError(f"{label}: launches {launches}")
+    del served
+    torch.cuda.empty_cache()
+    return {"request_s": secs, "launches": launches, "sampler": method,
+            "steps": steps}
+
+
+def legacy_attention_memory():
+    """The ref UNet's legacy attention at ds 4 of a 128 px batch of 16 in
+    bf16, without a graph: the bytes of its fp32 logits, and the peak the
+    call adds on the card."""
+    import torch
+    from joligen_tpu_torch.models.modules.unet_ref_attn import \
+        legacy_attention
+
+    b, w, n = UNETREF_ATTN_QKV
+    heads = w // (3 * 32)
+    qkv = torch.randn(UNETREF_ATTN_QKV, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = legacy_attention(qkv, heads)
+    torch.cuda.synchronize()
+    rec = {"qkv": list(UNETREF_ATTN_QKV), "heads": heads,
+           "logits_bytes": b * heads * n * n * 4,
+           "peak_added_bytes": torch.cuda.max_memory_allocated() - base}
+    log("ref UNet legacy attention at ds 4, batch 16: " + json.dumps(rec))
+    del out, qkv
+    return rec
+
+
+def unetref_phase(workdir):
+    """``example_ddpm_unetref_viton.json`` as it is (unet_mha_ref_attn,
+    147,557,059 parameters; batch 16, 128 px online crops of ONLINE_SIZE px
+    images, a reference each from ``trainA/conditions.txt``; EMA; bf16) for
+    UNETREF_STEPS steps, then UNETREF_REQUESTS DDIM-10 ``--ref_in``
+    requests and one with the config's DDPM sampler at its test schedule,
+    from the trained checkpoint. No kernel of the port runs on this path
+    (the legacy attention is plain torch). Returns (record, launch counts
+    per path)."""
+    import torch
+    from joligen_tpu_torch.models.modules.unet_ref_attn import UNetRefAttn
+    from joligen_tpu_torch.tools.synthetic_datasets import write_online_ref
+
+    opt = _example_opt("example_ddpm_unetref_viton.json", workdir,
+                       "unetref")
+    write_online_ref(opt.dataroot, UNETREF_STEPS * opt.train_batch_size,
+                     ONLINE_SIZE, seed=SEED + 31)
+    seen, undo = _capture_set_input()
+    try:
+        model, opt, rec = _train_run(opt, UNETREF_STEPS, 1,
+                                     "unetref_viton training",
+                                     EXPECTED_PARAMS_UNETREF,
+                                     attention_per_step=0)
+    finally:
+        undo()
+    (batch, built), = seen
+    if not (isinstance(model.nets["G_A"].inner, UNetRefAttn)
+            and model.use_ref and model.use_ema
+            and "ref_A" in batch and built["ref"].shape == (16, 128, 128, 3)
+            and opt.train_batch_size == 16 and opt.data_crop_size == 128):
+        raise AssertionError("unetref_viton is not the example config")
+    del model
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(opt.checkpoints_dir, opt.name, "latest_net_G_A.pth")
+    out_dir = os.path.join(workdir, "out_unetref")
+    os.makedirs(out_dir)
+    rec["requests_ddim"] = _serve_ref(
+        ckpt, opt.dataroot, out_dir, UNETREF_REQUESTS,
+        ["--sampling_method", "ddim", "--sampling_steps", "10"],
+        "unetref_ddim")
+    rec["request_ddpm"] = _serve_ref(ckpt, opt.dataroot, out_dir, 1, [],
+                                     "unetref_ddpm")
+    if (rec["request_ddpm"]["sampler"], rec["request_ddpm"]["steps"]) != (
+            "ddpm", 1000):
+        raise AssertionError("the DDPM request did not run the config's "
+                             "sampler at its test schedule")
+    rec["legacy_attention"] = legacy_attention_memory()
+    return rec, {"unetref_training": rec["launches"],
+                 "unetref_ddim_requests": rec["requests_ddim"]["launches"],
+                 "unetref_ddpm_request": rec["request_ddpm"]["launches"]}
+
+
+def unetref_cross_check():
+    """unetref_viton's UNetRefAttn at full width in fp32, batch 1 at 128 px,
+    the card against the CPU (``_card_vs_cpu``, no K1), on seeded weights
+    with small seeded values in the zero-initialised layers (``proj_out``,
+    ``out_proj``, each ResBlock's ``out_conv``): zero layers would leave
+    the attention sites and the output out of the check."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.diffusion_networks import (define_inner_G,
+                                                             init_weights)
+
+    opt = _fp32(_example_opt("example_ddpm_unetref_viton.json",
+                             tempfile.gettempdir(), "unetref_xcheck"))
+    rng = np.random.default_rng(SEED + 33)
+    x, ref = (torch.from_numpy(rng.uniform(-1, 1, (1, 128, 128, c)).astype(
+        np.float32)) for c in (6, 3))
+    emb = torch.from_numpy(rng.standard_normal((1, 32)).astype(np.float32))
+
+    def build():
+        return init_weights(define_inner_G(opt),
+                            torch.Generator().manual_seed(SEED + 34),
+                            zero_init_std=0.01)
+    err, out = _card_vs_cpu(build, (x, emb), {"ref": ref}, "ref UNet", k1=0)
+    if not out.abs().max().item() > 0:
+        raise AssertionError("the ref UNet cross-check's output is 0")
+    return err
+
+
 def ptxas_spills(ptxas):
     """The functions of a ``-Xptxas=-v`` log whose registers spill, each
     with its log line."""
@@ -2413,7 +2703,11 @@ def main():
         gans, gan_paths = cut_phase(workdir)
         glasses, glasses_paths = glasses_phase(workdir)
         cms, cm_paths = cm_phase(workdir)
+        mario, mario_paths = mario2sonic_phase(workdir)
+        unetref, unetref_paths = unetref_phase(workdir)
     grad_check = gradient_cross_check()
+    mario["cross_check_fp32"] = mit_cross_check()
+    unetref["cross_check_fp32_max_abs_err"] = unetref_cross_check()
     gans["horse2zebra"]["cross_check_fp32"] = cut_cross_check()
     glasses["noglasses2glasses"]["cross_check_fp32"] = \
         vision_aided_cross_check()
@@ -2423,7 +2717,7 @@ def main():
                  training["trained_request_launches"],
              "training_256px": training_256["launches"], **xview["paths"],
              **config_paths, **gan_paths, **glasses_paths, **cm_paths,
-             **probe_launches}
+             **mario_paths, **unetref_paths, **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -2438,6 +2732,8 @@ def main():
     log("gans: " + json.dumps(gans))
     log("glasses: " + json.dumps(glasses))
     log("cm, cm_gan, sc: " + json.dumps(cms))
+    log("mario2sonic: " + json.dumps(mario))
+    log("unetref_viton: " + json.dumps(unetref))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     k1["training_gradient_cross_check"] = grad_check
     stage_a = probes["fused_resblock_probe"]

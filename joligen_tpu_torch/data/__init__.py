@@ -2,8 +2,9 @@
 
 All randomness, PIL decoding and cropping stay on the host; the device sees
 fixed-shape NHWC batches. Ported modes (``PORTED_MODES``): the labeled-mask
-modes, their online bbox-crop variants, ``unaligned``, ``aligned`` and
-``single``; any other mode raises ``NotImplementedError``.
+modes, their online bbox-crop variants and the four ref modes,
+``unaligned``, ``aligned`` and ``single``; any other mode raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,11 @@ PORTED_MODES = ("unaligned_labeled_mask", "unaligned_labeled_mask_cls",
                 "self_supervised_labeled_mask_cls",
                 "self_supervised_labeled_mask_online",
                 "self_supervised_labeled_mask_cls_online",
-                "aligned", "single", "unaligned")
+                "aligned", "single", "unaligned",
+                "unaligned_labeled_mask_ref",
+                "unaligned_labeled_mask_online_ref",
+                "self_supervised_labeled_mask_ref",
+                "self_supervised_labeled_mask_online_ref")
 
 
 def find_dataset_class(mode):
@@ -31,7 +36,11 @@ def find_dataset_class(mode):
                                     D.SelfSupervisedLabeledMaskOnlineDataset,
                                     D.SelfSupervisedLabeledMaskClsOnlineDataset,
                                     D.AlignedDataset, D.SingleDataset,
-                                    D.UnalignedDataset)))
+                                    D.UnalignedDataset,
+                                    D.UnalignedLabeledMaskRefDataset,
+                                    D.UnalignedLabeledMaskOnlineRefDataset,
+                                    D.SelfSupervisedLabeledMaskRefDataset,
+                                    D.SelfSupervisedLabeledMaskOnlineRefDataset)))
     if mode not in table:
         raise NotImplementedError(
             f"dataset mode {mode} is not ported (ported: {PORTED_MODES}; "

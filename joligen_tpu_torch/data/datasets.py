@@ -1,7 +1,9 @@
 """Dataset modes (host-side sample producers), copied from
 ``joligen_tpu/data/datasets.py``: the labeled-mask modes (``:31-227``), the
-online bbox-crop modes (``:229-357``), the unaligned mode (``:74-97``) and
-the aligned and single modes (``:663-698``).
+online bbox-crop modes (``:229-357``), the unaligned mode (``:74-97``), the
+four ref modes (``:361-470``: a reference image per sample from
+``trainA/conditions.txt``, as ``ref_A``) and the aligned and single modes
+(``:663-698``).
 
 Each dataset returns per-sample dicts of numpy arrays with keys matching the
 reference contract (data/base_dataset.py:120-195): ``A``, ``B`` (H,W,C float32
@@ -16,7 +18,8 @@ import random
 
 import numpy as np
 
-from .image_folder import make_dataset, make_labeled_path_dataset
+from .image_folder import (make_dataset, make_labeled_path_dataset,
+                           make_ref_path)
 from .online_creation import crop_image, sample_rotation_state
 from .transforms import (PairedTransform, fill_mask_with_color,
                          fill_mask_with_random, load_image, load_mask)
@@ -347,6 +350,69 @@ class SelfSupervisedLabeledMaskOnlineDataset(UnalignedLabeledMaskOnlineDataset):
 
 class SelfSupervisedLabeledMaskClsOnlineDataset(SelfSupervisedLabeledMaskOnlineDataset):
     with_cls = True
+
+
+def ref_resize(img, size):
+    """PIL image -> (size, size, C) float32 in [-1, 1]: a BICUBIC resize and
+    nothing else (reference get_transform_ref; ``datasets.py:653-660``)."""
+    from PIL import Image
+    r = np.asarray(img.resize((size, size), Image.BICUBIC), np.uint8)
+    if r.ndim == 2:
+        r = r[:, :, None]
+    return r.astype(np.float32) / 127.5 - 1.0
+
+
+class _RefMixin:
+    """A reference image per sample: ``trainA/conditions.txt`` maps the A
+    image's path to its reference's, read as ``ref_A`` at
+    ``alg_diffusion_ref_size`` px (the crop size when unset or <= 0). A
+    sample whose reference cannot be read is skipped."""
+
+    def _init_ref(self):
+        self.A_img_ref = make_ref_path(self.dir_A, "/conditions.txt")
+        self.ref_size = int(getattr(self.opt, "alg_diffusion_ref_size", -1)
+                            or -1)
+        if self.ref_size <= 0:
+            self.ref_size = self.opt.data_crop_size
+
+    def __getitem__(self, index):
+        out = super().__getitem__(index)
+        if out is None:
+            return None
+        try:
+            ref_path = self.A_img_ref[out["A_img_paths"]]
+            out["ref_A"] = ref_resize(self._load_img(ref_path), self.ref_size)
+        except Exception as e:
+            print(f"ref load failure {out['A_img_paths']}: {e}")
+            return None
+        return out
+
+
+class UnalignedLabeledMaskRefDataset(_RefMixin, UnalignedLabeledMaskDataset):
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self._init_ref()
+
+
+class UnalignedLabeledMaskOnlineRefDataset(_RefMixin,
+                                           UnalignedLabeledMaskOnlineDataset):
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self._init_ref()
+
+
+class SelfSupervisedLabeledMaskRefDataset(_RefMixin,
+                                          SelfSupervisedLabeledMaskDataset):
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self._init_ref()
+
+
+class SelfSupervisedLabeledMaskOnlineRefDataset(
+        _RefMixin, SelfSupervisedLabeledMaskOnlineDataset):
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self._init_ref()
 
 
 class AlignedDataset(BaseDataset):

@@ -41,3 +41,16 @@ def make_labeled_path_dataset(d, paths, max_dataset_size=float("inf")):
         return images, labels
     n = min(int(max_dataset_size), len(images))
     return images[:n], labels[:n]
+
+
+def make_ref_path(d, paths):
+    """img path -> its single reference path, from ``<d><paths>`` lines
+    '<img> <ref>' (reference data/image_folder.py:123-136)."""
+    ref = {}
+    assert os.path.isdir(d), f"{d} is not a valid directory"
+    with open(d + paths) as f:
+        for line in f.read().split("\n"):
+            parts = line.split(" ")
+            if len(parts) == 2:
+                ref[parts[0]] = parts[1]
+    return ref

@@ -55,6 +55,7 @@ from .modules.cut_networks import (gan_loss, monce_loss, patch_nce_loss,
                                    sample_patch_ids, src_hdce_loss)
 from .modules.image_pool import ImagePool
 from .modules.projected_d import load_efficientnet_trunk
+from .modules.segformer import load_mit_backbone
 from .modules.semantic_networks import check_f_s_net, define_f
 from .train_state import apply_updates, param_grads, scheme_from_opt
 
@@ -86,8 +87,11 @@ def check_unported(opt):
 
 
 def select_nce_layers(opt):
-    """The NCE taps (``cut_model.py:316-327``)."""
+    """The NCE taps (``cut_model.py:316-327``): the segformer G's four
+    stages, else the config's ``alg_cut_nce_layers``."""
     netG = opt.G_netG
+    if "segformer" in netG:
+        return [0, 1, 2, 3]
     if "unet" in netG or "uvit" in netG:
         return [opt.G_nblocks * i - 1
                 for i in range(1, len(opt.G_unet_mha_channel_mults) + 1)]
@@ -151,12 +155,15 @@ class CUTModel(BaseModel):
 
         init_gen = torch.Generator().manual_seed(self.seed)
         netG = scheme_from_opt(define_G(opt), init_gen, opt)
+        # the MiT weights file, where it exists, after the scheme
+        # (cut_model.py:162-168)
+        load_mit_backbone(netG)
         self.add_net("G_A", netG, use_ema=self.use_ema,
                      lr=g("train_G_lr", 2e-4))
         self.d_names = []
         if not self.is_train:
             return
-        netF = define_F(opt, netG.encoder.layer_channels(self.nce_layers))
+        netF = define_F(opt, netG.layer_channels(self.nce_layers))
         self.add_net("F", scheme_from_opt(netF, init_gen, opt),
                      lr=g("train_G_lr", 2e-4))
         for name, netD in define_D(opt).items():
@@ -170,6 +177,9 @@ class CUTModel(BaseModel):
                 flax_default_init(netD, init_gen)
                 load_clip_ref_encoder(netD)
                 load_dino_into(netD)
+            elif netD.mit:
+                flax_default_init(netD, init_gen)
+                load_mit_backbone(netD, "feature_network")
             else:
                 flax_default_init(netD, init_gen)
                 load_efficientnet_trunk(netD.feature_network)
@@ -181,8 +191,12 @@ class CUTModel(BaseModel):
             # f_s (and, disjoint, f_s_B) at flax's default init, with its
             # own Adam (cut_model.py:241-279)
             for name in ("f_s", "f_s_B")[:1 + self.disjoint_f_s]:
-                self.add_net(name, flax_default_init(define_f(opt), init_gen),
-                             lr=g("train_sem_lr_f_s", 2e-4))
+                net_f = flax_default_init(define_f(opt), init_gen)
+                if name == "f_s":
+                    # the segformer f_s's MiT weights, where they exist
+                    # (f_s_B keeps its init, as in cut_model.py:262-279)
+                    load_mit_backbone(net_f)
+                self.add_net(name, net_f, lr=g("train_sem_lr_f_s", 2e-4))
         size = opt.data_crop_size
         self.pool = ImagePool(int(g("train_pool_size", 50)),
                               (size, size, opt.model_output_nc), self.device)

@@ -1,5 +1,6 @@
-"""Diffusion denoiser factory: the ``unet_mha`` branch of
-``joligen_tpu/models/diffusion_networks.py:20-45,119-134``, plus the seeded
+"""Diffusion denoiser factory: the ``unet_mha`` and ``unet_mha_ref_attn``
+branches of ``joligen_tpu/models/diffusion_networks.py:20-45,80-97,
+119-134``, plus the seeded
 flax-style weight init. torch convs need their input channel count, which
 flax infers lazily: palette's trunk takes ``[y_cond, y_t]`` and, with mask
 conditioning, the mask embedding's ``cond_embed_dim`` channels; the
@@ -18,21 +19,38 @@ from .. import compute_dtype
 from .modules.cm import NoiseLevelEmbedding
 from .modules.palette_diffusion import LabelEmbedder, PaletteDenoiser
 from .modules.unet_mha import Conv, Dense, GroupNorm, UNetMHA
+from .modules.unet_ref_attn import UNetRefAttn
 
 
 def define_inner_G(opt, in_channel=None):
     """The trunk; ``in_channel`` (default: palette's) is its first conv's
     input channel count."""
     netG = opt.G_netG
-    if netG != "unet_mha":
+    if netG not in ("unet_mha", "unet_mha_ref_attn"):
         raise NotImplementedError(
-            f"diffusion generator {netG}: only unet_mha is ported "
-            "(ROADMAP Queue 1 items 9 to 13, the model families after the "
-            "main path)")
+            f"diffusion generator {netG}: only unet_mha and "
+            "unet_mha_ref_attn are ported (ROADMAP Queue 1 items 9 to 13, "
+            "the model families after the main path)")
     if in_channel is None:
         cond = getattr(opt, "alg_diffusion_cond_embed", "") or ""
         extra = opt.alg_diffusion_cond_embed_dim if "mask" in cond else 0
         in_channel = opt.model_input_nc + opt.model_output_nc + extra
+    if netG == "unet_mha_ref_attn":
+        return UNetRefAttn(
+            in_channel=opt.model_input_nc + opt.model_output_nc,
+            x_channels=in_channel,
+            out_channel=opt.model_output_nc,
+            inner_channel=opt.G_ngf,
+            cond_embed_dim=opt.alg_diffusion_cond_embed_dim,
+            res_blocks=tuple(opt.G_unet_mha_res_blocks),
+            attn_res=tuple(opt.G_unet_mha_attn_res),
+            channel_mults=tuple(opt.G_unet_mha_channel_mults),
+            num_heads=opt.G_unet_mha_num_heads,
+            num_head_channels=opt.G_unet_mha_num_head_channels,
+            norm=opt.G_unet_mha_norm_layer,
+            group_size=opt.G_unet_mha_group_norm_size,
+            remat=bool(getattr(opt, "tpu_remat", False)),
+            dtype=compute_dtype(opt))
     return UNetMHA(
         in_channel=in_channel,
         out_channel=opt.model_output_nc,
@@ -54,15 +72,19 @@ def define_inner_G(opt, in_channel=None):
 
 
 def define_G(opt):
-    """Full conditioned denoiser: (x, gammas, cls, mask) -> eps_hat."""
+    """Full conditioned denoiser: (x, gammas, cls, mask, ref) -> eps_hat."""
     conditioning = getattr(opt, "alg_diffusion_cond_embed", "") or ""
     nclasses = max(getattr(opt, "f_s_semantic_nclasses", 2),
                    getattr(opt, "cls_semantic_nclasses", 2))
+    ref_embed_net = getattr(opt, "alg_diffusion_ref_embed_net", "") or ""
     return PaletteDenoiser(
         inner=define_inner_G(opt),
         cond_embed_dim=opt.alg_diffusion_cond_embed_dim,
         conditioning=conditioning,
         nclasses=nclasses,
+        ref_embed_net=(ref_embed_net
+                       if ref_embed_net in ("clip", "imagebind") else ""),
+        ref_channels=opt.model_input_nc,
         dtype=compute_dtype(opt),
     )
 
@@ -110,4 +132,12 @@ def init_weights(module, generator, zero_init_std=0.0):
                 fill(m.weight, normal(0.02))
             elif isinstance(m, NoiseLevelEmbedding):
                 fill(m.W, normal(m.scale))
+        # the frozen CLIP ref encoder: flax's default init, then its
+        # weights file where it exists (palette_model.py:75-80)
+        clip = getattr(module, "freezenet_clip", None)
+        if clip is not None:
+            from ..utils.clip_vit import load_clip_ref_encoder
+            from .gan_networks import flax_default_init
+            flax_default_init(clip, generator)
+            load_clip_ref_encoder(module)
     return module

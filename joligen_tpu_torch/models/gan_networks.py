@@ -1,5 +1,5 @@
 """GAN network factories (``joligen_tpu/models/gan_networks.py``): the
-resnet generators, the ``basic`` / ``n_layers`` / ``pixel`` /
+resnet and segformer generators, the ``basic`` / ``n_layers`` / ``pixel`` /
 ``projected_d`` / ``vision_aided`` discriminators and the ``PatchSampleF``
 projector. Any other generator or discriminator raises, naming its ROADMAP
 item.
@@ -25,8 +25,7 @@ _ROADMAP_ZOO = "ROADMAP Queue 1 item 13, rest of the zoo"
 UNPORTED_G = {
     **{n: "ROADMAP Queue 1 item 9 (UViT) and item 10 (GAN families)"
        for n in ("unet_mha", "uvit", "unet_256", "unet_128")},
-    **{n: _ROADMAP_ZOO for n in ("segformer_attn_conv", "segformer_conv",
-                                 "hdit", "hat", "ittr")},
+    **{n: _ROADMAP_ZOO for n in ("hdit", "hat", "ittr")},
 }
 UNPORTED_D = {
     "temporal": "ROADMAP Queue 1 item 11, video diffusion",
@@ -52,8 +51,13 @@ def define_G(opt):
         return ResnetGeneratorAttn(
             nb_mask_attn=opt.G_attn_nb_mask_attn,
             nb_mask_input=opt.G_attn_nb_mask_input, **common)
-    where = UNPORTED_G.get(netG) or (
-        _ROADMAP_ZOO if "segformer" in netG else "ROADMAP Queue 1 item 10")
+    if "segformer" in netG:     # segformer_attn_conv, segformer_conv
+        from .modules.segformer import SegformerGeneratorAttn
+        return SegformerGeneratorAttn(
+            in_channels=opt.model_input_nc, out_channels=opt.model_output_nc,
+            nb_mask_attn=opt.G_attn_nb_mask_attn,
+            nb_mask_input=opt.G_attn_nb_mask_input, dtype=dtype)
+    where = UNPORTED_G.get(netG, "ROADMAP Queue 1 item 10")
     raise NotImplementedError(f"GAN generator {netG} is not ported ({where})")
 
 

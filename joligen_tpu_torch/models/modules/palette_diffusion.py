@@ -14,7 +14,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.schedules import NoiseSchedule, extract, gamma_embedding
-from .unet_mha import Dense
+from .unet_mha import Conv, Dense
+from .unet_ref_attn import UNetRefAttn
 
 
 class LabelEmbedder(nn.Module):
@@ -31,42 +32,83 @@ class LabelEmbedder(nn.Module):
 
 
 class PaletteDenoiser(nn.Module):
-    """Wraps an inner denoiser with gamma/class/mask conditioning.
+    """Wraps an inner denoiser with gamma/class/mask/ref conditioning.
 
-    inner: module mapping ((B,H,W,Cin) NHWC, (B, emb_dim)) -> (B,H,W,Cout).
-    conditioning: "" | "mask" | "class" | "mask_and_class".
+    inner: module mapping ((B,H,W,Cin) NHWC, (B, emb_dim)) -> (B,H,W,Cout);
+    a ``UNetRefAttn`` also takes the reference image.
+    conditioning: "" | "mask" | "class" | "mask_and_class" | with "ref".
+
+    ``ref`` conditioning without ``class`` (``palette_diffusion.py:99-139``)
+    concatenates an embedding of the reference image (``ref_channels``
+    channels) to the gamma embedding, whose share halves: a conv encoder
+    (``ref_enc0..2``, stride 2, SiLU, the mean over the pixels) or, with
+    ``ref_embed_net="clip"``, the frozen fp32 CLIP ViT-B/16 tower
+    ``freezenet_clip`` (its output detached, then SiLU), then ``ref_proj``.
     """
 
     def __init__(self, inner, cond_embed_dim, conditioning="", nclasses=2,
-                 dtype=torch.float32):
+                 ref_embed_net="", ref_channels=3, dtype=torch.float32):
         super().__init__()
-        if "ref" in conditioning:
-            raise NotImplementedError(
-                "ref conditioning (ROADMAP Queue 1 item 9, ref conditioning, "
-                "UViT and frequency space)")
         self.inner = inner
         self.cond_embed_dim = cond_embed_dim
         self.conditioning = conditioning
         self.nclasses = nclasses
+        self.ref_embed_net = ref_embed_net
+        self.dtype = dtype
         g = self.gamma_dim
         self.cond_embed_0 = Dense(g, g, dtype=dtype)
         self.cond_embed_1 = Dense(g, g, dtype=dtype)
         if "class" in conditioning:
             self.embedder_class = LabelEmbedder(nclasses, cond_embed_dim // 2)
+        self.ref_embed = "ref" in conditioning and "class" not in conditioning
+        if self.ref_embed:
+            if ref_embed_net == "imagebind":
+                raise NotImplementedError(
+                    "alg_diffusion_ref_embed_net imagebind: the ImageBind "
+                    "tower (ROADMAP Queue 1 item 14, metrics and frozen "
+                    "nets)")
+            if ref_embed_net == "clip":
+                from ...utils.clip_vit import CLIPVisualViT
+                self.freezenet_clip = CLIPVisualViT()
+                cin = self.freezenet_clip.out_dim
+            else:
+                cin = ref_channels
+                for i, chn in enumerate((64, 128, 256)):
+                    self.add_module(f"ref_enc{i}", Conv(
+                        cin, chn, 3, stride=2, padding=1, dtype=dtype))
+                    cin = chn
+            self.ref_proj = Dense(cin, cond_embed_dim - g, dtype=dtype)
         if "mask" in conditioning:
             self.embedder_mask = LabelEmbedder(nclasses, cond_embed_dim)
 
     @property
     def gamma_dim(self):
-        # class conditioning halves the gamma share of the embedding
+        # class and ref conditioning halve the gamma share of the embedding
         # (diffusion_generator.py:66-75)
-        if "class" in self.conditioning:
+        if "class" in self.conditioning or "ref" in self.conditioning:
             return self.cond_embed_dim // 2
         return self.cond_embed_dim
 
-    def forward(self, x, gammas, cls=None, mask=None, zero_gamma=False):
+    def _ref_embedding(self, ref, batch, like):
+        """The reference image's embedding (zeros without one)."""
+        width = self.cond_embed_dim - self.gamma_dim
+        if ref is None:
+            return torch.zeros(batch, width, dtype=like.dtype,
+                               device=like.device)
+        if self.ref_embed_net == "clip":
+            from ...utils.clip_vit import preprocess
+            feats = self.freezenet_clip(preprocess(ref.float())).detach()
+            return self.ref_proj(F.silu(feats).to(self.dtype))
+        h = ref.to(self.dtype).permute(0, 3, 1, 2)
+        for i in range(3):
+            h = F.silu(getattr(self, f"ref_enc{i}")(h))
+        return self.ref_proj(h.mean(dim=(2, 3)))
+
+    def forward(self, x, gammas, cls=None, mask=None, ref=None,
+                zero_gamma=False):
         """x: (B,H,W,C) concatenated [y_cond, y_noisy]; gammas: (B,);
-        cls: (B,) int or None; mask: (B,H,W,1) labels or None."""
+        cls: (B,) int or None; mask: (B,H,W,1) labels or None; ref:
+        (B,H,W,C) reference image in [-1, 1] or None."""
         emb = gamma_embedding(gammas, self.gamma_dim)
         emb = self.cond_embed_1(F.silu(self.cond_embed_0(emb)))
         if zero_gamma:
@@ -79,12 +121,17 @@ class PaletteDenoiser(nn.Module):
                 torch.zeros(x.shape[0], self.cond_embed_dim // 2,
                             dtype=emb.dtype, device=emb.device))
             emb = torch.cat([emb, cls_embed.to(emb.dtype)], dim=1)
+        if self.ref_embed:
+            emb = torch.cat([emb, self._ref_embedding(
+                ref, x.shape[0], emb).to(emb.dtype)], dim=1)
         if "mask" in self.conditioning:
             if mask is None:
                 mask = torch.zeros(x.shape[:-1] + (1,), dtype=torch.int32,
                                    device=x.device)
             m = torch.clamp(mask[..., 0].long(), 0, self.nclasses - 1)
             x = torch.cat([x, self.embedder_mask(m).to(x.dtype)], dim=-1)
+        if isinstance(self.inner, UNetRefAttn):
+            return self.inner(x, emb, ref=ref)
         return self.inner(x, emb)
 
 

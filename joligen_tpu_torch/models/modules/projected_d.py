@@ -1,7 +1,8 @@
 """Projected-GAN discriminator (``joligen_tpu/models/modules/projected_d.py``):
-a frozen EfficientNet-lite trunk, frozen random projections (CCM 1×1 per
-scale, CSM top-down mixing), and one trainable ``DownBlockPatch`` per scale,
-whose logits are concatenated.
+a frozen EfficientNet-lite trunk (or, with ``network_type="segformer"``, a
+frozen MiT-B0 backbone, ``segformer.py``), frozen random projections (CCM
+1×1 per scale, CSM top-down mixing), and one trainable ``DownBlockPatch``
+per scale, whose logits are concatenated.
 
 Freezing is what the JAX package does: the trunk's and the projections'
 *outputs* are detached (``stop_gradient`` at ``projected_d.py:156,213``),
@@ -204,17 +205,19 @@ class ProjectedDiscriminator(nn.Module):
     def __init__(self, size, interp=-1, proj_ch=64, trunk_stages=_LITE0_STAGES,
                  network_type="efficientnet", dtype=torch.float32):
         super().__init__()
-        if network_type == "segformer":
-            raise NotImplementedError(
-                "D_proj_network_type segformer: the MiT trunk is not ported "
-                "(ROADMAP Queue 1 item 13, rest of the zoo)")
         self.interp = interp
+        self.mit = network_type == "segformer"
         size = interp if interp and interp > 0 else size
-        self.feature_network = EfficientNetLiteTrunk(trunk_stages, dtype)
+        if self.mit:
+            from .segformer import MiTBackbone, mit_tap_sizes
+            self.feature_network = MiTBackbone(dtype=dtype)
+            sizes = mit_tap_sizes(size)
+        else:
+            self.feature_network = EfficientNetLiteTrunk(trunk_stages, dtype)
+            sizes = trunk_sizes(size, trunk_stages)
         self.proj = FRandomProj(self.feature_network.tap_channels, proj_ch,
                                 dtype)
-        for i, (c, s) in enumerate(zip(self.proj.channels,
-                                       trunk_sizes(size, trunk_stages))):
+        for i, (c, s) in enumerate(zip(self.proj.channels, sizes)):
             self.add_module(f"disc{i}", DownBlockPatch(c, s, proj_ch, dtype))
         self.n_scales = len(self.proj.channels)
 
@@ -231,7 +234,12 @@ class ProjectedDiscriminator(nn.Module):
             x = resize_bilinear(x, (self.interp, self.interp))
         # the frozen part needs no graph: its outputs are detached
         with torch.no_grad():
-            feats = [f.detach() for f in self.feature_network(x)]
+            if self.mit:        # the MiT takes and gives NHWC
+                feats = [f.permute(0, 3, 1, 2) for f in
+                         self.feature_network(x.permute(0, 2, 3, 1))]
+            else:
+                feats = self.feature_network(x)
+            feats = [f.detach() for f in feats]
             projs = self.proj(feats)
         logits = [getattr(self, f"disc{i}")(p) for i, p in enumerate(projs)]
         return torch.cat([li.reshape(li.shape[0], -1) for li in logits],

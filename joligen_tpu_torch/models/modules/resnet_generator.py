@@ -298,6 +298,9 @@ class ResnetGenerator(nn.Module):
             tanh=True, freq_space=freq_space, use_spectral=use_spectral,
             up_mode=up_mode, dtype=dtype)
 
+    def layer_channels(self, layer_ids):
+        return self.encoder.layer_channels(layer_ids)
+
     def forward(self, x, extract_layer_ids=None, with_features=None):
         """NHWC in. Returns the NHWC output; with ``extract_layer_ids``
         only the NHWC encoder taps (as JAX), and with ``with_features``
@@ -340,6 +343,9 @@ class ResnetGeneratorAttn(nn.Module):
             **kw)
         self.attn_decoder = ResnetDecoder(
             nb_mask_attn, ngf, 2, norm, padding_type, tanh=False, **kw)
+
+    def layer_channels(self, layer_ids):
+        return self.encoder.layer_channels(layer_ids)
 
     def forward(self, x, extract_layer_ids=None, return_attention=False,
                 with_features=None):

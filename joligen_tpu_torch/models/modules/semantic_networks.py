@@ -1,5 +1,6 @@
 """The semantic segmenter f_s (``joligen_tpu/models/modules/semantic_networks.py``):
-``UNetSegmenter`` and ``define_f`` for ``f_s_net: unet``.
+``UNetSegmenter`` and ``define_f`` for ``f_s_net: unet``, and for
+``f_s_net: segformer`` the MiT-B0 ``SegformerSegmenter`` (``segformer.py``).
 
 ``UNetSegmenter`` keeps flax's auto-names: ``Conv_0``…``Conv_7`` and
 ``GroupNorm_0``…``GroupNorm_2`` (8 groups, eps 1e-6, fp32 statistics with
@@ -8,7 +9,7 @@ ReLU and 2×2 average pool; a bottleneck conv; three levels of nearest 2×
 upsampling, conv, ReLU and the skip concatenated after; a 1×1 conv to the
 class logits. NHWC at its boundary, fp32 logits.
 
-The other segmenters (``vgg``, ``segformer``, ``sam``) and the classifier
+The other segmenters (``vgg``, ``sam``) and the classifier
 ``define_C`` are not ported; they raise, naming their ROADMAP items.
 """
 
@@ -25,7 +26,6 @@ from .unet_mha import GroupNorm
 UNPORTED_F_S = {
     "vgg": "ROADMAP Queue 1 item 10, what is left of the GAN families "
            "(the vgg segmenter)",
-    "segformer": "ROADMAP Queue 1 item 13, rest of the zoo (segformer.py)",
     "sam": "ROADMAP Queue 1 item 14, metrics and frozen nets (SAM)",
 }
 
@@ -64,17 +64,26 @@ class UNetSegmenter(nn.Module):
         return self.Conv_7(h).float().permute(0, 2, 3, 1)
 
 
+PORTED_F_S = ("unet", "segformer")
+
+
 def check_f_s_net(opt):
     """Raise unless ``f_s_net`` is ``unet`` (the JAX factory's default when
-    unset)."""
+    unset) or ``segformer``."""
     net = getattr(opt, "f_s_net", "unet") or "unet"
-    if net != "unet":
+    if net not in PORTED_F_S:
         where = UNPORTED_F_S.get(net, "ROADMAP Queue 1 item 10")
         raise NotImplementedError(f"f_s_net {net} is not ported ({where})")
 
 
 def define_f(opt):
-    """f_s for ``f_s_net``; the segmenters other than ``unet`` raise."""
+    """f_s for ``f_s_net``; the segmenters other than ``unet`` and
+    ``segformer`` raise."""
     check_f_s_net(opt)
+    if (getattr(opt, "f_s_net", "unet") or "unet") == "segformer":
+        from .segformer import SegformerSegmenter
+        return SegformerSegmenter(opt.model_input_nc,
+                                  opt.f_s_semantic_nclasses,
+                                  dtype=compute_dtype(opt))
     return UNetSegmenter(opt.model_input_nc, opt.f_s_semantic_nclasses,
                          nf=opt.f_s_nf, dtype=compute_dtype(opt))

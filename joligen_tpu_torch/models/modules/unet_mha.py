@@ -210,6 +210,16 @@ class ResBlock(nn.Module):
         return x + h
 
 
+def instance_norm_tokens(seq):
+    """The reference's parameterless InstanceNorm1d over the tokens of
+    ``seq`` (B, N, C): per-channel fp32 statistics, population variance,
+    eps 1e-5; output in ``seq``'s dtype."""
+    f32 = seq.float()
+    mu = f32.mean(dim=1, keepdim=True)
+    var = f32.var(dim=1, keepdim=True, correction=0)
+    return ((f32 - mu) / torch.sqrt(var + 1e-5)).to(seq.dtype)
+
+
 class AttentionBlock(nn.Module):
     """Spatial self-attention (``unet_mha.py:178-217``) through the
     flash-attention kernel. ``norm_kind="instance"`` is the reference's
@@ -231,13 +241,10 @@ class AttentionBlock(nn.Module):
         heads = self.heads
         hd = c // heads
         if self.norm_kind == "instance":
-            f32 = x.flatten(2).float()                   # (n, c, hw)
-            mu = f32.mean(dim=2, keepdim=True)
-            var = f32.var(dim=2, keepdim=True, correction=0)
-            y = ((f32 - mu) / torch.sqrt(var + 1e-5)).to(x.dtype)
+            y = instance_norm_tokens(x.flatten(2).transpose(1, 2))
         else:
-            y = self.GroupNorm32_0(x).flatten(2)
-        qkv = self.qkv(y.transpose(1, 2))                 # (n, hw, 3c)
+            y = self.GroupNorm32_0(x).flatten(2).transpose(1, 2)
+        qkv = self.qkv(y)                                 # (n, hw, 3c)
         q, k, v = (t.reshape(n, hh * ww, heads, hd)
                    for t in torch.split(qkv, c, dim=-1))
         a = flash_attention(q, k, v).reshape(n, hh * ww, c)

@@ -11,7 +11,10 @@ first random draw is ``y_t`` from the model's generator.
 ``set_input`` builds the conditioning image as the JAX package does: ``y_t``
 (dataset A), the canny sketch of ``computed_sketch`` / ``canny`` (the port's
 numpy ``canny``, drawing its thresholds from ``random`` in the JAX order), or
-``low_res`` (INTER_AREA down, INTER_CUBIC up, in numpy; no mask).
+``low_res`` (INTER_AREA down, INTER_CUBIC up, in numpy; no mask). With
+``ref`` conditioning or the ``unet_mha_ref_attn`` G (``use_ref``) the
+batch's ``ref_A`` becomes ``ref``, which reaches the denoiser in the loss,
+both samplers and the per-class path.
 """
 
 from __future__ import annotations
@@ -70,6 +73,9 @@ class PaletteModel(BaseModel):
         self.ema_beta = float(getattr(opt, "train_G_ema_beta", 0.999))
         self.use_ema = bool(getattr(opt, "train_G_ema", False))
         self.conditioning = getattr(opt, "alg_diffusion_cond_embed", "") or ""
+        # palette_model.py:64-65
+        self.use_ref = ("ref" in self.conditioning
+                        or opt.G_netG == "unet_mha_ref_attn")
         check_cond_creation(opt, getattr(
             opt, "alg_diffusion_cond_image_creation", "y_t") or "y_t")
         # "the highest class is the unconditioned one" (palette_model.py:
@@ -138,12 +144,15 @@ class PaletteModel(BaseModel):
             out["mask"] = mask
         if cls is not None:
             out["cls"] = cls.astype(np.int32)
+        if self.use_ref and "ref_A" in batch:
+            out["ref"] = batch["ref_A"]
         return out
 
     def prepare_batch(self, batch):
         """set_input, uint8 wire compression, device upload."""
         inp = quantize_batch(self.set_input(batch),
-                             float_keys=("y_cond", "gt"), int_keys=("mask",))
+                             float_keys=("y_cond", "gt", "ref"),
+                             int_keys=("mask",))
         return self.put_batch(inp)
 
     def _loss_fn(self, dev, draws=None):
@@ -152,10 +161,11 @@ class PaletteModel(BaseModel):
         y_cond = dequantize(dev["y_cond"], "image")
         gt = dequantize(dev["gt"], "image")
         mask = dequantize(dev.get("mask"), "label")
+        ref = dequantize(dev.get("ref"), "image")
         net = self.nets["G_A"]
 
         def apply_fn(x, gammas, cls=None, mask=None):
-            return net(x, gammas, cls=cls, mask=mask)
+            return net(x, gammas, cls=cls, mask=mask, ref=ref)
 
         noise, noise_hat, weight = palette_training_outputs(
             apply_fn, self.generator, self.sched_train, gt, y_cond, mask=mask,
@@ -200,9 +210,12 @@ class PaletteModel(BaseModel):
         use_ema = self.use_ema if use_ema is None else use_ema
         net = self.ema_nets.get("G_A") if use_ema else None
         net = net if net is not None else self.nets["G_A"]
+        ref = dequantize(dev.get("ref"), "image")
 
         def apply_fn(x, gammas, cls=None, mask=None, zero_gamma=False):
-            return net(x, gammas, cls=cls, mask=mask, zero_gamma=zero_gamma)
+            # the reference image reaches CFG's unconditional branch too
+            return net(x, gammas, cls=cls, mask=mask, ref=ref,
+                       zero_gamma=zero_gamma)
 
         y_cond = dequantize(dev["y_cond"], "image")
         y_0 = dequantize(dev["gt"], "image")

@@ -22,8 +22,11 @@ Same CLI and outputs as the JAX script: ``<name>_orig.png``,
 - Model types palette (DDPM/DDIM), cm and cm_gan (the 5-sigma consistency
   sampler) and sc (Euler, ``--sampling_steps`` or
   ``--alg_sc_denoise_inferstep`` steps).
+- ``--ref_in``: the reference image of a ref-conditioned palette model,
+  read as RGB, PIL BICUBIC-resized to the crop and mapped to [-1, 1]
+  (the JAX script's ``:224-231``).
 
-``--cond_in`` (exemplar insertion) and ``--ref_in`` (ref conditioning) raise.
+``--cond_in`` (exemplar insertion) raises.
 Runs on CUDA unless ``--cpu``.
 """
 
@@ -93,10 +96,6 @@ def _check_supported(args, opt):
         raise NotImplementedError(
             "--cond_in exemplar insertion needs a perspective warp "
             "(ROADMAP Queue 1 item 7, entry points, the rest)")
-    if args.ref_in:
-        raise NotImplementedError(
-            "--ref_in ref conditioning (ROADMAP Queue 1 item 9, ref "
-            "conditioning, UViT and frequency space)")
     if opt.model_type not in ("palette", "cm", "cm_gan", "sc"):
         raise NotImplementedError(
             f"model type {opt.model_type} (ROADMAP Queue 1 items 9 to 13, "
@@ -136,6 +135,14 @@ def build_cond(args, opt, cond_creation, crop, mask):
     return fill_mask_with_random(crop, mask, -1)     # y_t
 
 
+def load_ref(path, size):
+    """The ``--ref_in`` image: RGB, BICUBIC to ``size``², in [-1, 1]."""
+    from PIL import Image
+    ref = np.asarray(Image.fromarray(load_image_rgb(path)).resize(
+        (size, size), Image.BICUBIC), np.uint8)
+    return to_m1p1(ref)
+
+
 def _inference_kwargs(args, opt):
     """The sampler's arguments by model type (reference
     scripts/gen_single_image_diffusion.py:233-244): palette's method, steps
@@ -172,11 +179,14 @@ def inference(args, lmodel=None, lopt=None):
 
     img, crop, mask, bbox_select = build_inputs(args, opt)
     cond = build_cond(args, opt, cond_creation, crop, mask)
+    ref = load_ref(args.ref_in, crop.shape[0]) if args.ref_in else None
 
     outs = []
     for _ in range(max(1, args.nb_samples)):
         batch = {"A": cond[None], "B": crop[None],
                  "B_label_mask": mask[None]}
+        if ref is not None:
+            batch["ref_A"] = ref[None]
         fake = model.inference(batch, **_inference_kwargs(args, opt))
         outs.append(fake[0])
 

@@ -7,8 +7,11 @@
 
 Builds the config's model (palette; a GAN such as
 ``examples/example_gan_horse2zebra.json``, or
-``examples/example_gan_noglasses2glasses.json`` with its semantic-mask
-branch, whose batch then carries the mask as A's and B's label; cm or
+``examples/example_gan_noglasses2glasses.json`` or
+``examples/example_gan_mario2sonic.json`` with their semantic-mask
+branch, whose batch then carries the mask as A's and B's label; the
+ref-conditioned ``examples/example_ddpm_unetref_viton.json``, whose batch
+then carries a reference image; cm or
 cm_gan from
 ``examples/example_cm*_noglasses2glasses.json``, or sc from the cm config
 with ``--model_type sc``; a cm_gan step is one micro-step) at full width
@@ -101,6 +104,9 @@ def main(argv=None):
         batch = synthetic_batch(opt.data_crop_size, model.seed)
     if getattr(model, "semantic_mask", False):
         batch["A_label_mask"] = batch["B_label_mask"]
+    if getattr(model, "use_ref", False):
+        batch["ref_A"] = synthetic_batch(opt.data_crop_size, model.seed + 1,
+                                         len(batch["B"]))["B"]
 
     palette = opt.model_type == "palette"
 

@@ -2,9 +2,12 @@
 configs, made from a seed: ``labeled`` (``self_supervised_labeled_mask``:
 ``noglasses2glasses``, ``viton_tutorial``, the cm configs), the online
 bbox-crop layout (``xview``, ``mapillary``, ``mario``), ``single``
-(``df2kost``) and ``aligned`` (``SEN2VEN``); and of the GAN example configs:
-``unaligned`` (``horse2zebra``, ``mnist2USPS``) and ``unaligned_labeled``
-(``unaligned_labeled_mask``: the glasses configs).
+(``df2kost``), ``aligned`` (``SEN2VEN``) and ``online_ref`` (the online
+layout with a reference image per image: ``unetref_viton``); and of the GAN
+example configs: ``unaligned`` (``horse2zebra``, ``mnist2USPS``),
+``unaligned_labeled`` (``unaligned_labeled_mask``: the glasses configs) and
+``online_ab`` (online bbox crops in both domains, classes 1 to 6:
+``mario2sonic``).
 Paths in ``paths.txt`` are relative to the root (``data_relative_paths``).
 
     python -m joligen_tpu_torch.tools.synthetic_datasets online DIR [N [SIZE]]
@@ -154,9 +157,40 @@ def write_unaligned_labeled(root, n, size, seed=0):
             f.write("\n".join(lines) + "\n")
 
 
+def write_online_ab(root, n, size, seed=0):
+    """The online layout (``write_online``) in ``trainA`` and ``trainB``,
+    boxes of classes 1 to 6 (mario2sonic's 7 f_s classes with 0)."""
+    write_online(root, n, size, seed, domains=("A", "B"),
+                 classes=tuple(range(1, 7)))
+
+
+def write_refs(root, n, seed=0, ref_size=96):
+    """A reference image for each of ``trainA/imgs/0000.png``...: the
+    ``trainA/ref/*.png`` of ``ref_size``² px and ``trainA/conditions.txt``
+    lines '<img> <ref>' (the ``*_ref`` modes)."""
+    rng = np.random.default_rng(seed + 1)
+    os.makedirs(os.path.join(root, "trainA", "ref"), exist_ok=True)
+    lines = []
+    for i in range(n):
+        rpath = f"trainA/ref/{i:04d}.png"
+        Image.fromarray(_image(rng, ref_size)[::-1]).save(
+            os.path.join(root, rpath))
+        lines.append(f"trainA/imgs/{i:04d}.png {rpath}")
+    with open(os.path.join(root, "trainA", "conditions.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_online_ref(root, n, size, seed=0):
+    """The online layout of ``trainA`` (``write_online``) with a reference
+    image for each image (``write_refs``)."""
+    write_online(root, n, size, seed)
+    write_refs(root, n, seed)
+
+
 WRITERS = {"labeled": write_labeled, "online": write_online, "single": write_single,
            "aligned": write_aligned, "unaligned": write_unaligned,
-           "unaligned_labeled": write_unaligned_labeled}
+           "unaligned_labeled": write_unaligned_labeled,
+           "online_ab": write_online_ab, "online_ref": write_online_ref}
 
 
 if __name__ == "__main__":

@@ -370,8 +370,8 @@ def test_init_scheme_statistics(init_type):
 
 def test_unported_networks_raise():
     _, opt = _h2z_opts()
-    opt.G_netG = "segformer_attn_conv"
-    with pytest.raises(NotImplementedError, match="segformer_attn_conv"):
+    opt.G_netG = "hdit"
+    with pytest.raises(NotImplementedError, match="hdit"):
         tgan.define_G(opt)
     with pytest.raises(NotImplementedError, match="temporal"):
         tgan.define_D(opt, ["temporal"])

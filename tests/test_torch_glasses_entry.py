@@ -12,8 +12,8 @@
    printed for glasses2noglasses), then one request each through
    ``scripts/gen_single_image.py --cpu`` from the checkpoint.
 3. What stays off the ported path raises, naming its ROADMAP item: the
-   vgg, segformer and sam segmenters, the classifier, the ``mask`` and
-   ``sam`` Ds. ``train_sem_use_label_B`` is accepted and read by nothing,
+   vgg and sam segmenters, the classifier, the ``mask``, ``sam`` and
+   ``depth`` Ds. ``train_sem_use_label_B`` is accepted and read by nothing,
    in either package (a reference property the port copies).
 """
 
@@ -106,7 +106,7 @@ def test_train_and_serve_end_to_end(tmp_path, monkeypatch, capsys, config):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("f_s_net", "vgg", "item 10"), ("f_s_net", "segformer", "item 13"),
+    ("f_s_net", "vgg", "item 10"), ("D_netDs", ["depth"], "item 13"),
     ("f_s_net", "sam", "item 14"), ("train_semantic_cls", True, "item 10"),
     ("D_netDs", ["mask"], "item 10"), ("D_netDs", ["sam"], "item 13")])
 def test_off_path_options_raise(tmp_path, option, value, item):

@@ -82,6 +82,9 @@ CM_MODULES = ("models.modules.cm", "models.modules.sc", "models.cm_model",
 GLASSES_MODULES = ("models.modules.semantic_networks",
                    "models.modules.vision_aided_d", "utils.vit_layers",
                    "utils.clip_vit", "utils.dinov2")
+# the segformer nets and the ref-conditioned denoiser
+SEGFORMER_REF_MODULES = ("models.modules.segformer",
+                         "models.modules.unet_ref_attn")
 
 
 def test_package_imports_with_jax_blocked():
@@ -92,7 +95,8 @@ def test_package_imports_with_jax_blocked():
     names = out.stdout.split()
     assert len(names) >= 49
     for m in (TRAINING_MODULES + PROBE_MODULES + CONDITIONING_MODULES
-              + GAN_MODULES + CM_MODULES + GLASSES_MODULES):
+              + GAN_MODULES + CM_MODULES + GLASSES_MODULES
+              + SEGFORMER_REF_MODULES):
         assert "joligen_tpu_torch." + m in names, m
 
 

@@ -157,4 +157,5 @@ def test_unported_variants_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tunet.UNetMHA(in_channel=6, freq_space=True, **SMALL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PaletteDenoiser(torch.nn.Identity(), 32, conditioning="ref")
+        PaletteDenoiser(torch.nn.Identity(), 32, conditioning="ref",
+                        ref_embed_net="imagebind")
