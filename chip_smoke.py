@@ -13,7 +13,12 @@ GPU. Run from the repository root with no arguments:
    against its plain PyTorch version on the same CUDA tensors at the paths'
    shapes (K1 and K2 in bf16 at both query tilings; xview's 32 heads at
    (1, 256, 32, 32) and (16, 256, 32, 32), cm's (16, 256, 16, 32) and
-   cm_gan's (4, 256, 16, 32) among them), the autograd Function
+   cm_gan's (4, 256, 16, 32) among them), and at S <= 32 and head dim 8
+   (the video denoiser's motion modules: (4096, 8, 8, 8), (64, 8, 8, 64),
+   (16384, 6, 8, 8) and ragged ones) in both dtypes and both tilings,
+   packed and plain (the card tests' tolerance there, TOL (1 + |want|):
+   one bf16 ulp of those gradients exceeds TOL), then timed at the motion
+   modules' shapes in both tilings beside sdpa; the autograd Function
    against autograd through the plain forward; P1 and P2 (the 3×3 tap
    conv, each s2; bf16 on wgmma, fp32 on FMAs) against their plain versions
    in bf16 and fp32 at the conv probe's hot site (batch 2) and at ragged
@@ -31,7 +36,8 @@ GPU. Run from the repository root with no arguments:
 4. Serving: palette inpainting at the full width of
    ``examples/example_ddpm_noglasses2glasses.json`` (128 px, ngf 64, 62.8M
    parameters, bf16) with seeded random weights, saved and reloaded through
-   the checkpoint files, serving DDIM-10 and DDPM-1000 requests through
+   the checkpoint files, serving DDIM-10 requests and a DDPM one (its
+   test schedule cut to 100 steps) through
    ``scripts/gen_single_image_diffusion.inference``; launch counts per
    request; outputs checked; the full-width denoiser in fp32 on the card
    against the same forward on the CPU.
@@ -101,12 +107,23 @@ GPU. Run from the repository root with no arguments:
    output); ``example_ddpm_unetref_viton.json`` at full width
    (unet_mha_ref_attn, 147,557,059 parameters; batch 16, 128 px online
    crops with a reference each; EMA; bf16), 8 steps, two DDIM-10 and one
-   DDPM (its test schedule, 1000 steps) ``--bbox_in --ref_in`` requests,
+   DDPM (its test schedule cut to 100 steps) ``--bbox_in --ref_in`` requests,
    the memory of the legacy attention's fp32 logits at ds 4, and the
    full-width ``UNetRefAttn`` in fp32, card against CPU. Step time,
    images/s, peak memory, data wait and request latency for each. No
    kernel of the port runs on these paths (their launch counts are 0).
-10. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
+10. Video palette, over synthetic series of frames with a box file each:
+   ``example_ddpm_vid_mario.json`` at full width (unet_vid, 132,645,763
+   parameters; one clip of 8 frames at 64 px a micro-step, iter_size 32;
+   EMA; bf16), 64 micro-steps with K1, K2 and K3 81 times each a
+   micro-step, the weights still until the 32nd, its checkpoint reloaded
+   (the EMA bit for bit), two DDIM-10 clip requests and one with the
+   config's DDPM sampler (1000 steps) through
+   ``scripts/gen_vid_diffusion``; ``_ft`` (batch 3) and ``_ft_from_image``
+   (277,532,355 parameters, 6 frames at 128 px, 89 K1 a call) an epoch of
+   one series and a DDIM-10 ``--cond_canny`` request each from the
+   trained model; the full-width UNetVid in fp32, card against CPU.
+11. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
    bf16 and ``tools.bw_probe3`` over 1 GiB arrays, each with the launch
    counters set to 0 just before it and read just after.
 
@@ -131,6 +148,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 EXAMPLE = os.path.join(ROOT, "examples", "example_ddpm_noglasses2glasses.json")
 SEED = 0
 DDIM_REQUESTS = 3
+# the serving and unetref phases' DDPM requests on a test schedule cut to
+# this many steps (cut_test_schedule; the video phase's DDPM-1000 clip
+# request took the smoke's time)
+DDPM_TEST_STEPS = 100
 EXPECTED_PARAMS = 62_838_467    # the example config's denoiser
 # Published H100 SXM peaks (NVIDIA data sheet): memory 3.35 TB/s; bf16 on
 # the tensor cores 989 TFLOP/s; fp32 outside them 67 TFLOP/s.
@@ -180,12 +201,15 @@ FWD_CHECKS = [(PATH_SHAPE, "bfloat16"), (PATH_SHAPE, "float32"),
               (TRAIN_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
               (XVIEW_PATH_SHAPE, "bfloat16"), (XVIEW_TRAIN_SHAPE, "bfloat16"),
               (CM_TRAIN_SHAPE, "bfloat16"), (CM_GAN_TRAIN_SHAPE, "bfloat16"),
-              *EDGE_CHECKS]
+              ((8, 64, 16, 32), "bfloat16"), ((2, 100, 2, 8), "bfloat16"),
+              ((2, 100, 2, 8), "float32"), *EDGE_CHECKS]
 BWD_CHECKS = [(TRAIN_SHAPE, "bfloat16"), (TRAIN_SHAPE, "float32"),
               (PATH_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
               (XVIEW_PATH_SHAPE, "bfloat16"),
               (XVIEW_TRAIN_SHAPE, "bfloat16"), (CM_TRAIN_SHAPE, "bfloat16"),
-              (CM_GAN_TRAIN_SHAPE, "bfloat16"), *EDGE_CHECKS]
+              (CM_GAN_TRAIN_SHAPE, "bfloat16"), ((8, 64, 16, 32), "bfloat16"),
+              ((2, 100, 2, 8), "bfloat16"), ((2, 100, 2, 8), "float32"),
+              *EDGE_CHECKS]
 # P1/P2: the probe's hot site at batch 2; shapes whose H, W and Co are not
 # multiples of the kernels' tiles; C = 8 and 24 (part of a 64-channel K
 # step of the wgmma route), C = 256 (two K steps a tap); errors relative to
@@ -267,14 +291,55 @@ MIT_TOL = 1e-4
 # unetref_viton (palette with the unet_mha_ref_attn G): one epoch of
 # UNETREF_STEPS steps at batch 16 over 128 px online crops of ONLINE_SIZE px
 # images with a reference each, then UNETREF_REQUESTS DDIM-10 --ref_in
-# requests and one with the config's DDPM sampler at its test schedule; the
-# full-width UNetRefAttn in fp32, card against CPU
+# requests and one with the config's DDPM sampler; the full-width
+# UNetRefAttn in fp32, card against CPU
 UNETREF_STEPS = 8
 UNETREF_REQUESTS = 2
 EXPECTED_PARAMS_UNETREF = 147_557_059
 # the ref UNet's legacy attention at ds 4 of a 128 px training batch: 16
 # images, 8 heads of 32 over 1024 tokens (qkv of 3 x 256 rows)
 UNETREF_ATTN_QKV = (16, 768, 1024)
+# the video palette configs (unet_vid): vid_mario one epoch of VID_STEPS
+# micro-steps at batch 1 (two updates at iter_size 32) over clips of 8
+# frames cropped from VID_IMAGE px frames (VID_SERIES series of VID_FRAMES
+# frames: the dataset's length is its frame count), then VID_DDIM_REQUESTS
+# DDIM-10 clip requests and one with the config's DDPM sampler at its test
+# schedule; _ft (batch 3) and _ft_from_image (6 frames at 128 px, batch 1)
+# one epoch of one series each (2 and 6 micro-steps) and one DDIM-10
+# request each
+VID_EXAMPLES = ("example_ddpm_vid_mario.json",
+                "example_ddpm_vid_mario_ft.json",
+                "example_ddpm_vid_mario_ft_from_image.json")
+VID_STEPS = 64
+VID_SERIES, VID_FRAMES = 4, 16
+VID_IMAGE = 160
+VID_DDIM_REQUESTS = 2
+EXPECTED_PARAMS_VID = 132_645_763         # the denoiser; its trunk 132,643,651
+EXPECTED_PARAMS_VID_FT_FROM_IMAGE = 277_532_355
+# K1 launches a denoiser call: 20 motion modules of 2 blocks of 2 temporal
+# attentions, and the middle block's attention (_ft_from_image: 44 modules
+# of 1 block, 89)
+VID_K1_PER_CALL = 81
+# the attention shapes of a vid_mario call (B*H*W, F, 8 heads, C / 8): the
+# motion modules at 64 px (level 1, D = 8) and 8 px (level 4, D = 64), and
+# _ft_from_image's level 1 (6 frames at 128 px); the middle block (16
+# heads of 32 over 8 x 8 tokens of 8 frames) takes the plain tiling
+VID_L1_SHAPE = (4096, 8, 8, 8)
+VID_L4_SHAPE = (64, 8, 8, 64)
+VID_S6_SHAPE = (16384, 6, 8, 8)
+VID_MID_SHAPE = (8, 64, 16, 32)
+# K1-K3 at S <= 32 (the packed tiling and the plain one) and D = 8, in
+# both dtypes: every motion-module shape of the video path (vid_mario's
+# levels 1-4, _ft_from_image's levels 1-4) and ragged sequence counts and
+# lengths
+SHORT_CHECKS = [VID_L1_SHAPE, (1024, 8, 8, 16), (256, 8, 8, 32),
+                VID_L4_SHAPE, VID_S6_SHAPE, (4096, 6, 8, 16),
+                (1024, 6, 8, 32), (256, 6, 8, 64), (3, 6, 8, 32),
+                (7, 8, 3, 16), (2, 17, 3, 8), (3, 32, 2, 8), (2, 1, 3, 8)]
+VID_TIMINGS = (("vid_level1", VID_L1_SHAPE, 50),
+               ("vid_level4", VID_L4_SHAPE, 50),
+               ("vid_s6_level1", VID_S6_SHAPE, 20),
+               ("vid_mid", VID_MID_SHAPE, 50))
 PROBE_ITERS = 32
 TRACE_ATTEMPTS = 4                  # traces of one timing, at most
 
@@ -358,6 +423,18 @@ def timed(fn, iters, kernel=None):
     return device_ms(fn, iters, kernel), wall_ms(fn, iters)
 
 
+def short_close(got, want, name):
+    """The card tests' tolerance (``torch.testing.assert_close``, atol =
+    rtol = TOL): |got - want| <= TOL * (1 + |want|). Where S is short the
+    bf16 gradients reach 4 to 16, where one bf16 ulp (0.03 to 0.06) is more
+    than TOL. Returns (max abs error, max |want|, within)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = TOL[name]
+    return (err.max().item(), want.abs().max().item(),
+            bool((err <= tol * (1 + want.abs())).all()))
+
+
 def attention_bound_ms(shape, dtype_name):
     """Least time for one attention forward: each of q, k, v read once, o and
     lse written once, against 4*B*H*S*S*D matmul FLOPs."""
@@ -405,7 +482,68 @@ def kernel_phase():
                 raise AssertionError(f"K1 disagrees with its plain version "
                                      f"at {shape} {name} q_tile {tile}")
 
+    # S <= 32 and D = 8: the packed tiling and the plain one, both dtypes
+    for shape in SHORT_CHECKS:
+        for name in ("bfloat16", "float32"):
+            dtype = getattr(torch, name)
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            ref_o, ref_lse = fa.flash_attention_reference(q, k, v)
+            for tiling in fa.TILINGS:
+                o, lse = fa._launch(q, k, v, shape[-1] ** -0.5,
+                                    tiling=tiling)
+                torch.cuda.synchronize()
+                err_o, top_o, ok_o = short_close(o, ref_o, name)
+                err_lse, _, ok_lse = short_close(lse, ref_lse, name)
+                results.append({"shape": list(shape), "dtype": name,
+                                "route": fa.ROUTES["flash_attention_fwd"][name],
+                                "tiling": tiling, "max_abs_err_o": err_o,
+                                "max_abs_err_lse": err_lse,
+                                "max_abs_o": top_o,
+                                "tol": f"{TOL[name]} (1 + |want|)"})
+                log(f"K1 check {shape} {name} {tiling} tiling: err o "
+                    f"{err_o:.3e} (|o| up to {top_o:.3f}) lse "
+                    f"{err_lse:.3e} (tol {TOL[name]} (1 + |want|))")
+                if not (ok_o and ok_lse):
+                    raise AssertionError(f"K1 disagrees with its plain "
+                                         f"version at {shape} {name} "
+                                         f"{tiling}")
+
     timings = {}
+    for label, shape, iters in VID_TIMINGS:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(3))
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        scale = shape[-1] ** -0.5
+        out = fa.flash_attention_fwd(q, k, v)
+        rec = {"shape": list(shape), "dtype": "bfloat16"}
+        # the packed tiling (S <= 32) and the plain one at 64 queries a
+        # block, the kernels alone
+        tilings = fa.TILINGS if shape[1] <= fa.PACK_MAX_S else ("plain",)
+        for tiling in tilings:
+            rec[f"{tiling}_tiling_ms"], rec[f"{tiling}_tiling_wall_ms"] = \
+                timed(lambda tiling=tiling: fa._launch(
+                    q, k, v, scale, out, 64, tiling), iters,
+                    "flash_fwd_wgmma_packed_kernel" if tiling == "packed"
+                    else "flash_fwd_wgmma_kernel")
+        rec["tiling"] = tilings[-1]
+        rec["ms"] = rec[f"{rec['tiling']}_tiling_ms"]
+        rec["wall_ms"] = rec[f"{rec['tiling']}_tiling_wall_ms"]
+        rec["plain_ms"], rec["plain_wall_ms"] = timed(
+            lambda: fa.flash_attention_reference(q, k, v), iters)
+        rec["library_ms"], rec["library_wall_ms"] = timed(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh), iters)
+        rec["bound_ms"], rec["bound_by"] = attention_bound_ms(shape,
+                                                              "bfloat16")
+        timings[label] = rec
+        log(f"K1 time {label} {shape} bf16: " + ", ".join(
+            f"{t} tiling {rec[f'{t}_tiling_ms']:.4f} ms (wall "
+            f"{rec[f'{t}_tiling_wall_ms']:.4f})" for t in tilings)
+            + (f", packed / plain {rec['packed_tiling_ms'] / rec['plain_tiling_ms']:.3f}"
+               if len(tilings) == 2 else "")
+            + f"; plain version {rec['plain_ms']:.4f} ms; sdpa "
+            f"{rec['library_ms']:.4f} ms (wall {rec['library_wall_ms']:.4f});"
+            f" bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     for label, shape, iters in (("128px_batch1", PATH_SHAPE, 200),
                                 ("128px_batch8", TRAIN_SHAPE, 100),
                                 ("256px_batch8", BIG_SHAPE, 20),
@@ -524,6 +662,42 @@ def backward_kernel_phase():
             raise AssertionError(f"K2/K3 disagree with their plain version "
                                  f"at {shape} {name}")
 
+    # S <= 32 and D = 8: both tilings, both dtypes
+    for shape in SHORT_CHECKS:
+        for name in ("bfloat16", "float32"):
+            dtype = getattr(torch, name)
+            q, k, v, do = (torch.randn(shape, generator=gen,
+                                       device=dev).to(dtype)
+                           for _ in range(4))
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            delta = fa.attention_delta(o, do)
+            scale = shape[-1] ** -0.5
+            want = fa.flash_attention_bwd_reference(q, k, v, lse, delta, do,
+                                                    scale)
+            for tiling in fa.TILINGS:
+                dq = fa._launch_bwd_dq(q, k, v, lse, delta, do, scale,
+                                       tiling=tiling)
+                dk, dv = fa._launch_bwd_dkv(q, k, v, lse, delta, do, scale,
+                                            tiling=tiling)
+                torch.cuda.synchronize()
+                res = [short_close(a, b, name)
+                       for a, b in zip((dq, dk, dv), want)]
+                checks.append({"shape": list(shape), "dtype": name,
+                               "tiling": tiling,
+                               **{f"max_abs_err_{g}": r[0]
+                                  for g, r in zip(("dq", "dk", "dv"), res)},
+                               **{f"max_abs_{g}": r[1]
+                                  for g, r in zip(("dq", "dk", "dv"), res)},
+                               "tol": f"{TOL[name]} (1 + |want|)"})
+                log(f"K2/K3 check {shape} {name} {tiling} tiling: " + ", ".join(
+                    f"err {g} {r[0]:.3e} (|{g}| up to {r[1]:.3f})"
+                    for g, r in zip(("dq", "dk", "dv"), res))
+                    + f" (tol {TOL[name]} (1 + |want|))")
+                if not all(r[2] for r in res):
+                    raise AssertionError(f"K2/K3 disagree with their plain "
+                                         f"version at {shape} {name} "
+                                         f"{tiling}")
+
     # the autograd Function on q/k/v column slices of a fused projection,
     # as AttentionBlock calls it, against autograd through the plain forward
     autograd_errs = {}
@@ -550,6 +724,56 @@ def backward_kernel_phase():
 
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     timings = {}
+    for label, shape, iters in VID_TIMINGS:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        delta = fa.attention_delta(o, do)
+        scale = shape[-1] ** -0.5
+        dq = torch.empty_like(q)
+        dkv = (torch.empty_like(q), torch.empty_like(q))
+        rec = {"shape": list(shape), "dtype": "bfloat16"}
+        tilings = fa.TILINGS if shape[1] <= fa.PACK_MAX_S else ("plain",)
+        for tiling in tilings:
+            packed = tiling == "packed"
+            rec[f"dq_{tiling}_tiling_ms"], rec[f"dq_{tiling}_tiling_wall_ms"] \
+                = timed(lambda tiling=tiling: fa._launch_bwd_dq(
+                    q, k, v, lse, delta, do, scale, dq, 64, tiling), iters,
+                    "flash_bwd_dq_wgmma_packed_kernel" if packed
+                    else "flash_bwd_dq_wgmma_kernel")
+            rec[f"dkv_{tiling}_tiling_ms"], \
+                rec[f"dkv_{tiling}_tiling_wall_ms"] = timed(
+                    lambda tiling=tiling: fa._launch_bwd_dkv(
+                        q, k, v, lse, delta, do, scale, dkv, tiling), iters,
+                    "flash_bwd_dkv_wgmma_packed_kernel" if packed
+                    else "flash_bwd_dkv_wgmma_kernel")
+        rec["tiling"] = tilings[-1]
+        for kern in ("dq", "dkv"):
+            rec[kern + "_ms"] = rec[f"{kern}_{rec['tiling']}_tiling_ms"]
+            rec[kern + "_bound_ms"], rec[kern + "_bound_by"] = \
+                backward_bound_ms(shape, "bfloat16", kern)
+        rec["plain_ms"], rec["plain_wall_ms"] = timed(
+            lambda: fa.flash_attention_bwd_reference(q, k, v, lse, delta, do,
+                                                     scale), iters)
+        qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        doh = do.transpose(1, 2).contiguous()
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh)
+        rec["library_bwd_ms"], rec["library_bwd_wall_ms"] = timed(
+            lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                        retain_graph=True), iters)
+        del lib_out
+        timings[label] = rec
+        for kern, kid in (("dq", "K2"), ("dkv", "K3")):
+            log(f"{kid} time {label} {shape} bf16: " + ", ".join(
+                f"{t} tiling {rec[f'{kern}_{t}_tiling_ms']:.4f} ms (wall "
+                f"{rec[f'{kern}_{t}_tiling_wall_ms']:.4f})" for t in tilings)
+                + f"; bound {rec[kern + '_bound_ms']:.5f} ms "
+                f"({rec[kern + '_bound_by']})")
+        log(f"backward {label}: plain (dq, dk, dv together) "
+            f"{rec['plain_ms']:.4f} ms; sdpa backward "
+            f"{rec['library_bwd_ms']:.4f} ms; K2 + K3 "
+            f"{rec['dq_ms'] + rec['dkv_ms']:.4f} ms")
     for label, shape, iters in (("128px_batch8", TRAIN_SHAPE, 100),
                                 ("256px_batch8", BIG_SHAPE, 10),
                                 ("xview_128px_batch16", XVIEW_TRAIN_SHAPE,
@@ -1255,8 +1479,17 @@ def _expected_crop(img, size):
     return q.astype(np.float32) / np.float32(127.5) - np.float32(1.0)
 
 
+def cut_test_schedule(model, opt):
+    """Cut a loaded palette model's test schedule (its DDPM sampler) to
+    DDPM_TEST_STEPS steps."""
+    from joligen_tpu_torch.ops.schedules import NoiseSchedule
+    opt.G_diff_n_timestep_test = DDPM_TEST_STEPS
+    model.sched_test = NoiseSchedule.for_phase(opt, "test")
+
+
 def slice_phase(workdir):
-    """Serve DDIM-10 and DDPM requests at full width through the script."""
+    """Serve DDIM-10 requests and a DDPM one (its test schedule cut to
+    DDPM_TEST_STEPS steps) at full width through the script."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1298,6 +1531,7 @@ def slice_phase(workdir):
     model, opt = load_model_from_file(os.path.join(ckpt,
                                                    "latest_net_G_A.pth"))
     log(f"slice: checkpoint reloaded in {time.perf_counter() - t0:.3f} s")
+    cut_test_schedule(model, opt)
     for k, v in model.ema_nets["G_A"].state_dict().items():
         if not torch.equal(v.cpu(), ema_state[k]):
             raise AssertionError(f"reloaded EMA differs at {k}")
@@ -2454,13 +2688,14 @@ def mit_cross_check():
     return recs
 
 
-def _serve_ref(ckpt, root, out_dir, n, extra, label):
+def _serve_ref(ckpt, root, out_dir, n, extra, label, cut_schedule=False):
     """``n`` ``--bbox_in`` ``--ref_in`` requests (image, box and reference
     ``i`` of the dataset) through ``scripts/gen_single_image_diffusion``
     from one load of ``ckpt``, with ``extra`` sampler arguments, the launch
     counters at 0 just before them and read just after: no kernel of the
     port runs. Each request carries its reference to the model, its crop
     output is finite and the image is unchanged outside the crop window.
+    ``cut_schedule`` cuts the model's test schedule (``cut_test_schedule``).
     Returns latencies, launches and the sampler that ran."""
     import numpy as np
     import torch
@@ -2468,6 +2703,8 @@ def _serve_ref(ckpt, root, out_dir, n, extra, label):
     from joligen_tpu_torch.scripts.common import load_model_from_file
 
     served, sopt = load_model_from_file(ckpt)
+    if cut_schedule:
+        cut_test_schedule(served, sopt)
     seen, infer = [], served.inference
 
     def recording_inference(batch, **kw):
@@ -2541,8 +2778,9 @@ def unetref_phase(workdir):
     147,557,059 parameters; batch 16, 128 px online crops of ONLINE_SIZE px
     images, a reference each from ``trainA/conditions.txt``; EMA; bf16) for
     UNETREF_STEPS steps, then UNETREF_REQUESTS DDIM-10 ``--ref_in``
-    requests and one with the config's DDPM sampler at its test schedule,
-    from the trained checkpoint. No kernel of the port runs on this path
+    requests and one with the config's DDPM sampler on its test schedule
+    cut to DDPM_TEST_STEPS steps, from the trained checkpoint. No kernel
+    of the port runs on this path
     (the legacy attention is plain torch). Returns (record, launch counts
     per path)."""
     import torch
@@ -2577,11 +2815,11 @@ def unetref_phase(workdir):
         ["--sampling_method", "ddim", "--sampling_steps", "10"],
         "unetref_ddim")
     rec["request_ddpm"] = _serve_ref(ckpt, opt.dataroot, out_dir, 1, [],
-                                     "unetref_ddpm")
+                                     "unetref_ddpm", cut_schedule=True)
     if (rec["request_ddpm"]["sampler"], rec["request_ddpm"]["steps"]) != (
-            "ddpm", 1000):
+            "ddpm", DDPM_TEST_STEPS):
         raise AssertionError("the DDPM request did not run the config's "
-                             "sampler at its test schedule")
+                             "sampler at the cut test schedule")
     rec["legacy_attention"] = legacy_attention_memory()
     return rec, {"unetref_training": rec["launches"],
                  "unetref_ddim_requests": rec["requests_ddim"]["launches"],
@@ -2613,6 +2851,219 @@ def unetref_cross_check():
     err, out = _card_vs_cpu(build, (x, emb), {"ref": ref}, "ref UNet", k1=0)
     if not out.abs().max().item() > 0:
         raise AssertionError("the ref UNet cross-check's output is 0")
+    return err
+
+
+def _vid_opt(example, workdir, name, n_series, frames):
+    """A video example config (``_example_opt``) over a synthetic video
+    dataset of ``n_series`` series of ``frames`` frames of VID_IMAGE px,
+    written here; train-time metrics (the _ft configs') are not ported."""
+    from joligen_tpu_torch.tools.synthetic_datasets import write_video
+
+    opt = _example_opt(example, workdir, name)
+    write_video(opt.dataroot, frames, VID_IMAGE, seed=SEED + 41,
+                n_series=n_series)
+    opt.train_compute_metrics_test = False
+    return opt
+
+
+def _k1_per_call(opt):
+    """K1 launches a denoiser call of ``opt``'s model (and K2 and K3 as
+    many a training micro-step): its attention sites, counted on the meta
+    device."""
+    import torch
+    from joligen_tpu_torch.models.diffusion_networks import define_G
+    from joligen_tpu_torch.models.modules.motion import TemporalSelfAttention
+    from joligen_tpu_torch.models.modules.unet_mha import AttentionBlock
+
+    with torch.device("meta"):
+        net = define_G(opt)
+    return sum(isinstance(m, (TemporalSelfAttention, AttentionBlock))
+               for m in net.modules())
+
+
+def _serve_vid(ckpt, served, sopt, frames_dir, out_dir, n, extra, label,
+               per_call):
+    """``n`` clip requests through ``scripts/gen_vid_diffusion`` with the
+    loaded model, ``extra`` arguments, the launch counters at 0 just before
+    them and read just after: ``per_call`` K1 launches a denoiser call and
+    no other kernel. Each writes one clip of frames, finite, of the input
+    frames' size. Returns latencies, launches and the sampler that ran."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.scripts import gen_vid_diffusion as gen
+
+    nf = sopt.data_temporal_number_frames
+    seen, infer = [], served.inference
+
+    def recording_inference(batch, **kw):
+        seen.append((kw, infer(batch, **kw)))
+        return seen[-1][1]
+    served.inference = recording_inference
+    secs = []
+    reset_launches()                             # the requests start here
+    for i in range(n):
+        args = gen.build_parser().parse_args([
+            "--model_in_file", ckpt, "--dir_in", frames_dir,
+            "--dir_out", os.path.join(out_dir, f"{label}{i}"),
+            "--max_frames", str(nf), "--seed", str(i), *extra])
+        t0 = time.perf_counter()
+        written = gen.inference(args, lmodel=served, lopt=sopt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        kw, out = seen[-1]
+        size = sopt.data_crop_size
+        if not (len(written) == nf and written[0].shape == (VID_IMAGE,
+                                                            VID_IMAGE, 3)
+                and out.shape == (1, nf, size, size, 3)
+                and np.isfinite(out).all()):
+            raise AssertionError(f"{label} request {i} failed")
+    launches = read_launches()                   # and end here
+    served.inference = infer
+    method, steps, _ = served._sampling_args(kw.get("sampling_method"),
+                                             kw.get("num_steps"), None)
+    if method == "ddpm":
+        steps = served.sched_test.num_timesteps
+    log(f"{label}: {n} clip requests of {nf} frames ({method}, {steps} "
+        f"steps) {[round(t, 4) for t in secs]} s, launches {launches}")
+    want = _attention_only(launches, {"flash_attention_fwd":
+                                      n * steps * per_call})
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    return {"request_s": secs, "launches": launches, "sampler": method,
+            "steps": steps}
+
+
+def vid_phase(workdir):
+    """``example_ddpm_vid_mario.json`` as it is (unet_vid, 132,645,763
+    parameters; clips of 8 frames at 64 px, batch 1, iter_size 32; EMA;
+    bf16) for VID_STEPS micro-steps, the parameters still at the 31st and
+    moved at the 32nd (two updates), its checkpoint reloaded (the EMA bit
+    for bit), VID_DDIM_REQUESTS DDIM-10 clip requests and one with the
+    config's DDPM sampler at its test schedule; then the two _ft configs
+    (canny sketches with per-frame dropout) one epoch and one DDIM-10
+    ``--cond_canny`` request each. Returns (record, launch counts per
+    path)."""
+    import torch
+    from joligen_tpu_torch.models.modules.unet_vid import UNetVid
+    from joligen_tpu_torch.scripts.common import load_model_from_file
+
+    opt = _vid_opt(VID_EXAMPLES[0], workdir, "vid", VID_SERIES, VID_FRAMES)
+    # the one leaf with a gradient before the first update: every other
+    # gradient flows through the zero-initialised out_proj
+    watched = "inner.out_proj.weight"
+    every = opt.train_iter_size       # micro-steps an update
+    marks = {}
+
+    def watch(model, iters, steps):
+        if iters in (1, every - 1, every):
+            marks[iters] = model.nets["G_A"].state_dict()[watched].clone()
+    seen, undo = _capture_set_input()
+    try:
+        model, opt, rec = _train_run(opt, VID_STEPS, 1, "vid_mario training",
+                                     EXPECTED_PARAMS_VID, watch,
+                                     attention_per_step=VID_K1_PER_CALL)
+    finally:
+        undo()
+    (batch, built), = seen
+    if not (isinstance(model.nets["G_A"].inner, UNetVid) and model.is_video
+            and model.use_ema and _k1_per_call(opt) == VID_K1_PER_CALL
+            and built["gt"].shape == (1, 8, 64, 64, 3)
+            and built["mask"].shape == (1, 8, 64, 64, 1)
+            and opt.train_iter_size == 32):
+        raise AssertionError("vid_mario is not the example config")
+    if not (torch.equal(marks[1], marks[every - 1])
+            and not torch.equal(marks[every - 1], marks[every])):
+        raise AssertionError(
+            f"vid_mario's {watched} did not move at micro-step {every} "
+            f"alone: steps 1 to {every - 1} moved it by "
+            f"{(marks[every - 1] - marks[1]).abs().max().item()}, step "
+            f"{every} by {(marks[every] - marks[every - 1]).abs().max().item()}")
+    rec["frames_per_s"] = 8 * opt.train_batch_size / rec["median_warm_step_s"]
+    ema = {k: v.detach().cpu().clone()
+           for k, v in model.ema_nets["G_A"].state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(opt.checkpoints_dir, opt.name, "latest_net_G_A.pth")
+    served, sopt = load_model_from_file(ckpt)
+    if not all(torch.equal(v.cpu(), ema[k]) for k, v in
+               served.ema_nets["G_A"].state_dict().items()):
+        raise AssertionError("the reloaded EMA differs from the trained one")
+    del ema
+    frames_dir = os.path.join(opt.dataroot, "trainA", "vid0")
+    out_dir = os.path.join(workdir, "out_vid")
+    rec["requests_ddim"] = _serve_vid(
+        ckpt, served, sopt, frames_dir, out_dir, VID_DDIM_REQUESTS,
+        ["--sampling_steps", "10"], "vid_ddim", VID_K1_PER_CALL)
+    rec["request_ddpm"] = _serve_vid(ckpt, served, sopt, frames_dir, out_dir,
+                                     1, [], "vid_ddpm", VID_K1_PER_CALL)
+    if (rec["request_ddpm"]["sampler"], rec["request_ddpm"]["steps"]) != (
+            "ddpm", 1000):
+        raise AssertionError("the DDPM request did not run the config's "
+                             "sampler at its test schedule")
+    del served
+    torch.cuda.empty_cache()
+    paths = {"vid_training": rec["launches"],
+             "vid_ddim_requests": rec["requests_ddim"]["launches"],
+             "vid_ddpm_request": rec["request_ddpm"]["launches"]}
+
+    for example, name, n_params in (
+            (VID_EXAMPLES[1], "vid_ft", EXPECTED_PARAMS_VID),
+            (VID_EXAMPLES[2], "vid_ft_from_image",
+             EXPECTED_PARAMS_VID_FT_FROM_IMAGE)):
+        with open(os.path.join(ROOT, "examples", example)) as f:
+            frames = json.load(f)["data"]["temporal_number_frames"]
+        # one series of one clip's frames: an epoch of frames // batch
+        # micro-steps
+        opt = _vid_opt(example, workdir, name, 1, frames)
+        steps = frames // opt.train_batch_size
+        per_call = _k1_per_call(opt)
+        model, opt, sub = _train_run(opt, steps, 1, f"{name} training",
+                                     n_params, attention_per_step=per_call)
+        # served from the trained model (vid_mario's run holds the
+        # checkpoint round trip)
+        sub["request"] = _serve_vid(
+            os.path.join(opt.checkpoints_dir, opt.name, "latest_net_G_A.pth"),
+            model, opt, os.path.join(opt.dataroot, "trainA", "vid0"),
+            os.path.join(workdir, f"out_{name}"), 1,
+            ["--sampling_steps", "10", "--cond_canny"], name, per_call)
+        del model
+        torch.cuda.empty_cache()
+        rec[name] = sub
+        paths[f"{name}_training"] = sub["launches"]
+        paths[f"{name}_request"] = sub["request"]["launches"]
+    return rec, paths
+
+
+def vid_cross_check():
+    """vid_mario's UNetVid at full width in fp32, one clip of 8 frames at
+    64 px, the card (K1 81 times, at head dims 8 to 64 on the packed tiling
+    and 32 on the plain one) against the CPU (plain attention), on seeded
+    weights with small seeded values in the zero-initialised layers (the
+    motion modules' ``proj_out``, ``out_proj``, each ResBlock's
+    ``out_conv``): zero layers would leave the motion modules out of the
+    check."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.diffusion_networks import (define_inner_G,
+                                                             init_weights)
+
+    opt = _fp32(_example_opt(VID_EXAMPLES[0], tempfile.gettempdir(),
+                             "vid_xcheck"))
+    rng = np.random.default_rng(SEED + 43)
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 8, 64, 64, 6)).astype(
+        np.float32))
+    emb = torch.from_numpy(rng.standard_normal((1, 32)).astype(np.float32))
+
+    def build():
+        return init_weights(define_inner_G(opt),
+                            torch.Generator().manual_seed(SEED + 44),
+                            zero_init_std=0.01)
+    err, out = _card_vs_cpu(build, (x, emb), {}, "UNetVid",
+                            k1=VID_K1_PER_CALL)
+    if not out.abs().max().item() > 0:
+        raise AssertionError("the UNetVid cross-check's output is 0")
     return err
 
 
@@ -2681,43 +3132,60 @@ def main():
             raise AssertionError(f"{name}: ptxas injected warpgroup.wait "
                                  f"(C7517) in {injected}")
 
-    k1 = kernel_phase()
-    k2, k3 = backward_kernel_phase()
-    p1, p2, p3 = probe_kernel_phase()
+    seconds = {}                       # the smoke's time, phase by phase
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    k1 = phase("K1", kernel_phase)
+    k2, k3 = phase("K2/K3", backward_kernel_phase)
+    p1, p2, p3 = phase("P1-P3", probe_kernel_phase)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        model, serving = slice_phase(workdir)
-        k1["cross_check_fp32_max_abs_err"] = cross_check(
-            model.opt, {k: v.detach().cpu() for k, v in
-                        model.ema_nets["G_A"].state_dict().items()})
+        model, serving = phase("serving", slice_phase, workdir)
+        k1["cross_check_fp32_max_abs_err"] = phase(
+            "serving cross-check", cross_check, model.opt,
+            {k: v.detach().cpu() for k, v in
+             model.ema_nets["G_A"].state_dict().items()})
         del model
-        training = training_phase(workdir)
-        training_256 = training_256px_phase(workdir, {
+        training = phase("training", training_phase, workdir)
+        training_256 = phase("training 256 px", training_256px_phase,
+                             workdir, {
             "K1": k1["timings"]["256px_batch8"]["ms"],
             "K2": k2["timings"]["256px_batch8"]["dq_ms"],
             "K3": k3["timings"]["256px_batch8"]["dkv_ms"]})
-        xview = xview_phase(workdir, {
+        xview = phase("xview", xview_phase, workdir, {
             "K1": k1["timings"]["xview_128px_batch16"]["ms"],
             "K2": k2["timings"]["xview_128px_batch16"]["dq_ms"],
             "K3": k3["timings"]["xview_128px_batch16"]["dkv_ms"]})
-        configs, config_paths = other_configs_phase(workdir)
-        gans, gan_paths = cut_phase(workdir)
-        glasses, glasses_paths = glasses_phase(workdir)
-        cms, cm_paths = cm_phase(workdir)
-        mario, mario_paths = mario2sonic_phase(workdir)
-        unetref, unetref_paths = unetref_phase(workdir)
-    grad_check = gradient_cross_check()
-    mario["cross_check_fp32"] = mit_cross_check()
-    unetref["cross_check_fp32_max_abs_err"] = unetref_cross_check()
-    gans["horse2zebra"]["cross_check_fp32"] = cut_cross_check()
-    glasses["noglasses2glasses"]["cross_check_fp32"] = \
-        vision_aided_cross_check()
-    probe_launches, probes = probe_paths()
+        configs, config_paths = phase("other configs", other_configs_phase,
+                                      workdir)
+        gans, gan_paths = phase("CUT", cut_phase, workdir)
+        glasses, glasses_paths = phase("glasses", glasses_phase, workdir)
+        cms, cm_paths = phase("cm", cm_phase, workdir)
+        mario, mario_paths = phase("mario2sonic", mario2sonic_phase, workdir)
+        unetref, unetref_paths = phase("unetref", unetref_phase, workdir)
+        vid, vid_paths = phase("video", vid_phase, workdir)
+    grad_check = phase("gradient cross-check", gradient_cross_check)
+    vid["cross_check_fp32_max_abs_err"] = phase("video cross-check",
+                                                vid_cross_check)
+    mario["cross_check_fp32"] = phase("MiT cross-check", mit_cross_check)
+    unetref["cross_check_fp32_max_abs_err"] = phase("ref cross-check",
+                                                    unetref_cross_check)
+    gans["horse2zebra"]["cross_check_fp32"] = phase("CUT cross-check",
+                                                    cut_cross_check)
+    glasses["noglasses2glasses"]["cross_check_fp32"] = phase(
+        "vision-aided cross-check", vision_aided_cross_check)
+    probe_launches, probes = phase("probes", probe_paths)
     paths = {"serving": serving, "training": training["launches"],
              "trained_checkpoint_request":
                  training["trained_request_launches"],
              "training_256px": training_256["launches"], **xview["paths"],
              **config_paths, **gan_paths, **glasses_paths, **cm_paths,
-             **mario_paths, **unetref_paths, **probe_launches}
+             **mario_paths, **unetref_paths, **vid_paths, **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -2734,6 +3202,8 @@ def main():
     log("cm, cm_gan, sc: " + json.dumps(cms))
     log("mario2sonic: " + json.dumps(mario))
     log("unetref_viton: " + json.dumps(unetref))
+    log("vid_mario: " + json.dumps(vid))
+    log("phases (s): " + json.dumps(seconds))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     k1["training_gradient_cross_check"] = grad_check
     stage_a = probes["fused_resblock_probe"]

@@ -54,6 +54,18 @@
 // and Q read MN-major). lse and delta vary along the accumulator's columns;
 // queries at or past S get P = 0 explicitly.
 //
+// Head dim 8 and short sequences, as in flash_attention_fwd.cu: at D = 8
+// the bf16 kernels zero-pad their tiles to 16 columns in shared memory for
+// the products of depth D (Q.K^T, dO.V^T and their transposes) and run the
+// products D wide (dS.K, P^T.dO, dS^T.Q) as m64n8k16. Where S <= 32 both
+// kernels take the packed tiling: a block owns 64 / SP whole (batch, head)
+// sequences, SP = 2^sp_log2 >= S rows each, as queries and as keys, and a
+// key counts for a query only in its own sequence and below S. K2 then
+// computes dQ of those rows from one K/V tile (flash_bwd_dq_wgmma_packed_
+// kernel, flash_bwd_dq_packed_kernel) and K3 dK and dV of the same rows
+// from one Q/dO tile (flash_bwd_dkv_wgmma_packed_kernel,
+// flash_bwd_dkv_packed_kernel).
+//
 // Bound. At the training path's shape (B, S, H, D) = (8, 256, 16, 32) bf16,
 // K2 moves ~10.7 MB and does 6*B*H*S^2*D = 1.61 GFLOP, K3 ~12.8 MB and
 // 2.15 GFLOP: memory-bound on paper (~0.003-0.004 ms at 3.35 TB/s). At
@@ -301,7 +313,8 @@ using bf16 = __nv_bfloat16;
 // stages; every tile 64 rows x D in the core-matrix layout.
 template <int D, int WG>
 struct DqSmem {
-  static constexpr int TILE = 64 * D * 2;
+  static constexpr int DP = D < 16 ? 16 : D;  // columns: D, or 16 at D = 8
+  static constexpr int TILE = 64 * DP * 2;
   static constexpr int DO = WG * TILE;
   static constexpr int K = 2 * WG * TILE;
   static constexpr int V = K + 2 * TILE;
@@ -323,7 +336,8 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
   using namespace jg_hopper;
   using L = DqSmem<D, WG>;
   constexpr int NT = WG * 128;
-  static_assert(D % 16 == 0 && D <= 64, "D: a multiple of 16, at most 64");
+  static_assert((D % 16 == 0 || D == 8) && D <= 64,
+                "D: 8 or a multiple of 16, at most 64");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
 
@@ -351,6 +365,7 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
   load_rows<D, NT>(base + L::K, kb, k_ss, 0, S);
   load_rows<D, NT>(base + L::V, vb, v_ss, 0, S);
   cp_async_commit();
+  zero_pad_tiles<D, NT>(smem, 2 * WG + 4, L::TILE);
 
   // this thread's two rows (16 * warp + lane / 4, and 8 further) of the
   // warpgroup's 64: lse in the log2 domain and delta; 0 past S
@@ -394,13 +409,13 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
     float s[32], dp[32];
     wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < D / 16; ++t) {
+    for (int t = 0; t < L::DP / 16; ++t) {
       wgmma_ss_n64(s, desc_k_major<64>(sq, t), desc_k_major<64>(sk, t),
                    t > 0);
     }
     wgmma_commit();
 #pragma unroll
-    for (int t = 0; t < D / 16; ++t) {
+    for (int t = 0; t < L::DP / 16; ++t) {
       wgmma_ss_n64(dp, desc_k_major<64>(sdo, t), desc_k_major<64>(sv, t),
                    t > 0);
     }
@@ -457,7 +472,8 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
 // and 2 stages of 64 lse and 64 delta values.
 template <int D>
 struct DkvSmem {
-  static constexpr int TILE = 64 * D * 2;
+  static constexpr int DP = D < 16 ? 16 : D;  // columns: D, or 16 at D = 8
+  static constexpr int TILE = 64 * DP * 2;
   static constexpr int V = TILE;
   static constexpr int Q = 2 * TILE;
   static constexpr int DO = Q + 2 * TILE;
@@ -481,7 +497,8 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
                            float sm_scale) {
   using namespace jg_hopper;
   using L = DkvSmem<D>;
-  static_assert(D % 16 == 0 && D <= 64, "D: a multiple of 16, at most 64");
+  static_assert((D % 16 == 0 || D == 8) && D <= 64,
+                "D: 8 or a multiple of 16, at most 64");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
   const float* s_lse = reinterpret_cast<const float*>(smem + L::LSE);
@@ -520,6 +537,7 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
                     v_ss, k0, S);
   load_queries(0, 0);
   cp_async_commit();
+  zero_pad_tiles<D, 128>(smem, 6, L::TILE);
 
   float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
@@ -545,13 +563,13 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
     float p[32], ds[32];
     wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < D / 16; ++t) {
+    for (int t = 0; t < L::DP / 16; ++t) {
       wgmma_ss_n64(p, desc_k_major<64>(base, t), desc_k_major<64>(sq, t),
                    t > 0);
     }
     wgmma_commit();
 #pragma unroll
-    for (int t = 0; t < D / 16; ++t) {
+    for (int t = 0; t < L::DP / 16; ++t) {
       wgmma_ss_n64(ds, desc_k_major<64>(base + L::V, t),
                    desc_k_major<64>(sdo, t), t > 0);
     }
@@ -615,13 +633,423 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
   }
 }
 
+// ---- the packed tiling (S <= 32) -------------------------------------------
+
+using jg_hopper::locate_packed;
+using jg_hopper::packed_pair;
+
+// Two packed 64-row tiles of (B, S, H, D) tensors into shared memory as
+// fp32; rows that are not real are zero.
+template <int D>
+__device__ __forceinline__ void load_tiles_packed(
+    float (*sa)[D + 1], float (*sb_)[D + 1], const float* a, long long a_sb,
+    long long a_ss, const float* c, long long c_sb, long long c_ss, int n0,
+    int sp_log2, int S, int H, int n_seq) {
+  for (int idx = threadIdx.x; idx < 64 * D; idx += THREADS) {
+    const int j = idx / D;
+    const int d = idx % D;
+    int b, h, pos;
+    const bool ok = locate_packed(j, n0, sp_log2, S, H, n_seq, b, h, pos);
+    const long long off = static_cast<long long>(h) * D + d;
+    sa[j][d] = ok ? a[b * a_sb + pos * a_ss + off] : 0.f;
+    sb_[j][d] = ok ? c[b * c_sb + pos * c_ss + off] : 0.f;
+  }
+}
+
+// K2 in fp32, packed: the block's 64 rows are its queries and its keys.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_packed_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, int n_seq, int S, int H,
+                           long long q_sb, long long q_ss, long long k_sb,
+                           long long k_ss, long long v_sb, long long v_ss,
+                           long long do_sb, long long do_ss, float sm_scale,
+                           int sp_log2) {
+  constexpr int KPT = BLOCK_K / THREADS_PER_ROW;
+  constexpr int DPT = D / THREADS_PER_ROW;
+  __shared__ float sK[BLOCK_K][D + 1];
+  __shared__ float sV[BLOCK_K][D + 1];
+
+  const int n0 = blockIdx.x << (6 - sp_log2);
+  const int tid = threadIdx.x;
+  const int row = tid / THREADS_PER_ROW;
+  const int part = tid % THREADS_PER_ROW;
+  const int row_lane0 = (tid & 31) & ~(THREADS_PER_ROW - 1);
+
+  load_tiles_packed<D>(sK, sV, k, k_sb, k_ss, v, v_sb, v_ss, n0, sp_log2, S,
+                       H, n_seq);
+  int b, h, pos;
+  const bool row_ok = locate_packed(row, n0, sp_log2, S, H, n_seq, b, h, pos);
+  float qr[D], dor[D];
+  load_row<D>(qr, q, q_sb, q_ss, b, pos, h, row_ok);
+  load_row<D>(dor, dout, do_sb, do_ss, b, pos, h, row_ok);
+  const long long stat = (static_cast<long long>(b) * H + h) * S + pos;
+  const float lse_i = row_ok ? lse[stat] : 0.f;
+  const float delta_i = row_ok ? delta[stat] : 0.f;
+  __syncthreads();
+
+  float ds[KPT];
+#pragma unroll
+  for (int jj = 0; jj < KPT; ++jj) {
+    const int j = jj * THREADS_PER_ROW + part;
+    float sc = 0.f, dp = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      sc = fmaf(qr[d], sK[j][d], sc);
+      dp = fmaf(dor[d], sV[j][d], dp);
+    }
+    const float p = packed_pair(row, j, sp_log2, S)
+                        ? expf(sc * sm_scale - lse_i) : 0.f;
+    ds[jj] = p * (dp - delta_i) * sm_scale;
+  }
+  float acc[DPT];
+#pragma unroll
+  for (int dd = 0; dd < DPT; ++dd) acc[dd] = 0.f;
+#pragma unroll
+  for (int j = 0; j < BLOCK_K; ++j) {
+    const float dsj = __shfl_sync(FULL_MASK, ds[j / THREADS_PER_ROW],
+                                  row_lane0 + j % THREADS_PER_ROW);
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd) {
+      acc[dd] = fmaf(dsj, sK[j][part * DPT + dd], acc[dd]);
+    }
+  }
+  if (row_ok) {
+    float* out = dq + ((static_cast<long long>(b) * S + pos) * H + h) * D +
+                 part * DPT;
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd) out[dd] = acc[dd];
+  }
+}
+
+// K3 in fp32, packed: the block's 64 rows are its keys and its queries.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_packed_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int n_seq, int S, int H, long long q_sb,
+                            long long q_ss, long long k_sb, long long k_ss,
+                            long long v_sb, long long v_ss, long long do_sb,
+                            long long do_ss, float sm_scale, int sp_log2) {
+  constexpr int QPT = BLOCK_Q / THREADS_PER_ROW;
+  constexpr int DPT = D / THREADS_PER_ROW;
+  __shared__ float sQ[BLOCK_Q][D + 1];
+  __shared__ float sdO[BLOCK_Q][D + 1];
+  __shared__ float sL[BLOCK_Q];
+  __shared__ float sDelta[BLOCK_Q];
+
+  const int n0 = blockIdx.x << (6 - sp_log2);
+  const int tid = threadIdx.x;
+  const int row = tid / THREADS_PER_ROW;
+  const int part = tid % THREADS_PER_ROW;
+  const int row_lane0 = (tid & 31) & ~(THREADS_PER_ROW - 1);
+
+  load_tiles_packed<D>(sQ, sdO, q, q_sb, q_ss, dout, do_sb, do_ss, n0,
+                       sp_log2, S, H, n_seq);
+  if (tid < BLOCK_Q) {
+    int b, h, pos;
+    const bool ok = locate_packed(tid, n0, sp_log2, S, H, n_seq, b, h, pos);
+    const long long stat = (static_cast<long long>(b) * H + h) * S + pos;
+    sL[tid] = ok ? lse[stat] : 0.f;
+    sDelta[tid] = ok ? delta[stat] : 0.f;
+  }
+  int b, h, pos;
+  const bool row_ok = locate_packed(row, n0, sp_log2, S, H, n_seq, b, h, pos);
+  float kr[D], vr[D];
+  load_row<D>(kr, k, k_sb, k_ss, b, pos, h, row_ok);
+  load_row<D>(vr, v, v_sb, v_ss, b, pos, h, row_ok);
+  __syncthreads();
+
+  float p[QPT], ds[QPT];
+#pragma unroll
+  for (int ii = 0; ii < QPT; ++ii) {
+    const int i = ii * THREADS_PER_ROW + part;
+    float sc = 0.f, dp = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      sc = fmaf(kr[d], sQ[i][d], sc);
+      dp = fmaf(vr[d], sdO[i][d], dp);
+    }
+    // query i counts for this key when the key is in i's sequence and the
+    // query is a real row
+    const float pi = packed_pair(row, i, sp_log2, S)
+                         ? expf(sc * sm_scale - sL[i]) : 0.f;
+    p[ii] = pi;
+    ds[ii] = pi * (dp - sDelta[i]) * sm_scale;
+  }
+  float dk_acc[DPT], dv_acc[DPT];
+#pragma unroll
+  for (int dd = 0; dd < DPT; ++dd) dk_acc[dd] = dv_acc[dd] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BLOCK_Q; ++i) {
+    const int src = row_lane0 + i % THREADS_PER_ROW;
+    const float pi = __shfl_sync(FULL_MASK, p[i / THREADS_PER_ROW], src);
+    const float dsi = __shfl_sync(FULL_MASK, ds[i / THREADS_PER_ROW], src);
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd) {
+      dv_acc[dd] = fmaf(pi, sdO[i][part * DPT + dd], dv_acc[dd]);
+      dk_acc[dd] = fmaf(dsi, sQ[i][part * DPT + dd], dk_acc[dd]);
+    }
+  }
+  if (row_ok) {
+    const long long off =
+        ((static_cast<long long>(b) * S + pos) * H + h) * D + part * DPT;
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd) {
+      dk[off + dd] = dk_acc[dd];
+      dv[off + dd] = dv_acc[dd];
+    }
+  }
+}
+
+// K2 in bf16, packed: one warpgroup; Q, dO, K and V tiles of the block's 64
+// packed rows loaded once; S = Q.K^T and dP = dO.V^T, dS on the
+// block-diagonal mask, dQ = dS.K (K read MN-major), sm_scale in the epilogue.
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_wgmma_packed_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int n_seq, int S, int H, long long q_sb,
+    long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+    long long v_ss, long long do_sb, long long do_ss, float sm_scale,
+    int sp_log2) {
+  using namespace jg_hopper;
+  using L = DqSmem<D, 1>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sq = smem_u32(smem);
+  const uint32_t sdo = sq + L::TILE;
+  const uint32_t sk = sq + 2 * L::TILE;
+  const uint32_t sv = sq + 3 * L::TILE;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int n0 = blockIdx.x << (6 - sp_log2);
+
+  load_rows_packed<D, 128>(sq, q, q_sb, q_ss, n0, n_seq, H, S, sp_log2);
+  load_rows_packed<D, 128>(sdo, dout, do_sb, do_ss, n0, n_seq, H, S,
+                           sp_log2);
+  load_rows_packed<D, 128>(sk, k, k_sb, k_ss, n0, n_seq, H, S, sp_log2);
+  load_rows_packed<D, 128>(sv, v, v_sb, v_ss, n0, n_seq, H, S, sp_log2);
+  cp_async_commit();
+  zero_pad_tiles<D, 128>(smem, 4, L::TILE);
+
+  const int row0 = 16 * warp + (lane >> 2);
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    int b, h, pos;
+    const bool ok =
+        locate_packed(row0 + 8 * r, n0, sp_log2, S, H, n_seq, b, h, pos);
+    const long long stat = (static_cast<long long>(b) * H + h) * S + pos;
+    lse2[r] = ok ? lse[stat] * LOG2E : 0.f;
+    dlt[r] = ok ? delta[stat] : 0.f;
+  }
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  float s[32], dp[32];
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < L::DP / 16; ++t) {
+    wgmma_ss_n64(s, desc_k_major<64>(sq, t), desc_k_major<64>(sk, t), t > 0);
+  }
+  wgmma_commit();
+#pragma unroll
+  for (int t = 0; t < L::DP / 16; ++t) {
+    wgmma_ss_n64(dp, desc_k_major<64>(sdo, t), desc_k_major<64>(sv, t),
+                 t > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+
+  const float scale_log2 = sm_scale * LOG2E;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const int key = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    const float p = packed_pair(row0 + 8 * r, key, sp_log2, S)
+                        ? exp2f(fmaf(s[i], scale_log2, -lse2[r]))
+                        : 0.f;
+    s[i] = p * (dp[i] - dlt[r]);
+  }
+  uint32_t dsa[4][4];
+  acc_to_a_frags(s, dsa);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    wgmma_rs<D>(acc, dsa[t], desc_mn_major<64>(sk, t));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    int b, h, pos;
+    if (!locate_packed(row0 + 8 * r, n0, sp_log2, S, H, n_seq, b, h, pos)) {
+      continue;
+    }
+    bf16* out = dq + ((static_cast<long long>(b) * S + pos) * H + h) * D +
+                2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] * sm_scale, acc[4 * j + 2 * r + 1] * sm_scale);
+    }
+  }
+}
+
+// K3 in bf16, packed: one warpgroup; K, V, Q and dO tiles of the block's 64
+// packed rows and their lse and delta loaded once; S^T = K.Q^T and
+// dP^T = V.dO^T, P^T and dS^T on the block-diagonal mask, dV = P^T.dO and
+// dK = dS^T.Q (dO and Q read MN-major).
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dkv_wgmma_packed_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int n_seq, int S, int H,
+    long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+    long long v_sb, long long v_ss, long long do_sb, long long do_ss,
+    float sm_scale, int sp_log2) {
+  using namespace jg_hopper;
+  using L = DkvSmem<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sk = smem_u32(smem);
+  const uint32_t sv = sk + L::TILE;
+  const uint32_t sq = sk + 2 * L::TILE;
+  const uint32_t sdo = sk + 3 * L::TILE;
+  float* s_lse = reinterpret_cast<float*>(smem + 4 * L::TILE);
+  float* s_delta = s_lse + 64;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int n0 = blockIdx.x << (6 - sp_log2);
+
+  load_rows_packed<D, 128>(sk, k, k_sb, k_ss, n0, n_seq, H, S, sp_log2);
+  load_rows_packed<D, 128>(sv, v, v_sb, v_ss, n0, n_seq, H, S, sp_log2);
+  load_rows_packed<D, 128>(sq, q, q_sb, q_ss, n0, n_seq, H, S, sp_log2);
+  load_rows_packed<D, 128>(sdo, dout, do_sb, do_ss, n0, n_seq, H, S,
+                           sp_log2);
+  cp_async_commit();
+  zero_pad_tiles<D, 128>(smem, 4, L::TILE);
+  {
+    // query column c = tid % 64: its lse (threads 0-63) or delta (64-127)
+    int b, h, pos;
+    const int c = tid & 63;
+    const bool ok = locate_packed(c, n0, sp_log2, S, H, n_seq, b, h, pos);
+    const long long stat = (static_cast<long long>(b) * H + h) * S + pos;
+    if (tid < 64) {
+      s_lse[c] = ok ? lse[stat] * LOG2E : 0.f;
+    } else {
+      s_delta[c] = ok ? delta[stat] : 0.f;
+    }
+  }
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  float p[32], ds[32];
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < L::DP / 16; ++t) {
+    wgmma_ss_n64(p, desc_k_major<64>(sk, t), desc_k_major<64>(sq, t), t > 0);
+  }
+  wgmma_commit();
+#pragma unroll
+  for (int t = 0; t < L::DP / 16; ++t) {
+    wgmma_ss_n64(ds, desc_k_major<64>(sv, t), desc_k_major<64>(sdo, t),
+                 t > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(p);
+  fence_regs(ds);
+
+  // register i holds key row 16 * warp + lane / 4 + 8 * ((i / 2) % 2) and
+  // query column 8 * (i / 4) + 2 * (lane % 4) + i % 2
+  const float scale_log2 = sm_scale * LOG2E;
+  const int row0 = 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int key = row0 + 8 * ((i >> 1) & 1);
+    const int c = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    const float pi = packed_pair(key, c, sp_log2, S)
+                         ? exp2f(fmaf(p[i], scale_log2, -s_lse[c]))
+                         : 0.f;
+    p[i] = pi;
+    ds[i] = pi * (ds[i] - s_delta[c]) * sm_scale;
+  }
+  uint32_t pa[4][4], dsa[4][4];
+  acc_to_a_frags(p, pa);
+  acc_to_a_frags(ds, dsa);
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  fence_regs(dv_acc);
+  fence_regs(dk_acc);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    wgmma_rs<D>(dv_acc, pa[t], desc_mn_major<64>(sdo, t));
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    wgmma_rs<D>(dk_acc, dsa[t], desc_mn_major<64>(sq, t));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dv_acc);
+  fence_regs(dk_acc);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    int b, h, pos;
+    if (!locate_packed(row0 + 8 * r, n0, sp_log2, S, H, n_seq, b, h, pos)) {
+      continue;
+    }
+    const long long off =
+        ((static_cast<long long>(b) * S + pos) * H + h) * D + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+          __floats2bfloat162_rn(dk_acc[4 * j + 2 * r],
+                                dk_acc[4 * j + 2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+          __floats2bfloat162_rn(dv_acc[4 * j + 2 * r],
+                                dv_acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out0, *out1;
   int B, S, H;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss;
   float sm_scale;
-  int q_tile;  // K2 in bf16: queries per block, 64 or 128
+  int q_tile;   // K2 in bf16: queries per block, 64 or 128
+  int sp_log2;  // -1: the plain tiling; else packed, 2^sp_log2 rows a sequence
   cudaStream_t stream;
 };
 
@@ -687,9 +1115,64 @@ int launch_dkv_wgmma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// fp32 on FMAs, bf16 on wgmma.
+// the packed tiling: 64 / 2^sp_log2 sequences a block
+template <int D>
+int launch_packed(const Args& a, int dtype, bool dkv) {
+  const int n_seq = a.B * a.H;
+  const int per_block = 64 >> a.sp_log2;
+  const dim3 grid((n_seq + per_block - 1) / per_block);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  if (dtype == 0) {
+    const float* q = static_cast<const float*>(a.q);
+    const float* k = static_cast<const float*>(a.k);
+    const float* v = static_cast<const float*>(a.v);
+    const float* dout = static_cast<const float*>(a.dout);
+    if (dkv) {
+      flash_bwd_dkv_packed_kernel<D><<<grid, THREADS, 0, a.stream>>>(
+          q, k, v, dout, lse, delta, static_cast<float*>(a.out0),
+          static_cast<float*>(a.out1), n_seq, a.S, a.H, a.q_sb, a.q_ss,
+          a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale,
+          a.sp_log2);
+    } else {
+      flash_bwd_dq_packed_kernel<D><<<grid, THREADS, 0, a.stream>>>(
+          q, k, v, dout, lse, delta, static_cast<float*>(a.out0), n_seq, a.S,
+          a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb,
+          a.do_ss, a.sm_scale, a.sp_log2);
+    }
+  } else {
+    const bf16* q = static_cast<const bf16*>(a.q);
+    const bf16* k = static_cast<const bf16*>(a.k);
+    const bf16* v = static_cast<const bf16*>(a.v);
+    const bf16* dout = static_cast<const bf16*>(a.dout);
+    if (dkv) {
+      constexpr int BYTES = 4 * DkvSmem<D>::TILE + 2 * 64 * 4;
+      flash_bwd_dkv_wgmma_packed_kernel<D><<<grid, 128, BYTES, a.stream>>>(
+          q, k, v, dout, lse, delta, static_cast<bf16*>(a.out0),
+          static_cast<bf16*>(a.out1), n_seq, a.S, a.H, a.q_sb, a.q_ss,
+          a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale,
+          a.sp_log2);
+    } else {
+      constexpr int BYTES = 4 * DqSmem<D, 1>::TILE;
+      flash_bwd_dq_wgmma_packed_kernel<D><<<grid, 128, BYTES, a.stream>>>(
+          q, k, v, dout, lse, delta, static_cast<bf16*>(a.out0), n_seq, a.S,
+          a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb,
+          a.do_ss, a.sm_scale, a.sp_log2);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fp32 on FMAs, bf16 on wgmma; the packed tiling where sp_log2 >= 0.
 template <int D>
 int launch_d(const Args& a, int dtype, bool dkv) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.sp_log2 >= 0) {
+    if (a.sp_log2 > 5 || a.S > (1 << a.sp_log2)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_packed<D>(a, dtype, dkv);
+  }
   if (dtype == 0) return dkv ? launch_dkv_fma<D>(a) : launch_dq_fma<D>(a);
   if (dtype == 1 && dkv) return launch_dkv_wgmma<D>(a);
   if (dtype == 1 && a.q_tile == 64) return launch_dq_wgmma<D, 1>(a);
@@ -703,6 +1186,8 @@ int dispatch(const Args& a, int D, int dtype, bool dkv) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (D) {
+    case 8:
+      return launch_d<8>(a, dtype, dkv);
     case 16:
       return launch_d<16>(a, dtype, dkv);
     case 32:
@@ -721,17 +1206,20 @@ int dispatch(const Args& a, int D, int dtype, bool dkv) {
 // contiguous (B, H, S) fp32; dq (K2) and dk, dv (K3): contiguous
 // (B, S, H, D) in the input dtype. dtype: 0 = float32 (FMA kernels),
 // 1 = bfloat16 (wgmma kernels; K2 with q_tile = 64 or 128 queries per
-// block). Each returns the launch's cudaError_t.
+// block). sp_log2: -1 for the plain tiling, else the packed tiling with
+// 2^sp_log2 >= S rows a sequence (at most 32). Each returns the launch's
+// cudaError_t.
 extern "C" int jg_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int S, int H, int D,
     long long q_sb, long long q_ss, long long k_sb, long long k_ss,
     long long v_sb, long long v_ss, long long do_sb, long long do_ss,
-    float sm_scale, int dtype, int q_tile, void* stream) {
+    float sm_scale, int dtype, int q_tile, int sp_log2, void* stream) {
   const Args a{q,    k,     v,     dout,     lse,    delta,
                dq,   nullptr, B,   S,        H,      q_sb,
                q_ss, k_sb,  k_ss,  v_sb,     v_ss,   do_sb,
-               do_ss, sm_scale, q_tile, static_cast<cudaStream_t>(stream)};
+               do_ss, sm_scale, q_tile, sp_log2,
+               static_cast<cudaStream_t>(stream)};
   return dispatch(a, D, dtype, false);
 }
 
@@ -740,10 +1228,10 @@ extern "C" int jg_flash_attention_bwd_dkv(
     const void* lse, const void* delta, void* dk, void* dv, int B, int S,
     int H, int D, long long q_sb, long long q_ss, long long k_sb,
     long long k_ss, long long v_sb, long long v_ss, long long do_sb,
-    long long do_ss, float sm_scale, int dtype, void* stream) {
+    long long do_ss, float sm_scale, int dtype, int sp_log2, void* stream) {
   const Args a{q,    k,    v,    dout, lse,  delta, dk,    dv,
                B,    S,    H,    q_sb, q_ss, k_sb,  k_ss,  v_sb,
-               v_ss, do_sb, do_ss, sm_scale, 64,
+               v_ss, do_sb, do_ss, sm_scale, 64, sp_log2,
                static_cast<cudaStream_t>(stream)};
   return dispatch(a, D, dtype, true);
 }

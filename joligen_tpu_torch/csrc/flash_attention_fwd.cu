@@ -29,6 +29,20 @@
 // owns (batch*head, 64 queries), converts each K/V tile to fp32 in shared
 // memory, four threads share a query row and combine by warp shuffles.
 //
+// Head dims 8, 16, 32 and 64. At D = 8 the bf16 route zero-pads Q and K to
+// 16 columns in shared memory for Q.K^T (wgmma's depth is 16) and runs P.V
+// as m64n8k16; sm_scale stays the caller's (1/sqrt(8) by default).
+//
+// Short sequences (S <= 32: the motion modules of unet_vid attend over 6 or
+// 8 frames) take the packed tiling, in both routes: a block's 64 rows hold
+// 64 / SP whole (batch, head) sequences, each padded to SP = 2^sp_log2 >= S
+// rows, and a key counts for a query only in the query's own sequence and
+// below S, which makes the scores block-diagonal. One tile of Q, K and V,
+// so one pass of the softmax and no key loop (flash_fwd_wgmma_packed_kernel,
+// flash_fwd_packed_kernel). The plain tiling would give each sequence a
+// block of 64 query rows, S of them used. The wrapper picks the tiling from
+// S.
+//
 // Both routes read (B, S, H, D) inputs with the last two dims contiguous and
 // arbitrary batch/sequence strides, so the q/k/v column slices of a fused
 // qkv projection are read in place (the bf16 route needs 16-byte aligned
@@ -187,15 +201,113 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The packed tiling in fp32: a block owns the 64 packed rows of sequences
+// n0 .. n0 + 64 / SP - 1 (hopper_wgmma.cuh), as queries and as keys; four
+// threads share a query row, as in flash_fwd_kernel, and a key counts only
+// in the row's own sequence and below S.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_packed_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int n_seq, int S, int H,
+                        long long q_sb, long long q_ss, long long k_sb,
+                        long long k_ss, long long v_sb, long long v_ss,
+                        float sm_scale, int sp_log2) {
+  constexpr int KPT = BLOCK_K / THREADS_PER_ROW;
+  constexpr int DPT = D / THREADS_PER_ROW;
+  __shared__ float sK[BLOCK_K][D + 1];
+  __shared__ float sV[BLOCK_K][D];
+
+  const int n0 = blockIdx.x << (6 - sp_log2);
+  const int tid = threadIdx.x;
+  const int row = tid / THREADS_PER_ROW;
+  const int part = tid % THREADS_PER_ROW;
+  const int row_lane0 = (tid & 31) & ~(THREADS_PER_ROW - 1);
+  auto locate = [&](int r, int& b, int& h, int& pos) {
+    return jg_hopper::locate_packed(r, n0, sp_log2, S, H, n_seq, b, h, pos);
+  };
+
+  for (int idx = tid; idx < BLOCK_K * D; idx += THREADS) {
+    const int j = idx / D;
+    const int d = idx % D;
+    int b, h, pos;
+    const bool ok = locate(j, b, h, pos);
+    const long long off = static_cast<long long>(h) * D + d;
+    sK[j][d] = ok ? k[b * k_sb + pos * k_ss + off] : 0.f;
+    sV[j][d] = ok ? v[b * v_sb + pos * v_ss + off] : 0.f;
+  }
+  int b, h, pos;
+  const bool row_ok = locate(row, b, h, pos);
+  float qr[D];
+  {
+    const float* qp = q + b * q_sb + pos * q_ss + static_cast<long long>(h) * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) qr[d] = row_ok ? qp[d] * sm_scale : 0.f;
+  }
+  __syncthreads();
+
+  float s[KPT];
+  float m = NEG_INF;
+#pragma unroll
+  for (int jj = 0; jj < KPT; ++jj) {
+    const int j = jj * THREADS_PER_ROW + part;
+    float dot = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) dot = fmaf(qr[d], sK[j][d], dot);
+    s[jj] = jg_hopper::packed_pair(row, j, sp_log2, S) ? dot : NEG_INF;
+    m = fmaxf(m, s[jj]);
+  }
+#pragma unroll
+  for (int off = 1; off < THREADS_PER_ROW; off <<= 1) {
+    m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, off));
+  }
+  float l = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < KPT; ++jj) {
+    s[jj] = expf(s[jj] - m);
+    l += s[jj];
+  }
+#pragma unroll
+  for (int off = 1; off < THREADS_PER_ROW; off <<= 1) {
+    l += __shfl_xor_sync(FULL_MASK, l, off);
+  }
+  float acc[DPT];
+#pragma unroll
+  for (int dd = 0; dd < DPT; ++dd) acc[dd] = 0.f;
+#pragma unroll
+  for (int j = 0; j < BLOCK_K; ++j) {
+    const float p = __shfl_sync(FULL_MASK, s[j / THREADS_PER_ROW],
+                                row_lane0 + j % THREADS_PER_ROW);
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd) {
+      acc[dd] = fmaf(p, sV[j][part * DPT + dd], acc[dd]);
+    }
+  }
+
+  if (row_ok) {
+    const float l_safe = fmaxf(l, 1e-30f);
+    float* op =
+        o + ((static_cast<long long>(b) * S + pos) * H + h) * D + part * DPT;
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd) op[dd] = acc[dd] / l_safe;
+    if (part == 0) {
+      lse[(static_cast<long long>(b) * H + h) * S + pos] = m + logf(l_safe);
+    }
+  }
+}
+
 // ---- bf16 route: wgmma on the tensor cores --------------------------------
 
 using bf16 = __nv_bfloat16;
 
 // Shared memory of a block: WG Q tiles, then 2 K and 2 V stages; every tile
-// 64 rows x D in the core-matrix layout of hopper_wgmma.cuh.
+// 64 rows x DP (D, or 16 at D = 8) in the core-matrix layout of
+// hopper_wgmma.cuh.
 template <int D, int WG>
 struct FwdSmem {
-  static constexpr int TILE = 64 * D * 2;
+  static constexpr int DP = D < 16 ? 16 : D;
+  static constexpr int TILE = 64 * DP * 2;
   static constexpr int K = WG * TILE;
   static constexpr int V = K + 2 * TILE;
   static constexpr int BYTES = V + 2 * TILE;
@@ -211,7 +323,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using namespace jg_hopper;
   using L = FwdSmem<D, WG>;
   constexpr int NT = WG * 128;
-  static_assert(D % 16 == 0 && D <= 64, "D: a multiple of 16, at most 64");
+  static_assert((D % 16 == 0 || D == 8) && D <= 64,
+                "D: 8 or a multiple of 16, at most 64");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
 
@@ -235,6 +348,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_rows<D, NT>(base + L::K, kb, k_ss, 0, S);
   load_rows<D, NT>(base + L::V, vb, v_ss, 0, S);
   cp_async_commit();
+  zero_pad_tiles<D, NT>(smem, WG + 4, L::TILE);
 
   float acc[D / 2];
 #pragma unroll
@@ -266,7 +380,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[32];
     wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < D / 16; ++t) {
+    for (int t = 0; t < L::DP / 16; ++t) {
       wgmma_ss_n64(s, desc_k_major<64>(sq, t), desc_k_major<64>(sk, t),
                    t > 0);
     }
@@ -339,6 +453,114 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The packed tiling in bf16: one warpgroup owns the 64 packed rows of
+// sequences n0 .. n0 + 64 / SP - 1, as queries and as keys (Q, K and V
+// tiles loaded once); S = Q.K^T, the block-diagonal mask, one softmax pass
+// in registers, O = P.V, as flash_fwd_wgmma_kernel does per key tile.
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_fwd_wgmma_packed_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              bf16* __restrict__ o, float* __restrict__ lse,
+                              int n_seq, int S, int H, long long q_sb,
+                              long long q_ss, long long k_sb, long long k_ss,
+                              long long v_sb, long long v_ss,
+                              float scale_log2, int sp_log2) {
+  using namespace jg_hopper;
+  using L = FwdSmem<D, 1>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sq = smem_u32(smem);
+  const uint32_t sk = sq + L::TILE;
+  const uint32_t sv = sq + 2 * L::TILE;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int n0 = blockIdx.x << (6 - sp_log2);
+
+  load_rows_packed<D, 128>(sq, q, q_sb, q_ss, n0, n_seq, H, S, sp_log2);
+  load_rows_packed<D, 128>(sk, k, k_sb, k_ss, n0, n_seq, H, S, sp_log2);
+  load_rows_packed<D, 128>(sv, v, v_sb, v_ss, n0, n_seq, H, S, sp_log2);
+  cp_async_commit();
+  zero_pad_tiles<D, 128>(smem, 3, L::TILE);
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  float s[32];
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < L::DP / 16; ++t) {
+    wgmma_ss_n64(s, desc_k_major<64>(sq, t), desc_k_major<64>(sk, t), t > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+
+  // register i holds row 16 * warp + lane / 4 + 8 * ((i / 2) % 2) and key
+  // 8 * (i / 4) + 2 * (lane % 4) + i % 2 of the tile
+  const int row0 = 16 * warp + (lane >> 2);
+  float m[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const int key = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    s[i] = packed_pair(row0 + 8 * r, key, sp_log2, S) ? s[i] * scale_log2
+                                                      : NEG_INF;
+    m[r] = fmaxf(m[r], s[i]);
+  }
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(FULL_MASK, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(FULL_MASK, m[r], 2));
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
+    l[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL_MASK, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL_MASK, l[r], 2);
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  uint32_t pa[4][4];
+  acc_to_a_frags(s, pa);
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < 4; ++t) wgmma_rs<D>(acc, pa[t], desc_mn_major<64>(sv, t));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    int b, h, pos;
+    if (!locate_packed(row0 + 8 * r, n0, sp_log2, S, H, n_seq, b, h, pos)) {
+      continue;
+    }
+    const float l_safe = fmaxf(l[r], 1e-30f);
+    const float inv = 1.f / l_safe;
+    bf16* op = o + ((static_cast<long long>(b) * S + pos) * H + h) * D +
+               2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+    }
+    if ((lane & 3) == 0) {
+      lse[(static_cast<long long>(b) * H + h) * S + pos] =
+          (m[r] + log2f(l_safe)) * LN2;
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v;
   void *o, *lse;
@@ -376,11 +598,41 @@ int launch_wgmma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the packed tiling: 64 / 2^sp_log2 sequences a block
 template <int D>
-int launch_d(const Args& a, int dtype, int q_tile) {
+int launch_packed(const Args& a, int dtype, int sp_log2) {
+  const int n_seq = a.B * a.H;
+  const int per_block = 64 >> sp_log2;
+  const dim3 grid((n_seq + per_block - 1) / per_block);
+  if (dtype == 0) {
+    flash_fwd_packed_kernel<D><<<grid, THREADS, 0, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(a.o),
+        static_cast<float*>(a.lse), n_seq, a.S, a.H, a.q_sb, a.q_ss, a.k_sb,
+        a.k_ss, a.v_sb, a.v_ss, a.sm_scale, sp_log2);
+  } else {
+    constexpr int BYTES = 3 * FwdSmem<D, 1>::TILE;
+    flash_fwd_wgmma_packed_kernel<D><<<grid, 128, BYTES, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
+        static_cast<float*>(a.lse), n_seq, a.S, a.H, a.q_sb, a.q_ss, a.k_sb,
+        a.k_ss, a.v_sb, a.v_ss, a.sm_scale * LOG2E, sp_log2);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(const Args& a, int dtype, int q_tile, int sp_log2) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (sp_log2 >= 0) {
+    if (sp_log2 > 5 || a.S > (1 << sp_log2)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_packed<D>(a, dtype, sp_log2);
+  }
   if (dtype == 0) return launch_fma<D>(a);
-  if (dtype == 1 && q_tile == 64) return launch_wgmma<D, 1>(a);
-  if (dtype == 1 && q_tile == 128) return launch_wgmma<D, 2>(a);
+  if (q_tile == 64) return launch_wgmma<D, 1>(a);
+  if (q_tile == 128) return launch_wgmma<D, 2>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -390,12 +642,14 @@ int launch_d(const Args& a, int dtype, int q_tile) {
 // element (b, s, h, d) at b * x_sb + s * x_ss + h * D + d; o: contiguous
 // (B, S, H, D) in the input dtype; lse: contiguous (B, H, S) fp32.
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel, q_tile = 64
-// or 128 queries per block). Returns the launch's cudaError_t.
+// or 128 queries per block). sp_log2: -1 for the plain tiling, else the
+// packed tiling with 2^sp_log2 >= S rows a sequence (at most 32). Returns
+// the launch's cudaError_t.
 extern "C" int jg_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int S, int H, int D, long long q_sb, long long q_ss, long long k_sb,
     long long k_ss, long long v_sb, long long v_ss, float sm_scale, int dtype,
-    int q_tile, void* stream) {
+    int q_tile, int sp_log2, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 ||
       static_cast<long long>(B) * H > INT_MAX ||
       (S + BLOCK_Q - 1) / BLOCK_Q > 65535) {
@@ -405,12 +659,14 @@ extern "C" int jg_flash_attention_fwd(
                H,    q_sb, q_ss, k_sb, k_ss, v_sb,     v_ss,
                sm_scale, static_cast<cudaStream_t>(stream)};
   switch (D) {
+    case 8:
+      return launch_d<8>(a, dtype, q_tile, sp_log2);
     case 16:
-      return launch_d<16>(a, dtype, q_tile);
+      return launch_d<16>(a, dtype, q_tile, sp_log2);
     case 32:
-      return launch_d<32>(a, dtype, q_tile);
+      return launch_d<32>(a, dtype, q_tile, sp_log2);
     case 64:
-      return launch_d<64>(a, dtype, q_tile);
+      return launch_d<64>(a, dtype, q_tile, sp_log2);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

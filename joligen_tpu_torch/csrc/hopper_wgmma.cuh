@@ -28,6 +28,19 @@
 // applies the same XOR to the address. The 8 chunks of a row then fall on
 // 8 different bank groups, for the copies and for wgmma's own reads.
 //
+// Head dim 8. wgmma's depth is 16 bf16 values, so a product of depth D = 8
+// (Q.K^T, dO.V^T) reads tiles of 16 columns whose second 8-column chunk is
+// zero: the kernels zero that chunk in shared memory once (zero_pad_tiles)
+// and the loads never write it. A product that comes out D = 8 wide (P.V,
+// dS.K, P^T.dO, dS^T.Q) is m64n8k16 (wgmma_rs<8>) and reads only the first
+// chunk of its B tile.
+//
+// Packed short sequences. Where S is at most 32, a block's 64 rows hold
+// whole (batch, head) sequences, each padded to SP = 2^sp_log2 >= S rows:
+// row r of the tile is position r % SP of sequence n0 + r / SP, where
+// sequence n is (batch n / H, head n % H). load_rows_packed fills such a
+// tile; rows past S or past the last sequence are zero.
+//
 // Accumulator layout of wgmma m64nNk16 with f32 D (per PTX): warp w of the
 // warpgroup, lane l, register i in [0, N/2) holds row 16w + l/4 + 8*((i/2)%2)
 // and column 8*(i/4) + 2*(l%4) + i%2. For bf16, registers 8t..8t+7 of an
@@ -83,6 +96,67 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
     const __nv_bfloat16* src =
         base + static_cast<long long>(ok ? r0 + r : 0) * ss + c * 8;
     cp_async16(dst + tile_offset<64>(r, c), src, ok);
+  }
+}
+
+// (batch, head, position) of row r of a packed tile whose first sequence is
+// n0; true when it is a real row (position below S, sequence below n_seq).
+// A row that is not real gets row 0 of sequence 0: a valid address, unread.
+__device__ __forceinline__ bool locate_packed(int r, int n0, int sp_log2,
+                                              int S, int H, int n_seq, int& b,
+                                              int& h, int& pos) {
+  const int n = n0 + (r >> sp_log2);
+  pos = r & ((1 << sp_log2) - 1);
+  const bool ok = pos < S && n < n_seq;
+  b = ok ? n / H : 0;
+  h = ok ? n - b * H : 0;
+  pos = ok ? pos : 0;
+  return ok;
+}
+
+// query row i and key row j of one packed tile: same sequence, key below S
+__device__ __forceinline__ bool packed_pair(int i, int j, int sp_log2,
+                                            int S) {
+  return (i >> sp_log2) == (j >> sp_log2) &&
+         (j & ((1 << sp_log2) - 1)) < S;
+}
+
+// The packed rows of a 64-row tile: sequences n0 .. n0 + 64 / SP - 1 of the
+// n_seq = B * H sequences of a (B, S, H, D) tensor (x_sb, x_ss its batch and
+// row strides in elements), SP = 2^sp_log2 rows each, into the tile at
+// shared address dst by the block's THREADS threads; rows at or past S and
+// sequences at or past n_seq are zero. Nothing is awaited here.
+template <int D, int THREADS>
+__device__ __forceinline__ void load_rows_packed(uint32_t dst,
+                                                 const __nv_bfloat16* x,
+                                                 long long sb, long long ss,
+                                                 int n0, int n_seq, int H,
+                                                 int S, int sp_log2) {
+  constexpr int CHUNKS = D / 8;
+  for (int idx = threadIdx.x; idx < 64 * CHUNKS; idx += THREADS) {
+    const int r = idx / CHUNKS;
+    const int c = idx % CHUNKS;
+    int b, h, pos;
+    const bool ok = locate_packed(r, n0, sp_log2, S, H, n_seq, b, h, pos);
+    const __nv_bfloat16* src = x + b * sb + static_cast<long long>(pos) * ss +
+                               static_cast<long long>(h) * D + c * 8;
+    cp_async16(dst + tile_offset<64>(r, c), src, ok);
+  }
+}
+
+// Zeros columns 8..15 of each of n 64-row tiles of TILE bytes from smem (a
+// generic pointer), by the block's THREADS threads: the k padding of head
+// dim 8. A no-op for D >= 16. The caller's fence_proxy_async and barrier
+// make the zeros visible to wgmma.
+template <int D, int THREADS>
+__device__ __forceinline__ void zero_pad_tiles(unsigned char* smem, int n,
+                                               int tile_bytes) {
+  if constexpr (D < 16) {
+    for (int idx = threadIdx.x; idx < n * 64; idx += THREADS) {
+      // chunk 1 of a tile: the 8 core matrices after chunk 0's, 16 bytes a row
+      *reinterpret_cast<uint4*>(smem + (idx / 64) * tile_bytes + 1024 +
+                                (idx % 64) * 16) = make_uint4(0, 0, 0, 0);
+    }
   }
 }
 
@@ -220,10 +294,22 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
 }
 
 // D(64xN, f32) += A(64x16, bf16 registers) . B(16xN), B MN-major in shared
-// memory (the transpose bit), N in {16, 32, 64}.
+// memory (the transpose bit), N in {8, 16, 32, 64}.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<8>(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],

@@ -1,9 +1,10 @@
 """Host-side data pipeline (``joligen_tpu/data/__init__.py``).
 
 All randomness, PIL decoding and cropping stay on the host; the device sees
-fixed-shape NHWC batches. Ported modes (``PORTED_MODES``): the labeled-mask
-modes, their online bbox-crop variants and the four ref modes,
-``unaligned``, ``aligned`` and ``single``; any other mode raises
+fixed-shape NHWC batches ((B, F, H, W, C) clips for the video modes). Ported
+modes (``PORTED_MODES``): the labeled-mask modes, their online bbox-crop
+variants and the four ref modes, ``unaligned``, ``aligned`` and
+``single``, and the online video modes; any other mode raises
 ``NotImplementedError``.
 """
 
@@ -22,7 +23,10 @@ PORTED_MODES = ("unaligned_labeled_mask", "unaligned_labeled_mask_cls",
                 "unaligned_labeled_mask_ref",
                 "unaligned_labeled_mask_online_ref",
                 "self_supervised_labeled_mask_ref",
-                "self_supervised_labeled_mask_online_ref")
+                "self_supervised_labeled_mask_online_ref",
+                "temporal_labeled_mask_online",
+                "self_supervised_vid_mask_online",
+                "self_supervised_vid_labeled_mask_cls_online")
 
 
 def find_dataset_class(mode):
@@ -40,7 +44,10 @@ def find_dataset_class(mode):
                                     D.UnalignedLabeledMaskRefDataset,
                                     D.UnalignedLabeledMaskOnlineRefDataset,
                                     D.SelfSupervisedLabeledMaskRefDataset,
-                                    D.SelfSupervisedLabeledMaskOnlineRefDataset)))
+                                    D.SelfSupervisedLabeledMaskOnlineRefDataset,
+                                    D.TemporalLabeledMaskOnlineDataset,
+                                    D.SelfSupervisedVidMaskOnlineDataset,
+                                    D.SelfSupervisedVidLabeledMaskClsOnlineDataset)))
     if mode not in table:
         raise NotImplementedError(
             f"dataset mode {mode} is not ported (ported: {PORTED_MODES}; "

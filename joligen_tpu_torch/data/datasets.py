@@ -2,8 +2,10 @@
 ``joligen_tpu/data/datasets.py``: the labeled-mask modes (``:31-227``), the
 online bbox-crop modes (``:229-357``), the unaligned mode (``:74-97``), the
 four ref modes (``:361-470``: a reference image per sample from
-``trainA/conditions.txt``, as ``ref_A``) and the aligned and single modes
-(``:663-698``).
+``trainA/conditions.txt``, as ``ref_A``), the aligned and single modes
+(``:663-698``) and the online video modes (``:705-965``: clips of
+``data_temporal_number_frames`` frames, (F, H, W, C), every frame cropped
+with frame 0's window and one rotation draw).
 
 Each dataset returns per-sample dicts of numpy arrays with keys matching the
 reference contract (data/base_dataset.py:120-195): ``A``, ``B`` (H,W,C float32
@@ -21,6 +23,9 @@ import numpy as np
 from .image_folder import (make_dataset, make_labeled_path_dataset,
                            make_ref_path)
 from .online_creation import crop_image, sample_rotation_state
+from .temporal_sampling import (TemporalFrameStepMixin,
+                                build_temporal_series_index,
+                                select_temporal_window)
 from .transforms import (PairedTransform, fill_mask_with_color,
                          fill_mask_with_random, load_image, load_mask)
 
@@ -450,3 +455,238 @@ class SingleDataset(BaseDataset):
             self._load_img(self.A_img_paths[index % self.A_size]), p)
         return {"A": img, "B": img,
                 "A_img_paths": self.A_img_paths[index % self.A_size]}
+
+
+def _natural_key(text):
+    import re
+    return [int(c) if c.isdigit() else c for c in re.split(r"(\d+)", text)]
+
+
+class TemporalLabeledMaskOnlineDataset(BaseDataset, TemporalFrameStepMixin):
+    """Video frames with online bbox crops (``datasets.py:705-903``): a
+    sample is ``data_temporal_number_frames`` frames ``frame_step`` apart
+    (a random step up to ``data_temporal_frame_step_random_max``), from one
+    series directory, all cropped with frame 0's window and one rotation
+    draw. ``A``/``B`` (F, H, W, C), masks (F, H, W, 1). With
+    ``data_temporal_num_common_char`` the frames' names must share that
+    many first characters. The b2b global context
+    (``alg_b2b_global_context_mode``) is not ported."""
+
+    crop_center = False
+
+    def __init__(self, opt, phase, name=""):
+        gc_mode = getattr(opt, "alg_b2b_global_context_mode", "none") \
+            or "none"
+        if gc_mode != "none":
+            raise NotImplementedError(
+                f"alg_b2b_global_context_mode {gc_mode!r}: the b2b global "
+                "context image (ROADMAP Queue 1 item 11, video diffusion: "
+                "b2b and vit_vid)")
+        super().__init__(opt, phase, name)
+        self.A_img_paths, self.A_mask_paths = make_labeled_path_dataset(
+            self.dir_A, "/paths.txt")
+        self.A_img_paths.sort(key=_natural_key)
+        self.A_mask_paths.sort(key=_natural_key)
+        if self.use_domain_B and os.path.isdir(self.dir_B):
+            self.B_img_paths, self.B_mask_paths = make_labeled_path_dataset(
+                self.dir_B, "/paths.txt")
+            self.B_img_paths.sort(key=_natural_key)
+            self.B_mask_paths.sort(key=_natural_key)
+        else:
+            self.B_img_paths, self.B_mask_paths = [], []
+        mx = opt.data_max_dataset_size
+        if mx and mx > 0:
+            self.A_img_paths = self.A_img_paths[:mx]
+            self.A_mask_paths = self.A_mask_paths[:mx]
+            self.B_img_paths = self.B_img_paths[:mx]
+            self.B_mask_paths = self.B_mask_paths[:mx]
+        self.A_size = len(self.A_img_paths)
+        self.B_size = len(self.B_img_paths)
+        self._init_temporal_frame_step_sampling(opt)
+        self.num_common_char = int(
+            getattr(opt, "data_temporal_num_common_char", -1) or -1)
+
+    def __len__(self):
+        return max(self.A_size, self.B_size) if self.B_size else self.A_size
+
+    def _common_char_ok(self, paths, indices):
+        if self.num_common_char == -1:
+            return True
+        ref = os.path.basename(paths[indices[0]])[: self.num_common_char]
+        return all(os.path.basename(paths[i])[: self.num_common_char] == ref
+                   for i in indices)
+
+    def _pick_window_cached(self, img_paths, step):
+        """The global indices of one window's frames (the series index is
+        built once per path list and step), or None."""
+        cache = getattr(self, "_window_cache", None)
+        if cache is None:
+            cache = self._window_cache = {}
+        key = (id(img_paths), step)
+        if key not in cache:
+            cache[key] = build_temporal_series_index(
+                img_paths, self.num_frames, step)
+        sel = select_temporal_window(cache[key])
+        if sel is None:
+            return None
+        series_idx, start = sel
+        return [series_idx[start + i * step] for i in range(self.num_frames)]
+
+    def _load_clip(self, img_paths, mask_paths, domain):
+        """Pick a window, crop every frame with frame 0's window. Returns
+        (frames (F,H,W,C), masks (F,H,W,1), ref_bbox, cat, step) or
+        None."""
+        step = self._sample_temporal_frame_step()
+        indices = self._pick_window_cached(img_paths, step)
+        if indices is None or not self._common_char_ok(img_paths, indices):
+            return None
+        frames, masks = [], []
+        crop_coords = None
+        ref_bbox, cat = None, 0
+        # centred crops jitter the crop size, once a clip
+        # (datasets.py:777-787)
+        crop_dim = None
+        if self.crop_center:
+            base = getattr(self.opt,
+                           f"data_online_creation_crop_size_{domain}", 512)
+            delta = getattr(self.opt,
+                            f"data_online_creation_crop_delta_{domain}", 0)
+            crop_dim = random.randint(base - delta, base + delta) \
+                if delta > 0 else base
+        # one rotation draw for every frame of the clip
+        rotation_state = sample_rotation_state(self.opt)
+        for i, gi in enumerate(indices):
+            try:
+                if i == 0:
+                    crop_coords = self._online_crop_kwargs(
+                        img_paths[gi], mask_paths[gi], domain,
+                        crop_dim_override=crop_dim,
+                        get_crop_coordinates=True,
+                        rotation_state=rotation_state)
+                out = self._online_crop_kwargs(
+                    img_paths[gi], mask_paths[gi], domain,
+                    crop_dim_override=crop_dim,
+                    crop_coordinates=crop_coords,
+                    rotation_state=rotation_state)
+            except Exception as e:  # an unreadable frame skips the clip
+                print(f"temporal crop failure frame {i} {img_paths[gi]}: {e}")
+                return None
+            img, mask, bbox, c = out
+            if i == 0:
+                ref_bbox, cat = bbox, c
+            frames.append(img)
+            masks.append(self._post_mask(mask))
+        return np.stack(frames), np.stack(masks), ref_bbox, cat, step
+
+    def _online_crop_kwargs(self, img_path, bbox_path, domain,
+                            crop_dim_override=None, **extra):
+        opt = self.opt
+        return crop_image(
+            self._resolve(img_path),
+            self._resolve(bbox_path),
+            mask_delta=getattr(opt, f"data_online_creation_mask_delta_{domain}",
+                               [[]]),
+            mask_random_offset=getattr(
+                opt, f"data_online_creation_mask_random_offset_{domain}",
+                [0.0]),
+            crop_delta=(0 if self.crop_center else getattr(
+                opt, f"data_online_creation_crop_delta_{domain}", 50)),
+            mask_square=getattr(
+                opt, f"data_online_creation_mask_square_{domain}", False),
+            crop_dim=(crop_dim_override if crop_dim_override is not None
+                      else getattr(
+                          opt, f"data_online_creation_crop_size_{domain}",
+                          512)),
+            output_dim=opt.data_crop_size,
+            context_pixels=getattr(opt, "data_online_context_pixels", 0),
+            load_size=getattr(
+                opt, f"data_online_creation_load_size_{domain}", []),
+            load_size_keep_ratio=getattr(
+                opt, f"data_online_creation_load_size_keep_ratio_{domain}",
+                False),
+            fixed_mask_size=getattr(opt, "data_online_fixed_mask_size", -1),
+            fixed_mask_size_model=getattr(
+                opt, f"data_online_creation_mask_fixed_size_{domain}", -1),
+            fixed_mask_min_unmasked_border_model=getattr(
+                opt, f"data_online_creation_mask_min_unmasked_border_{domain}",
+                4),
+            inverted_mask=getattr(opt, "data_inverted_mask", False),
+            broaden_rect_aug=getattr(
+                opt, f"data_online_creation_mask_broaden_rect_aug_{domain}",
+                False),
+            crop_center=self.crop_center,
+            **extra,
+        )
+
+    def _post_mask(self, mask):
+        if getattr(self.opt, "f_s_all_classes_as_one", False):
+            return (np.asarray(mask) > 0).astype(np.int32)
+        return mask
+
+    def __getitem__(self, index):
+        a = self._load_clip(self.A_img_paths, self.A_mask_paths, "A")
+        if a is None:
+            return None
+        A, A_masks, A_ref_bbox, A_cat, step = a
+        out = {
+            "A": A, "A_label_mask": A_masks,
+            "A_ref": A[0], "A_ref_label_mask": A_masks[0],
+            "A_ref_bbox": A_ref_bbox, "A_label_cls": np.int32(A_cat),
+            "A_img_paths": self.A_img_paths[0],
+            "temporal_frame_step": np.int32(step),
+        }
+        if self.B_size:
+            b = self._load_clip(self.B_img_paths, self.B_mask_paths, "B")
+            if b is None:
+                return None
+            B, B_masks, B_ref_bbox, B_cat, _ = b
+            out.update({"B": B, "B_label_mask": B_masks,
+                        "B_ref": B[0], "B_ref_label_mask": B_masks[0],
+                        "B_ref_bbox": B_ref_bbox,
+                        "B_label_cls": np.int32(B_cat),
+                        "B_img_paths": self.B_img_paths[0]})
+        return out
+
+
+class SelfSupervisedVidMaskOnlineDataset(TemporalLabeledMaskOnlineDataset):
+    """Single-domain video for diffusion inpainting (``datasets.py:
+    906-951``): B the clip, A the clip with its masked region filled with
+    noise (``data_online_creation_rand_mask_A``) or a colour; centred crops
+    (the crop delta jitters the crop size, not the offset)."""
+
+    crop_center = True
+    with_cls = False
+
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self.use_domain_B = False
+        self.B_img_paths, self.B_mask_paths, self.B_size = [], [], 0
+
+    def __getitem__(self, index):
+        a = self._load_clip(self.A_img_paths, self.A_mask_paths, "A")
+        if a is None:
+            return None
+        frames, masks, ref_bbox, cat, step = a
+        if getattr(self.opt, "data_online_creation_rand_mask_A", True):
+            noised = np.stack([fill_mask_with_random(f, m, -1)
+                               for f, m in zip(frames, masks)])
+        else:
+            noised = np.stack([fill_mask_with_color(f, m)
+                               for f, m in zip(frames, masks)])
+        cls = np.int32(cat if self.with_cls else 0)
+        return {
+            "A": noised, "A_label_mask": masks,
+            "A_ref": noised[0], "A_ref_label_mask": masks[0],
+            "A_ref_bbox": ref_bbox, "A_label_cls": cls,
+            "A_img_paths": self.A_img_paths[0],
+            "B": frames, "B_label_mask": masks.copy(),
+            "B_ref": frames[0], "B_ref_label_mask": masks[0],
+            "B_ref_bbox": ref_bbox, "B_label_cls": cls,
+            "B_img_paths": self.A_img_paths[0],
+            "temporal_frame_step": np.int32(step),
+        }
+
+
+class SelfSupervisedVidLabeledMaskClsOnlineDataset(
+        SelfSupervisedVidMaskOnlineDataset):
+    with_cls = True

@@ -17,6 +17,11 @@ port's modules carry the flax names. Leaf mappings:
   attention's ``DenseGeneral`` kernels (rank 3: (D, H, hd), (H, hd, D)),
   as they are, under their own names.
 
+The video denoiser's motion modules need no other rule: their Dense kernels
+(the bias-free ``to_q``/``to_k``/``to_v`` have no ``bias`` leaf) transpose,
+their LayerNorm ``scale`` is a 1-D ``weight``, and the position table is a
+buffer outside the state dict.
+
 The GAN trees need no other rule: a depthwise kernel (``feature_group_count``
 = C, HWIO with I = 1) is the OIHW weight with I = 1; ``TorchConvTranspose``
 keeps its kernel as the flipped direct-conv kernel the JAX package stores,

@@ -1,6 +1,6 @@
-"""Diffusion denoiser factory: the ``unet_mha`` and ``unet_mha_ref_attn``
-branches of ``joligen_tpu/models/diffusion_networks.py:20-45,80-97,
-119-134``, plus the seeded
+"""Diffusion denoiser factory: the ``unet_mha``, ``unet_vid`` and
+``unet_mha_ref_attn`` branches of ``joligen_tpu/models/diffusion_networks.py:
+20-45,57-79,80-97,119-134``, plus the seeded
 flax-style weight init. torch convs need their input channel count, which
 flax infers lazily: palette's trunk takes ``[y_cond, y_t]`` and, with mask
 conditioning, the mask embedding's ``cond_embed_dim`` channels; the
@@ -20,21 +20,49 @@ from .modules.cm import NoiseLevelEmbedding
 from .modules.palette_diffusion import LabelEmbedder, PaletteDenoiser
 from .modules.unet_mha import Conv, Dense, GroupNorm, UNetMHA
 from .modules.unet_ref_attn import UNetRefAttn
+from .modules.unet_vid import UNetVid
+
+# the denoisers over (B, F, H, W, C) clips (diffusion_networks.py:139);
+# vit_vid is not ported yet
+VIDEO_NETGS = ("unet_vid", "vit_vid")
 
 
 def define_inner_G(opt, in_channel=None):
     """The trunk; ``in_channel`` (default: palette's) is its first conv's
-    input channel count."""
+    input channel count. ``G_unet_vid_cross_attention_dim`` is read by
+    neither package."""
     netG = opt.G_netG
-    if netG not in ("unet_mha", "unet_mha_ref_attn"):
+    if netG not in ("unet_mha", "unet_mha_ref_attn", "unet_vid"):
         raise NotImplementedError(
-            f"diffusion generator {netG}: only unet_mha and "
+            f"diffusion generator {netG}: only unet_mha, unet_vid and "
             "unet_mha_ref_attn are ported (ROADMAP Queue 1 items 9 to 13, "
-            "the model families after the main path)")
+            "the model families after the main path; vit_vid is item 11)")
     if in_channel is None:
         cond = getattr(opt, "alg_diffusion_cond_embed", "") or ""
         extra = opt.alg_diffusion_cond_embed_dim if "mask" in cond else 0
         in_channel = opt.model_input_nc + opt.model_output_nc + extra
+    if netG == "unet_vid":
+        return UNetVid(
+            in_channel=in_channel,
+            out_channel=opt.model_output_nc,
+            inner_channel=opt.G_ngf,
+            cond_embed_dim=opt.alg_diffusion_cond_embed_dim,
+            res_blocks=tuple(opt.G_unet_mha_res_blocks),
+            attn_res=tuple(opt.G_unet_mha_attn_res),
+            channel_mults=tuple(opt.G_unet_mha_channel_mults),
+            num_heads=opt.G_unet_mha_num_heads,
+            num_head_channels=opt.G_unet_mha_num_head_channels,
+            norm=opt.G_unet_mha_norm_layer,
+            group_size=opt.G_unet_mha_group_norm_size,
+            max_sequence_length=getattr(
+                opt, "G_unet_vid_max_sequence_length", 25),
+            motion_num_heads=getattr(opt, "G_unet_vid_num_attention_heads",
+                                     8),
+            motion_num_transformer_blocks=getattr(
+                opt, "G_unet_vid_num_transformer_blocks", 2),
+            attn_norm=getattr(opt, "G_unet_mha_attn_norm", "group"),
+            remat=bool(getattr(opt, "tpu_remat", False)),
+            dtype=compute_dtype(opt))
     if netG == "unet_mha_ref_attn":
         return UNetRefAttn(
             in_channel=opt.model_input_nc + opt.model_output_nc,
@@ -110,13 +138,13 @@ def init_weights(module, generator, zero_init_std=0.0):
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (Conv, Dense)):
+                biases = [] if m.bias is None else [m.bias]
                 if m.zero_init:
-                    if zero_init_std > 0:
-                        fill(m.weight, normal(zero_init_std))
-                        fill(m.bias, normal(zero_init_std))
-                    else:
-                        m.weight.zero_()
-                        m.bias.zero_()
+                    for p in [m.weight, *biases]:
+                        if zero_init_std > 0:
+                            fill(p, normal(zero_init_std))
+                        else:
+                            p.zero_()
                     continue
                 fan_in = m.weight[0].numel()
                 # flax lecun_normal: truncated at 2 std, std corrected for
@@ -124,7 +152,8 @@ def init_weights(module, generator, zero_init_std=0.0):
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 fill(m.weight, lambda t: nn.init.trunc_normal_(
                     t, 0.0, std, -2 * std, 2 * std, generator=generator))
-                m.bias.zero_()
+                for p in biases:
+                    p.zero_()
             elif isinstance(m, GroupNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()

@@ -74,20 +74,23 @@ class Conv(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense`` with fp32 params computing in ``dtype``; weight (out, in)."""
+    """flax ``nn.Dense`` with fp32 params computing in ``dtype``; weight
+    (out, in); no bias with ``use_bias=False``."""
 
-    def __init__(self, cin, cout, dtype=torch.float32, zero_init=False):
+    def __init__(self, cin, cout, dtype=torch.float32, zero_init=False,
+                 use_bias=True):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
         self.dtype = dtype
         self.zero_init = zero_init
 
     def forward(self, x):
         # one 2-D product with the bias fused (addmm) whatever x's rank and
         # strides
+        bias = None if self.bias is None else self.bias.to(self.dtype)
         y = F.linear(x.reshape(-1, x.shape[-1]).to(self.dtype),
-                     self.weight.to(self.dtype), self.bias.to(self.dtype))
+                     self.weight.to(self.dtype), bias)
         return y.reshape(x.shape[:-1] + y.shape[-1:])
 
 

@@ -15,6 +15,19 @@ numpy ``canny``, drawing its thresholds from ``random`` in the JAX order), or
 ``ref`` conditioning or the ``unet_mha_ref_attn`` G (``use_ref``) the
 batch's ``ref_A`` becomes ``ref``, which reaches the denoiser in the loss,
 both samplers and the per-class path.
+
+Video (``palette_model.py:52-60,106-112,167-187,203-243``): a ``unet_vid``
+G (``is_video``) takes (B, F, H, W, C) clips of ``data_temporal_number_
+frames`` frames; an image G folds the frames of a 5-D batch into its batch.
+Canny sketches are drawn per frame, each dropped with probability
+``alg_diffusion_vid_canny_dropout[0][0]``. ``previous_frame`` conditions
+frame k on frame k - 1 of the A stream (frame 0 on itself), blanked to -1
+with probability 1 - ``alg_diffusion_cond_prob_use_previous_frame`` per
+frame while training (numpy's global generator, as the JAX package draws
+it). ``alg_palette_autoregressive`` with the ``y_t`` creation replaces the
+first F // 2 conditioning frames of 9 batches in 10 by noisy ground truth
+(one of 10 noise levels up to 0.7 a clip, noise inside the mask only). The
+loss folds the frames, one min-SNR weight a clip repeated over its frames.
 """
 
 from __future__ import annotations
@@ -28,7 +41,7 @@ from ..ops.cv_resize import resize_area, resize_cubic
 from ..ops.schedules import NoiseSchedule
 from ..utils.mask_generation import random_edge_mask
 from .base import BaseModel, dequantize, quantize_batch
-from .diffusion_networks import define_G, init_weights
+from .diffusion_networks import VIDEO_NETGS, define_G, init_weights
 from .modules.palette_diffusion import (ddim_sample, ddpm_sample,
                                         masked_elementwise_loss,
                                         palette_training_outputs)
@@ -36,13 +49,13 @@ from .train_state import apply_updates, param_grads
 
 EDGE_MODES = ("computed_sketch", "sketch", "canny", "depth", "hed", "hough",
               "sam")
-# creations that still raise: the sketch fillers that run frozen nets, and
-# the video one
+# creations that still raise: the sketch fillers that run frozen nets
 UNPORTED_COND_CREATION = {
-    **{m: "ROADMAP Queue 1 item 14, metrics and frozen nets"
-       for m in ("sketch", "depth", "hed", "hough", "sam")},
-    "previous_frame": "ROADMAP Queue 1 item 11, video diffusion",
-}
+    m: "ROADMAP Queue 1 item 14, metrics and frozen nets"
+    for m in ("sketch", "depth", "hed", "hough", "sam")}
+# the autoregressive context: noise levels k / 9 * 0.7 for k in 0..9, the
+# share of batches that take it, and its frames (the first F // 2)
+AR_LEVELS, AR_SIGMA_MAX, AR_P = 10, 0.7, 0.9
 
 
 def check_cond_creation(opt, creation):
@@ -73,6 +86,11 @@ class PaletteModel(BaseModel):
         self.ema_beta = float(getattr(opt, "train_G_ema_beta", 0.999))
         self.use_ema = bool(getattr(opt, "train_G_ema", False))
         self.conditioning = getattr(opt, "alg_diffusion_cond_embed", "") or ""
+        self.autoregressive = bool(getattr(opt, "alg_palette_autoregressive",
+                                           False))
+        self.is_video = opt.G_netG in VIDEO_NETGS
+        self.num_frames = int(getattr(opt, "data_temporal_number_frames", 1)
+                              or 1)
         # palette_model.py:64-65
         self.use_ref = ("ref" in self.conditioning
                         or opt.G_netG == "unet_mha_ref_attn")
@@ -101,6 +119,15 @@ class PaletteModel(BaseModel):
             mask = None
         if "class" not in self.conditioning:
             cls = None
+        if gt.ndim == 5 and not self.is_video:
+            # an image G takes a clip's frames as its batch
+            b, f = gt.shape[:2]
+            gt = gt.reshape((b * f,) + gt.shape[2:])
+            cond = cond.reshape((b * f,) + cond.shape[2:])
+            if mask is not None:
+                mask = mask.reshape((b * f,) + mask.shape[2:])
+            if cls is not None:
+                cls = np.repeat(np.asarray(cls), f)
         creation = getattr(self.opt, "alg_diffusion_cond_image_creation",
                            "y_t") or "y_t"
         if creation in EDGE_MODES and mask is not None:
@@ -139,6 +166,19 @@ class PaletteModel(BaseModel):
                     for g_i in gt.reshape((-1,) + gt.shape[-3:])]
             cond = np.stack(lows).reshape(gt.shape).astype(np.float32)
             mask = None
+        elif creation == "previous_frame" and batch["B"].ndim == 5:
+            # frame k on frame k - 1 of the A stream, frame 0 on itself
+            # (palette_model.py:167-187)
+            src = np.asarray(batch["A"])
+            prev = np.concatenate([src[:, :1], src[:, :-1]], axis=1)
+            p_use = float(getattr(
+                self.opt, "alg_diffusion_cond_prob_use_previous_frame", 0.5)
+                or 0.0)
+            if self.phase == "train" and p_use < 1.0:
+                drop = np.random.rand(prev.shape[0], prev.shape[1]) >= p_use
+                prev = np.where(drop[:, :, None, None, None],
+                                -np.ones_like(prev), prev)
+            cond = prev if self.is_video else prev.reshape(cond.shape)
         out = {"y_cond": cond, "gt": gt}
         if mask is not None:
             out["mask"] = mask
@@ -155,14 +195,52 @@ class PaletteModel(BaseModel):
                              int_keys=("mask",))
         return self.put_batch(inp)
 
+    def _autoregressive_context(self, y_cond, gt, mask, draws=None):
+        """The conditioning with its first F // 2 frames replaced by noisy
+        ground truth in AR_P of the batches (palette_model.py:203-226):
+        ``draws`` (tests) gives ``bucket`` (B,) in 0..9, ``eps`` (B, 1, H,
+        W, C) and ``use_u`` (a scalar in [0, 1)), else the generator draws
+        them in that order."""
+        b, f = y_cond.shape[:2]
+        k = f // 2
+        if k == 0:
+            return y_cond
+        if draws is None:
+            dev = y_cond.device
+            draws = {"bucket": torch.randint(0, AR_LEVELS, (b,),
+                                             generator=self.generator,
+                                             device=dev),
+                     "eps": torch.randn((b, 1) + y_cond.shape[2:],
+                                        generator=self.generator,
+                                        dtype=y_cond.dtype, device=dev),
+                     "use_u": torch.rand((), generator=self.generator,
+                                         device=dev)}
+        sigma = (draws["bucket"].to(torch.float32) / (AR_LEVELS - 1)
+                 * AR_SIGMA_MAX).reshape(b, 1, 1, 1, 1)
+        m_ctx = ((mask[:, :k] > 0.5).to(y_cond.dtype) if mask is not None
+                 else 1.0)
+        mixed = torch.cat([gt[:, :k] + sigma * draws["eps"] * m_ctx,
+                           y_cond[:, k:]], dim=1)
+        # a device-side choice: no host sync
+        return torch.where(draws["use_u"] < AR_P, mixed, y_cond)
+
     def _loss_fn(self, dev, draws=None):
         """lambda_G * masked loss of one training forward on a prepared
-        batch; the wire-compressed inputs decode on the device."""
+        batch; the wire-compressed inputs decode on the device. ``draws``
+        (tests) holds the training draws and, with the autoregressive
+        context, its own under ``"autoregressive"``."""
         y_cond = dequantize(dev["y_cond"], "image")
         gt = dequantize(dev["gt"], "image")
         mask = dequantize(dev.get("mask"), "label")
         ref = dequantize(dev.get("ref"), "image")
         net = self.nets["G_A"]
+        creation = getattr(self.opt, "alg_diffusion_cond_image_creation",
+                           "y_t") or "y_t"
+        if (self.autoregressive and self.is_video and y_cond.ndim == 5
+                and creation == "y_t"):
+            y_cond = self._autoregressive_context(
+                y_cond, gt, mask, None if draws is None
+                else draws["autoregressive"])
 
         def apply_fn(x, gammas, cls=None, mask=None):
             return net(x, gammas, cls=cls, mask=mask, ref=ref)
@@ -171,6 +249,15 @@ class PaletteModel(BaseModel):
             apply_fn, self.generator, self.sched_train, gt, y_cond, mask=mask,
             cls=dev.get("cls"), dropout_prob=self.dropout_prob,
             minsnr=self.minsnr, null_class=self.null_class, draws=draws)
+        if noise.ndim == 5:
+            # the frames fold into the batch for the loss; one min-SNR
+            # weight a clip, repeated over its frames
+            f = noise.shape[1]
+            noise, noise_hat = (t.flatten(0, 1) for t in (noise, noise_hat))
+            if mask is not None:
+                mask = mask.flatten(0, 1)
+            if torch.is_tensor(weight):
+                weight = weight[:, 0].repeat_interleave(f, dim=0)
         loss = masked_elementwise_loss(noise, noise_hat, mask=mask,
                                        weight=weight, kind=self.loss_kind)
         return self.lambda_G * loss

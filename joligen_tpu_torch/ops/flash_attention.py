@@ -23,6 +23,14 @@ cast to ``q.dtype``. When a gradient is needed it runs through
   algorithm, which the tests hold against the JAX kernels and
   ``chip_smoke.py`` holds the CUDA kernels against.
 
+Head dims 8, 16, 32 and 64 (``SUPPORTED_HEAD_DIMS``; 8 is the first level
+of ``unet_vid``'s motion modules). Sequences of at most ``PACK_MAX_S`` (32)
+take the packed tiling on the card (``tiling``): a block holds whole
+(batch, head) sequences, each padded to the power of two ``2**pack_log2(S)``
+rows, and masks the scores to each sequence's own keys; longer ones the
+plain tiling of 64 or 128 queries a block. Both launch the same kernels'
+sources, held against the same plain versions.
+
 ``LAUNCHES`` counts each CUDA kernel's launches.
 """
 
@@ -41,7 +49,11 @@ NEG_INF = -1e30
 # keys per tile of every CUDA kernel, both routes (BLOCK_K in the .cu files;
 # K3 owns a tile of this many keys), and of the plain versions' key chunks
 BLOCK_K = 64
-SUPPORTED_HEAD_DIMS = (16, 32, 64)
+SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
+# the longest sequence the packed tiling takes: a block's 64 rows hold at
+# least two sequences of 32
+PACK_MAX_S = 32
+TILINGS = ("plain", "packed")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # queries per block of K1's and K2's bf16 routes: one warpgroup of 64
 # queries, or two sharing each K/V tile (``fwd_q_tile`` and ``bwd_dq_q_tile``
@@ -173,17 +185,37 @@ _SIGNATURES = {
     "fwd": ("flash_attention_fwd", "jg_flash_attention_fwd",
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
             + [ctypes.c_longlong] * 6
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     "bwd_dq": ("flash_attention_bwd", "jg_flash_attention_bwd_dq",
                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                + [ctypes.c_longlong] * 8
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_void_p]),
+               + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     "bwd_dkv": ("flash_attention_bwd", "jg_flash_attention_bwd_dkv",
                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                 + [ctypes.c_longlong] * 8
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+                + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
 }
+
+
+def pack_log2(s):
+    """log2 of the rows a sequence of length ``s`` takes in the packed
+    tiling: the least power of two >= s."""
+    return max(0, (s - 1).bit_length())
+
+
+def _pack_arg(q, tiling):
+    """The kernels' ``sp_log2``: -1 for the plain tiling, else
+    ``pack_log2(S)``. ``tiling`` None picks packed for S <= PACK_MAX_S."""
+    s = q.shape[1]
+    if tiling is None:
+        tiling = "packed" if s <= PACK_MAX_S else "plain"
+    if tiling not in TILINGS:
+        raise ValueError(f"flash_attention kernel: tiling {tiling!r} not in "
+                         f"{TILINGS}")
+    if tiling == "packed" and s > PACK_MAX_S:
+        raise ValueError(f"flash_attention kernel: the packed tiling takes "
+                         f"S <= {PACK_MAX_S}, got {s}")
+    return pack_log2(s) if tiling == "packed" else -1
 
 
 def _call(name, counter, q, *args):
@@ -227,12 +259,14 @@ def _q_tile(q, q_tile):
     return q_tile
 
 
-def _launch(q, k, v, sm_scale, out=None, q_tile=None):
+def _launch(q, k, v, sm_scale, out=None, q_tile=None, tiling=None):
     """Launch K1 into ``out`` = (o, lse), allocated here if None; ``q_tile``
-    (bf16 only) overrides ``fwd_q_tile``."""
+    (bf16, plain tiling) overrides ``fwd_q_tile``, ``tiling`` ("plain" or
+    "packed") the tiling picked from S."""
     b, s, h, d = q.shape
     _check_kernel_inputs(q, (("q", q), ("k", k), ("v", v)))
     q_tile = _q_tile(q, q_tile)
+    sp_log2 = _pack_arg(q, tiling)
     if out is None:
         out = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device),
                torch.empty((b, h, s), dtype=torch.float32, device=q.device))
@@ -244,7 +278,7 @@ def _launch(q, k, v, sm_scale, out=None, q_tile=None):
           lse.data_ptr(), b, s, h, d,
           q.stride(0), q.stride(1), k.stride(0), k.stride(1),
           v.stride(0), v.stride(1), float(sm_scale), _DTYPE_CODES[q.dtype],
-          q_tile)
+          q_tile, sp_log2)
     return o, lse
 
 
@@ -263,25 +297,30 @@ def _bwd_inputs(q, k, v, lse, delta, do):
 
 
 def _launch_bwd_dq(q, k, v, lse, delta, do, sm_scale, out=None,
-                   q_tile=None):
-    """Launch K2 into ``out`` (dq), allocated here if None; ``q_tile`` (bf16
-    only) overrides ``bwd_dq_q_tile``."""
+                   q_tile=None, tiling=None):
+    """Launch K2 into ``out`` (dq), allocated here if None; ``q_tile`` (bf16,
+    plain tiling) overrides ``bwd_dq_q_tile``, ``tiling`` the tiling picked
+    from S."""
     b, s, h, d = q.shape
     ptrs, strides = _bwd_inputs(q, k, v, lse, delta, do)
     q_tile = _q_tile(q, q_tile)
+    sp_log2 = _pack_arg(q, tiling)
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) \
         if out is None else out
     _check_out(dq, (b, s, h, d), q.dtype)
     _call("bwd_dq", "flash_attention_bwd_dq", q, *ptrs, dq.data_ptr(),
           b, s, h, d, *strides, float(sm_scale), _DTYPE_CODES[q.dtype],
-          q_tile)
+          q_tile, sp_log2)
     return dq
 
 
-def _launch_bwd_dkv(q, k, v, lse, delta, do, sm_scale, out=None):
-    """Launch K3 into ``out`` = (dk, dv), allocated here if None."""
+def _launch_bwd_dkv(q, k, v, lse, delta, do, sm_scale, out=None,
+                    tiling=None):
+    """Launch K3 into ``out`` = (dk, dv), allocated here if None;
+    ``tiling`` overrides the tiling picked from S."""
     b, s, h, d = q.shape
     ptrs, strides = _bwd_inputs(q, k, v, lse, delta, do)
+    sp_log2 = _pack_arg(q, tiling)
     if out is None:
         out = tuple(torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
                     for _ in range(2))
@@ -290,7 +329,7 @@ def _launch_bwd_dkv(q, k, v, lse, delta, do, sm_scale, out=None):
     _check_out(dv, (b, s, h, d), q.dtype)
     _call("bwd_dkv", "flash_attention_bwd_dkv", q, *ptrs, dk.data_ptr(),
           dv.data_ptr(), b, s, h, d, *strides, float(sm_scale),
-          _DTYPE_CODES[q.dtype])
+          _DTYPE_CODES[q.dtype], sp_log2)
     return dk, dv
 
 

@@ -26,7 +26,8 @@ Same CLI and outputs as the JAX script: ``<name>_orig.png``,
   read as RGB, PIL BICUBIC-resized to the crop and mapped to [-1, 1]
   (the JAX script's ``:224-231``).
 
-``--cond_in`` (exemplar insertion) raises.
+``--cond_in`` (exemplar insertion) raises, and so does a video model
+(``scripts/gen_vid_diffusion.py`` serves it).
 Runs on CUDA unless ``--cpu``.
 """
 
@@ -41,6 +42,7 @@ import numpy as np
 
 from ..data.online_creation import crop_image
 from ..data.transforms import fill_mask_with_random
+from ..models.diffusion_networks import VIDEO_NETGS
 from ..models.palette_model import EDGE_MODES, check_cond_creation
 from ..utils.mask_generation import random_edge_mask
 from .common import load_image_rgb, load_model_from_file, save_image_rgb, \
@@ -100,6 +102,10 @@ def _check_supported(args, opt):
         raise NotImplementedError(
             f"model type {opt.model_type} (ROADMAP Queue 1 items 9 to 13, "
             "the model families after the main path)")
+    if opt.G_netG in VIDEO_NETGS:
+        raise NotImplementedError(
+            f"{opt.G_netG} is a video denoiser: serve it with "
+            "python -m joligen_tpu_torch.scripts.gen_vid_diffusion")
     return cond_creation
 
 

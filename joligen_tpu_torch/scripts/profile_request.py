@@ -14,7 +14,10 @@ ref-conditioned ``examples/example_ddpm_unetref_viton.json``, whose batch
 then carries a reference image; cm or
 cm_gan from
 ``examples/example_cm*_noglasses2glasses.json``, or sc from the cm config
-with ``--model_type sc``; a cm_gan step is one micro-step) at full width
+with ``--model_type sc``; a cm_gan step is one micro-step; the video
+``examples/example_ddpm_vid_mario.json``, whose batch then holds clips of
+``data_temporal_number_frames`` frames, a step one micro-step of its
+``iter_size``) at full width
 with seeded random weights and runs twice as warm-up, on a synthetic
 masked image, either one serving request or (``--train``) one training
 step on a batch of ``train_batch_size`` such images (a GAN reads its ``A``
@@ -45,11 +48,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def synthetic_batch(size, seed, batch=1):
+def synthetic_batch(size, seed, batch=1, frames=0):
+    """Masked images, or (``frames``) clips of that many masked frames."""
     rng = np.random.default_rng(seed)
-    crop = rng.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
-    mask = np.zeros((batch, size, size, 1), np.int32)
-    mask[:, size // 4:3 * size // 4, size // 4:3 * size // 4] = 1
+    lead = (batch, frames) if frames else (batch,)
+    crop = rng.uniform(-1, 1, lead + (size, size, 3)).astype(np.float32)
+    mask = np.zeros(lead + (size, size, 1), np.int32)
+    mask[..., size // 4:3 * size // 4, size // 4:3 * size // 4, :] = 1
     cond = np.where(mask > 0, rng.uniform(-1, 1, crop.shape), crop)
     return {"A": cond.astype(np.float32), "B": crop, "B_label_mask": mask}
 
@@ -97,11 +102,13 @@ def main(argv=None):
         model = create_model(opt, phase="train")
         os.rmdir(model.save_dir)
         os.rmdir(opt.checkpoints_dir)
-        batch = synthetic_batch(opt.data_crop_size, model.seed,
-                                opt.train_batch_size)
+        batch_size = opt.train_batch_size
     else:
         model = create_model(opt, phase="test")
-        batch = synthetic_batch(opt.data_crop_size, model.seed)
+        batch_size = 1
+    frames = model.num_frames if getattr(model, "is_video", False) else 0
+    batch = synthetic_batch(opt.data_crop_size, model.seed, batch_size,
+                            frames)
     if getattr(model, "semantic_mask", False):
         batch["A_label_mask"] = batch["B_label_mask"]
     if getattr(model, "use_ref", False):
@@ -147,7 +154,7 @@ def main(argv=None):
         "run": ("training step, batch %d" % opt.train_batch_size
                 if args.train else (args.sampling_method + " request"
                                     if palette else "request")),
-        "crop_size": opt.data_crop_size,
+        "crop_size": opt.data_crop_size, "frames": frames,
         "latency_ms": latency_us / 1e3,
         "device_launches": len(kernels),
         "device_busy_ms": busy / 1e3,

@@ -7,7 +7,8 @@ layout with a reference image per image: ``unetref_viton``); and of the GAN
 example configs: ``unaligned`` (``horse2zebra``, ``mnist2USPS``),
 ``unaligned_labeled`` (``unaligned_labeled_mask``: the glasses configs) and
 ``online_ab`` (online bbox crops in both domains, classes 1 to 6:
-``mario2sonic``).
+``mario2sonic``); and ``video`` (``self_supervised_vid_mask_online``:
+series of frames with a box file each, the ``vid_mario`` configs).
 Paths in ``paths.txt`` are relative to the root (``data_relative_paths``).
 
     python -m joligen_tpu_torch.tools.synthetic_datasets online DIR [N [SIZE]]
@@ -187,10 +188,44 @@ def write_online_ref(root, n, size, seed=0):
     write_refs(root, n, seed)
 
 
+def write_video(root, n, size, seed=0, n_series=2, domains=("A",)):
+    """The video layout, as ``tools/make_fake_dataset.py``'s ``make_video``
+    writes it: in ``train{domain}`` and ``test{domain}``, ``n_series``
+    directories ``vid{s}`` of ``n`` noise frames ``frame_{i:03d}.png`` of
+    ``size``² px, each with a box file ``frame_{i:03d}.txt`` ('1 x1 y1 x2
+    y2') around a flat square that moves a few pixels a frame, and
+    ``paths.txt`` lines 'img bbox'."""
+    rng = np.random.RandomState(seed)
+    for dom in domains:
+        for phase in ("train", "test"):
+            base = f"{phase}{dom}"
+            lines = []
+            for s in range(n_series):
+                os.makedirs(os.path.join(root, base, f"vid{s}"),
+                            exist_ok=True)
+                x1, y1 = rng.randint(4, size // 3, 2)
+                w = rng.randint(size // 8, size // 4)
+                vx, vy = rng.randint(1, 4, 2)
+                for i in range(n):
+                    img = (rng.rand(size, size, 3) * 255).astype(np.uint8)
+                    xa = int(np.clip(x1 + i * vx, 0, size - w - 1))
+                    ya = int(np.clip(y1 + i * vy, 0, size - w - 1))
+                    img[ya:ya + w, xa:xa + w] = rng.randint(0, 255, 3)
+                    ipath = os.path.join(base, f"vid{s}", f"frame_{i:03d}.png")
+                    Image.fromarray(img).save(os.path.join(root, ipath))
+                    bpath = os.path.join(base, f"vid{s}", f"frame_{i:03d}.txt")
+                    with open(os.path.join(root, bpath), "w") as f:
+                        f.write(f"1 {xa} {ya} {xa + w} {ya + w}\n")
+                    lines.append(f"{ipath} {bpath}")
+            with open(os.path.join(root, base, "paths.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+
+
 WRITERS = {"labeled": write_labeled, "online": write_online, "single": write_single,
            "aligned": write_aligned, "unaligned": write_unaligned,
            "unaligned_labeled": write_unaligned_labeled,
-           "online_ab": write_online_ab, "online_ref": write_online_ref}
+           "online_ab": write_online_ab, "online_ref": write_online_ref,
+           "video": write_video}
 
 
 if __name__ == "__main__":

@@ -42,6 +42,12 @@ BWD_CHECKS = [((8, 256, 16, 32), torch.bfloat16),
               *((shape, torch.bfloat16) for shape in XVIEW_SHAPES),
               *((shape, torch.bfloat16) for shape in EDGE_SHAPES)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# head dim 8 and short sequences (the motion modules of unet_vid: S of 8
+# and 6 frames, 8 heads, D of 8 to 64), with ragged sequence counts and S
+# of 1, 3, 17 and 32 at the packed tiling's edges
+SHORT_SHAPES = [(64, 8, 8, 8), (37, 6, 8, 8), (5, 8, 8, 64), (3, 6, 8, 32),
+                (7, 8, 3, 16), (2, 1, 3, 8), (3, 3, 5, 8), (2, 17, 3, 16),
+                (3, 32, 2, 8), (2, 100, 2, 8), (1, 33, 3, 8)]
 
 
 @pytest.fixture
@@ -83,6 +89,44 @@ def test_bf16_forward_matches_plain_version_at_each_query_tiling(
     ref_o, ref_lse = fa.flash_attention_reference(q, k, v)
     torch.testing.assert_close(o.float(), ref_o.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("shape", SHORT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tiling", fa.TILINGS)
+def test_short_sequences_and_head_dim_8_match_plain_version(
+        cuda, shape, dtype, tiling):
+    # K1, K2 and K3 at D = 8 and S <= 32 in both routes and both tilings
+    # (the packed one only where S <= 32), strided as the motion module's
+    # q, k, v are not: a fused projection's column slices
+    if tiling == "packed" and shape[1] > fa.PACK_MAX_S:
+        with pytest.raises(ValueError, match="packed"):
+            fa._pack_arg(torch.empty(shape), tiling)
+        return
+    n, s, h, d = shape
+    tol = TOL[dtype]
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 3)
+    qkv = torch.randn(n, s, 3 * h * d, generator=g, device=cuda).to(dtype)
+    q, k, v = (t.reshape(shape) for t in torch.split(qkv, h * d, -1))
+    (do,) = _randn(shape, g, dtype, 1)
+    scale = d ** -0.5
+    before = dict(fa.LAUNCHES)
+    o, lse = fa._launch(q, k, v, scale, tiling=tiling)
+    delta = fa.attention_delta(o, do)
+    dq = fa._launch_bwd_dq(q, k, v, lse, delta, do, scale, tiling=tiling)
+    dk, dv = fa._launch_bwd_dkv(q, k, v, lse, delta, do, scale,
+                                tiling=tiling)
+    torch.cuda.synchronize()
+    assert all(fa.LAUNCHES[name] == before[name] + 1 for name in fa.LAUNCHES)
+    ref_o, ref_lse = fa.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(o.float(), ref_o.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+    bwd_tol = 5e-4 if dtype == torch.float32 else tol
+    want = fa.flash_attention_bwd_reference(q, k, v, lse, delta, do, scale)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == shape
+        torch.testing.assert_close(got.float(), ref.float(), atol=bwd_tol,
+                                   rtol=bwd_tol)
 
 
 def _kernel_names(fn, attempts=4):
@@ -127,6 +171,33 @@ def test_each_dtype_takes_its_route(cuda, dtype):
                    lambda: fa._launch_bwd_dkv(q, k, v, lse, delta, do, 0.2),
                    {"wgmma": "flash_bwd_dkv_wgmma_kernel",
                     "fma": "flash_bwd_dkv_kernel<"})}
+    for kernel, (call, by_route) in kernels.items():
+        names = _kernel_names(call)
+        want = by_route[fa.ROUTES[kernel][name]]
+        assert len(names) == 1 and want in names[0], (kernel, names)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_short_sequences_take_the_packed_kernels(cuda, dtype):
+    # S = 8 at D = 8: each of K1, K2 and K3 launches its packed kernel on
+    # its dtype's route
+    name = str(dtype).split(".")[-1]
+    q, k, v, do = (torch.randn(64, 8, 8, 8, device=cuda).to(dtype)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = fa.attention_delta(o, do)
+    kernels = {"flash_attention_fwd": (
+                   lambda: fa.flash_attention_fwd(q, k, v),
+                   {"wgmma": "flash_fwd_wgmma_packed_kernel",
+                    "fma": "flash_fwd_packed_kernel<"}),
+               "flash_attention_bwd_dq": (
+                   lambda: fa._launch_bwd_dq(q, k, v, lse, delta, do, 0.3),
+                   {"wgmma": "flash_bwd_dq_wgmma_packed_kernel",
+                    "fma": "flash_bwd_dq_packed_kernel<"}),
+               "flash_attention_bwd_dkv": (
+                   lambda: fa._launch_bwd_dkv(q, k, v, lse, delta, do, 0.3),
+                   {"wgmma": "flash_bwd_dkv_wgmma_packed_kernel",
+                    "fma": "flash_bwd_dkv_packed_kernel<"})}
     for kernel, (call, by_route) in kernels.items():
         names = _kernel_names(call)
         want = by_route[fa.ROUTES[kernel][name]]
@@ -272,6 +343,14 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.randn(1, 8, 2, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q)
+    q80 = torch.randn(1, 8, 2, 80, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q80, q80, q80)
+    q40 = torch.randn(1, 40, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="packed"):
+        fa._launch(q40, q40, q40, 0.25, tiling="packed")
+    with pytest.raises(ValueError, match="tiling"):
+        fa._launch(q40, q40, q40, 0.25, tiling="tiled")
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention(*(torch.randn(1, 8, 2, 32, device=cuda,
                                          dtype=torch.float16),) * 3)

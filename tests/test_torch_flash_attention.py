@@ -12,7 +12,9 @@ import jax.numpy as jnp
 from joligen_tpu.ops.flash_attention import flash_attention as jax_flash
 from joligen_tpu_torch.ops import flash_attention as fa
 
-GRID = [(128, 64, 2), (256, 32, 1), (100, 64, 2), (5, 16, 2)]
+# the motion modules of unet_vid: head dim 8 over 8 and 6 frames
+GRID = [(128, 64, 2), (256, 32, 1), (100, 64, 2), (5, 16, 2), (8, 8, 8),
+        (6, 8, 8)]
 
 
 def _qkv(s, d, h, seed):

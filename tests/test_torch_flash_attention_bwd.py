@@ -2,7 +2,7 @@
 PyTorch version, and gradients through the port's autograd Function on the
 CPU, against ``jax.vjp`` of the JAX flash attention with the Pallas kernels
 K1-K3 run in interpret mode, on the grid of tests/test_flash_attention.py
-plus S = 160. The same seeded cotangent goes to both. The CUDA kernels are
+plus S = 160 and the motion modules' head dim 8 over 8 and 6 frames. The same seeded cotangent goes to both. The CUDA kernels are
 held against the same plain version on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 
@@ -19,7 +19,9 @@ import jax.numpy as jnp
 from joligen_tpu.ops.flash_attention import flash_attention as jax_flash
 from joligen_tpu_torch.ops import flash_attention as fa
 
-GRID = [(128, 64, 2), (256, 32, 1), (100, 64, 2), (5, 16, 2), (160, 16, 2)]
+# the motion modules of unet_vid: head dim 8 over 8 and 6 frames
+GRID = [(128, 64, 2), (256, 32, 1), (100, 64, 2), (5, 16, 2), (160, 16, 2),
+        (8, 8, 8), (6, 8, 8)]
 
 
 def _inputs(s, d, h, seed):

@@ -1,6 +1,6 @@
 """The port stands alone: it imports with jax, flax, jaxlib, msgpack, the
-JAX package, cv2, tifffile and scipy blocked (every module, the training slice's
-and the probes' included), no source file of it (nor chip_smoke.py) imports
+JAX package, cv2, tifffile and scipy blocked (every module, the training slice's,
+the probes' and the video slice's included), no source file of it (nor chip_smoke.py) imports
 them, and without a CUDA device its
 entry points (model, serving script, train CLI) raise unless the CPU is
 asked for."""
@@ -85,6 +85,10 @@ GLASSES_MODULES = ("models.modules.semantic_networks",
 # the segformer nets and the ref-conditioned denoiser
 SEGFORMER_REF_MODULES = ("models.modules.segformer",
                          "models.modules.unet_ref_attn")
+# video palette: the motion modules, the video denoiser, the temporal
+# sampling and the video request script
+VIDEO_MODULES = ("models.modules.motion", "models.modules.unet_vid",
+                 "data.temporal_sampling", "scripts.gen_vid_diffusion")
 
 
 def test_package_imports_with_jax_blocked():
@@ -96,7 +100,7 @@ def test_package_imports_with_jax_blocked():
     assert len(names) >= 49
     for m in (TRAINING_MODULES + PROBE_MODULES + CONDITIONING_MODULES
               + GAN_MODULES + CM_MODULES + GLASSES_MODULES
-              + SEGFORMER_REF_MODULES):
+              + SEGFORMER_REF_MODULES + VIDEO_MODULES):
         assert "joligen_tpu_torch." + m in names, m
 
 
@@ -149,3 +153,10 @@ def test_no_silent_cpu_fallback(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(argv)
     assert not (tmp_path / "ckpt").exists()
+    # the video request script: the model loads on CUDA unless --cpu
+    from joligen_tpu_torch.scripts import gen_vid_diffusion
+    args = gen_vid_diffusion.build_parser().parse_args([
+        "--model_in_file", str(tmp_path / "latest_net_G_A.pth"),
+        "--dir_in", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gen_vid_diffusion.inference(args)
