@@ -13,12 +13,14 @@ GPU. Run from the repository root with no arguments:
    against its plain PyTorch version on the same CUDA tensors at the paths'
    shapes (K1 and K2 in bf16 at both query tilings; xview's 32 heads at
    (1, 256, 32, 32) and (16, 256, 32, 32), cm's (16, 256, 16, 32) and
-   cm_gan's (4, 256, 16, 32) among them), and at S <= 32 and head dim 8
-   (the video denoiser's motion modules: (4096, 8, 8, 8), (64, 8, 8, 64),
-   (16384, 6, 8, 8) and ragged ones) in both dtypes and both tilings,
-   packed and plain (the card tests' tolerance there, TOL (1 + |want|):
-   one bf16 ulp of those gradients exceeds TOL), then timed at the motion
-   modules' shapes in both tilings beside sdpa; the autograd Function
+   cm_gan's (4, 256, 16, 32) among them), and at the video paths' shapes
+   (the motion modules of unet_vid at S <= 32 and head dim 8:
+   (4096, 8, 8, 8), (64, 8, 8, 64), (16384, 6, 8, 8); vit_vid's token
+   motion module at head dim 96, (64, 8, 8, 96), and JiT blocks,
+   (8, 64, 12, 64) and (8, 96, 12, 64); ragged ones) in both dtypes and,
+   where S <= 32, both tilings, packed and plain (the card tests'
+   tolerance there, TOL (1 + |want|): one bf16 ulp of those gradients
+   exceeds TOL), then timed at those shapes in both tilings beside sdpa; the autograd Function
    against autograd through the plain forward; P1 and P2 (the 3×3 tap
    conv, each s2; bf16 on wgmma, fp32 on FMAs) against their plain versions
    in bf16 and fp32 at the conv probe's hot site (batch 2) and at ragged
@@ -118,12 +120,22 @@ GPU. Run from the repository root with no arguments:
    EMA; bf16), 64 micro-steps with K1, K2 and K3 81 times each a
    micro-step, the weights still until the 32nd, its checkpoint reloaded
    (the EMA bit for bit), two DDIM-10 clip requests and one with the
-   config's DDPM sampler (1000 steps) through
+   config's DDPM sampler (its test schedule cut to 100 steps) through
    ``scripts/gen_vid_diffusion``; ``_ft`` (batch 3) and ``_ft_from_image``
    (277,532,355 parameters, 6 frames at 128 px, 89 K1 a call) an epoch of
    one series and a DDIM-10 ``--cond_canny`` request each from the
    trained model; the full-width UNetVid in fp32, card against CPU.
-11. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
+11. b2b flow matching: ``example_b2b_vid_mario.json`` at full width
+   (vit_vid JiT-B/16, 156,640,512 parameters; one clip of 8 frames at 128
+   px a step, online crops with delta 16 of 192 px frames; AdamW, EMA,
+   bf16; ``tpu_mesh_fsdp`` 1, its one override: one card), 8 steps with
+   K1, K2 and K3 16 times each a step and finite losses, ``G_ref_copy``
+   among them; its checkpoint reloaded (the EMA bit for bit); two clip
+   requests with the config's 50 Heun steps (99 denoiser calls of 16 K1)
+   and one ``--autoregressive`` request over two clips through
+   ``scripts/gen_vid_diffusion``, the pixels outside each mask kept; the
+   full-width JiTViD in fp32, card against CPU.
+12. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
    bf16 and ``tools.bw_probe3`` over 1 GiB arrays, each with the launch
    counters set to 0 just before it and read just after.
 
@@ -148,9 +160,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 EXAMPLE = os.path.join(ROOT, "examples", "example_ddpm_noglasses2glasses.json")
 SEED = 0
 DDIM_REQUESTS = 3
-# the serving and unetref phases' DDPM requests on a test schedule cut to
-# this many steps (cut_test_schedule; the video phase's DDPM-1000 clip
-# request took the smoke's time)
+# the serving, unetref and video phases' DDPM requests on a test schedule
+# cut to this many steps (cut_test_schedule: a DDPM-1000 request is 1,000
+# denoiser calls of the same kernels)
 DDPM_TEST_STEPS = 100
 EXPECTED_PARAMS = 62_838_467    # the example config's denoiser
 # Published H100 SXM peaks (NVIDIA data sheet): memory 3.35 TB/s; bf16 on
@@ -328,18 +340,44 @@ VID_L1_SHAPE = (4096, 8, 8, 8)
 VID_L4_SHAPE = (64, 8, 8, 64)
 VID_S6_SHAPE = (16384, 6, 8, 8)
 VID_MID_SHAPE = (8, 64, 16, 32)
-# K1-K3 at S <= 32 (the packed tiling and the plain one) and D = 8, in
-# both dtypes: every motion-module shape of the video path (vid_mario's
-# levels 1-4, _ft_from_image's levels 1-4) and ragged sequence counts and
-# lengths
+# the attention shapes of a b2b_vid_mario call (JiT-B/16, 8 frames at 128
+# px): the token motion module (B*T, F, 8 heads, 768 / 8 = 96), and the JiT
+# blocks (B*F, S, 12 heads, 64) before the 32 in-context tokens (S = 64)
+# and after (S = 96: the second key tile half masked)
+B2B_MOTION_SHAPE = (64, 8, 8, 96)
+B2B_PRE_SHAPE = (8, 64, 12, 64)
+B2B_POST_SHAPE = (8, 96, 12, 64)
+# K1-K3 at the video paths' shapes, in both dtypes, and at S <= 32 in both
+# tilings (packed and plain): every motion-module shape of the video path
+# (vid_mario's levels 1-4, _ft_from_image's levels 1-4; D = 8), b2b's
+# three shapes (D = 96 and the JiT blocks' S = 64 and 96 with 12 heads),
+# and ragged sequence counts and lengths, at D = 96 too
 SHORT_CHECKS = [VID_L1_SHAPE, (1024, 8, 8, 16), (256, 8, 8, 32),
                 VID_L4_SHAPE, VID_S6_SHAPE, (4096, 6, 8, 16),
                 (1024, 6, 8, 32), (256, 6, 8, 64), (3, 6, 8, 32),
-                (7, 8, 3, 16), (2, 17, 3, 8), (3, 32, 2, 8), (2, 1, 3, 8)]
+                (7, 8, 3, 16), (2, 17, 3, 8), (3, 32, 2, 8), (2, 1, 3, 8),
+                B2B_MOTION_SHAPE, B2B_PRE_SHAPE, B2B_POST_SHAPE,
+                (5, 7, 3, 96), (3, 100, 2, 96)]
 VID_TIMINGS = (("vid_level1", VID_L1_SHAPE, 50),
                ("vid_level4", VID_L4_SHAPE, 50),
                ("vid_s6_level1", VID_S6_SHAPE, 20),
-               ("vid_mid", VID_MID_SHAPE, 50))
+               ("vid_mid", VID_MID_SHAPE, 50),
+               ("b2b_motion", B2B_MOTION_SHAPE, 50),
+               ("b2b_jit_pre", B2B_PRE_SHAPE, 50),
+               ("b2b_jit_post", B2B_POST_SHAPE, 50))
+# b2b_vid_mario (example_b2b_vid_mario.json) as it is but for its mesh
+# (tpu_mesh_fsdp 2 cannot hold on one card): B2B_STEPS steps at batch 1
+# over one series of 8 frames of B2B_IMAGE px (its crops are 128 px with
+# delta 16), B2B_REQUESTS clip requests with the config's 50 Heun steps and
+# one --autoregressive request over two clips of a 16-frame series
+B2B_EXAMPLE = "example_b2b_vid_mario.json"
+B2B_STEPS = 8
+B2B_REQUESTS = 2
+B2B_IMAGE = 192
+EXPECTED_PARAMS_B2B = 156_640_512      # [y_cond, z]: 6 input channels
+# K1 launches a b2b denoiser call (and K2 and K3 a step): 12 JiT blocks and
+# the motion module's 2 blocks of 2 temporal attentions
+B2B_K1_PER_CALL = 16
 PROBE_ITERS = 32
 TRACE_ATTEMPTS = 4                  # traces of one timing, at most
 
@@ -482,14 +520,15 @@ def kernel_phase():
                 raise AssertionError(f"K1 disagrees with its plain version "
                                      f"at {shape} {name} q_tile {tile}")
 
-    # S <= 32 and D = 8: the packed tiling and the plain one, both dtypes
+    # the video paths' shapes: both tilings where S <= 32, both dtypes
     for shape in SHORT_CHECKS:
         for name in ("bfloat16", "float32"):
             dtype = getattr(torch, name)
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                        for _ in range(3))
             ref_o, ref_lse = fa.flash_attention_reference(q, k, v)
-            for tiling in fa.TILINGS:
+            for tiling in (fa.TILINGS if shape[1] <= fa.PACK_MAX_S
+                           else ("plain",)):
                 o, lse = fa._launch(q, k, v, shape[-1] ** -0.5,
                                     tiling=tiling)
                 torch.cuda.synchronize()
@@ -662,7 +701,7 @@ def backward_kernel_phase():
             raise AssertionError(f"K2/K3 disagree with their plain version "
                                  f"at {shape} {name}")
 
-    # S <= 32 and D = 8: both tilings, both dtypes
+    # the video paths' shapes: both tilings where S <= 32, both dtypes
     for shape in SHORT_CHECKS:
         for name in ("bfloat16", "float32"):
             dtype = getattr(torch, name)
@@ -674,7 +713,8 @@ def backward_kernel_phase():
             scale = shape[-1] ** -0.5
             want = fa.flash_attention_bwd_reference(q, k, v, lse, delta, do,
                                                     scale)
-            for tiling in fa.TILINGS:
+            for tiling in (fa.TILINGS if shape[1] <= fa.PACK_MAX_S
+                           else ("plain",)):
                 dq = fa._launch_bwd_dq(q, k, v, lse, delta, do, scale,
                                        tiling=tiling)
                 dk, dv = fa._launch_bwd_dkv(q, k, v, lse, delta, do, scale,
@@ -2996,10 +3036,11 @@ def vid_phase(workdir):
     rec["requests_ddim"] = _serve_vid(
         ckpt, served, sopt, frames_dir, out_dir, VID_DDIM_REQUESTS,
         ["--sampling_steps", "10"], "vid_ddim", VID_K1_PER_CALL)
+    cut_test_schedule(served, sopt)
     rec["request_ddpm"] = _serve_vid(ckpt, served, sopt, frames_dir, out_dir,
                                      1, [], "vid_ddpm", VID_K1_PER_CALL)
     if (rec["request_ddpm"]["sampler"], rec["request_ddpm"]["steps"]) != (
-            "ddpm", 1000):
+            "ddpm", DDPM_TEST_STEPS):
         raise AssertionError("the DDPM request did not run the config's "
                              "sampler at its test schedule")
     del served
@@ -3064,6 +3105,174 @@ def vid_cross_check():
                             k1=VID_K1_PER_CALL)
     if not out.abs().max().item() > 0:
         raise AssertionError("the UNetVid cross-check's output is 0")
+    return err
+
+
+def _b2b_k1_per_call(opt):
+    """K1 launches a b2b denoiser call (and K2 and K3 a step): its JiT
+    blocks and temporal attentions, counted on the meta device."""
+    import torch
+    from joligen_tpu_torch.models.diffusion_networks import define_inner_G
+    from joligen_tpu_torch.models.modules.jit import JiTBlock
+    from joligen_tpu_torch.models.modules.motion import TemporalSelfAttention
+
+    with torch.device("meta"):
+        net = define_inner_G(opt, 6)
+    return sum(isinstance(m, (JiTBlock, TemporalSelfAttention))
+               for m in net.modules())
+
+
+def _serve_b2b(ckpt, served, sopt, frames_dir, out_dir, n, clips, extra,
+               label):
+    """``n`` requests of ``clips`` clips each through
+    ``scripts/gen_vid_diffusion`` with the loaded b2b model, ``extra``
+    arguments, the launch counters at 0 just before them and read just
+    after: B2B_K1_PER_CALL K1 launches a denoiser call (2 * steps - 1 calls
+    a clip) and no other kernel. Each writes its frames, finite, of the
+    input frames' size; outside each clip's mask the model's output is its
+    input (to 1e-6). Returns latencies and launches."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.scripts import gen_vid_diffusion as gen
+
+    nf = sopt.data_temporal_number_frames
+    seen, infer = [], served.inference
+
+    def recording_inference(batch, **kw):
+        seen.append((batch, infer(batch, **kw)))
+        return seen[-1][1]
+    served.inference = recording_inference
+    secs = []
+    reset_launches()                             # the requests start here
+    for i in range(n):
+        args = gen.build_parser().parse_args([
+            "--model_in_file", ckpt, "--dir_in", frames_dir,
+            "--dir_out", os.path.join(out_dir, f"{label}{i}"),
+            "--max_frames", str(nf * clips), "--seed", str(i), *extra])
+        t0 = time.perf_counter()
+        written = gen.inference(args, lmodel=served, lopt=sopt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if not (len(written) == nf * clips
+                and written[0].shape == (B2B_IMAGE, B2B_IMAGE, 3)):
+            raise AssertionError(f"{label} request {i} wrote "
+                                 f"{len(written)} frames")
+    launches = read_launches()                   # and end here
+    served.inference = infer
+    size = sopt.data_crop_size
+    kept = 0.0
+    for batch, out in seen:
+        keep = np.broadcast_to(batch["B_label_mask"] == 0, out.shape)
+        if not (out.shape == (1, nf, size, size, 3)
+                and np.isfinite(out).all()):
+            raise AssertionError(f"{label}: output {out.shape}")
+        kept = max(kept, float(np.abs(out - batch["B"])[keep].max()))
+    if kept > 1e-6:
+        raise AssertionError(f"{label}: the output moved {kept} outside "
+                             "the mask")
+    calls = n * clips * (2 * served.denoise_timesteps - 1)
+    log(f"{label}: {n} requests of {clips} clips of {nf} frames "
+        f"({served.denoise_timesteps} Heun steps, {calls} denoiser calls) "
+        f"{[round(t, 4) for t in secs]} s, launches {launches}, outside "
+        f"the mask moved {kept:.2e}")
+    want = _attention_only(launches, {"flash_attention_fwd":
+                                      calls * B2B_K1_PER_CALL})
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    return {"request_s": secs, "launches": launches, "clips": clips,
+            "denoiser_calls": calls, "outside_mask_max_abs": kept}
+
+
+def b2b_phase(workdir):
+    """``example_b2b_vid_mario.json`` at full width (see the module doc,
+    item 11). Returns (record, launch counts per path)."""
+    import torch
+    from joligen_tpu_torch.models.modules.vit_vid import JiTViD
+    from joligen_tpu_torch.scripts.common import load_model_from_file
+    from joligen_tpu_torch.tools.synthetic_datasets import write_video
+
+    opt = _example_opt(B2B_EXAMPLE, workdir, "b2b")
+    if not (opt.tpu_mesh_fsdp == 2 and opt.data_crop_size == 128
+            and opt.data_online_creation_crop_delta_A == 16
+            and opt.alg_b2b_denoise_timesteps == 50):
+        raise AssertionError("b2b_vid_mario is not the example config")
+    opt.tpu_mesh_fsdp = 1                        # one card
+    nf = opt.data_temporal_number_frames
+    write_video(opt.dataroot, B2B_STEPS * opt.train_batch_size, B2B_IMAGE,
+                seed=SEED + 51, n_series=1)
+    if _b2b_k1_per_call(opt) != B2B_K1_PER_CALL:
+        raise AssertionError("the b2b denoiser's attention sites changed")
+    model, opt, rec = _train_run(opt, B2B_STEPS, 1, "b2b_vid_mario training",
+                                 EXPECTED_PARAMS_B2B,
+                                 attention_per_step=B2B_K1_PER_CALL)
+    if not (isinstance(model.nets["G_A"], JiTViD) and model.use_ema
+            and model.use_gt_prob == 0.1 and model.lambda_ref_copy == 0.1
+            and "G_ref_copy" in rec["losses_last"]):
+        raise AssertionError("b2b_vid_mario did not train as configured")
+    rec["frames_per_s"] = nf * opt.train_batch_size / \
+        rec["median_warm_step_s"]
+    ema = {k: v.detach().cpu().clone()
+           for k, v in model.ema_nets["G_A"].state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(opt.checkpoints_dir, opt.name, "latest_net_G_A.pth")
+    served, sopt = load_model_from_file(ckpt)
+    if not all(torch.equal(v.cpu(), ema[k]) for k, v in
+               served.ema_nets["G_A"].state_dict().items()):
+        raise AssertionError("the reloaded EMA differs from the trained one")
+    del ema
+    # requests over a series of two clips' frames
+    serve_root = os.path.join(workdir, "b2b_serve")
+    write_video(serve_root, 2 * nf, B2B_IMAGE, seed=SEED + 52, n_series=1)
+    frames_dir = os.path.join(serve_root, "trainA", "vid0")
+    out_dir = os.path.join(workdir, "out_b2b")
+    rec["requests"] = _serve_b2b(ckpt, served, sopt, frames_dir, out_dir,
+                                 B2B_REQUESTS, 1, [], "b2b_requests")
+    rec["request_autoregressive"] = _serve_b2b(
+        ckpt, served, sopt, frames_dir, out_dir, 1, 2, ["--autoregressive"],
+        "b2b_autoregressive")
+    del served
+    torch.cuda.empty_cache()
+    return rec, {"b2b_training": rec["launches"],
+                 "b2b_requests": rec["requests"]["launches"],
+                 "b2b_autoregressive_request":
+                     rec["request_autoregressive"]["launches"]}
+
+
+def b2b_cross_check():
+    """b2b_vid_mario's JiTViD at full width in fp32, one clip of 8 frames at
+    128 px with per-frame t, the mask descriptor and a frame step, the card
+    (K1 16 times: D = 96 on the packed tiling, D = 64 on the plain one)
+    against the CPU (plain attention), on seeded weights with small seeded
+    values in the zero-initialised layers (adaLN, final_adaLN, final_proj,
+    ms_1, fs_1, the motion module's proj_out): zero layers would leave the
+    blocks and the motion module out of the check."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.diffusion_networks import (define_inner_G,
+                                                             init_weights)
+    from joligen_tpu_torch.models.modules.b2b import mask_size_condition
+
+    opt = _fp32(_example_opt(B2B_EXAMPLE, tempfile.gettempdir(),
+                             "b2b_xcheck"))
+    rng = np.random.default_rng(SEED + 53)
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 8, 128, 128, 6)).astype(
+        np.float32))
+    t = torch.from_numpy(rng.uniform(0, 1, (1, 8)).astype(np.float32))
+    mask = torch.zeros(1, 8, 128, 128, 1)
+    mask[:, :, 30:90, 40:100] = 1
+    ms = mask_size_condition(mask, 128, 128)
+
+    def build():
+        return init_weights(define_inner_G(opt, 6),
+                            torch.Generator().manual_seed(SEED + 54),
+                            zero_init_std=0.01)
+    err, out = _card_vs_cpu(build, (x, t), {
+        "mask_size": ms, "temporal_frame_step": torch.tensor([2.0])},
+        "JiTViD", k1=B2B_K1_PER_CALL)
+    if not out.abs().max().item() > 0:
+        raise AssertionError("the JiTViD cross-check's output is 0")
     return err
 
 
@@ -3169,9 +3378,12 @@ def main():
         mario, mario_paths = phase("mario2sonic", mario2sonic_phase, workdir)
         unetref, unetref_paths = phase("unetref", unetref_phase, workdir)
         vid, vid_paths = phase("video", vid_phase, workdir)
+        b2b, b2b_paths = phase("b2b", b2b_phase, workdir)
     grad_check = phase("gradient cross-check", gradient_cross_check)
     vid["cross_check_fp32_max_abs_err"] = phase("video cross-check",
                                                 vid_cross_check)
+    b2b["cross_check_fp32_max_abs_err"] = phase("b2b cross-check",
+                                                b2b_cross_check)
     mario["cross_check_fp32"] = phase("MiT cross-check", mit_cross_check)
     unetref["cross_check_fp32_max_abs_err"] = phase("ref cross-check",
                                                     unetref_cross_check)
@@ -3185,7 +3397,8 @@ def main():
                  training["trained_request_launches"],
              "training_256px": training_256["launches"], **xview["paths"],
              **config_paths, **gan_paths, **glasses_paths, **cm_paths,
-             **mario_paths, **unetref_paths, **vid_paths, **probe_launches}
+             **mario_paths, **unetref_paths, **vid_paths, **b2b_paths,
+             **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -3203,6 +3416,7 @@ def main():
     log("mario2sonic: " + json.dumps(mario))
     log("unetref_viton: " + json.dumps(unetref))
     log("vid_mario: " + json.dumps(vid))
+    log("b2b_vid_mario: " + json.dumps(b2b))
     log("phases (s): " + json.dumps(seconds))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     k1["training_gradient_cross_check"] = grad_check

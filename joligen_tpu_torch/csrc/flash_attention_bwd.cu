@@ -54,6 +54,13 @@
 // and Q read MN-major). lse and delta vary along the accumulator's columns;
 // queries at or past S get P = 0 explicitly.
 //
+// Head dim 96 (vit_vid's token motion modules): the products of depth D
+// are 6 k16 steps, the D-wide ones m64n96k16 (48 fp32 accumulators a
+// thread); K3 then holds dK and dV, 96 accumulators a thread, beside the
+// 64 of S^T and dP^T, within the 255 registers of its one warpgroup. Every
+// bf16 tile is 12 KiB and the fp32 kernels' tiles 49,664 bytes, so both
+// routes take the opt-in dynamic shared memory past 48 KiB.
+//
 // Head dim 8 and short sequences, as in flash_attention_fwd.cu: at D = 8
 // the bf16 kernels zero-pad their tiles to 16 columns in shared memory for
 // the products of depth D (Q.K^T, dO.V^T and their transposes) and run the
@@ -94,6 +101,24 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
+}
+
+// The fp32 kernels' two streamed tiles (64 rows of D + 1 floats each) and,
+// for K3, 64 lse and 64 delta values, in dynamic shared memory: at D = 96
+// the tiles alone are 49,664 bytes, past the 48 KiB of static shared
+// memory, so the launch opts in (set_smem).
+template <int D>
+constexpr int fma_smem_bytes(bool dkv) {
+  return 2 * 64 * (D + 1) * 4 + (dkv ? 2 * 64 * 4 : 0);
+}
+
+template <int D>
+__device__ __forceinline__ float* fma_tiles(float (*&sa)[D + 1],
+                                            float (*&sb_)[D + 1]) {
+  extern __shared__ __align__(16) float fsmem[];
+  sa = reinterpret_cast<float(*)[D + 1]>(fsmem);
+  sb_ = reinterpret_cast<float(*)[D + 1]>(fsmem + 64 * (D + 1));
+  return fsmem + 2 * 64 * (D + 1);  // K3's lse, then its delta
 }
 
 // Row r (< S) of head h in batch b of a (B, S, H, D) tensor, into registers.
@@ -145,8 +170,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // rows padded by one float: the four threads of a row read four
   // consecutive keys at one column, which then fall in distinct banks
-  __shared__ float sK[BLOCK_K][D + 1];
-  __shared__ float sV[BLOCK_K][D + 1];
+  float(*sK)[D + 1];
+  float(*sV)[D + 1];
+  fma_tiles<D>(sK, sV);
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -228,10 +254,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int QPT = BLOCK_Q / THREADS_PER_ROW;  // queries scored per thread
   constexpr int DPT = D / THREADS_PER_ROW;        // dK/dV columns per thread
 
-  __shared__ float sQ[BLOCK_Q][D + 1];
-  __shared__ float sdO[BLOCK_Q][D + 1];
-  __shared__ float sL[BLOCK_Q];
-  __shared__ float sDelta[BLOCK_Q];
+  float(*sQ)[D + 1];
+  float(*sdO)[D + 1];
+  float* sL = fma_tiles<D>(sQ, sdO);
+  float* sDelta = sL + BLOCK_Q;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -336,8 +362,8 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
   using namespace jg_hopper;
   using L = DqSmem<D, WG>;
   constexpr int NT = WG * 128;
-  static_assert((D % 16 == 0 || D == 8) && D <= 64,
-                "D: 8 or a multiple of 16, at most 64");
+  static_assert((D % 16 == 0 || D == 8) && D <= 96,
+                "D: 8 or a multiple of 16, at most 96");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
 
@@ -497,8 +523,8 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
                            float sm_scale) {
   using namespace jg_hopper;
   using L = DkvSmem<D>;
-  static_assert((D % 16 == 0 || D == 8) && D <= 64,
-                "D: 8 or a multiple of 16, at most 64");
+  static_assert((D % 16 == 0 || D == 8) && D <= 96,
+                "D: 8 or a multiple of 16, at most 96");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
   const float* s_lse = reinterpret_cast<const float*>(smem + L::LSE);
@@ -672,8 +698,9 @@ flash_bwd_dq_packed_kernel(const float* __restrict__ q,
                            int sp_log2) {
   constexpr int KPT = BLOCK_K / THREADS_PER_ROW;
   constexpr int DPT = D / THREADS_PER_ROW;
-  __shared__ float sK[BLOCK_K][D + 1];
-  __shared__ float sV[BLOCK_K][D + 1];
+  float(*sK)[D + 1];
+  float(*sV)[D + 1];
+  fma_tiles<D>(sK, sV);
 
   const int n0 = blockIdx.x << (6 - sp_log2);
   const int tid = threadIdx.x;
@@ -743,10 +770,10 @@ flash_bwd_dkv_packed_kernel(const float* __restrict__ q,
                             long long do_ss, float sm_scale, int sp_log2) {
   constexpr int QPT = BLOCK_Q / THREADS_PER_ROW;
   constexpr int DPT = D / THREADS_PER_ROW;
-  __shared__ float sQ[BLOCK_Q][D + 1];
-  __shared__ float sdO[BLOCK_Q][D + 1];
-  __shared__ float sL[BLOCK_Q];
-  __shared__ float sDelta[BLOCK_Q];
+  float(*sQ)[D + 1];
+  float(*sdO)[D + 1];
+  float* sL = fma_tiles<D>(sQ, sdO);
+  float* sDelta = sL + BLOCK_Q;
 
   const int n0 = blockIdx.x << (6 - sp_log2);
   const int tid = threadIdx.x;
@@ -1056,7 +1083,9 @@ struct Args {
 template <int D>
 int launch_dq_fma(const Args& a) {
   const dim3 grid(a.B * a.H, (a.S + BLOCK_Q - 1) / BLOCK_Q);
-  flash_bwd_dq_kernel<D, float><<<grid, THREADS, 0, a.stream>>>(
+  auto kernel = flash_bwd_dq_kernel<D, float>;
+  jg_hopper::set_smem(kernel, fma_smem_bytes<D>(false));
+  kernel<<<grid, THREADS, fma_smem_bytes<D>(false), a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -1069,10 +1098,7 @@ template <int D, int WG>
 int launch_dq_wgmma(const Args& a) {
   using L = DqSmem<D, WG>;
   auto kernel = flash_bwd_dq_wgmma_kernel<D, WG>;
-  if (L::BYTES > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         L::BYTES);
-  }
+  jg_hopper::set_smem(kernel, L::BYTES);
   const dim3 grid(a.B * a.H, (a.S + 64 * WG - 1) / (64 * WG));
   kernel<<<grid, WG * 128, L::BYTES, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
@@ -1086,7 +1112,9 @@ int launch_dq_wgmma(const Args& a) {
 template <int D>
 int launch_dkv_fma(const Args& a) {
   const dim3 grid(a.B * a.H, (a.S + BLOCK_K - 1) / BLOCK_K);
-  flash_bwd_dkv_kernel<D, float><<<grid, THREADS, 0, a.stream>>>(
+  auto kernel = flash_bwd_dkv_kernel<D, float>;
+  jg_hopper::set_smem(kernel, fma_smem_bytes<D>(true));
+  kernel<<<grid, THREADS, fma_smem_bytes<D>(true), a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -1100,10 +1128,7 @@ template <int D>
 int launch_dkv_wgmma(const Args& a) {
   using L = DkvSmem<D>;
   auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
-  if (L::BYTES > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         L::BYTES);
-  }
+  jg_hopper::set_smem(kernel, L::BYTES);
   const dim3 grid(a.B * a.H, (a.S + BLOCK_K - 1) / BLOCK_K);
   kernel<<<grid, 128, L::BYTES, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
@@ -1128,14 +1153,17 @@ int launch_packed(const Args& a, int dtype, bool dkv) {
     const float* k = static_cast<const float*>(a.k);
     const float* v = static_cast<const float*>(a.v);
     const float* dout = static_cast<const float*>(a.dout);
+    const int bytes = fma_smem_bytes<D>(dkv);
     if (dkv) {
-      flash_bwd_dkv_packed_kernel<D><<<grid, THREADS, 0, a.stream>>>(
+      jg_hopper::set_smem(flash_bwd_dkv_packed_kernel<D>, bytes);
+      flash_bwd_dkv_packed_kernel<D><<<grid, THREADS, bytes, a.stream>>>(
           q, k, v, dout, lse, delta, static_cast<float*>(a.out0),
           static_cast<float*>(a.out1), n_seq, a.S, a.H, a.q_sb, a.q_ss,
           a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale,
           a.sp_log2);
     } else {
-      flash_bwd_dq_packed_kernel<D><<<grid, THREADS, 0, a.stream>>>(
+      jg_hopper::set_smem(flash_bwd_dq_packed_kernel<D>, bytes);
+      flash_bwd_dq_packed_kernel<D><<<grid, THREADS, bytes, a.stream>>>(
           q, k, v, dout, lse, delta, static_cast<float*>(a.out0), n_seq, a.S,
           a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb,
           a.do_ss, a.sm_scale, a.sp_log2);
@@ -1147,6 +1175,7 @@ int launch_packed(const Args& a, int dtype, bool dkv) {
     const bf16* dout = static_cast<const bf16*>(a.dout);
     if (dkv) {
       constexpr int BYTES = 4 * DkvSmem<D>::TILE + 2 * 64 * 4;
+      jg_hopper::set_smem(flash_bwd_dkv_wgmma_packed_kernel<D>, BYTES);
       flash_bwd_dkv_wgmma_packed_kernel<D><<<grid, 128, BYTES, a.stream>>>(
           q, k, v, dout, lse, delta, static_cast<bf16*>(a.out0),
           static_cast<bf16*>(a.out1), n_seq, a.S, a.H, a.q_sb, a.q_ss,
@@ -1154,6 +1183,7 @@ int launch_packed(const Args& a, int dtype, bool dkv) {
           a.sp_log2);
     } else {
       constexpr int BYTES = 4 * DqSmem<D, 1>::TILE;
+      jg_hopper::set_smem(flash_bwd_dq_wgmma_packed_kernel<D>, BYTES);
       flash_bwd_dq_wgmma_packed_kernel<D><<<grid, 128, BYTES, a.stream>>>(
           q, k, v, dout, lse, delta, static_cast<bf16*>(a.out0), n_seq, a.S,
           a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb,
@@ -1194,6 +1224,8 @@ int dispatch(const Args& a, int D, int dtype, bool dkv) {
       return launch_d<32>(a, dtype, dkv);
     case 64:
       return launch_d<64>(a, dtype, dkv);
+    case 96:
+      return launch_d<96>(a, dtype, dkv);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

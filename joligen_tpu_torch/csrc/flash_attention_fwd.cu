@@ -29,9 +29,14 @@
 // owns (batch*head, 64 queries), converts each K/V tile to fp32 in shared
 // memory, four threads share a query row and combine by warp shuffles.
 //
-// Head dims 8, 16, 32 and 64. At D = 8 the bf16 route zero-pads Q and K to
-// 16 columns in shared memory for Q.K^T (wgmma's depth is 16) and runs P.V
-// as m64n8k16; sm_scale stays the caller's (1/sqrt(8) by default).
+// Head dims 8, 16, 32, 64 and 96. At D = 8 the bf16 route zero-pads Q and K
+// to 16 columns in shared memory for Q.K^T (wgmma's depth is 16) and runs
+// P.V as m64n8k16; sm_scale stays the caller's (1/sqrt(8) by default). At
+// D = 96 (the token motion modules of vit_vid, 768 channels over 8 heads)
+// Q.K^T is 6 k16 steps and P.V is m64n96k16, 48 fp32 accumulators a
+// thread; each 64 x 96 tile is 12 KiB, so the plain tiling's 4 or 5 tiles
+// take the opt-in dynamic shared memory past 48 KiB, and the fp32 route's
+// K/V tiles (49,408 bytes) live in dynamic shared memory too.
 //
 // Short sequences (S <= 32: the motion modules of unet_vid attend over 6 or
 // 8 frames) take the packed tiling, in both routes: a block's 64 rows hold
@@ -83,6 +88,22 @@ template <> __device__ __forceinline__ float from_float<float>(float x) {
 
 // ---- fp32 route: FMAs on the CUDA cores -----------------------------------
 
+// The fp32 kernels' K and V tiles, in dynamic shared memory: at D = 96 the
+// two are 49,408 bytes, past the 48 KiB of static shared memory, so the
+// launch opts in (fma_smem_bytes, set_smem).
+template <int D>
+constexpr int fma_smem_bytes() {
+  return BLOCK_K * (2 * D + 1) * 4;
+}
+
+template <int D>
+__device__ __forceinline__ void fma_tiles(float (*&sK)[D + 1],
+                                          float (*&sV)[D]) {
+  extern __shared__ __align__(16) float fsmem[];
+  sK = reinterpret_cast<float(*)[D + 1]>(fsmem);
+  sV = reinterpret_cast<float(*)[D]>(fsmem + BLOCK_K * (D + 1));
+}
+
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -98,8 +119,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // K rows padded by one float: the four threads of a row read four
   // consecutive keys at the same column, which then fall in distinct banks.
-  __shared__ float sK[BLOCK_K][D + 1];
-  __shared__ float sV[BLOCK_K][D];
+  float(*sK)[D + 1];
+  float(*sV)[D];
+  fma_tiles<D>(sK, sV);
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -216,8 +238,9 @@ flash_fwd_packed_kernel(const float* __restrict__ q,
                         float sm_scale, int sp_log2) {
   constexpr int KPT = BLOCK_K / THREADS_PER_ROW;
   constexpr int DPT = D / THREADS_PER_ROW;
-  __shared__ float sK[BLOCK_K][D + 1];
-  __shared__ float sV[BLOCK_K][D];
+  float(*sK)[D + 1];
+  float(*sV)[D];
+  fma_tiles<D>(sK, sV);
 
   const int n0 = blockIdx.x << (6 - sp_log2);
   const int tid = threadIdx.x;
@@ -323,8 +346,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using namespace jg_hopper;
   using L = FwdSmem<D, WG>;
   constexpr int NT = WG * 128;
-  static_assert((D % 16 == 0 || D == 8) && D <= 64,
-                "D: 8 or a multiple of 16, at most 64");
+  static_assert((D % 16 == 0 || D == 8) && D <= 96,
+                "D: 8 or a multiple of 16, at most 96");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
 
@@ -573,7 +596,9 @@ struct Args {
 template <int D>
 int launch_fma(const Args& a) {
   const dim3 grid(a.B * a.H, (a.S + BLOCK_Q - 1) / BLOCK_Q);
-  flash_fwd_kernel<D, float><<<grid, THREADS, 0, a.stream>>>(
+  auto kernel = flash_fwd_kernel<D, float>;
+  jg_hopper::set_smem(kernel, fma_smem_bytes<D>());
+  kernel<<<grid, THREADS, fma_smem_bytes<D>(), a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o),
       static_cast<float*>(a.lse), a.S, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss,
@@ -585,10 +610,7 @@ template <int D, int WG>
 int launch_wgmma(const Args& a) {
   using L = FwdSmem<D, WG>;
   auto kernel = flash_fwd_wgmma_kernel<D, WG>;
-  if (L::BYTES > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         L::BYTES);
-  }
+  jg_hopper::set_smem(kernel, L::BYTES);
   const dim3 grid(a.B * a.H, (a.S + 64 * WG - 1) / (64 * WG));
   kernel<<<grid, WG * 128, L::BYTES, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
@@ -605,7 +627,9 @@ int launch_packed(const Args& a, int dtype, int sp_log2) {
   const int per_block = 64 >> sp_log2;
   const dim3 grid((n_seq + per_block - 1) / per_block);
   if (dtype == 0) {
-    flash_fwd_packed_kernel<D><<<grid, THREADS, 0, a.stream>>>(
+    jg_hopper::set_smem(flash_fwd_packed_kernel<D>, fma_smem_bytes<D>());
+    flash_fwd_packed_kernel<D><<<grid, THREADS, fma_smem_bytes<D>(),
+                                 a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<float*>(a.o),
         static_cast<float*>(a.lse), n_seq, a.S, a.H, a.q_sb, a.q_ss, a.k_sb,
@@ -667,6 +691,8 @@ extern "C" int jg_flash_attention_fwd(
       return launch_d<32>(a, dtype, q_tile, sp_log2);
     case 64:
       return launch_d<64>(a, dtype, q_tile, sp_log2);
+    case 96:
+      return launch_d<96>(a, dtype, q_tile, sp_log2);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,8 +3,8 @@
 
 def create_model(opt, phase="train", device=None, cpu=False):
     """Name -> model class (``joligen_tpu/models/__init__.py``) for phase
-    ``train`` or ``test``: palette, cm, cm_gan, sc, cut and test are
-    ported. The device is CUDA unless ``cpu`` or an explicit ``device`` is
+    ``train`` or ``test``: palette, cm, cm_gan, sc, b2b (video), cut and
+    test are ported. The device is CUDA unless ``cpu`` or an explicit ``device`` is
     given."""
     if opt.model_type == "palette":
         from .palette_model import PaletteModel
@@ -15,6 +15,9 @@ def create_model(opt, phase="train", device=None, cpu=False):
     if opt.model_type == "sc":
         from .sc_model import SCModel
         return SCModel(opt, phase=phase, device=device, cpu=cpu)
+    if opt.model_type == "b2b":
+        from .b2b_model import B2BModel
+        return B2BModel(opt, phase=phase, device=device, cpu=cpu)
     if opt.model_type == "cut":
         from .cut_model import CUTModel
         return CUTModel(opt, phase=phase, device=device, cpu=cpu)
@@ -22,6 +25,6 @@ def create_model(opt, phase="train", device=None, cpu=False):
         from .test_model import TestModel
         return TestModel(opt, phase=phase, device=device, cpu=cpu)
     raise NotImplementedError(
-        f"model type {opt.model_type}: palette, cm, cm_gan, sc, cut and test "
-        "are ported (ROADMAP Queue 1 items 9 to 13, the model families after "
+        f"model type {opt.model_type}: palette, cm, cm_gan, sc, b2b, cut and "
+        "test are ported (ROADMAP Queue 1 items 9 to 13, the model families after "
         "the main path)")

@@ -1,5 +1,5 @@
-"""Base model (``joligen_tpu/models/base.py``): the device and the seeded
-generator, the host->device put with its uint8 wire step, the networks of
+"""Base model (``joligen_tpu/models/base.py``): the mesh options checked
+against the one device, the device and the seeded generator, the host->device put with its uint8 wire step, the networks of
 phase ``test`` (frozen) or ``train`` (each with a ``NetState``: optimizer,
 EMA, step), the losses, and the checkpoints: ``{prefix}_net_{name}.pth`` /
 ``_ema.pth`` in flax's msgpack layout, and ``{prefix}_optim.pkl``, a pickle
@@ -48,6 +48,25 @@ def dequantize(x, kind="image"):
     return x.to(torch.int32)
 
 
+def check_mesh(opt):
+    """The ``tpu_mesh_*`` options against the port's one device, as the JAX
+    ``make_mesh`` asserts them against its devices (``parallel/mesh.py:
+    30-44``): data (-1: the devices left) x fsdp x tensor x seq must be 1.
+    Any axis above 1 raises."""
+    fsdp = getattr(opt, "tpu_mesh_fsdp", 1)
+    tensor = getattr(opt, "tpu_mesh_tensor", 1)
+    seq = getattr(opt, "tpu_mesh_seq", 1)
+    data = getattr(opt, "tpu_mesh_data", -1)
+    if data == -1:
+        data = 1 // (fsdp * tensor * seq)
+    if data * fsdp * tensor * seq != 1:
+        raise NotImplementedError(
+            f"mesh {data}x{fsdp}x{tensor}x{seq} (tpu_mesh_data, _fsdp, "
+            "_tensor, _seq) != 1 device: the port runs on one card; "
+            "sharding over several is not ported (ROADMAP Queue 1 item 15, "
+            "multi-GPU)")
+
+
 class _PlainUnpickler(pickle.Unpickler):
     """Reads the port's ``_optim.pkl`` (dicts, ints, numpy arrays) and
     refuses any other class: the JAX package's file holds optax state
@@ -65,6 +84,7 @@ class _PlainUnpickler(pickle.Unpickler):
 
 class BaseModel:
     def __init__(self, opt, phase="test", device=None, cpu=False):
+        check_mesh(opt)
         self.opt = opt
         self.phase = phase
         self.is_train = phase == "train"

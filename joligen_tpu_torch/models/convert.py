@@ -17,6 +17,19 @@ port's modules carry the flax names. Leaf mappings:
   attention's ``DenseGeneral`` kernels (rank 3: (D, H, hd), (H, hd, D)),
   as they are, under their own names.
 
+The JiT video denoiser (``vit_vid``) adds two rules:
+
+- scanned stacks: the JAX package stacks the blocks of each segment with
+  ``nn.scan`` (``SCAN_STACK``: a module ``blocks0``, ``blocks1``, ...,
+  ``blocks_pre`` or ``blocks_post`` holding ``block``), so each leaf under
+  it carries a leading depth axis: ``blocks1/block/qkv/kernel`` (8, 768,
+  2304) is the per-block torch keys ``blocks1.0.qkv.weight`` ...
+  ``blocks1.7.qkv.weight``, each then mapped as any leaf (a Dense
+  transposed); back, the blocks' leaves stack again in block order;
+- its raw tables (``y_embed``, ``register_tokens``, ``in_context_posemb``:
+  ``RAW_LEAVES``), as they are, under their own names, at the top of the
+  tree.
+
 The video denoiser's motion modules need no other rule: their Dense kernels
 (the bias-free ``to_q``/``to_k``/``to_v`` have no ``bias`` leaf) transpose,
 their LayerNorm ``scale`` is a 1-D ``weight``, and the position table is a
@@ -36,11 +49,16 @@ back.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
 RAW_LEAVES = ("W", "class_embedding", "positional_embedding", "proj",
-              "cls_token", "pos_embed", "ls1", "ls2")
+              "cls_token", "pos_embed", "ls1", "ls2", "y_embed",
+              "register_tokens", "in_context_posemb")
+# a module whose child ``block`` is an ``nn.scan`` stack of blocks
+SCAN_STACK = re.compile(r"blocks(\d+|_pre|_post)$")
 
 
 def _flatten(tree, prefix=()):
@@ -51,14 +69,27 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def _unstack(path, arr):
+    """(path, leaf) of one flax leaf, or one per block where the path runs
+    through a scanned stack (``SCAN_STACK``/``block``): the stack's index
+    replaces ``block`` and the leading depth axis goes."""
+    for i in range(len(path) - 1):
+        if SCAN_STACK.match(path[i]) and path[i + 1] == "block":
+            for j in range(arr.shape[0]):
+                yield from _unstack(path[:i + 1] + (str(j),) + path[i + 2:],
+                                    arr[j])
+            return
+    yield path, arr
+
+
 def flax_to_torch(params):
     """Nested dict of numpy arrays (optionally under a top ``params`` key)
     -> torch state dict (CPU tensors)."""
     if set(params) == {"params"}:
         params = params["params"]
     out = {}
-    for path, leaf in _flatten(params):
-        arr = np.asarray(leaf)
+    for path, arr in (pair for p, leaf in _flatten(params)
+                      for pair in _unstack(p, np.asarray(leaf))):
         name = path[-1]
         if name == "kernel" and arr.ndim == 4:
             arr, tname = arr.transpose(3, 2, 0, 1), "weight"
@@ -145,10 +176,11 @@ def torch_adam_state_to_optax(state, template):
 def torch_to_flax(state_dict):
     """torch state dict -> ``{"params": nested dict of numpy arrays}``."""
     root = {}
+    stacks = {}     # path with ``block`` -> {block index: leaf}
     for key, t in state_dict.items():
         parts = key.split(".")
         arr = t.detach().cpu().numpy()
-        name, module = parts[-1], parts[-2]
+        name, module = parts[-1], parts[-2] if len(parts) > 1 else ""
         if name in ("bias", "kernel") or name in RAW_LEAVES:
             fname = name
         elif name != "weight":
@@ -161,8 +193,22 @@ def torch_to_flax(state_dict):
             fname = "embedding"
         else:
             arr, fname = arr.T, "kernel"
-        node = root
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[fname] = np.ascontiguousarray(arr)
+        path = parts[:-1] + [fname]
+        for i in range(len(path) - 1):
+            if SCAN_STACK.match(path[i]) and path[i + 1].isdigit():
+                stack = tuple(path[:i + 1] + ["block"] + path[i + 2:])
+                stacks.setdefault(stack, {})[int(path[i + 1])] = arr
+                break
+        else:
+            _set(root, path, np.ascontiguousarray(arr))
+    for path, blocks in stacks.items():
+        _set(root, list(path),
+             np.stack([blocks[j] for j in range(len(blocks))]))
     return {"params": root}
+
+
+def _set(root, path, arr):
+    node = root
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = arr

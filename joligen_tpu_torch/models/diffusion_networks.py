@@ -1,6 +1,7 @@
-"""Diffusion denoiser factory: the ``unet_mha``, ``unet_vid`` and
-``unet_mha_ref_attn`` branches of ``joligen_tpu/models/diffusion_networks.py:
-20-45,57-79,80-97,119-134``, plus the seeded
+"""Diffusion denoiser factory: the ``unet_mha``, ``unet_vid``,
+``unet_mha_ref_attn`` and ``vit_vid`` branches of
+``joligen_tpu/models/diffusion_networks.py:20-45,57-79,80-97,110-112,
+119-134``, plus the seeded
 flax-style weight init. torch convs need their input channel count, which
 flax infers lazily: palette's trunk takes ``[y_cond, y_t]`` and, with mask
 conditioning, the mask embedding's ``cond_embed_dim`` channels; the
@@ -21,9 +22,9 @@ from .modules.palette_diffusion import LabelEmbedder, PaletteDenoiser
 from .modules.unet_mha import Conv, Dense, GroupNorm, UNetMHA
 from .modules.unet_ref_attn import UNetRefAttn
 from .modules.unet_vid import UNetVid
+from .modules.vit_vid import JiTViD
 
-# the denoisers over (B, F, H, W, C) clips (diffusion_networks.py:139);
-# vit_vid is not ported yet
+# the denoisers over (B, F, H, W, C) clips (diffusion_networks.py:116)
 VIDEO_NETGS = ("unet_vid", "vit_vid")
 
 
@@ -32,11 +33,17 @@ def define_inner_G(opt, in_channel=None):
     input channel count. ``G_unet_vid_cross_attention_dim`` is read by
     neither package."""
     netG = opt.G_netG
-    if netG not in ("unet_mha", "unet_mha_ref_attn", "unet_vid"):
+    if netG not in ("unet_mha", "unet_mha_ref_attn", "unet_vid", "vit_vid"):
         raise NotImplementedError(
-            f"diffusion generator {netG}: only unet_mha, unet_vid and "
-            "unet_mha_ref_attn are ported (ROADMAP Queue 1 items 9 to 13, "
-            "the model families after the main path; vit_vid is item 11)")
+            f"diffusion generator {netG}: only unet_mha, unet_vid, "
+            "unet_mha_ref_attn and vit_vid are ported (ROADMAP Queue 1 "
+            "items 9 to 13, the model families after the main path; the "
+            "image JiT, vit, is item 11)")
+    if netG == "vit_vid":
+        if in_channel is None:
+            raise ValueError("vit_vid takes its input channel count from "
+                             "its model (b2b)")
+        return JiTViD.from_opt(opt, in_channel, dtype=compute_dtype(opt))
     if in_channel is None:
         cond = getattr(opt, "alg_diffusion_cond_embed", "") or ""
         extra = opt.alg_diffusion_cond_embed_dim if "mask" in cond else 0
@@ -100,7 +107,13 @@ def define_inner_G(opt, in_channel=None):
 
 
 def define_G(opt):
-    """Full conditioned denoiser: (x, gammas, cls, mask, ref) -> eps_hat."""
+    """Full conditioned denoiser: (x, gammas, cls, mask, ref) -> eps_hat.
+    A JiT trunk under palette (raw t) is not ported: vit_vid runs under
+    b2b."""
+    if opt.G_netG == "vit_vid":
+        raise NotImplementedError(
+            "palette with the vit_vid denoiser is not ported; b2b runs it "
+            "(ROADMAP Queue 1 item 11, video diffusion)")
     conditioning = getattr(opt, "alg_diffusion_cond_embed", "") or ""
     nclasses = max(getattr(opt, "f_s_semantic_nclasses", 2),
                    getattr(opt, "cls_semantic_nclasses", 2))
@@ -121,8 +134,11 @@ def init_weights(module, generator, zero_init_std=0.0):
     """Seeded flax-style init: lecun-normal (truncated) conv and dense
     kernels, zero biases, unit norm scales, N(0, 0.02) embedding tables,
     N(0, scale) Fourier features of a ``NoiseLevelEmbedding``.
+    JiTViD's class table, register tokens and in-context positions
+    N(0, 0.02).
     Layers that flax zero-initialises (``out_conv``, ``proj_out``,
-    ``out_proj``) stay zero unless ``zero_init_std`` > 0, which gives them a
+    ``out_proj``, JiT's ``adaLN``, ``final_adaLN``, ``final_proj``, ``ms_1``,
+    ``fs_1``) stay zero unless ``zero_init_std`` > 0, which gives them a
     small seeded N(0, zero_init_std) value instead. ``generator`` is a CPU
     generator: values are drawn on the CPU and copied, so they do not depend
     on the module's device."""
@@ -161,6 +177,9 @@ def init_weights(module, generator, zero_init_std=0.0):
                 fill(m.weight, normal(0.02))
             elif isinstance(m, NoiseLevelEmbedding):
                 fill(m.W, normal(m.scale))
+            elif isinstance(m, JiTViD):
+                for p in m.embedding_params():
+                    fill(p, normal(0.02))
         # the frozen CLIP ref encoder: flax's default init, then its
         # weights file where it exists (palette_model.py:75-80)
         clip = getattr(module, "freezenet_clip", None)

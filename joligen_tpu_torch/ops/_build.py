@@ -24,8 +24,12 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build",
                          "joligen_tpu_torch")
+# --split-compile=0: nvcc's device-code optimizer runs on every core. The
+# attention backward's 45 kernels (five head dims, two routes, two tilings)
+# made its build the smoke's longest; this cuts it to about a third.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=0"]
 
 _LOADED: dict = {}
 _FUNCTIONS: dict = {}

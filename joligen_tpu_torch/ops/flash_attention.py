@@ -23,8 +23,9 @@ cast to ``q.dtype``. When a gradient is needed it runs through
   algorithm, which the tests hold against the JAX kernels and
   ``chip_smoke.py`` holds the CUDA kernels against.
 
-Head dims 8, 16, 32 and 64 (``SUPPORTED_HEAD_DIMS``; 8 is the first level
-of ``unet_vid``'s motion modules). Sequences of at most ``PACK_MAX_S`` (32)
+Head dims 8, 16, 32, 64 and 96 (``SUPPORTED_HEAD_DIMS``; 8 is the first
+level of ``unet_vid``'s motion modules, 96 the token motion modules of
+``vit_vid``, 768 channels over 8 heads). Sequences of at most ``PACK_MAX_S`` (32)
 take the packed tiling on the card (``tiling``): a block holds whole
 (batch, head) sequences, each padded to the power of two ``2**pack_log2(S)``
 rows, and masks the scores to each sequence's own keys; longer ones the
@@ -49,7 +50,7 @@ NEG_INF = -1e30
 # keys per tile of every CUDA kernel, both routes (BLOCK_K in the .cu files;
 # K3 owns a tile of this many keys), and of the plain versions' key chunks
 BLOCK_K = 64
-SUPPORTED_HEAD_DIMS = (8, 16, 32, 64)
+SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 96)
 # the longest sequence the packed tiling takes: a block's 64 rows hold at
 # least two sequences of 32
 PACK_MAX_S = 32

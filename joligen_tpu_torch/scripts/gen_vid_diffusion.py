@@ -9,8 +9,10 @@ names, each with its ``.txt`` box file where there is one) or of
 ``--paths_file`` ('img [bbox]' lines under ``--data_prefix``) are cropped
 with frame 0's window (``data/online_creation.crop_image``, centred), the
 tail is padded with the last frame to whole clips of
-``data_temporal_number_frames``, and each clip is sampled by the model
-(``--sampling_steps`` N: DDIM with N steps; else the model's sampler). The
+``data_temporal_number_frames``, and each clip is sampled by the model,
+palette or b2b (``--sampling_steps`` N: palette's DDIM with N steps, or
+b2b's Heun sampler over N steps (``denoise_timesteps``); else the model's
+sampler). The
 conditioning is the crop with its mask filled with noise, or its canny
 sketch (``--cond_canny``). ``--autoregressive`` carries the last
 ``--context_frames`` generated frames of a clip into the next as clean
@@ -61,10 +63,10 @@ def _check_supported(args, opt):
             "--video_out: the MP4 writer needs cv2, which the port does not "
             "import (ROADMAP Queue 1 item 16, export and serving); the "
             "frames are written as PNGs")
-    if opt.model_type != "palette":
+    if opt.model_type not in ("palette", "b2b"):
         raise NotImplementedError(
-            f"video requests of model type {opt.model_type}: palette is "
-            "ported (ROADMAP Queue 1 item 11, video diffusion: b2b)")
+            f"video requests of model type {opt.model_type}: palette and "
+            "b2b are ported (ROADMAP Queue 1 item 11, video diffusion)")
 
 
 def crop_frames(imgs, bboxes, opt):
@@ -160,9 +162,11 @@ def inference(args, lmodel=None, lopt=None):
         if label >= 0:
             batch["B_label_cls"] = np.asarray([label], np.int32)
         kwargs = {}
-        if args.sampling_steps > 0:
+        if opt.model_type == "palette" and args.sampling_steps > 0:
             kwargs.update(sampling_method="ddim",
                           num_steps=args.sampling_steps)
+        elif opt.model_type == "b2b" and args.sampling_steps > 0:
+            kwargs["denoise_timesteps"] = args.sampling_steps
         fake = model.inference(batch, **kwargs)
         frames = fake[0] if fake.ndim == 5 else fake  # (F, H, W, C)
         prev_frames = list(frames[-k_ctx:]) if k_ctx else None
@@ -201,8 +205,8 @@ def build_parser():
     p.add_argument("--fps", "--vid_fps", type=int, default=25)
     p.add_argument("--max_frames", type=int, default=-1)
     p.add_argument("--sampling_steps", type=int, default=-1,
-                   help="DDIM with this many steps (default: the model's "
-                        "sampler)")
+                   help="palette: DDIM with this many steps; b2b: this "
+                        "many Heun steps (default: the model's sampler)")
     p.add_argument("--autoregressive", action="store_true")
     p.add_argument("--direction", default="forward",
                    choices=["forward", "backward"],

@@ -17,7 +17,8 @@ cm_gan from
 with ``--model_type sc``; a cm_gan step is one micro-step; the video
 ``examples/example_ddpm_vid_mario.json``, whose batch then holds clips of
 ``data_temporal_number_frames`` frames, a step one micro-step of its
-``iter_size``) at full width
+``iter_size``; b2b from ``examples/example_b2b_vid_mario.json``, clips too,
+a request its ``denoise_timesteps`` Heun steps) at full width
 with seeded random weights and runs twice as warm-up, on a synthetic
 masked image, either one serving request or (``--train``) one training
 step on a batch of ``train_batch_size`` such images (a GAN reads its ``A``
@@ -25,7 +26,9 @@ and ``B``); then times one run by the host clock and traces another with
 ``torch.profiler``. Prints one JSON object: latency, kernels launched per
 run, the device's busy time (the union of the kernels'
 intervals) and idle share of the untraced latency, and the kernels that
-take the most device time. Needs a CUDA device.
+take the most device time. The run is on one card: the ``tpu_mesh_*``
+options are set to one device (b2b_vid_mario's ``tpu_mesh_fsdp`` 2 cannot
+hold on one). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -96,6 +99,8 @@ def main(argv=None):
     opt = TrainOptions().parse_json(cfg, verbose=False)
     if args.size:
         opt.data_load_size = opt.data_crop_size = args.size
+    opt.tpu_mesh_data, opt.tpu_mesh_fsdp = -1, 1
+    opt.tpu_mesh_tensor = opt.tpu_mesh_seq = 1
     if args.train:
         # phase train makes its checkpoint directory; nothing is saved there
         opt.checkpoints_dir = tempfile.mkdtemp(prefix="profile_")

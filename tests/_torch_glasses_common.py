@@ -4,6 +4,7 @@ the same weights, batches with label masks, the JAX step's draws, and the
 3-step trajectory against the JAX step (its checks are set out in
 ``tests/test_torch_glasses_cut.py``)."""
 
+import copy
 import functools
 import json
 import os
@@ -25,7 +26,8 @@ from joligen_tpu.parallel.mesh import dequantize_on_device, quantize_batch
 from joligen_tpu.utils import clip_vit as jclip
 from joligen_tpu.utils import dinov2 as jdino
 from joligen_tpu_torch.models import create_model
-from joligen_tpu_torch.models.convert import flax_to_torch
+from joligen_tpu_torch.models.convert import (flax_to_torch,
+                                              optax_adam_state_to_torch)
 from joligen_tpu_torch.options import TrainOptions
 from joligen_tpu_torch.utils import clip_vit as tclip
 from joligen_tpu_torch.utils import dinov2 as tdino
@@ -159,10 +161,58 @@ def check_g_gradient(jm, tm):
         p.grad = None
 
 
+def port_state(tm):
+    """A copy of everything a port step changes: each net's parameters and
+    EMA, its optimizer state and step count, and the pool."""
+    return copy.deepcopy({
+        "nets": {n: net.state_dict() for n, net in tm.nets.items()},
+        "ema": {n: net.state_dict() for n, net in tm.ema_nets.items()},
+        "tx": {n: s.tx.state_dict() for n, s in tm.states.items()},
+        "step": {n: s.step for n, s in tm.states.items()},
+        "pool": (tm.pool.buffer, tm.pool.count)})
+
+
+def set_port_state(tm, state):
+    """Load a ``port_state`` (or ``jax_state``) into the port model."""
+    for name, net in tm.nets.items():
+        net.load_state_dict(state["nets"][name])
+        tm.states[name].tx.load_state_dict(copy.deepcopy(state["tx"][name]))
+        tm.states[name].step = state["step"][name]
+    for name, net in tm.ema_nets.items():
+        net.load_state_dict(state["ema"][name])
+    tm.pool.buffer.copy_(state["pool"][0])
+    tm.pool.count = state["pool"][1]
+
+
+def jax_state(tm, states, pool):
+    """The JAX step's state (params, EMA, optax adam state, pool) as a
+    ``port_state``."""
+    host = jax.device_get((states, pool))
+    states, pool = host
+    return {
+        "nets": {n: flax_to_torch(states[n].params) for n in tm.nets},
+        "ema": {n: flax_to_torch(states[n].ema_params) for n in tm.ema_nets},
+        "tx": {n: optax_adam_state_to_torch(states[n].opt_state)
+               for n in tm.states},
+        "step": {n: int(states[n].step) for n in tm.states},
+        "pool": (torch.from_numpy(np.array(pool.buffer)), int(pool.count))}
+
+
 def run_trajectory(jm, tm, adamw):
     """STEPS steps of both packages from the same weights on the same
     batches and draws; every check of the trajectory after each, and the
-    towers at the end: as they started (``adamw`` False) or decayed."""
+    towers at the end: as they started (``adamw`` False) or decayed.
+
+    Two port runs share the JAX run. The outputs of step i, its losses (to
+    1e-4) and the pool it fills with G's fakes (to 1e-3), are compared from
+    the state the packages share before it: the port is set to the JAX
+    step's state and takes step i.
+    The weights are compared on the port's own run, never resynced, with
+    the Adam allowance: a rare element whose second moment sits near zero
+    can take an update of opposite sign in the two packages (up to 2 × lr
+    a step), which moves the next step's losses by more than 1e-4 though
+    both packages compute the same function (1.6e-4 on G_NCE at step 1 of
+    the config run)."""
     towers = {n: p.detach().clone() for n, p in
               tm.nets["D_B_vision_aided"].named_parameters()
               if n.startswith("freezenet_")}
@@ -175,8 +225,11 @@ def run_trajectory(jm, tm, adamw):
         dev = quantize_batch(jm.set_input(batch),
                              float_keys=("real_A", "real_B"),
                              int_keys=("mask_A", "mask_B"))
+        shared = jax_state(tm, states, pool)
         states, pool, _, _, jlosses = step(states, pool, jm.apa_p,
                                            jm.d_diff_p, key, dev)
+        own = port_state(tm) if i else None
+        set_port_state(tm, shared)
         tlosses = tm.optimize_prepared(tm.prepare_batch(batch),
                                        step_draws(key, jm, tm))
         assert set(tlosses) == set(jlosses)
@@ -185,6 +238,13 @@ def run_trajectory(jm, tm, adamw):
         for k, v in jlosses.items():
             assert abs(float(tlosses[k]) - float(v)) <= 1e-4 * max(
                 1.0, abs(float(v))), (i, k, float(tlosses[k]), float(v))
+        np.testing.assert_allclose(to_np(tm.pool.buffer),
+                                   np.asarray(pool.buffer), atol=1e-3)
+        if own is not None:
+            # the port's own run: back to its state, the same step again
+            set_port_state(tm, own)
+            tm.optimize_prepared(tm.prepare_batch(batch),
+                                 step_draws(key, jm, tm))
         bad = []
         nets = dict(tm.nets)
         nets.update({f"{n}_ema": net for n, net in tm.ema_nets.items()})
@@ -206,8 +266,6 @@ def run_trajectory(jm, tm, adamw):
                 if off.any():
                     bad.append((i, name, pname, float(diff.max())))
         assert not bad, bad
-        np.testing.assert_allclose(to_np(tm.pool.buffer),
-                                   np.asarray(pool.buffer), atol=1e-3)
     # frozen towers: untouched by adam, decayed (and so moved) by adamw
     moved = [n for n, p in tm.nets["D_B_vision_aided"].named_parameters()
              if n in towers and not torch.equal(p, towers[n])]

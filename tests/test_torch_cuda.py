@@ -28,7 +28,7 @@ EDGE_SHAPES = [(3, 1, 1, 16), (1, 63, 3, 64), (3, 65, 1, 16),
 # xview's mid block (32 heads of 32) at 128 px: a request and a batch-16 step
 XVIEW_SHAPES = [(1, 256, 32, 32), (16, 256, 32, 32)]
 SHAPES = [(2, 128, 2, 64), (2, 256, 1, 32), (2, 100, 2, 64), (2, 5, 2, 16),
-          (1, 256, 16, 32), *XVIEW_SHAPES, *EDGE_SHAPES]
+          (1, 256, 16, 32), (8, 96, 12, 64), *XVIEW_SHAPES, *EDGE_SHAPES]
 # the backward checks of chip_smoke.py: the training shape, batch 1, 256 px
 # batch 8, and ragged ones
 BWD_CHECKS = [((8, 256, 16, 32), torch.bfloat16),
@@ -44,10 +44,12 @@ BWD_CHECKS = [((8, 256, 16, 32), torch.bfloat16),
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # head dim 8 and short sequences (the motion modules of unet_vid: S of 8
 # and 6 frames, 8 heads, D of 8 to 64), with ragged sequence counts and S
-# of 1, 3, 17 and 32 at the packed tiling's edges
+# of 1, 3, 17 and 32 at the packed tiling's edges; head dim 96 (the token
+# motion module of vit_vid over 8 frames, ragged ones)
 SHORT_SHAPES = [(64, 8, 8, 8), (37, 6, 8, 8), (5, 8, 8, 64), (3, 6, 8, 32),
                 (7, 8, 3, 16), (2, 1, 3, 8), (3, 3, 5, 8), (2, 17, 3, 16),
-                (3, 32, 2, 8), (2, 100, 2, 8), (1, 33, 3, 8)]
+                (3, 32, 2, 8), (2, 100, 2, 8), (1, 33, 3, 8),
+                (64, 8, 8, 96), (5, 7, 3, 96), (3, 100, 2, 96)]
 
 
 @pytest.fixture
@@ -96,7 +98,8 @@ def test_bf16_forward_matches_plain_version_at_each_query_tiling(
 @pytest.mark.parametrize("tiling", fa.TILINGS)
 def test_short_sequences_and_head_dim_8_match_plain_version(
         cuda, shape, dtype, tiling):
-    # K1, K2 and K3 at D = 8 and S <= 32 in both routes and both tilings
+    # K1, K2 and K3 at D = 8 (and 96) and S <= 32 in both routes and both
+    # tilings
     # (the packed one only where S <= 32), strided as the motion module's
     # q, k, v are not: a fused projection's column slices
     if tiling == "packed" and shape[1] > fa.PACK_MAX_S:

@@ -15,11 +15,15 @@ from joligen_tpu_torch.ops import flash_attention as fa
 # the motion modules of unet_vid: head dim 8 over 8 and 6 frames
 GRID = [(128, 64, 2), (256, 32, 1), (100, 64, 2), (5, 16, 2), (8, 8, 8),
         (6, 8, 8)]
+# vit_vid, small: its token motion modules, (B * T, F, 8 heads, 96), and
+# its JiT blocks at S = 96 (32 in-context tokens and 64 patches), (B * F,
+# 96, heads, 64); (B, S, H, D)
+VIT_VID = [(4, 8, 8, 96), (2, 96, 3, 64)]
 
 
-def _qkv(s, d, h, seed):
+def _qkv(s, d, h, seed, b=2):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((2, s, h, d)).astype(np.float32)
+    return [rng.standard_normal((b, s, h, d)).astype(np.float32)
             for _ in range(3)]
 
 
@@ -53,6 +57,18 @@ def test_reference_matches_pallas_kernel_bf16(s, d, h):
     o = fa.flash_attention(tq, tk, tv)
     assert o.dtype == torch.bfloat16
     np.testing.assert_allclose(o.float().numpy(), want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,s,h,d", VIT_VID)
+def test_reference_matches_pallas_kernel_at_vit_vid_shapes(b, s, h, d):
+    q, k, v = _qkv(s, d, h, seed=b + s + d, b=b)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), force=True))
+    o, lse = fa.flash_attention_reference(*map(torch.from_numpy, (q, k, v)))
+    assert o.shape == (b, s, h, d) and d in fa.SUPPORTED_HEAD_DIMS
+    np.testing.assert_allclose(o.numpy(), want, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), _jax_lse(q, k, v), atol=2e-5,
+                               rtol=2e-5)
 
 
 def test_cpu_wrapper_takes_plain_path_and_counts_no_launch():

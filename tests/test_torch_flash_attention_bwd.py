@@ -2,7 +2,8 @@
 PyTorch version, and gradients through the port's autograd Function on the
 CPU, against ``jax.vjp`` of the JAX flash attention with the Pallas kernels
 K1-K3 run in interpret mode, on the grid of tests/test_flash_attention.py
-plus S = 160 and the motion modules' head dim 8 over 8 and 6 frames. The same seeded cotangent goes to both. The CUDA kernels are
+plus S = 160, the motion modules' head dim 8 over 8 and 6 frames, and
+vit_vid's shapes (head dim 96 over 8 frames, S = 96 at head dim 64). The same seeded cotangent goes to both. The CUDA kernels are
 held against the same plain version on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 
@@ -22,11 +23,14 @@ from joligen_tpu_torch.ops import flash_attention as fa
 # the motion modules of unet_vid: head dim 8 over 8 and 6 frames
 GRID = [(128, 64, 2), (256, 32, 1), (100, 64, 2), (5, 16, 2), (160, 16, 2),
         (8, 8, 8), (6, 8, 8)]
+# vit_vid, small: its token motion modules at head dim 96 over 8 frames and
+# its JiT blocks at S = 96; (B, S, H, D)
+VIT_VID = [(4, 8, 8, 96), (2, 96, 3, 64)]
 
 
-def _inputs(s, d, h, seed):
+def _inputs(s, d, h, seed, b=2):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((2, s, h, d)).astype(np.float32)
+    return [rng.standard_normal((b, s, h, d)).astype(np.float32)
             for _ in range(4)]                       # q, k, v, cotangent
 
 
@@ -52,6 +56,16 @@ def test_autograd_function_matches_pallas_vjp_fp32(s, d, h):
     got = _port_grads(q, k, v, g, torch.float32)
     for name, a, b in zip("qkv", got, want):
         np.testing.assert_allclose(a, b, atol=5e-4, rtol=5e-4,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("b,s,h,d", VIT_VID)
+def test_autograd_function_matches_pallas_vjp_at_vit_vid_shapes(b, s, h, d):
+    q, k, v, g = _inputs(s, d, h, seed=b + s + d, b=b)
+    want = _jax_grads(q, k, v, g, jnp.float32)
+    got = _port_grads(q, k, v, g, torch.float32)
+    for name, a, bb in zip("qkv", got, want):
+        np.testing.assert_allclose(a, bb, atol=5e-4, rtol=5e-4,
                                    err_msg=f"d{name}")
 
 

@@ -18,10 +18,12 @@ the JAX package, on the CPU:
    segmenters, class weights, ``train_sem_net_output``, the Charbonnier
    out-mask loss). The helpers are in ``tests/_torch_glasses_common.py``.
    After every
-   step: every loss to 1e-4 (relative), every parameter of every net to
-   1e-4 with the Adam allowance of ``tests/test_torch_gan_cut.py`` (at most
-   1 % of a leaf's elements past 1e-4, by at most 2 × lr a step), the
-   pool to 1e-3. The towers' parameters: bit for bit as they started under
+   step: every loss to 1e-4 (relative) and the pool to 1e-3, from the
+   state the two packages share before the step (the port set to the JAX
+   step's state: params, EMA, optimizer state, pool); on the port's own
+   run, never resynced, every parameter of every net to 1e-4 with the Adam
+   allowance of ``tests/test_torch_gan_cut.py`` (at most 1 % of a leaf's
+   elements past 1e-4, by at most 2 × lr a step). The towers' parameters: bit for bit as they started under
    adam; under adamw decayed, as in the JAX step, to 1e-6.
 3. Before the trajectory: G's gradient of its whole loss (the semantic
    terms through f_s included) against ``jax.grad`` of the JAX
