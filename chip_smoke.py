@@ -135,7 +135,17 @@ GPU. Run from the repository root with no arguments:
    and one ``--autoregressive`` request over two clips through
    ``scripts/gen_vid_diffusion``, the pixels outside each mask kept; the
    full-width JiTViD in fp32, card against CPU.
-12. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
+12. MAT inpainting: ``example_mat_inpainting.json`` at full width (the
+   MAT generator, 59,779,834 parameters, and its two-trunk D, 36,083,330;
+   batch 8, 256 px, bf16) over a synthetic labeled-mask set, 8 steps (R1
+   at step 0) with finite losses, then the R1 and the non-R1 step timed
+   again warm; two requests through ``scripts/gen_single_image_mat``
+   (truncation 1.0 and 0.7) and a 4-frame one through
+   ``scripts/gen_video_mat`` from the checkpoint, the known pixels the
+   input's at ``model.inference``; the fp32 G and D at full width and the R1
+   penalty's D gradient, card against CPU. No kernel of the port runs on
+   this path (its launch counts are 0).
+13. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
    bf16 and ``tools.bw_probe3`` over 1 GiB arrays, each with the launch
    counters set to 0 just before it and read just after.
 
@@ -378,6 +388,23 @@ EXPECTED_PARAMS_B2B = 156_640_512      # [y_cond, z]: 6 input channels
 # K1 launches a b2b denoiser call (and K2 and K3 a step): 12 JiT blocks and
 # the motion module's 2 blocks of 2 temporal attentions
 B2B_K1_PER_CALL = 16
+# MAT inpainting (example_mat_inpainting.json as it is: batch 8, 256 px,
+# base 64, stage-1 dim 180, bf16): one epoch of MAT_STEPS steps over a
+# synthetic labeled-mask set (step 0 takes R1: d_reg_every 16), then the
+# R1 and non-R1 steps timed again warm (MAT_TIMED of each); two image
+# requests (truncation 1.0 and 0.7, one seed) and one video request of
+# MAT_FRAMES frames from its checkpoint, known pixels the input's to
+# MAT_KNOWN_TOL; the fp32 G and D at full width, card against CPU, to
+# MAT_TOL of the largest output, and the R1 penalty's D gradient at a small
+# size (MAT_R1_SIZE px, base 16, batch 4), to MAT_TOL of the largest
+MAT_EXAMPLE = "example_mat_inpainting.json"
+MAT_STEPS = 8
+MAT_TIMED = 3
+MAT_FRAMES = 4
+MAT_KNOWN_TOL = 1e-6
+MAT_TOL = 1e-4
+MAT_R1_SIZE = 64
+EXPECTED_PARAMS_MAT = {"G_A": 59_779_834, "D": 36_083_330}
 PROBE_ITERS = 32
 TRACE_ATTEMPTS = 4                  # traces of one timing, at most
 
@@ -3276,6 +3303,228 @@ def b2b_cross_check():
     return err
 
 
+def _mat_steps(model, dev, r1, n):
+    """``n`` synchronized steps of ``model`` on the prepared batch ``dev``,
+    each with (``r1``) or without R1: D's step count is set to a multiple
+    of ``d_reg_every`` or past one. Returns the times (s)."""
+    import torch
+    secs = []
+    for _ in range(n):
+        state = model.states["D"]
+        k = state.step // model.r1_every + 1
+        state.step = k * model.r1_every + (0 if r1 else 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = model.optimize_prepared(dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if (float(losses["D_r1"]) > 0) != r1:
+            raise AssertionError(f"MAT step with r1={r1}: D_r1 "
+                                 f"{float(losses['D_r1'])}")
+    return secs
+
+
+def _serve_mat(ckpt, data, out_dir):
+    """Two image requests (truncation 1.0 and 0.7, seed 0) through
+    ``scripts/gen_single_image_mat`` and one of MAT_FRAMES frames through
+    ``scripts/gen_video_mat`` from one load of ``ckpt``, the launch counters
+    at 0 just before them and read just after (no kernel of the port runs).
+    At ``model.inference`` every known pixel is the input's to
+    MAT_KNOWN_TOL and every output finite."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.scripts import gen_single_image_mat as gen_img
+    from joligen_tpu_torch.scripts import gen_video_mat as gen_vid
+    from joligen_tpu_torch.scripts.common import load_model_from_file
+
+    served, sopt = load_model_from_file(ckpt)
+    infer, errs = served.inference, []
+
+    def checked_inference(batch, **kw):
+        out = infer(batch, **kw)
+        keep = np.broadcast_to(np.asarray(batch["B_label_mask"]) == 0,
+                               out.shape)
+        errs.append(float(np.abs(out - batch["B"])[keep].max()))
+        if not (np.isfinite(out).all() and errs[-1] <= MAT_KNOWN_TOL):
+            raise AssertionError(f"MAT request: known pixels off by "
+                                 f"{errs[-1]}")
+        return out
+    served.inference = checked_inference
+    imgs = os.path.join(data, "trainA", "imgs")
+    masks = os.path.join(data, "trainA", "masks")
+    frames = os.path.join(out_dir, "frames")
+    frame_masks = os.path.join(out_dir, "frame_masks")
+    os.makedirs(frames)
+    os.makedirs(frame_masks)
+    for i in range(MAT_FRAMES):
+        shutil.copy(os.path.join(imgs, f"{i:04d}.png"), frames)
+        shutil.copy(os.path.join(masks, f"{i:04d}.png"), frame_masks)
+    rec = {"image_request_s": {}}
+    reset_launches()                             # the requests start here
+    for psi in ("1.0", "0.7"):
+        args = gen_img.parser().parse_args([
+            "--model_in_file", ckpt,
+            "--img_in", os.path.join(imgs, "0000.png"),
+            "--mask_in", os.path.join(masks, "0000.png"),
+            "--img_out", os.path.join(out_dir, f"req_{psi}.png"),
+            "--truncation_psi", psi, "--seed", "0"])
+        t0 = time.perf_counter()
+        out = gen_img.inference(args, served, sopt)
+        torch.cuda.synchronize()
+        rec["image_request_s"][psi] = time.perf_counter() - t0
+        size = sopt.data_crop_size
+        if out.shape != (size, size, 3):
+            raise AssertionError(f"MAT request: output {out.shape}")
+    args = gen_vid.build_parser().parse_args([
+        "--model_in_file", ckpt, "--dir_in", frames,
+        "--mask_dir_in", frame_masks,
+        "--dir_out", os.path.join(out_dir, "video"), "--seed", "0"])
+    t0 = time.perf_counter()
+    outs = gen_vid.inference(args, served, sopt)
+    torch.cuda.synchronize()
+    rec["video_request_s"] = time.perf_counter() - t0
+    rec["launches"] = read_launches()            # and end here
+    if len(outs) != MAT_FRAMES or any(rec["launches"].values()):
+        raise AssertionError(f"MAT video request: {len(outs)} frames, "
+                             f"launches {rec['launches']}")
+    rec["known_pixel_max_abs_err"] = max(errs)
+    rec["model_inference_calls"] = len(errs)
+    served.inference = infer
+    del served
+    torch.cuda.empty_cache()
+    log("mat requests: " + json.dumps(rec))
+    return rec
+
+
+def mat_phase(workdir):
+    """``example_mat_inpainting.json`` at full width (see the module doc,
+    item 12). Returns (record, launch counts per path)."""
+    import torch
+    from joligen_tpu_torch.tools.synthetic_datasets import write_labeled
+
+    opt = _example_opt(MAT_EXAMPLE, workdir, "mat")
+    if not (opt.data_crop_size == 256 and opt.train_batch_size == 8
+            and opt.G_ngf == 64 and opt.D_ndf == 64 and opt.tpu_bf16
+            and opt.alg_mat_first_stage_dim == 180
+            and opt.alg_mat_d_reg_every == 16):
+        raise AssertionError("mat_inpainting is not the example config")
+    write_labeled(opt.dataroot, MAT_STEPS * opt.train_batch_size, 256,
+                  seed=SEED + 61)
+    r1_losses = []
+
+    def watch(model, iters, steps):
+        r1_losses.append(float(model.loss_log["D_r1"]))
+    model, opt, rec = _train_run(opt, MAT_STEPS, 1, "mat_inpainting training",
+                                 EXPECTED_PARAMS_MAT["G_A"], hook=watch,
+                                 attention_per_step=0)
+    rec["parameters_per_net"] = model.param_count()
+    if rec["parameters_per_net"] != EXPECTED_PARAMS_MAT:
+        raise AssertionError(f"MAT parameters {rec['parameters_per_net']}")
+    if not (r1_losses[0] > 0 and not any(r1_losses[1:])):
+        raise AssertionError(f"MAT R1 losses by step {r1_losses}")
+    rec["D_r1_by_step"] = r1_losses
+    # the R1 and the non-R1 step again, warm, on one batch
+    from joligen_tpu_torch.data import create_dataloader, create_dataset
+    loader = create_dataloader(opt, create_dataset(opt, "train"))
+    dev = model.prepare_batch(next(iter(loader)))
+    torch.cuda.reset_peak_memory_stats()
+    _mat_steps(model, dev, True, 1)
+    rec["r1_step_s"] = _mat_steps(model, dev, True, MAT_TIMED)
+    rec["non_r1_step_s"] = _mat_steps(model, dev, False, MAT_TIMED)
+    rec["max_memory_allocated_r1"] = torch.cuda.max_memory_allocated()
+    log(f"mat_inpainting: warm R1 steps {rec['r1_step_s']} s, non-R1 "
+        f"{rec['non_r1_step_s']} s, peak {rec['max_memory_allocated_r1']} B")
+    del model, dev
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(opt.checkpoints_dir, opt.name, "latest_net_G_A.pth")
+    out_dir = os.path.join(workdir, "out_mat")
+    os.makedirs(out_dir)
+    rec["requests"] = _serve_mat(ckpt, opt.dataroot, out_dir)
+    return rec, {"mat_training": rec["launches"],
+                 "mat_requests": rec["requests"]["launches"]}
+
+
+def mat_cross_check():
+    """The fp32 MAT generator (noise mode none: no draw, the mul_maps 0.5)
+    and D at full width, batch 1 at 256 px, TF32 off, card against CPU on
+    the same seeded weights (the ToRGB weights scaled by 0.1, so that the
+    composed output is not clamped), to MAT_TOL of the largest output; the
+    R1 penalty's D gradient at MAT_R1_SIZE px, base 16, batch 4, card
+    against CPU, to MAT_TOL of the largest gradient."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.mat_model import r1_penalty
+    from joligen_tpu_torch.models.modules.mat import (MATDiscriminator,
+                                                      MATGenerator, init_mat)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(SEED + 62)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, 256, 256, 3)).astype(
+        np.float32))
+    mask = torch.ones(1, 256, 256, 1)
+    mask[:, 40:150, 60:200] = 0.0
+    z = torch.from_numpy(rng.standard_normal((1, 512)).astype(np.float32))
+    g = torch.Generator().manual_seed(SEED + 63)
+    netG = init_mat(MATGenerator(256, 3, 64, 512, 512, stage1_dim=180), g)
+    netD = init_mat(MATDiscriminator(256, 3, 64), g)
+    with torch.no_grad():
+        for n, p in netG.named_parameters():
+            if "rgb" in n and n.endswith("weight"):
+                p.mul_(0.1)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        netG, netD = netG.to(dev), netD.to(dev)
+        a = [t.to(dev) for t in (img, mask, z)]
+        with torch.inference_mode():
+            fake, stg1 = netG(*a, return_stg1=True)
+            lg = torch.cat(netD(fake, a[1], stg1), dim=-1)
+        outs[dev] = [t.cpu() for t in (fake, stg1, lg)]
+    rec = {}
+    for i, name in enumerate(("G_output", "G_stage1", "D_logits")):
+        want, got = outs["cpu"][i], outs["cuda"][i]
+        rec[name] = {"max_abs_err": (got - want).abs().max().item(),
+                     "max_abs": want.abs().max().item()}
+        if not (torch.isfinite(got).all() and rec[name]["max_abs_err"]
+                <= MAT_TOL * rec[name]["max_abs"]):
+            raise AssertionError(f"MAT cross-check {name}: {rec[name]}")
+    hole = (mask[..., 0] == 0)[..., None].expand_as(outs["cpu"][0])
+    rec["G_unclamped_hole_share"] = (outs["cpu"][0][hole].abs() < 0.999) \
+        .float().mean().item()
+    del netG, netD
+    # the R1 penalty's D gradient
+    d = init_mat(MATDiscriminator(MAT_R1_SIZE, 3, 16), g)
+    real = torch.from_numpy(rng.uniform(-1, 1, (4, MAT_R1_SIZE, MAT_R1_SIZE,
+                                                3)).astype(np.float32))
+    m = torch.ones(4, MAT_R1_SIZE, MAT_R1_SIZE, 1)
+    m[:, 10:40, 20:50] = 0.0
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        d = d.to(dev)
+        x = real.to(dev).requires_grad_(True)
+        lr_, lr1 = d(x, m.to(dev), x)
+        pen = r1_penalty(lr_.sum() + lr1.sum(), x)
+        # the last dense bias leaves the input gradient, so the penalty,
+        # as it is: its gradient is 0, as in JAX
+        gs = torch.autograd.grad(pen, list(d.parameters()), allow_unused=True)
+        grads[dev] = (pen.item(), [torch.zeros(p.shape) if t is None
+                                   else t.cpu()
+                                   for t, p in zip(gs, d.parameters())])
+    scale = max(t.abs().max().item() for t in grads["cpu"][1])
+    err = max((a - b).abs().max().item()
+              for a, b in zip(grads["cuda"][1], grads["cpu"][1]))
+    rec["r1"] = {"penalty_cuda": grads["cuda"][0],
+                 "penalty_cpu": grads["cpu"][0],
+                 "grad_max_abs_err": err, "grad_max_abs": scale}
+    log("mat cross-check fp32 card vs CPU: " + json.dumps(rec))
+    if not (err <= MAT_TOL * scale and abs(grads["cuda"][0] - grads["cpu"][0])
+            <= MAT_TOL * abs(grads["cpu"][0])):
+        raise AssertionError(f"MAT cross-check R1: {rec['r1']}")
+    return rec
+
+
 def ptxas_spills(ptxas):
     """The functions of a ``-Xptxas=-v`` log whose registers spill, each
     with its log line."""
@@ -3379,11 +3628,13 @@ def main():
         unetref, unetref_paths = phase("unetref", unetref_phase, workdir)
         vid, vid_paths = phase("video", vid_phase, workdir)
         b2b, b2b_paths = phase("b2b", b2b_phase, workdir)
+        mat, mat_paths = phase("mat", mat_phase, workdir)
     grad_check = phase("gradient cross-check", gradient_cross_check)
     vid["cross_check_fp32_max_abs_err"] = phase("video cross-check",
                                                 vid_cross_check)
     b2b["cross_check_fp32_max_abs_err"] = phase("b2b cross-check",
                                                 b2b_cross_check)
+    mat["cross_check_fp32"] = phase("mat cross-check", mat_cross_check)
     mario["cross_check_fp32"] = phase("MiT cross-check", mit_cross_check)
     unetref["cross_check_fp32_max_abs_err"] = phase("ref cross-check",
                                                     unetref_cross_check)
@@ -3398,7 +3649,7 @@ def main():
              "training_256px": training_256["launches"], **xview["paths"],
              **config_paths, **gan_paths, **glasses_paths, **cm_paths,
              **mario_paths, **unetref_paths, **vid_paths, **b2b_paths,
-             **probe_launches}
+             **mat_paths, **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -3417,6 +3668,7 @@ def main():
     log("unetref_viton: " + json.dumps(unetref))
     log("vid_mario: " + json.dumps(vid))
     log("b2b_vid_mario: " + json.dumps(b2b))
+    log("mat_inpainting: " + json.dumps(mat))
     log("phases (s): " + json.dumps(seconds))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     k1["training_gradient_cross_check"] = grad_check

@@ -145,12 +145,13 @@ class BaseModel:
         train also ``{prefix}_optim.pkl`` with each optimizer's state."""
         os.makedirs(self.save_dir, exist_ok=True)
         for name, net in self.nets.items():
+            wl = getattr(net, "flax_weight_leaves", False)
             checkpoint_io.save(self._net_path(prefix, name),
-                               torch_to_flax(net.state_dict()))
+                               torch_to_flax(net.state_dict(), wl))
             if name in self.ema_nets:
                 checkpoint_io.save(self._net_path(prefix, name, ema=True),
                                    torch_to_flax(self.ema_nets[name]
-                                                 .state_dict()))
+                                                 .state_dict(), wl))
         if self.states:
             with open(self._optim_path(prefix), "wb") as f:
                 pickle.dump({n: s.tx.state_dict()
@@ -169,12 +170,14 @@ class BaseModel:
                 if strict and not getattr(self.opt, "train_finetune", False):
                     raise FileNotFoundError(path)
                 continue
-            net.load_state_dict(flax_to_torch(checkpoint_io.load(path)),
+            wl = getattr(net, "flax_weight_leaves", False)
+            net.load_state_dict(flax_to_torch(checkpoint_io.load(path), wl),
                                 strict=strict)
             epath = self._net_path(prefix, name, ema=True)
             if name in self.ema_nets and os.path.exists(epath):
                 self.ema_nets[name].load_state_dict(
-                    flax_to_torch(checkpoint_io.load(epath)), strict=strict)
+                    flax_to_torch(checkpoint_io.load(epath), wl),
+                    strict=strict)
         opt_path = self._optim_path(prefix)
         if self.states and load_optim and os.path.exists(opt_path):
             with open(opt_path, "rb") as f:

@@ -42,6 +42,12 @@ so it transposes as any conv (and is not flipped again); spectral
 normalisation keeps no state (``SNConv`` is ``kernel`` and ``bias``); the
 projected D's frozen trunk and projections are plain convs and GroupNorms.
 
+MAT's trees (``weight_leaves``; its nets set ``flax_weight_leaves``) name
+their leaves ``weight`` in flax too: a conv ``weight`` HWIO <-> OIHW, a
+dense ``weight`` (in, out) <-> (out, in), and the 0-D ``noise_strength`` as
+it is. No other tree has a flax ``weight``, and without the flag the
+mapping of every other tree is as above.
+
 Both directions only transpose, so they are exact. The same mapping carries
 an optax adam/adamw state (count, mu, nu) to the port's optimizer state and
 back.
@@ -82,16 +88,25 @@ def _unstack(path, arr):
     yield path, arr
 
 
-def flax_to_torch(params):
+def flax_to_torch(params, weight_leaves=False):
     """Nested dict of numpy arrays (optionally under a top ``params`` key)
-    -> torch state dict (CPU tensors)."""
+    -> torch state dict (CPU tensors). ``weight_leaves``: MAT's rule."""
     if set(params) == {"params"}:
         params = params["params"]
     out = {}
     for path, arr in (pair for p, leaf in _flatten(params)
                       for pair in _unstack(p, np.asarray(leaf))):
         name = path[-1]
-        if name == "kernel" and arr.ndim == 4:
+        if weight_leaves and name in ("weight", "noise_strength"):
+            tname = name
+            if name == "weight" and arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            elif name == "weight" and arr.ndim == 2:
+                arr = arr.T
+            elif name == "weight" or arr.ndim != 0:
+                raise ValueError(f"unmapped flax leaf {'/'.join(path)} "
+                                 f"{arr.shape}")
+        elif name == "kernel" and arr.ndim == 4:
             arr, tname = arr.transpose(3, 2, 0, 1), "weight"
         elif name == "kernel" and arr.ndim == 2:
             arr, tname = arr.T, "weight"
@@ -108,16 +123,17 @@ def flax_to_torch(params):
     return out
 
 
-def _tree_to_torch_numpy(tree):
+def _tree_to_torch_numpy(tree, weight_leaves=False):
     """A flax-shaped tree (any float dtype, bf16 included) -> numpy fp32
     arrays keyed and laid out like the torch parameters."""
     def f32(t):
         return {k: f32(v) if isinstance(v, dict) else np.asarray(v, np.float32)
                 for k, v in t.items()}
-    return {k: v.numpy() for k, v in flax_to_torch(f32(tree)).items()}
+    return {k: v.numpy() for k, v in
+            flax_to_torch(f32(tree), weight_leaves).items()}
 
 
-def optax_adam_state_to_torch(opt_state):
+def optax_adam_state_to_torch(opt_state, weight_leaves=False):
     """An optax adam/adamw state (the ``chain`` tuple, optionally inside
     ``MultiStepsState``) -> the port's optimizer state dict
     (``models/train_state.py``): ``{"count", "mu", "nu"}``, or
@@ -126,21 +142,23 @@ def optax_adam_state_to_torch(opt_state):
     if hasattr(opt_state, "mini_step"):
         return {"mini_step": int(opt_state.mini_step),
                 "gradient_step": int(opt_state.gradient_step),
-                "acc_grads": _tree_to_torch_numpy(opt_state.acc_grads),
-                "inner": optax_adam_state_to_torch(opt_state.inner_opt_state)}
+                "acc_grads": _tree_to_torch_numpy(opt_state.acc_grads,
+                                                  weight_leaves),
+                "inner": optax_adam_state_to_torch(opt_state.inner_opt_state,
+                                                   weight_leaves)}
     adam = next(s for s in opt_state if hasattr(s, "mu"))
     return {"count": int(adam.count),
-            "mu": _tree_to_torch_numpy(adam.mu),
-            "nu": _tree_to_torch_numpy(adam.nu)}
+            "mu": _tree_to_torch_numpy(adam.mu, weight_leaves),
+            "nu": _tree_to_torch_numpy(adam.nu, weight_leaves)}
 
 
-def torch_adam_state_to_optax(state, template):
+def torch_adam_state_to_optax(state, template, weight_leaves=False):
     """Inverse of ``optax_adam_state_to_torch``: fills a copy of
     ``template`` (the optimizer's own ``init`` state, which gives the
     NamedTuple types and the leaf dtypes) from the port's state dict."""
     def tree(arrays, like):
         flax = torch_to_flax({k: torch.from_numpy(np.asarray(v, np.float32))
-                              for k, v in arrays.items()})
+                              for k, v in arrays.items()}, weight_leaves)
         if "params" not in like:
             flax = flax["params"]
 
@@ -160,7 +178,7 @@ def torch_adam_state_to_optax(state, template):
                                 state["gradient_step"]),
             acc_grads=tree(state["acc_grads"], template.acc_grads),
             inner_opt_state=torch_adam_state_to_optax(
-                state["inner"], template.inner_opt_state))
+                state["inner"], template.inner_opt_state, weight_leaves))
     out = []
     for s in template:
         if hasattr(s, "mu"):
@@ -173,15 +191,24 @@ def torch_adam_state_to_optax(state, template):
     return type(template)(out)
 
 
-def torch_to_flax(state_dict):
-    """torch state dict -> ``{"params": nested dict of numpy arrays}``."""
+def torch_to_flax(state_dict, weight_leaves=False):
+    """torch state dict -> ``{"params": nested dict of numpy arrays}``.
+    ``weight_leaves``: MAT's rule."""
     root = {}
     stacks = {}     # path with ``block`` -> {block index: leaf}
     for key, t in state_dict.items():
         parts = key.split(".")
         arr = t.detach().cpu().numpy()
         name, module = parts[-1], parts[-2] if len(parts) > 1 else ""
-        if name in ("bias", "kernel") or name in RAW_LEAVES:
+        if weight_leaves and name in ("weight", "noise_strength"):
+            fname = name
+            if name == "weight" and arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+            elif name == "weight" and arr.ndim == 2:
+                arr = arr.T
+            elif name == "weight" or arr.ndim != 0:
+                raise ValueError(f"unmapped torch parameter {key}")
+        elif name in ("bias", "kernel") or name in RAW_LEAVES:
             fname = name
         elif name != "weight":
             raise ValueError(f"unmapped torch parameter {key}")
@@ -200,7 +227,7 @@ def torch_to_flax(state_dict):
                 stacks.setdefault(stack, {})[int(path[i + 1])] = arr
                 break
         else:
-            _set(root, path, np.ascontiguousarray(arr))
+            _set(root, path, np.asarray(arr, order="C"))   # keeps 0-D
     for path, blocks in stacks.items():
         _set(root, list(path),
              np.stack([blocks[j] for j in range(len(blocks))]))

@@ -3,9 +3,13 @@
 
 ``upfirdn2d`` is a zero-stuff to ``h * up`` (trailing zeros after the last
 sample, as the reference op and the JAX package's extra pad at
-``upfirdn2d.py:54-58`` give), a pad (negative values crop), a depthwise
-``conv2d(groups=C)`` with the flipped filter, and a stride. Autograd gives
-its gradient. The ``basic`` discriminator reaches it through ``blur_pool``
+``upfirdn2d.py:54-58`` give), a pad (negative values crop), the flipped
+filter as one single-channel ``conv2d`` over the N·C planes, and a stride.
+Autograd gives its gradient. Not a depthwise ``conv2d(groups=C)``: PyTorch
+runs that one's double backward group by group, C convolutions each, which
+made MAT's R1 step (a double backward through its D's blurs) 13.8 s
+against 0.85 s this way on an NVIDIA H100 (``PERF.md`` §6). The
+``basic`` discriminator reaches it through ``blur_pool``
 (``models/modules/discriminators.py``); ``freq_space`` options through the
 Haar pair.
 """
@@ -39,15 +43,16 @@ def upfirdn2d(x, f, up=1, down=1, padding=(0, 0, 0, 0), gain=1.0):
     down = (down, down) if isinstance(down, int) else tuple(down)
     padx0, padx1, pady0, pady1 = padding
     n, c, h, w = x.shape
+    x = x.reshape(n * c, 1, h, w)
     if up != (1, 1):
-        z = x.new_zeros(n, c, h * up[0], w * up[1])
+        z = x.new_zeros(n * c, 1, h * up[0], w * up[1])
         z[:, :, ::up[0], ::up[1]] = x
         x = z
     x = F.pad(x, (padx0, padx1, pady0, pady1))
     kernel = torch.flip(f, (0, 1)).to(device=x.device, dtype=x.dtype)
     kernel = kernel * (gain * up[0] * up[1])
-    kernel = kernel[None, None].expand(c, 1, *f.shape)
-    return F.conv2d(x, kernel, stride=down, groups=c)
+    y = F.conv2d(x, kernel[None, None], stride=down)
+    return y.reshape(n, c, y.shape[-2], y.shape[-1])
 
 
 def upsample2d(x, f, up=2, gain=1.0):

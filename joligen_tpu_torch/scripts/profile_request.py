@@ -18,7 +18,10 @@ with ``--model_type sc``; a cm_gan step is one micro-step; the video
 ``examples/example_ddpm_vid_mario.json``, whose batch then holds clips of
 ``data_temporal_number_frames`` frames, a step one micro-step of its
 ``iter_size``; b2b from ``examples/example_b2b_vid_mario.json``, clips too,
-a request its ``denoise_timesteps`` Heun steps) at full width
+a request its ``denoise_timesteps`` Heun steps; MAT from
+``examples/example_mat_inpainting.json``, a step one ``optimize_prepared``
+(the warm-up steps leave the timed and traced ones without R1), a request
+one ``inference``) at full width
 with seeded random weights and runs twice as warm-up, on a synthetic
 masked image, either one serving request or (``--train``) one training
 step on a batch of ``train_batch_size`` such images (a GAN reads its ``A``

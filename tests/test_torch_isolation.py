@@ -1,6 +1,6 @@
 """The port stands alone: it imports with jax, flax, jaxlib, msgpack, the
 JAX package, cv2, tifffile and scipy blocked (every module, the training slice's,
-the probes', the video slice's and b2b's included), no source file of it (nor chip_smoke.py) imports
+the probes', the video slice's, b2b's and MAT's included), no source file of it (nor chip_smoke.py) imports
 them, and without a CUDA device its
 entry points (model, serving script, train CLI) raise unless the CPU is
 asked for."""
@@ -92,6 +92,10 @@ VIDEO_MODULES = ("models.modules.motion", "models.modules.unet_vid",
 # b2b flow matching with the video JiT denoiser
 B2B_MODULES = ("models.modules.jit", "models.modules.vit_vid",
                "models.modules.b2b", "models.b2b_model")
+# MAT inpainting: the generator and D, the model, the perceptual trunk,
+# the request scripts
+MAT_MODULES = ("models.modules.mat", "models.mat_model", "utils.metrics",
+               "scripts.gen_single_image_mat", "scripts.gen_video_mat")
 
 
 def test_package_imports_with_jax_blocked():
@@ -100,10 +104,11 @@ def test_package_imports_with_jax_blocked():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 53
+    assert len(names) >= 58
     for m in (TRAINING_MODULES + PROBE_MODULES + CONDITIONING_MODULES
               + GAN_MODULES + CM_MODULES + GLASSES_MODULES
-              + SEGFORMER_REF_MODULES + VIDEO_MODULES + B2B_MODULES):
+              + SEGFORMER_REF_MODULES + VIDEO_MODULES + B2B_MODULES
+              + MAT_MODULES):
         assert "joligen_tpu_torch." + m in names, m
 
 
