@@ -17,7 +17,8 @@ GPU. Run from the repository root with no arguments:
    (the motion modules of unet_vid at S <= 32 and head dim 8:
    (4096, 8, 8, 8), (64, 8, 8, 64), (16384, 6, 8, 8); vit_vid's token
    motion module at head dim 96, (64, 8, 8, 96), and JiT blocks,
-   (8, 64, 12, 64) and (8, 96, 12, 64); ragged ones) in both dtypes and,
+   (8, 64, 12, 64) and (8, 96, 12, 64), and the image JiT's at 256 px,
+   (8, 256, 12, 64) and (8, 288, 12, 64); ragged ones) in both dtypes and,
    where S <= 32, both tilings, packed and plain (the card tests'
    tolerance there, TOL (1 + |want|): one bf16 ulp of those gradients
    exceeds TOL), then timed at those shapes in both tilings beside sdpa; the autograd Function
@@ -145,7 +146,26 @@ GPU. Run from the repository root with no arguments:
    input's at ``model.inference``; the fp32 G and D at full width and the R1
    penalty's D gradient, card against CPU. No kernel of the port runs on
    this path (its launch counts are 0).
-13. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
+13. The image transformer trunks, each ``examples/example_ddpm_noglasses2
+   glasses.json`` plus command-line overrides over a synthetic labeled-mask
+   set: ``b2b_image_256`` (``--model_type b2b --G_netG vit``, 256 px: the
+   image JiT-B/16, 130,454,784 parameters, batch 8, bf16, EMA), 8 steps
+   with K1, K2 and K3 12 times each a step, then through
+   ``scripts/gen_single_image_diffusion`` a request of the config's 50
+   Heun steps (99 denoiser calls of 12 K1) and one of ``--sampling_steps
+   10``, the known pixels the input's to 1e-6; ``b2b_lora``
+   (``--alg_b2b_lora``: rank 8, 10 adapter leaves of 1,253,376
+   parameters; ``--train_continue_from`` that checkpoint), 4 steps with the
+   base weights bit for bit and every adapter B moved, then
+   ``merge_lora_checkpoint`` and a 10-step request from the merged
+   weights; ``palette_vit_128`` (``--G_netG vit``, 130,487,552 parameters,
+   K1 12 a call at (8, 64 and 96, 12, 64)) and ``palette_hdit_128``
+   (``--G_netG hdit``, 62,901,014 parameters, no kernel), 8 steps and a
+   DDIM-10 request each (their data and checkpoints in RAM, under
+   ``/dev/shm``, where the machine has it); JiT-B/16 and HDiT at full
+   width in fp32, card against CPU to 1e-4 of the largest output, and one
+   LoRA merge card against CPU bit for bit.
+14. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
    bf16 and ``tools.bw_probe3`` over 1 GiB arrays, each with the launch
    counters set to 0 just before it and read just after.
 
@@ -357,6 +377,12 @@ VID_MID_SHAPE = (8, 64, 16, 32)
 B2B_MOTION_SHAPE = (64, 8, 8, 96)
 B2B_PRE_SHAPE = (8, 64, 12, 64)
 B2B_POST_SHAPE = (8, 96, 12, 64)
+# the image JiT-B/16's blocks at 256 px, batch 8 (b2b_image_256): 256
+# tokens before the 32 in-context tokens and 288 after (a ragged last tile
+# of queries and of keys); palette_vit_128's are B2B_PRE_SHAPE and
+# B2B_POST_SHAPE
+JIT_IMAGE_PRE_SHAPE = (8, 256, 12, 64)
+JIT_IMAGE_POST_SHAPE = (8, 288, 12, 64)
 # K1-K3 at the video paths' shapes, in both dtypes, and at S <= 32 in both
 # tilings (packed and plain): every motion-module shape of the video path
 # (vid_mario's levels 1-4, _ft_from_image's levels 1-4; D = 8), b2b's
@@ -367,14 +393,17 @@ SHORT_CHECKS = [VID_L1_SHAPE, (1024, 8, 8, 16), (256, 8, 8, 32),
                 (1024, 6, 8, 32), (256, 6, 8, 64), (3, 6, 8, 32),
                 (7, 8, 3, 16), (2, 17, 3, 8), (3, 32, 2, 8), (2, 1, 3, 8),
                 B2B_MOTION_SHAPE, B2B_PRE_SHAPE, B2B_POST_SHAPE,
-                (5, 7, 3, 96), (3, 100, 2, 96)]
+                (5, 7, 3, 96), (3, 100, 2, 96), JIT_IMAGE_PRE_SHAPE,
+                JIT_IMAGE_POST_SHAPE]
 VID_TIMINGS = (("vid_level1", VID_L1_SHAPE, 50),
                ("vid_level4", VID_L4_SHAPE, 50),
                ("vid_s6_level1", VID_S6_SHAPE, 20),
                ("vid_mid", VID_MID_SHAPE, 50),
                ("b2b_motion", B2B_MOTION_SHAPE, 50),
                ("b2b_jit_pre", B2B_PRE_SHAPE, 50),
-               ("b2b_jit_post", B2B_POST_SHAPE, 50))
+               ("b2b_jit_post", B2B_POST_SHAPE, 50),
+               ("jit_image_pre", JIT_IMAGE_PRE_SHAPE, 50),
+               ("jit_image_post", JIT_IMAGE_POST_SHAPE, 50))
 # b2b_vid_mario (example_b2b_vid_mario.json) as it is but for its mesh
 # (tpu_mesh_fsdp 2 cannot hold on one card): B2B_STEPS steps at batch 1
 # over one series of 8 frames of B2B_IMAGE px (its crops are 128 px with
@@ -405,8 +434,32 @@ MAT_KNOWN_TOL = 1e-6
 MAT_TOL = 1e-4
 MAT_R1_SIZE = 64
 EXPECTED_PARAMS_MAT = {"G_A": 59_779_834, "D": 36_083_330}
+# the image transformer trunks, each EXAMPLE plus command-line overrides:
+# b2b_image_256 (the image JiT-B/16 under b2b, 256 px, batch 8; IMAGE_STEPS
+# steps, a request of the config's B2B_IMAGE_HEUN_STEPS Heun steps and one
+# of 10), b2b_lora (its LoRA finetuning, rank 8, alpha 16, dropout 0.05,
+# the default targets, continued from its checkpoint: LORA_STEPS steps, a
+# 10-step request from the merged weights), palette_vit_128 and
+# palette_hdit_128 (IMAGE_STEPS steps and a DDIM-10 request each); the
+# parameter counts are the JAX package's (jax.eval_shape; the tests hold
+# them), the JiT's with 12 K1 a call; the fp32 cross-checks to IMAGE_TOL of
+# the largest output
+IMAGE_EXAMPLE = "example_ddpm_noglasses2glasses.json"
+B2B_IMAGE_ARGS = ["--model_type", "b2b", "--G_netG", "vit",
+                  "--data_load_size", "256", "--data_crop_size", "256"]
+B2B_LORA_ARGS = B2B_IMAGE_ARGS + ["--alg_b2b_lora"]
+IMAGE_STEPS = 8
+LORA_STEPS = 4
+B2B_IMAGE_HEUN_STEPS = 50
+JIT_K1_PER_CALL = 12
+EXPECTED_PARAMS_B2B_IMAGE = 130_454_784
+EXPECTED_LORA = (10, 1_253_376)            # adapter leaves, parameters
+EXPECTED_PARAMS_PALETTE_VIT = 130_487_552
+EXPECTED_PARAMS_PALETTE_HDIT = 62_901_014
+IMAGE_TOL = 1e-4
 PROBE_ITERS = 32
 TRACE_ATTEMPTS = 4                  # traces of one timing, at most
+SPIN_HZ = 1.98e9                    # the H100's top SM clock, cycles a second
 
 
 def log(msg):
@@ -423,6 +476,32 @@ def wall_ms(fn, iters):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters):
+    """Mean device time of one call by CUDA events around ``iters`` calls
+    queued behind a spin kernel: the card spins while the host queues the
+    calls, then runs them back to back whatever the host's pace. Twice the
+    host's time for ``iters`` calls, synchronised, bounds how long queueing
+    takes; the spin is that long at SPIN_HZ (longer at a lower clock)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * SPIN_HZ) + 10_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -461,8 +540,9 @@ def device_ms(fn, iters, kernel=None):
     still loses a launch now and then (9 of 10 on an H100 once); one whose
     counts are not whole multiples of ``iters`` is taken again, up to
     ``TRACE_ATTEMPTS`` times, and the last is read with the counts per call
-    rounded. With ``kernel`` given, every launch must be of a kernel of that
-    name, one a call."""
+    rounded. Where every trace is empty, the call is timed by ``queued_ms``.
+    With ``kernel`` given, every launch a trace saw must be of a kernel of
+    that name, one a call."""
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         events = _device_events(fn, iters)
         counts = collections.Counter(name for name, _ in events)
@@ -473,6 +553,14 @@ def device_ms(fn, iters, kernel=None):
             break
         log(f"trace {attempt} of {iters} calls lost launches: "
             f"{dict(counts)}")
+    if not events:
+        # CUPTI hands back an empty trace now and then, several in a row
+        # at times (4 of 4 once on an H100): time by CUDA events instead
+        log(f"{TRACE_ATTEMPTS} traces of {iters} calls saw no device time; "
+            f"timed by CUDA events behind a spin kernel"
+            + (f", so the launches of {kernel} went unchecked here"
+               if kernel is not None else ""))
+        return queued_ms(fn, iters)
     if not sum(us for _, us in events) > 0:
         raise AssertionError("the profiler saw no device time")
     per_call = {n: max(1, round(c / iters)) for n, c in counts.items()}
@@ -2056,14 +2144,15 @@ def other_configs_phase(workdir):
     return recs, paths
 
 
-def _example_opt(example, workdir, name):
-    """An example config: one epoch, the loss every step, no display
+def _example_opt(example, workdir, name, args=()):
+    """An example config with the command-line overrides ``args`` (as the
+    train CLI reads them): one epoch, the loss every step, no display
     inference, ``latest`` saved at the epoch's end only; its dataset is
     ``workdir/data_<name>``, written by the caller."""
     from joligen_tpu_torch.options import TrainOptions
 
-    with open(os.path.join(ROOT, "examples", example)) as f:
-        opt = TrainOptions().parse_json(json.load(f), verbose=False)
+    opt = TrainOptions().parse_cli([
+        "--config_json", os.path.join(ROOT, "examples", example), *args])
     opt.dataroot = os.path.join(workdir, f"data_{name}")
     opt.checkpoints_dir = os.path.join(workdir, f"{name}_ckpt")
     opt.name = f"smoke_{name}"
@@ -2460,12 +2549,17 @@ def _cm_opt(example, workdir, n_images, name, model_type=None):
     return opt
 
 
-def _serve_masked(ckpt, workdir, n, k1, label, trained_ema=None):
+def _serve_masked(ckpt, workdir, n, k1, label, trained_ema=None, extra=None,
+                  infer_kw=None, wire=False):
     """``n`` requests through ``scripts/gen_single_image_diffusion`` from
     one load of ``ckpt`` (its EMA equal to ``trained_ema`` bit for bit, when
     given), with the launch counters at 0 just before them and read just
-    after: ``k1`` K1 launches a request and no other kernel; each output
-    finite, and equal to the input crop outside the mask to 1e-6."""
+    after: ``k1`` K1 launches a request (or ``k1[i]`` for request i) and no
+    other kernel; each output finite, and equal to the input crop outside
+    the mask to 1e-6. ``extra[i]``: request i's further arguments;
+    ``infer_kw``: arguments of the model's ``inference`` besides the
+    script's; ``wire``: the model takes its batch through the uint8 wire
+    step (palette), so its known pixels are the quantised crop's."""
     import numpy as np
     import torch
     from PIL import Image
@@ -2481,13 +2575,13 @@ def _serve_masked(ckpt, workdir, n, k1, label, trained_ema=None):
     outputs, infer = [], served.inference
 
     def recording_inference(*a, **kw):
-        outputs.append(infer(*a, **kw))
+        outputs.append(infer(*a, **kw, **(infer_kw or {})))
         return outputs[-1]
     served.inference = recording_inference
     img = _write_inputs(workdir)
     size = sopt.data_crop_size
-    crop = to_m1p1(np.asarray(Image.fromarray(img).resize(
-        (size, size), Image.BICUBIC)))
+    crop = (_expected_crop(img, size) if wire else to_m1p1(np.asarray(
+        Image.fromarray(img).resize((size, size), Image.BICUBIC))))
     keep = np.asarray(Image.open(os.path.join(workdir, "mask.png")).convert(
         "L").resize((size, size), Image.NEAREST)) == 0
     secs = []
@@ -2498,7 +2592,8 @@ def _serve_masked(ckpt, workdir, n, k1, label, trained_ema=None):
             "--img_in", os.path.join(workdir, "img.png"),
             "--mask_in", os.path.join(workdir, "mask.png"),
             "--dir_out", os.path.join(workdir, f"out_{label}"),
-            "--name", f"req{i}", "--seed", str(i)])
+            "--name", f"req{i}", "--seed", str(i),
+            *(extra[i] if extra else [])])
         before = read_launches()
         t0 = time.perf_counter()
         full, _, _ = gen.inference(args, lmodel=served, lopt=sopt)
@@ -2510,7 +2605,8 @@ def _serve_masked(ckpt, workdir, n, k1, label, trained_ema=None):
         err = float(np.abs(out[keep] - crop[keep]).max())
         log(f"{label} request {i}: {secs[-1]:.4f} s, launches {got}, "
             f"outside the mask max abs err {err:.1e}")
-        if got != _attention_only(got, {"flash_attention_fwd": k1}) or not (
+        want = k1[i] if isinstance(k1, list) else k1
+        if got != _attention_only(got, {"flash_attention_fwd": want}) or not (
                 np.isfinite(out).all() and out.shape == (size, size, 3)
                 and full.shape == img.shape and err <= 1e-6):
             raise AssertionError(f"{label} request {i} failed")
@@ -3525,6 +3621,225 @@ def mat_cross_check():
     return rec
 
 
+def _jit_k1_per_call(net):
+    """K1 launches a JiT call: one a block."""
+    from joligen_tpu_torch.models.modules.jit import JiTBlock
+    return sum(isinstance(m, JiTBlock) for m in net.modules())
+
+
+def image_transformer_phase(workdir):
+    """The image transformer trunks (see the module doc, item 13):
+    b2b_image_256, b2b_lora, palette_vit_128, palette_hdit_128. Their data
+    and checkpoints (~2 GB a save of a 130M-parameter run, twice at a
+    run's end) go under ``/dev/shm`` where the machine has it, in RAM, so
+    that they do not add to the disk's writes, and each run's go once its
+    requests are served. Returns (records, launch counts per path)."""
+    if os.path.isdir("/dev/shm") and os.access("/dev/shm", os.W_OK):
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_images_",
+                                   dir="/dev/shm")
+    else:
+        workdir = tempfile.mkdtemp(prefix="images_", dir=workdir)
+    try:
+        return _image_transformer_runs(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _image_transformer_runs(workdir):
+    """``image_transformer_phase``'s four runs, their files in
+    ``workdir``."""
+    import torch
+    from joligen_tpu_torch.models.convert import flax_to_torch, torch_to_flax
+    from joligen_tpu_torch.models.modules.hdit import HDiT
+    from joligen_tpu_torch.models.modules.jit import JiT
+    from joligen_tpu_torch.tools.synthetic_datasets import write_labeled
+    from joligen_tpu_torch.utils import checkpoint_io
+
+    recs, paths = {}, {}
+    k1 = {"flash_attention_fwd": JIT_K1_PER_CALL,
+          "flash_attention_bwd_dq": JIT_K1_PER_CALL,
+          "flash_attention_bwd_dkv": JIT_K1_PER_CALL}
+
+    # b2b_image_256: 8 steps, then a 50-step and a 10-step request
+    opt = _example_opt(IMAGE_EXAMPLE, workdir, "b2b_image", B2B_IMAGE_ARGS)
+    write_labeled(opt.dataroot, IMAGE_STEPS * opt.train_batch_size, 256,
+                  seed=SEED + 71)
+    model, opt, rec = _train_run(opt, IMAGE_STEPS, 1, "b2b_image_256 "
+                                 "training", EXPECTED_PARAMS_B2B_IMAGE,
+                                 attention_per_step=k1)
+    net = model.nets["G_A"]
+    if not (isinstance(net, JiT) and not model.is_video and model.use_ema
+            and model.denoise_timesteps == B2B_IMAGE_HEUN_STEPS
+            and _jit_k1_per_call(net) == JIT_K1_PER_CALL
+            and opt.train_batch_size == 8 and opt.data_crop_size == 256):
+        raise AssertionError("b2b_image_256 did not train as configured")
+    ema = {k: v.detach().cpu().clone()
+           for k, v in model.ema_nets["G_A"].state_dict().items()}
+    del model, net
+    torch.cuda.empty_cache()
+    ckpt_dir = os.path.join(opt.checkpoints_dir, opt.name)
+    ckpt = os.path.join(ckpt_dir, "latest_net_G_A.pth")
+    calls = [2 * B2B_IMAGE_HEUN_STEPS - 1, 2 * 10 - 1]
+    rec["requests"] = _serve_masked(
+        ckpt, workdir, 2, [c * JIT_K1_PER_CALL for c in calls],
+        "b2b_image", trained_ema=ema, extra=[[], ["--sampling_steps", "10"]])
+    rec["requests"]["denoiser_calls"] = calls
+    recs["b2b_image_256"] = rec
+    paths["b2b_image_training"] = rec["launches"]
+    paths["b2b_image_requests"] = rec["requests"]["launches"]
+
+    # b2b_lora: LORA_STEPS LoRA steps continued from that checkpoint
+    lopt = _example_opt(IMAGE_EXAMPLE, workdir, "b2b_lora", B2B_LORA_ARGS + [
+        "--train_continue_from", ckpt_dir])
+    lopt.dataroot = opt.dataroot
+    lopt.data_max_dataset_size = LORA_STEPS * lopt.train_batch_size
+    base = flax_to_torch(checkpoint_io.load(ckpt))
+    model, lopt, rec = _train_run(lopt, LORA_STEPS, 1, "b2b_lora training",
+                                  EXPECTED_PARAMS_B2B_IMAGE,
+                                  attention_per_step=k1)
+    adapters = model.nets["G_lora"]
+    rec["adapter_leaves"] = len(adapters.paths)
+    rec["adapter_parameters"] = adapters.count()
+    if (rec["adapter_leaves"], rec["adapter_parameters"]) != EXPECTED_LORA:
+        raise AssertionError(f"b2b_lora adapters {rec['adapter_leaves']} "
+                             f"leaves, {rec['adapter_parameters']}")
+    frozen = all(torch.equal(v.cpu(), base[k]) for k, v in
+                 model.nets["G_A"].state_dict().items())
+    moved = [bool(b.detach().abs().max() > 0)
+             for _, _, b in adapters.factors()]
+    if not (frozen and all(moved) and model.states["G_A"].step == 0):
+        raise AssertionError(f"b2b_lora: base frozen {frozen}, adapter Bs "
+                             f"moved {moved}")
+    model.merge_lora_checkpoint()
+    changed = sum(not torch.equal(v.cpu(), base[k]) for k, v in
+                  model.nets["G_A"].state_dict().items())
+    want = sum(len(n) for n in adapters.sites.values())
+    if changed != want:
+        raise AssertionError(f"b2b_lora merge changed {changed} weights, "
+                             f"expected {want}")
+    # the merged G alone: its request samples with these weights
+    merged = os.path.join(lopt.checkpoints_dir, lopt.name,
+                          "merged_net_G_A.pth")
+    checkpoint_io.save(merged, torch_to_flax(model.nets["G_A"].state_dict()))
+    rec["base_bit_for_bit"], rec["merged_weights"] = frozen, changed
+    log(f"b2b_lora: {rec['adapter_leaves']} adapter leaves, "
+        f"{rec['adapter_parameters']} adapter parameters; the base bit for "
+        f"bit after {LORA_STEPS} steps, every B moved; the merge changed "
+        f"{changed} weights")
+    del model, adapters
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir)
+    # the merged base weights (the merge leaves the EMA as it is, as the
+    # JAX package's does, and no EMA file is written with them)
+    rec["request"] = _serve_masked(
+        merged, workdir, 1, [19 * JIT_K1_PER_CALL], "b2b_lora",
+        extra=[["--sampling_steps", "10"]], infer_kw={"use_ema": False})
+    shutil.rmtree(os.path.dirname(merged))
+    recs["b2b_lora"] = rec
+    paths["b2b_lora_training"] = rec["launches"]
+    paths["b2b_lora_request"] = rec["request"]["launches"]
+
+    # palette with the JiT and with HDiT, 128 px: steps, a DDIM-10 request
+    for name, args, count, trunk, per_call in (
+            ("palette_vit_128", ["--G_netG", "vit"],
+             EXPECTED_PARAMS_PALETTE_VIT, JiT, JIT_K1_PER_CALL),
+            ("palette_hdit_128", ["--G_netG", "hdit"],
+             EXPECTED_PARAMS_PALETTE_HDIT, HDiT, 0)):
+        popt = _example_opt(IMAGE_EXAMPLE, workdir, name, args)
+        write_labeled(popt.dataroot, IMAGE_STEPS * popt.train_batch_size,
+                      128, seed=SEED + 72)
+        model, popt, rec = _train_run(
+            popt, IMAGE_STEPS, 1, f"{name} training", count,
+            attention_per_step=dict.fromkeys(k1, per_call))
+        if not (isinstance(model.nets["G_A"].inner, trunk)
+                and model.nets["G_A"].raw_t and popt.data_crop_size == 128
+                and popt.train_batch_size == 8):
+            raise AssertionError(f"{name} did not train as configured")
+        ema = {k: v.detach().cpu().clone()
+               for k, v in model.ema_nets["G_A"].state_dict().items()}
+        del model
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(popt.checkpoints_dir, popt.name,
+                            "latest_net_G_A.pth")
+        rec["request"] = _serve_masked(
+            ckpt, workdir, 1, [10 * per_call], name, trained_ema=ema,
+            extra=[["--sampling_method", "ddim", "--sampling_steps", "10"]],
+            wire=True)
+        shutil.rmtree(os.path.dirname(ckpt))
+        recs[name] = rec
+        paths[f"{name}_training"] = rec["launches"]
+        paths[f"{name}_request"] = rec["request"]["launches"]
+    return recs, paths
+
+
+def image_transformer_cross_check():
+    """JiT-B/16 (b2b_image_256's, 6 input channels, 256 px) and HDiT
+    (palette_hdit_128's, 7 input channels, 128 px) at full width in fp32,
+    batch 1, on seeded weights with small seeded values in the
+    zero-initialised layers, the card (K1 12 times for the JiT) against the
+    CPU to IMAGE_TOL of the largest output; one LoRA merge (rank 8, B
+    seeded non-zero) of JiT-B/16, card against CPU, bit for bit."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.diffusion_networks import (define_G,
+                                                             init_weights)
+    from joligen_tpu_torch.models.lora import LoRAAdapters, merge_deltas
+    from joligen_tpu_torch.models.modules.jit import JiT
+    from joligen_tpu_torch.options import TrainOptions
+
+    rng = np.random.default_rng(SEED + 73)
+    recs = {}
+    opt = _fp32(TrainOptions().parse_cli(["--config_json", EXAMPLE,
+                                          *B2B_IMAGE_ARGS]))
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 256, 256, 6)).astype(
+        np.float32))
+    t = torch.tensor([0.43])
+
+    def jit():
+        return init_weights(JiT.from_opt(opt, 6),
+                            torch.Generator().manual_seed(SEED + 74),
+                            zero_init_std=0.01)
+    hopt = _fp32(TrainOptions().parse_cli(["--config_json", EXAMPLE,
+                                           "--G_netG", "hdit"]))
+    xh = torch.from_numpy(rng.uniform(-1, 1, (1, 128, 128, 6)).astype(
+        np.float32))
+    mask = torch.zeros(1, 128, 128, 1, dtype=torch.int32)
+    mask[:, 32:96, 40:88] = 1
+
+    def hdit():
+        return init_weights(define_G(hopt),
+                            torch.Generator().manual_seed(SEED + 75),
+                            zero_init_std=0.01)
+    for label, build, args, kwargs, n_k1 in (
+            ("JiT-B/16", jit, (x, t), {}, JIT_K1_PER_CALL),
+            ("HDiT", hdit, (xh, torch.tensor([0.43])), {"mask": mask}, 0)):
+        err, out = _card_vs_cpu(build, args, kwargs, label, k1=n_k1,
+                                tol=float("inf"))
+        scale = out.abs().max().item()
+        recs[label] = {"max_abs_err": err, "max_abs_output": scale,
+                       "tol": IMAGE_TOL}
+        if not (scale > 0 and err <= IMAGE_TOL * scale):
+            raise AssertionError(f"{label} cross-check: {recs[label]}")
+    net = jit()
+    adapters = LoRAAdapters(net, 8, generator=torch.Generator().manual_seed(
+        SEED + 76))
+    with torch.no_grad():
+        for _, _, b in adapters.factors():
+            b.normal_(0.0, 0.01, generator=torch.Generator().manual_seed(
+                SEED + 77))
+    with torch.no_grad():
+        cpu = merge_deltas(net, adapters)
+        net, adapters = net.cuda(), adapters.cuda()
+        card = merge_deltas(net, adapters)
+    same = all(torch.equal(card[k].cpu(), v) for k, v in cpu.items())
+    recs["lora_merge"] = {"weights": len(cpu), "bit_for_bit": same}
+    log("image transformer cross-checks fp32 card vs CPU: "
+        + json.dumps(recs))
+    if not same:
+        raise AssertionError("the LoRA merge differs between card and CPU")
+    return recs
+
+
 def ptxas_spills(ptxas):
     """The functions of a ``-Xptxas=-v`` log whose registers spill, each
     with its log line."""
@@ -3629,12 +3944,16 @@ def main():
         vid, vid_paths = phase("video", vid_phase, workdir)
         b2b, b2b_paths = phase("b2b", b2b_phase, workdir)
         mat, mat_paths = phase("mat", mat_phase, workdir)
+        images, image_paths = phase("image transformers",
+                                    image_transformer_phase, workdir)
     grad_check = phase("gradient cross-check", gradient_cross_check)
     vid["cross_check_fp32_max_abs_err"] = phase("video cross-check",
                                                 vid_cross_check)
     b2b["cross_check_fp32_max_abs_err"] = phase("b2b cross-check",
                                                 b2b_cross_check)
     mat["cross_check_fp32"] = phase("mat cross-check", mat_cross_check)
+    images["cross_check_fp32"] = phase("image transformer cross-check",
+                                       image_transformer_cross_check)
     mario["cross_check_fp32"] = phase("MiT cross-check", mit_cross_check)
     unetref["cross_check_fp32_max_abs_err"] = phase("ref cross-check",
                                                     unetref_cross_check)
@@ -3649,7 +3968,7 @@ def main():
              "training_256px": training_256["launches"], **xview["paths"],
              **config_paths, **gan_paths, **glasses_paths, **cm_paths,
              **mario_paths, **unetref_paths, **vid_paths, **b2b_paths,
-             **mat_paths, **probe_launches}
+             **mat_paths, **image_paths, **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -3669,6 +3988,7 @@ def main():
     log("vid_mario: " + json.dumps(vid))
     log("b2b_vid_mario: " + json.dumps(b2b))
     log("mat_inpainting: " + json.dumps(mat))
+    log("image transformers: " + json.dumps(images))
     log("phases (s): " + json.dumps(seconds))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     k1["training_gradient_cross_check"] = grad_check

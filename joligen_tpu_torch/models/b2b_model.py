@@ -1,11 +1,14 @@
-"""B2B flow matching on video (``joligen_tpu/models/b2b_model.py``), model
-type ``b2b`` with the ``vit_vid`` denoiser (``modules/vit_vid.py``).
+"""B2B flow matching (``joligen_tpu/models/b2b_model.py``), model type
+``b2b``: on video with the ``vit_vid`` denoiser (``modules/vit_vid.py``),
+on images with the image JiT (``modules/jit.py``; any other ``G_netG``, as
+in the JAX package). An image model folds the frames of a 5-D batch into
+its batch (``set_input``).
 
 One step (``optimize_prepared``):
 
-1. decode the uint8 wire batch on the device (``gt`` and ``y_cond`` clips,
-   the ``mask``), the mask's bbox descriptor (``mask_size_condition``) with
-   ``alg_b2b_mask_size_conditioning``;
+1. decode the uint8 wire batch on the device (``gt`` and ``y_cond``
+   images or clips, the ``mask``), the mask's bbox descriptor
+   (``mask_size_condition``) with ``alg_b2b_mask_size_conditioning``;
 2. the flow-matching forward (``modules/b2b.py``): logistic-normal t, the
    masked noisy clip, with ``alg_b2b_autoregressive`` one clean ground-truth
    frame at t = 1 in ``use_gt_prob`` of the clips (left out of the loss);
@@ -17,14 +20,25 @@ One step (``optimize_prepared``):
 4. the gradients (K1 forward, K2/K3 backward on the card), Adam(W), the
    EMA.
 
-``draws`` (tests) feeds the step's random draws (``b2b_training_outputs``)
-and ``inference``'s (``b2b_sample``: ``noise``). ``inference`` runs the
-Heun sampler with ``denoise_timesteps`` steps (default: the first of
+LoRA finetuning (``alg_b2b_lora``, phase train; ``models/lora.py``): the
+net ``G_lora`` holds the adapters (rank ``alg_b2b_lora_rank``, α
+``alg_b2b_lora_alpha``, ``alg_b2b_lora_target_modules``). A step merges
+them into G's weights with ``alg_b2b_lora_dropout`` on A's rows, runs the
+forward and the backward with the merged weights, and updates the
+adapters alone with their own Adam(W) and no EMA; G's parameters, EMA and
+optimizer state stay as they were. ``inference`` samples with the
+adapters merged into the weights it uses (EMA or base);
+``merge_lora_checkpoint`` folds them into G's base weights. The adapters
+are saved as ``{prefix}_net_G_lora.pth``.
+
+``draws`` (tests) feeds the step's random draws (``b2b_training_outputs``;
+``lora_keep``, the dropout's keep masks) and ``inference``'s
+(``b2b_sample``: ``noise``). ``inference`` runs the Heun sampler with
+``denoise_timesteps`` steps (default: the first of
 ``alg_b2b_denoise_timesteps``) and ``cfg_scale`` on the EMA weights.
 
-Raises ``NotImplementedError`` for LoRA training (``alg_b2b_lora``), the
-perceptual terms (``alg_b2b_perceptual_loss``) and the image backbone
-(``G_netG: vit``).
+Raises ``NotImplementedError`` for the perceptual terms
+(``alg_b2b_perceptual_loss``, ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -33,25 +47,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import compute_dtype
 from .base import BaseModel, dequantize, quantize_batch
 from .cm_model import is_conditional, refuse_perceptual
 from .diffusion_networks import define_inner_G, init_weights
+from .lora import (DEFAULT_TARGETS, LoRAAdapters, merge_deltas, merge_into,
+                   merged_weights)
 from .modules.b2b import b2b_sample, b2b_training_outputs, mask_size_condition
 from .modules.cm import pseudo_huber_loss
+from .modules.jit import JiT
 from .train_state import apply_updates, param_grads
-
-UNPORTED = "ROADMAP Queue 1 item 11, video diffusion"
 
 
 class B2BModel(BaseModel):
     def __init__(self, opt, phase="train", device=None, cpu=False):
-        if opt.G_netG != "vit_vid":
-            raise NotImplementedError(
-                f"b2b with G_netG {opt.G_netG}: the image JiT (vit) is not "
-                f"ported, vit_vid is ({UNPORTED})")
-        if getattr(opt, "alg_b2b_lora", False) and phase == "train":
-            raise NotImplementedError(
-                f"alg_b2b_lora: LoRA finetuning is not ported ({UNPORTED})")
         refuse_perceptual(opt, "alg_b2b_perceptual_loss")
         super().__init__(opt, phase=phase, device=device, cpu=cpu)
         g = lambda name, default: getattr(opt, name, default)  # noqa: E731
@@ -65,7 +74,7 @@ class B2BModel(BaseModel):
         self.label_drop_prob = float(g("alg_diffusion_dropout_prob", 0.0)
                                      or 0.0)
         self.mask_as_channel = bool(g("alg_b2b_mask_as_channel", False))
-        self.is_video = True        # vit_vid: (B, F, H, W, C) clips
+        self.is_video = opt.G_netG == "vit_vid"  # (B, F, H, W, C) clips
         self.num_frames = int(g("data_temporal_number_frames", 1) or 1)
         req_noise = float(g("alg_b2b_noise_scale", -1.0) or -1.0)
         self.noise_scale = req_noise if req_noise > 0 else (
@@ -89,7 +98,8 @@ class B2BModel(BaseModel):
             "alg_b2b_temporal_frame_step_conditioning", False))
         self.autoregressive = bool(g("alg_b2b_autoregressive", False))
         self.use_gt_prob = (float(g("alg_b2b_use_gt_prob", 0.1))
-                            if self.autoregressive else 0.0)
+                            if self.autoregressive and self.is_video
+                            else 0.0)
         self.minsnr = bool(g("alg_b2b_minsnr", False))
         self.degrade_prob = float(g("alg_b2b_ref_frame_degradation_prob",
                                     0.0) or 0.0)
@@ -102,20 +112,45 @@ class B2BModel(BaseModel):
         cin = opt.model_output_nc + (1 if self.mask_as_channel else 0)
         if self.conditional:
             cin += opt.model_input_nc
-        netG = define_inner_G(opt, cin)
+        netG = (define_inner_G(opt, cin) if self.is_video
+                else JiT.from_opt(opt, cin, dtype=compute_dtype(opt)))
         init_weights(netG, torch.Generator().manual_seed(self.seed))
         self.add_net("G_A", netG, use_ema=self.use_ema,
                      lr=g("train_G_lr", 2e-4))
 
+        self.use_lora = bool(g("alg_b2b_lora", False)) and self.is_train
+        if self.use_lora:
+            self.lora_rank = int(g("alg_b2b_lora_rank", 8) or 8)
+            self.lora_dropout = float(g("alg_b2b_lora_dropout", 0.05) or 0.0)
+            self.lora_alpha = float(g("alg_b2b_lora_alpha", 16) or 16)
+            targets = tuple(g("alg_b2b_lora_target_modules", None)
+                            or DEFAULT_TARGETS)
+            # the base is frozen: no gradient reaches it
+            netG.requires_grad_(False)
+            adapters = LoRAAdapters(
+                netG, self.lora_rank, targets,
+                torch.Generator().manual_seed(self.seed + 1))
+            self.add_net("G_lora", adapters, lr=g("train_G_lr", 2e-4))
+
     # ------------------------------------------------------------------
     def set_input(self, batch):
-        """Collated numpy batch -> {gt, mask, y_cond, labels, frame_step}."""
-        out = {"gt": batch["B"]}
+        """Collated numpy batch -> {gt, mask, y_cond, labels, frame_step};
+        an image model takes a clip's frames as its batch."""
+        gt = batch["B"]
         mask = batch.get("B_label_mask")
+        cond = batch["A"] if self.conditional else None
+        if gt.ndim == 5 and not self.is_video:
+            b, f = gt.shape[:2]
+            gt = gt.reshape((b * f,) + gt.shape[2:])
+            if mask is not None:
+                mask = mask.reshape((b * f,) + mask.shape[2:])
+            if cond is not None:
+                cond = cond.reshape((b * f,) + cond.shape[2:])
+        out = {"gt": gt}
         if self.task == "inpainting" and mask is not None:
             out["mask"] = mask
-        if self.conditional:
-            out["y_cond"] = batch["A"]
+        if cond is not None:
+            out["y_cond"] = cond
         if self.num_classes > 1 and "B_label_cls" in batch:
             out["labels"] = np.asarray(batch["B_label_cls"], np.int32)
         if self.frame_step_cond and "temporal_frame_step" in batch:
@@ -140,6 +175,8 @@ class B2BModel(BaseModel):
                 pad = mch if mch is not None else z_in.new_zeros(
                     z_in.shape[:-1] + (1,))
                 z_in = torch.cat([z_in, pad], dim=-1)
+            if not self.is_video:
+                return net(z_in, t, y=labels, mask_size=mask_size)
             return net(z_in, t, y=labels, mask_size=mask_size,
                        temporal_frame_step=(frame_step if self.frame_step_cond
                                             else None))
@@ -224,12 +261,30 @@ class B2BModel(BaseModel):
             loss = loss + self.lambda_ref_copy * aux["G_ref_copy"]
         return loss, aux
 
+    def _merged(self, net, **dropout):
+        """G's weights with the adapters merged (``merge_deltas``)."""
+        return merge_deltas(net, self.nets["G_lora"], self.lora_alpha,
+                            self.lora_rank, **dropout)
+
     def optimize_prepared(self, dev, draws=None):
         """One step on a prepared batch (see the module doc). Losses stay
         on the device."""
-        state = self.states["G_A"]
-        loss, aux = self._loss_fn(dev, draws)
-        apply_updates(state, param_grads(loss, state.params), self.ema_beta)
+        if self.use_lora:
+            state = self.states["G_lora"]
+            net = self.nets["G_A"]
+            merged = self._merged(
+                net, dropout=self.lora_dropout,
+                keep=(draws or {}).get("lora_keep"),
+                generator=self.generator)
+            with merged_weights(net, merged):
+                loss, aux = self._loss_fn(dev, draws)
+                grads = param_grads(loss, state.params)
+            apply_updates(state, grads)
+        else:
+            state = self.states["G_A"]
+            loss, aux = self._loss_fn(dev, draws)
+            apply_updates(state, param_grads(loss, state.params),
+                          self.ema_beta)
         self.loss_log = {"G_tot": loss.detach(),
                          **{k: v.detach() for k, v in aux.items()}}
         return self.loss_log
@@ -237,18 +292,29 @@ class B2BModel(BaseModel):
     def optimize_parameters(self, batch):
         return self.optimize_prepared(self.prepare_batch(batch))
 
+    def merge_lora_checkpoint(self):
+        """Fold the trained adapters into G's base weights
+        (``b2b_model.py:379-387``); the EMA stays as it is."""
+        if not self.use_lora:
+            raise ValueError("merge_lora_checkpoint needs alg_b2b_lora in "
+                             "phase train")
+        merge_into(self.nets["G_A"], self.nets["G_lora"], self.lora_alpha,
+                   self.lora_rank)
+
     # ------------------------------------------------------------------
     def inference(self, batch, use_ema=None, denoise_timesteps=None,
                   cfg_scale=None, draws=None):
         """The Heun sampler on a batch (float32, no wire step, as the JAX
-        model puts it); (B, F, H, W, C) float32 numpy in [-1, 1]."""
+        model puts it), with the adapters merged in when training LoRA;
+        (B, [F,] H, W, C) float32 numpy in [-1, 1]."""
         dev = self.put_batch(self.set_input(batch))
         use_ema = self.use_ema if use_ema is None else use_ema
         net = self.ema_nets.get("G_A") if use_ema else None
         net = net if net is not None else self.nets["G_A"]
         mask = dev.get("mask")
         y = dev["gt"]
-        with torch.inference_mode():
+        with torch.inference_mode(), merged_weights(
+                net, self._merged(net) if self.use_lora else {}):
             out = b2b_sample(
                 self._apply_fn(net, mask, dev.get("frame_step")),
                 self.generator, y, y_cond=dev.get("y_cond"),

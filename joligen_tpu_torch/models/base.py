@@ -2,8 +2,10 @@
 against the one device, the device and the seeded generator, the host->device put with its uint8 wire step, the networks of
 phase ``test`` (frozen) or ``train`` (each with a ``NetState``: optimizer,
 EMA, step), the losses, and the checkpoints: ``{prefix}_net_{name}.pth`` /
-``_ema.pth`` in flax's msgpack layout, and ``{prefix}_optim.pkl``, a pickle
-of plain dicts of ints and numpy arrays written and read by the port.
+``_ema.pth`` in flax's msgpack layout (a net with its own tree, as the LoRA
+adapters, gives it by ``flax_tree`` / ``load_flax_tree``), and
+``{prefix}_optim.pkl``, a pickle of plain dicts of ints and numpy arrays
+written and read by the port.
 """
 
 from __future__ import annotations
@@ -146,6 +148,10 @@ class BaseModel:
         os.makedirs(self.save_dir, exist_ok=True)
         for name, net in self.nets.items():
             wl = getattr(net, "flax_weight_leaves", False)
+            if hasattr(net, "flax_tree"):
+                checkpoint_io.save(self._net_path(prefix, name),
+                                   net.flax_tree())
+                continue
             checkpoint_io.save(self._net_path(prefix, name),
                                torch_to_flax(net.state_dict(), wl))
             if name in self.ema_nets:
@@ -171,6 +177,9 @@ class BaseModel:
                     raise FileNotFoundError(path)
                 continue
             wl = getattr(net, "flax_weight_leaves", False)
+            if hasattr(net, "load_flax_tree"):
+                net.load_flax_tree(checkpoint_io.load(path), strict=strict)
+                continue
             net.load_state_dict(flax_to_torch(checkpoint_io.load(path), wl),
                                 strict=strict)
             epath = self._net_path(prefix, name, ema=True)

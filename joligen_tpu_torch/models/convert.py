@@ -42,6 +42,16 @@ so it transposes as any conv (and is not flipped again); spectral
 normalisation keeps no state (``SNConv`` is ``kernel`` and ``bias``); the
 projected D's frozen trunk and projections are plain convs and GroupNorms.
 
+HDiT adds its per-head ``attn_scale`` (1-D) and the skips' 0-D ``lerp{i}``,
+as they are (``RAW_LEAVES``, ``RAW_LEAF``).
+
+The LoRA adapter tree (``models/lora.py``) is keyed by the flax path of the
+kernel it adapts, as flax's ``to_state_dict`` writes a dict with tuple keys
+(``"('blocks_pre', 'block', 'qkv', 'kernel')"``), each an ``a`` (d_in, r)
+and a ``b`` (r, d_out), stacked like the kernel: ``lora_to_flax`` and
+``lora_from_flax`` carry it as it is; ``flax_kernel_path`` names a torch
+Dense weight's kernel in that tree.
+
 MAT's trees (``weight_leaves``; its nets set ``flax_weight_leaves``) name
 their leaves ``weight`` in flax too: a conv ``weight`` HWIO <-> OIHW, a
 dense ``weight`` (in, out) <-> (out, in), and the 0-D ``noise_strength`` as
@@ -55,6 +65,7 @@ back.
 
 from __future__ import annotations
 
+import ast
 import re
 
 import numpy as np
@@ -62,7 +73,8 @@ import torch
 
 RAW_LEAVES = ("W", "class_embedding", "positional_embedding", "proj",
               "cls_token", "pos_embed", "ls1", "ls2", "y_embed",
-              "register_tokens", "in_context_posemb")
+              "register_tokens", "in_context_posemb", "attn_scale")
+RAW_LEAF = re.compile(r"lerp\d+$")
 # a module whose child ``block`` is an ``nn.scan`` stack of blocks
 SCAN_STACK = re.compile(r"blocks(\d+|_pre|_post)$")
 
@@ -112,8 +124,8 @@ def flax_to_torch(params, weight_leaves=False):
             arr, tname = arr.T, "weight"
         elif name in ("scale", "embedding"):
             tname = "weight"
-        elif name == "bias" or name in RAW_LEAVES or (
-                name == "kernel" and arr.ndim == 3):
+        elif name == "bias" or name in RAW_LEAVES or RAW_LEAF.match(name) \
+                or (name == "kernel" and arr.ndim == 3):
             tname = name
         else:
             raise ValueError(f"unmapped flax leaf {'/'.join(path)} "
@@ -208,7 +220,8 @@ def torch_to_flax(state_dict, weight_leaves=False):
                 arr = arr.T
             elif name == "weight" or arr.ndim != 0:
                 raise ValueError(f"unmapped torch parameter {key}")
-        elif name in ("bias", "kernel") or name in RAW_LEAVES:
+        elif name in ("bias", "kernel") or name in RAW_LEAVES \
+                or RAW_LEAF.match(name):
             fname = name
         elif name != "weight":
             raise ValueError(f"unmapped torch parameter {key}")
@@ -239,3 +252,31 @@ def _set(root, path, arr):
     for p in path[:-1]:
         node = node.setdefault(p, {})
     node[path[-1]] = arr
+
+
+def flax_kernel_path(weight_name):
+    """A torch Dense weight (``blocks_pre.3.qkv.weight``) -> (the flax path
+    of its kernel, ``('blocks_pre', 'block', 'qkv', 'kernel')``, and its
+    index in a scanned stack, or None outside one)."""
+    path = weight_name.split(".")[:-1] + ["kernel"]
+    for i in range(len(path) - 1):
+        if SCAN_STACK.match(path[i]) and path[i + 1].isdigit():
+            return (tuple(path[:i + 1] + ["block"] + path[i + 2:]),
+                    int(path[i + 1]))
+    return tuple(path), None
+
+
+def lora_to_flax(adapters):
+    """{flax path tuple: (a, b) tensors} -> the JAX package's adapter tree
+    ({str(path): {"a", "b"}} of numpy arrays), as they are."""
+    return {str(tuple(path)): {"a": a.detach().cpu().numpy(),
+                               "b": b.detach().cpu().numpy()}
+            for path, (a, b) in adapters.items()}
+
+
+def lora_from_flax(tree):
+    """Inverse of ``lora_to_flax``: {flax path tuple: (a, b) tensors}."""
+    return {tuple(ast.literal_eval(key)): (
+        torch.from_numpy(np.array(ab["a"], order="C")),
+        torch.from_numpy(np.array(ab["b"], order="C")))
+        for key, ab in tree.items()}

@@ -1,13 +1,13 @@
 """Diffusion denoiser factory: the ``unet_mha``, ``unet_vid``,
-``unet_mha_ref_attn`` and ``vit_vid`` branches of
-``joligen_tpu/models/diffusion_networks.py:20-45,57-79,80-97,110-112,
-119-134``, plus the seeded
-flax-style weight init. torch convs need their input channel count, which
-flax infers lazily: palette's trunk takes ``[y_cond, y_t]`` and, with mask
-conditioning, the mask embedding's ``cond_embed_dim`` channels; the
-consistency and shortcut denoisers pass their own ``in_channel``.
-``tpu_remat`` and ``tpu_remat_policy`` reach ``UNetMHA`` as in
-``diffusion_networks.py:42-43``."""
+``unet_mha_ref_attn``, ``hdit``, ``vit``/``dit`` and ``vit_vid`` branches of
+``joligen_tpu/models/diffusion_networks.py:20-45,57-112,119-134``, plus the
+seeded flax-style weight init. torch layers need their input channel count,
+which flax infers lazily: palette's trunk takes ``[y_cond, y_t]`` and, with
+mask conditioning, the mask embedding's ``cond_embed_dim`` channels, or
+under a ``RAW_T_NETGS`` trunk (which embeds t itself) the one clipped mask
+channel; b2b, the consistency and shortcut denoisers pass their own
+``in_channel``. ``tpu_remat`` and ``tpu_remat_policy`` reach ``UNetMHA`` as
+in ``diffusion_networks.py:42-43``, ``tpu_remat`` the JiT blocks."""
 
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ from torch import nn
 
 from .. import compute_dtype
 from .modules.cm import NoiseLevelEmbedding
+from .modules.hdit import HDiT
+from .modules.jit import JiT
 from .modules.palette_diffusion import LabelEmbedder, PaletteDenoiser
 from .modules.unet_mha import Conv, Dense, GroupNorm, UNetMHA
 from .modules.unet_ref_attn import UNetRefAttn
@@ -26,6 +28,8 @@ from .modules.vit_vid import JiTViD
 
 # the denoisers over (B, F, H, W, C) clips (diffusion_networks.py:116)
 VIDEO_NETGS = ("unet_vid", "vit_vid")
+# the trunks that take raw t in [0, 1] (diffusion_networks.py:130)
+RAW_T_NETGS = ("vit", "dit", "hdit", "vit_vid")
 
 
 def define_inner_G(opt, in_channel=None):
@@ -33,12 +37,13 @@ def define_inner_G(opt, in_channel=None):
     input channel count. ``G_unet_vid_cross_attention_dim`` is read by
     neither package."""
     netG = opt.G_netG
-    if netG not in ("unet_mha", "unet_mha_ref_attn", "unet_vid", "vit_vid"):
+    if netG not in ("unet_mha", "unet_mha_ref_attn", "unet_vid", "vit_vid",
+                    "vit", "dit", "hdit"):
         raise NotImplementedError(
             f"diffusion generator {netG}: only unet_mha, unet_vid, "
-            "unet_mha_ref_attn and vit_vid are ported (ROADMAP Queue 1 "
-            "items 9 to 13, the model families after the main path; the "
-            "image JiT, vit, is item 11)")
+            "unet_mha_ref_attn, hdit, vit (dit) and vit_vid are ported "
+            "(ROADMAP Queue 1 items 9 to 13, the model families after the "
+            "main path: uvit is item 9, the resnet_attn denoisers item 10)")
     if netG == "vit_vid":
         if in_channel is None:
             raise ValueError("vit_vid takes its input channel count from "
@@ -46,8 +51,15 @@ def define_inner_G(opt, in_channel=None):
         return JiTViD.from_opt(opt, in_channel, dtype=compute_dtype(opt))
     if in_channel is None:
         cond = getattr(opt, "alg_diffusion_cond_embed", "") or ""
-        extra = opt.alg_diffusion_cond_embed_dim if "mask" in cond else 0
+        extra = 0
+        if "mask" in cond:
+            extra = (1 if netG in RAW_T_NETGS
+                     else opt.alg_diffusion_cond_embed_dim)
         in_channel = opt.model_input_nc + opt.model_output_nc + extra
+    if netG in ("vit", "dit"):
+        return JiT.from_opt(opt, in_channel, dtype=compute_dtype(opt))
+    if netG == "hdit":
+        return HDiT.from_opt(opt, in_channel, dtype=compute_dtype(opt))
     if netG == "unet_vid":
         return UNetVid(
             in_channel=in_channel,
@@ -107,9 +119,9 @@ def define_inner_G(opt, in_channel=None):
 
 
 def define_G(opt):
-    """Full conditioned denoiser: (x, gammas, cls, mask, ref) -> eps_hat.
-    A JiT trunk under palette (raw t) is not ported: vit_vid runs under
-    b2b."""
+    """Full conditioned denoiser: (x, gammas, cls, mask, ref) -> eps_hat;
+    a ``RAW_T_NETGS`` trunk takes the gammas as its t. Palette with the
+    video JiT is not ported: vit_vid runs under b2b."""
     if opt.G_netG == "vit_vid":
         raise NotImplementedError(
             "palette with the vit_vid denoiser is not ported; b2b runs it "
@@ -123,6 +135,7 @@ def define_G(opt):
         cond_embed_dim=opt.alg_diffusion_cond_embed_dim,
         conditioning=conditioning,
         nclasses=nclasses,
+        raw_t=opt.G_netG in RAW_T_NETGS,
         ref_embed_net=(ref_embed_net
                        if ref_embed_net in ("clip", "imagebind") else ""),
         ref_channels=opt.model_input_nc,
@@ -134,11 +147,13 @@ def init_weights(module, generator, zero_init_std=0.0):
     """Seeded flax-style init: lecun-normal (truncated) conv and dense
     kernels, zero biases, unit norm scales, N(0, 0.02) embedding tables,
     N(0, scale) Fourier features of a ``NoiseLevelEmbedding``.
-    JiTViD's class table, register tokens and in-context positions
-    N(0, 0.02).
+    JiT's and JiTViD's class tables, register tokens and in-context
+    positions N(0, 0.02); HDiT's attention scales (10) and skip lerps (0.5)
+    keep their construction values.
     Layers that flax zero-initialises (``out_conv``, ``proj_out``,
     ``out_proj``, JiT's ``adaLN``, ``final_adaLN``, ``final_proj``, ``ms_1``,
-    ``fs_1``) stay zero unless ``zero_init_std`` > 0, which gives them a
+    ``fs_1``, HDiT's ``lin``, ``proj``, ``ff_out``, ``down{i}`` and
+    ``patch_out``) stay zero unless ``zero_init_std`` > 0, which gives them a
     small seeded N(0, zero_init_std) value instead. ``generator`` is a CPU
     generator: values are drawn on the CPU and copied, so they do not depend
     on the module's device."""
@@ -177,7 +192,7 @@ def init_weights(module, generator, zero_init_std=0.0):
                 fill(m.weight, normal(0.02))
             elif isinstance(m, NoiseLevelEmbedding):
                 fill(m.W, normal(m.scale))
-            elif isinstance(m, JiTViD):
+            elif isinstance(m, (JiT, JiTViD)):
                 for p in m.embedding_params():
                     fill(p, normal(0.02))
         # the frozen CLIP ref encoder: flax's default init, then its

@@ -1,7 +1,8 @@
-"""The JiT blocks (``joligen_tpu/models/modules/jit.py``): the 2-D sin-cos
-position table, axial RoPE, RMSNorm, the SwiGLU feed-forward, AdaLN
-modulation and ``JiTBlock``, the transformer block of the video denoiser
-``vit_vid`` (``models/modules/vit_vid.py``).
+"""JiT (``joligen_tpu/models/modules/jit.py``): the 2-D sin-cos position
+table, axial RoPE, RMSNorm, the SwiGLU feed-forward, AdaLN modulation,
+``JiTBlock`` (also the block of the video denoiser ``vit_vid``,
+``models/modules/vit_vid.py``) and ``JiT``, the image x-prediction
+denoiser of ``G_netG: vit`` (and ``dit``) under b2b and palette.
 
 Modules carry the flax names (``adaLN``, ``norm1``, ``qkv``, ``q_norm``,
 ``k_norm``, ``proj``, ``norm2``, ``mlp/w1``, ``mlp/w3``, ``mlp/w2``). Dense
@@ -10,8 +11,30 @@ layers keep fp32 parameters and compute in ``dtype`` (bf16 under
 Attention is the port's ``flash_attention`` (K1, and K2/K3 in the
 backward), at (B, N, heads, head dim).
 
-The image model ``JiT`` (``G_netG: vit``) is not ported: no example config
-uses it (ROADMAP Queue 1 item 11).
+``JiT.forward(x (B, H, W, C), t (B,) in [0, 1], y, mask_size) -> (B, H, W,
+out_channels)`` fp32:
+
+1. the bottleneck patch embedding (bias-free ``patch_bneck``, then
+   ``patch_proj``) plus the sin-cos table;
+2. c: the raw fractional t (not × 1000) through the 256-wide sinusoidal
+   embedding, ``t_0``, SiLU, ``t_1``; plus the row of ``y_embed``
+   (``num_classes + 1`` rows, ``y=None`` the null row ``num_classes``);
+   with ``mask_size_conditioning`` plus ``ms_1(silu(ms_0(mask_size)))``
+   (zeros for an absent descriptor; ``ms_1`` zero-initialised);
+3. ``blocks_pre``: the first ``start = clamp(in_context_start, 0, depth)``
+   blocks on the image tokens; then, when ``in_context_start < depth`` and
+   there are register or in-context tokens, the prefix [registers,
+   class embedding + ``in_context_posemb``] before the image tokens, RoPE
+   with identity rows for it; ``blocks_post``: the other blocks (the JAX
+   package stacks each with ``nn.scan``; the converter splits the stack
+   into ``blocks_pre.0`` ...);
+4. the prefix dropped; ``final_adaLN`` shift and scale of ``final_norm``,
+   ``final_proj`` (both zero-initialised), the patches back to pixels.
+
+JiT-B and JiT-L have head dim 64; JiT-H's 80 (1280 / 16) is not a head
+dim of K1, whose wrapper raises on a CUDA tensor there (ROADMAP Queue 2
+item 1). ``tpu_remat`` runs each block under ``torch.utils.checkpoint``,
+as the JAX package's ``nn.remat`` of the scanned block does.
 """
 
 from __future__ import annotations
@@ -21,7 +44,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ...ops.flash_attention import flash_attention
+from ...ops.schedules import timestep_embedding
 from .unet_mha import Dense
 
 JiT_VARIANT_CONFIGS = {
@@ -154,3 +180,177 @@ class JiTBlock(nn.Module):
         x = x + g_msa[:, None, :] * self.proj(a)
         h = modulate(self.norm2(x), s_mlp, sc_mlp)
         return x + g_mlp[:, None, :] * self.mlp(h)
+
+
+def cached_tables(cache, key, make, device):
+    """The numpy arrays ``make()`` returns, as tensors on ``device``, built
+    once per ``key`` and device into ``cache``."""
+    full = key + (str(device),)
+    if full not in cache:
+        cache[full] = tuple(torch.from_numpy(a).to(device) for a in make())
+    return cache[full]
+
+
+def jit_config(opt, variant=None):
+    """The variant table entry of ``variant`` (default ``G_vit_variant``,
+    else JiT-B/16; an unknown name is JiT-B/16), overridden by the
+    explicit ``G_vit_*`` options; with ``G_vit_disable_bottleneck`` the
+    bottleneck is the hidden width."""
+    variant = variant or getattr(opt, "G_vit_variant", "") or "JiT-B/16"
+    cfg = dict(JiT_VARIANT_CONFIGS.get(variant,
+                                       JiT_VARIANT_CONFIGS["JiT-B/16"]))
+    for key in ("depth", "hidden_size", "num_heads", "patch_size",
+                "bottleneck_dim", "in_context_len", "in_context_start"):
+        v = getattr(opt, f"G_vit_{key}", None)
+        if v is not None:
+            cfg[key] = v
+    if getattr(opt, "G_vit_disable_bottleneck", False):
+        cfg["bottleneck_dim"] = cfg["hidden_size"]
+    return cfg
+
+
+class JiT(nn.Module):
+    """The image JiT denoiser (see the module doc)."""
+
+    def __init__(self, in_channels, patch_size=16, hidden_size=768, depth=12,
+                 num_heads=12, bottleneck_dim=128, num_classes=1,
+                 num_register_tokens=0, in_context_len=32,
+                 in_context_start=4, out_channels=None,
+                 mask_size_conditioning=False, remat=False,
+                 dtype=torch.float32):
+        super().__init__()
+        d = hidden_size
+        self.patch_size = patch_size
+        self.hidden_size = d
+        self.depth = depth
+        self.num_heads = num_heads
+        self.num_classes = num_classes
+        self.num_register_tokens = num_register_tokens
+        self.in_context_len = in_context_len
+        self.out_channels = out_channels or in_channels
+        self.mask_size_conditioning = mask_size_conditioning
+        self.remat = remat
+        self.dtype = dtype
+        self._tables = {}
+        self.start = max(0, min(in_context_start, depth))
+        self.insert_prefix = in_context_start < depth and (
+            num_register_tokens > 0 or in_context_len > 0)
+
+        self.patch_bneck = Dense(patch_size * patch_size * in_channels,
+                                 bottleneck_dim, dtype=dtype, use_bias=False)
+        self.patch_proj = Dense(bottleneck_dim, d, dtype=dtype)
+        self.t_0 = Dense(256, d, dtype=dtype)
+        self.t_1 = Dense(d, d, dtype=dtype)
+        # the class table with its null row (the last): N(0, 0.02)
+        self.y_embed = nn.Parameter(torch.zeros(num_classes + 1, d))
+        if mask_size_conditioning:
+            self.ms_0 = Dense(6, d, dtype=dtype)
+            self.ms_1 = Dense(d, d, dtype=dtype, zero_init=True)
+        if self.start > 0:
+            self.blocks_pre = nn.ModuleList(
+                JiTBlock(d, num_heads, dtype=dtype)
+                for _ in range(self.start))
+        if self.insert_prefix and num_register_tokens > 0:
+            self.register_tokens = nn.Parameter(
+                torch.zeros(1, num_register_tokens, d))
+        if self.insert_prefix and in_context_len > 0:
+            self.in_context_posemb = nn.Parameter(
+                torch.zeros(1, in_context_len, d))
+        if self.start < depth:
+            self.blocks_post = nn.ModuleList(
+                JiTBlock(d, num_heads, dtype=dtype)
+                for _ in range(depth - self.start))
+        self.final_adaLN = Dense(d, 2 * d, dtype=dtype, zero_init=True)
+        self.final_norm = RMSNorm(d)
+        self.final_proj = Dense(d, patch_size * patch_size
+                                * self.out_channels, dtype=dtype,
+                                zero_init=True)
+
+    @classmethod
+    def from_opt(cls, opt, in_channels, dtype=torch.float32):
+        """The JAX ``JiT.from_opt``: ``jit_config``, the class count, the
+        registers, mask-size conditioning and remat from the options."""
+        cfg = jit_config(opt)
+        return cls(
+            in_channels, patch_size=cfg["patch_size"],
+            hidden_size=cfg["hidden_size"], depth=cfg["depth"],
+            num_heads=cfg["num_heads"], bottleneck_dim=cfg["bottleneck_dim"],
+            num_classes=max(1, getattr(opt, "G_vit_num_classes", 1)),
+            num_register_tokens=getattr(opt, "G_vit_num_register_tokens", 0),
+            in_context_len=cfg.get("in_context_len", 32),
+            in_context_start=cfg.get("in_context_start", 4),
+            out_channels=opt.model_output_nc,
+            mask_size_conditioning=bool(getattr(
+                opt, "alg_b2b_mask_size_conditioning", False)),
+            remat=bool(getattr(opt, "tpu_remat", False)), dtype=dtype)
+
+    def _blocks(self, blocks, h, c, rc, rs):
+        for block in blocks:
+            if self.remat and torch.is_grad_enabled():
+                h = checkpoint(block, h, c, rc, rs, use_reentrant=False)
+            else:
+                h = block(h, c, rc, rs)
+        return h
+
+    def forward(self, x, t, y=None, mask_size=None):
+        b, hh, ww, cin = x.shape
+        p, d = self.patch_size, self.hidden_size
+        gh, gw = hh // p, ww // p
+        hd = d // self.num_heads
+        dev = x.device
+
+        patches = x.reshape(b, gh, p, gw, p, cin).permute(
+            0, 1, 3, 2, 4, 5).reshape(b, gh * gw, p * p * cin)
+        h = self.patch_proj(self.patch_bneck(patches.to(self.dtype)))
+        (pos,) = cached_tables(self._tables, ("pos", gh, gw),
+                               lambda: (sincos_2d_pos_embed(d, gh, gw),), dev)
+        h = h + pos.to(h.dtype)[None]
+
+        t = torch.as_tensor(t, device=dev).reshape(b)
+        c = self.t_1(F.silu(self.t_0(timestep_embedding(t, 256))))
+        if y is None:
+            y = torch.full((b,), self.num_classes, dtype=torch.long,
+                           device=dev)
+        y_emb = self.y_embed[y.long()].to(c.dtype)
+        c = c + y_emb
+        if self.mask_size_conditioning:
+            if mask_size is None:
+                mask_size = torch.zeros(b, 6, device=dev)
+            c = c + self.ms_1(F.silu(self.ms_0(mask_size.to(self.dtype))))
+
+        if self.start > 0:
+            cos0, sin0 = cached_tables(
+                self._tables, ("rope", gh, gw, hd, 0),
+                lambda: axial_rope_tables(gh, gw, hd), dev)
+            h = self._blocks(self.blocks_pre, h, c, cos0, sin0)
+        n_prefix = 0
+        if self.insert_prefix:
+            prefix = []
+            if self.num_register_tokens > 0:
+                prefix.append(self.register_tokens.to(h.dtype).expand(
+                    b, -1, -1))
+            if self.in_context_len > 0:
+                prefix.append(y_emb[:, None, :]
+                              + self.in_context_posemb.to(h.dtype))
+            n_prefix = self.num_register_tokens + self.in_context_len
+            h = torch.cat(prefix + [h], dim=1)
+        if self.start < self.depth:
+            cos1, sin1 = cached_tables(
+                self._tables, ("rope", gh, gw, hd, n_prefix),
+                lambda: axial_rope_tables(gh, gw, hd, prefix=n_prefix), dev)
+            h = self._blocks(self.blocks_post, h, c, cos1, sin1)
+        if n_prefix:
+            h = h[:, n_prefix:]
+
+        shift, scale = torch.chunk(self.final_adaLN(F.silu(c)), 2, dim=-1)
+        h = self.final_proj(modulate(self.final_norm(h), shift, scale))
+        oc = self.out_channels
+        h = h.reshape(b, gh, gw, p, p, oc).permute(0, 1, 3, 2, 4, 5)
+        return h.reshape(b, hh, ww, oc).float()
+
+    def embedding_params(self):
+        """The parameters flax draws from N(0, 0.02): the class table, the
+        register tokens and the in-context position table."""
+        return [getattr(self, n) for n in ("y_embed", "register_tokens",
+                                           "in_context_posemb")
+                if hasattr(self, n)]

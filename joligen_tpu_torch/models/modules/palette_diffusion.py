@@ -44,17 +44,27 @@ class PaletteDenoiser(nn.Module):
     (``ref_enc0..2``, stride 2, SiLU, the mean over the pixels) or, with
     ``ref_embed_net="clip"``, the frozen fp32 CLIP ViT-B/16 tower
     ``freezenet_clip`` (its output detached, then SiLU), then ``ref_proj``.
+
+    ``raw_t`` (a JiT or HDiT trunk, ``palette_diffusion.py:71-77``): the
+    trunk embeds t itself, so the wrapper has no layer of its own; the
+    gammas pass as t, the class only under class conditioning (as ``y``),
+    and with mask conditioning the mask, clipped to [0, 1], is one more
+    input channel. ``zero_gamma`` and ``ref`` do not reach such a trunk.
     """
 
     def __init__(self, inner, cond_embed_dim, conditioning="", nclasses=2,
-                 ref_embed_net="", ref_channels=3, dtype=torch.float32):
+                 raw_t=False, ref_embed_net="", ref_channels=3,
+                 dtype=torch.float32):
         super().__init__()
         self.inner = inner
         self.cond_embed_dim = cond_embed_dim
         self.conditioning = conditioning
         self.nclasses = nclasses
+        self.raw_t = raw_t
         self.ref_embed_net = ref_embed_net
         self.dtype = dtype
+        if raw_t:
+            return
         g = self.gamma_dim
         self.cond_embed_0 = Dense(g, g, dtype=dtype)
         self.cond_embed_1 = Dense(g, g, dtype=dtype)
@@ -109,6 +119,12 @@ class PaletteDenoiser(nn.Module):
         """x: (B,H,W,C) concatenated [y_cond, y_noisy]; gammas: (B,);
         cls: (B,) int or None; mask: (B,H,W,1) labels or None; ref:
         (B,H,W,C) reference image in [-1, 1] or None."""
+        if self.raw_t:
+            if "mask" in self.conditioning and mask is not None:
+                x = torch.cat([x, torch.clamp(mask.to(x.dtype), 0.0, 1.0)],
+                              dim=-1)
+            return self.inner(x, gammas, y=(
+                cls if "class" in self.conditioning else None))
         emb = gamma_embedding(gammas, self.gamma_dim)
         emb = self.cond_embed_1(F.silu(self.cond_embed_0(emb)))
         if zero_gamma:

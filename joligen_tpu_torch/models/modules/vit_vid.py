@@ -39,23 +39,18 @@ K2/K3) at head dim 96, the packed tiling over F = 8 frames.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.schedules import timestep_embedding
-from .jit import (JiT_VARIANT_CONFIGS, JiTBlock, RMSNorm, axial_rope_tables,
-                  modulate, sincos_2d_pos_embed)
+from .jit import (JiTBlock, RMSNorm, axial_rope_tables, cached_tables,
+                  jit_config, modulate, sincos_2d_pos_embed)
 from .motion import TemporalTransformerBlock
 from .unet_mha import Dense, GroupNorm
 
 UNPORTED = "ROADMAP Queue 1 item 11, video diffusion"
-
-JiTVid_VARIANT_CONFIGS = {
-    "JiTVid-" + k[len("JiT-"):]: dict(v)
-    for k, v in JiT_VARIANT_CONFIGS.items()}
 
 
 class TokenMotionModule(nn.Module):
@@ -177,9 +172,9 @@ class JiTViD(nn.Module):
 
     @classmethod
     def from_opt(cls, opt, in_channels, dtype=torch.float32):
-        """The JAX ``JiTViD.from_opt``: the variant table (``JiT-*`` read
-        as ``JiTVid-*``, default B/16), overridden by explicit ``G_vit_*``
-        options."""
+        """The JAX ``JiTViD.from_opt``: ``jit_config`` (the ``JiTVid-*``
+        variants are the ``JiT-*`` ones), the motion, mask-size and
+        frame-step settings from the options."""
         gcm = getattr(opt, "alg_b2b_global_context_mode", "") or "none"
         if gcm != "none":
             raise NotImplementedError(
@@ -189,17 +184,7 @@ class JiTViD(nn.Module):
             raise NotImplementedError(
                 f"alg_b2b_object_ref_paths is not ported ({UNPORTED})")
         variant = getattr(opt, "G_vit_variant", "") or "JiT-B/16"
-        if variant.startswith("JiT-"):
-            variant = "JiTVid-" + variant[len("JiT-"):]
-        cfg = dict(JiTVid_VARIANT_CONFIGS.get(
-            variant, JiTVid_VARIANT_CONFIGS["JiTVid-B/16"]))
-        for key in ("depth", "hidden_size", "num_heads", "patch_size",
-                    "bottleneck_dim", "in_context_len", "in_context_start"):
-            v = getattr(opt, f"G_vit_{key}", None)
-            if v is not None:
-                cfg[key] = v
-        if getattr(opt, "G_vit_disable_bottleneck", False):
-            cfg["bottleneck_dim"] = cfg["hidden_size"]
+        cfg = jit_config(opt, variant.replace("JiTVid-", "JiT-", 1))
         return cls(
             in_channels, patch_size=cfg["patch_size"],
             hidden_size=cfg["hidden_size"], depth=cfg["depth"],
@@ -236,15 +221,6 @@ class JiTViD(nn.Module):
         return [(a, b, (b - 1) in motion_after)
                 for a, b in zip(bounds[:-1], bounds[1:])]
 
-    def _table(self, key, make, device):
-        """Fixed tables on the device, built once per shape."""
-        full = key + (str(device),)
-        t = self._tables.get(full)
-        if t is None:
-            t = tuple(torch.from_numpy(a).to(device) for a in make())
-            self._tables[full] = t
-        return t
-
     def _block(self, block, h, c, rc, rs):
         if self.remat and torch.is_grad_enabled():
             return checkpoint(block, h, c, rc, rs, use_reentrant=False)
@@ -268,8 +244,8 @@ class JiTViD(nn.Module):
         dev = x.device
 
         h = self.x_embed(x.reshape(bf, hh, ww, cin))
-        (pos,) = self._table(("pos", gh, gw),
-                             lambda: (sincos_2d_pos_embed(d, gh, gw),), dev)
+        (pos,) = cached_tables(self._tables, ("pos", gh, gw),
+                               lambda: (sincos_2d_pos_embed(d, gh, gw),), dev)
         h = h + pos.to(h.dtype)[None]
 
         t = torch.as_tensor(t, device=dev)
@@ -297,8 +273,8 @@ class JiTViD(nn.Module):
             fs_emb = self.fs_0(timestep_embedding(fs, 256))
             c = c + self.fs_1(F.silu(fs_emb))
 
-        cos0, sin0 = self._table(("rope", gh, gw, hd, 0),
-                                 lambda: axial_rope_tables(gh, gw, hd), dev)
+        cos0, sin0 = cached_tables(self._tables, ("rope", gh, gw, hd, 0),
+                                   lambda: axial_rope_tables(gh, gw, hd), dev)
         cos1 = sin1 = None
         share_motion = self.motion_every <= 0
         n_prefix = 0
@@ -313,8 +289,8 @@ class JiTViD(nn.Module):
                                   + self.in_context_posemb.to(h.dtype))
                 n_prefix = self.num_register_tokens + self.in_context_len
                 h = torch.cat(prefix + [h], dim=1)
-                cos1, sin1 = self._table(
-                    ("rope", gh, gw, hd, n_prefix),
+                cos1, sin1 = cached_tables(
+                    self._tables, ("rope", gh, gw, hd, n_prefix),
                     lambda: axial_rope_tables(gh, gw, hd, prefix=n_prefix),
                     dev)
             rc, rs = ((cos1, sin1) if (a >= self.split_at and n_prefix)

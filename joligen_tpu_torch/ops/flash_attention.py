@@ -163,7 +163,8 @@ def _check_kernel_inputs(q, named):
     d = q.shape[-1]
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head dim {d} not in "
-                         f"{SUPPORTED_HEAD_DIMS}")
+                         f"{SUPPORTED_HEAD_DIMS} (ROADMAP Queue 2 item 1: "
+                         "JiT-H's 80 among the head dims still to teach)")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_attention kernel: dtype {q.dtype} not in "
                          f"{tuple(_DTYPE_CODES)}")

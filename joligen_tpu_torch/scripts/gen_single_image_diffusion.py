@@ -20,8 +20,9 @@ Same CLI and outputs as the JAX script: ``<name>_orig.png``,
   scale and back up) and ``pix2pix`` (the crop itself).
 - The generated crop is resized back into the window of the full image.
 - Model types palette (DDPM/DDIM), cm and cm_gan (the 5-sigma consistency
-  sampler) and sc (Euler, ``--sampling_steps`` or
-  ``--alg_sc_denoise_inferstep`` steps).
+  sampler), sc (Euler) and b2b with the image JiT (Heun); sc and b2b take
+  ``--sampling_steps`` or else ``--alg_sc_denoise_inferstep`` steps (else
+  the model's).
 - ``--ref_in``: the reference image of a ref-conditioned palette model,
   read as RGB, PIL BICUBIC-resized to the crop and mapped to [-1, 1]
   (the JAX script's ``:224-231``).
@@ -98,7 +99,7 @@ def _check_supported(args, opt):
         raise NotImplementedError(
             "--cond_in exemplar insertion needs a perspective warp "
             "(ROADMAP Queue 1 item 7, entry points, the rest)")
-    if opt.model_type not in ("palette", "cm", "cm_gan", "sc"):
+    if opt.model_type not in ("palette", "cm", "cm_gan", "sc", "b2b"):
         raise NotImplementedError(
             f"model type {opt.model_type} (ROADMAP Queue 1 items 9 to 13, "
             "the model families after the main path)")
@@ -152,7 +153,7 @@ def load_ref(path, size):
 def _inference_kwargs(args, opt):
     """The sampler's arguments by model type (reference
     scripts/gen_single_image_diffusion.py:233-244): palette's method, steps
-    and guidance; sc's step count (``--sampling_steps``, else
+    and guidance; sc's and b2b's step count (``--sampling_steps``, else
     ``--alg_sc_denoise_inferstep``, else the model's); none for cm."""
     kwargs = {}
     if opt.model_type == "palette":
@@ -162,7 +163,7 @@ def _inference_kwargs(args, opt):
             kwargs["num_steps"] = args.sampling_steps
         if args.alg_diffusion_guidance_scale > 0:
             kwargs["guidance_scale"] = args.alg_diffusion_guidance_scale
-    elif opt.model_type == "sc":
+    elif opt.model_type in ("sc", "b2b"):
         steps = (args.sampling_steps if args.sampling_steps > 0
                  else args.alg_sc_denoise_inferstep)
         if steps > 0:
@@ -250,8 +251,9 @@ def build_parser():
     p.add_argument("--sampling_method", default="",
                    choices=["", "ddpm", "ddim"])
     p.add_argument("--alg_sc_denoise_inferstep", type=int, default=-1,
-                   help="sc: the sampler's step count (default: the "
-                        "model's alg_sc_denoise_timesteps)")
+                   help="sc and b2b: the sampler's step count (default: "
+                        "the model's alg_sc_denoise_timesteps, or "
+                        "alg_b2b_denoise_timesteps)")
     p.add_argument("--alg_diffusion_cond_image_creation", default="")
     p.add_argument("--alg_diffusion_sketch_canny_thresholds", type=int,
                    nargs=2, default=None,

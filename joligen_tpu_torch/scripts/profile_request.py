@@ -3,7 +3,7 @@
     python -m joligen_tpu_torch.scripts.profile_request \\
         [--config examples/example_ddpm_noglasses2glasses.json] \\
         [--model_type sc] [--sampling_method ddim | --train] [--size PX] \\
-        [--out profile_request.json]
+        [--out profile_request.json] [--<option> VALUE ...]
 
 Builds the config's model (palette; a GAN such as
 ``examples/example_gan_horse2zebra.json``, or
@@ -21,7 +21,10 @@ with ``--model_type sc``; a cm_gan step is one micro-step; the video
 a request its ``denoise_timesteps`` Heun steps; MAT from
 ``examples/example_mat_inpainting.json``, a step one ``optimize_prepared``
 (the warm-up steps leave the timed and traced ones without R1), a request
-one ``inference``) at full width
+one ``inference``; any other option of the train CLI overrides the
+config's, as ``--model_type b2b --G_netG vit`` (the image b2b, a request
+its 50 Heun steps) with ``--alg_b2b_lora`` (a LoRA step), or ``--G_netG
+vit`` or ``hdit`` under palette) at full width
 with seeded random weights and runs twice as warm-up, on a synthetic
 masked image, either one serving request or (``--train``) one training
 step on a batch of ``train_batch_size`` such images (a GAN reads its ``A``
@@ -90,16 +93,15 @@ def main(argv=None):
                    help="load and crop size in px instead of the config's")
     p.add_argument("--top", type=int, default=12)
     p.add_argument("--out", default="")
-    args = p.parse_args(argv)
+    args, overrides = p.parse_known_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_request measures the card: no CUDA "
                            "device is available")
 
-    with open(args.config) as f:
-        cfg = json.load(f)
     if args.model_type:
-        cfg["model_type"] = args.model_type
-    opt = TrainOptions().parse_json(cfg, verbose=False)
+        overrides += ["--model_type", args.model_type]
+    opt = TrainOptions().parse_cli(["--config_json", args.config,
+                                    *overrides])
     if args.size:
         opt.data_load_size = opt.data_crop_size = args.size
     opt.tpu_mesh_data, opt.tpu_mesh_fsdp = -1, 1
@@ -158,7 +160,8 @@ def main(argv=None):
     result = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "config": os.path.basename(args.config),
-        "model_type": opt.model_type,
+        "overrides": overrides, "model_type": opt.model_type,
+        "G_netG": opt.G_netG,
         "run": ("training step, batch %d" % opt.train_batch_size
                 if args.train else (args.sampling_method + " request"
                                     if palette else "request")),

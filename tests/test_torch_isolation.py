@@ -1,6 +1,7 @@
 """The port stands alone: it imports with jax, flax, jaxlib, msgpack, the
 JAX package, cv2, tifffile and scipy blocked (every module, the training slice's,
-the probes', the video slice's, b2b's and MAT's included), no source file of it (nor chip_smoke.py) imports
+the probes', the video slice's, b2b's, MAT's, the image JiT's, HDiT's and
+LoRA's included), no source file of it (nor chip_smoke.py) imports
 them, and without a CUDA device its
 entry points (model, serving script, train CLI) raise unless the CPU is
 asked for."""
@@ -96,6 +97,11 @@ B2B_MODULES = ("models.modules.jit", "models.modules.vit_vid",
 # the request scripts
 MAT_MODULES = ("models.modules.mat", "models.mat_model", "utils.metrics",
                "scripts.gen_single_image_mat", "scripts.gen_video_mat")
+# the image JiT under b2b and palette, HDiT, LoRA, the b2b request
+IMAGE_TRANSFORMER_MODULES = ("models.modules.hdit", "models.lora",
+                             "models.diffusion_networks",
+                             "models.modules.palette_diffusion",
+                             "scripts.gen_single_image_diffusion")
 
 
 def test_package_imports_with_jax_blocked():
@@ -104,11 +110,11 @@ def test_package_imports_with_jax_blocked():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 58
+    assert len(names) >= 60
     for m in (TRAINING_MODULES + PROBE_MODULES + CONDITIONING_MODULES
               + GAN_MODULES + CM_MODULES + GLASSES_MODULES
               + SEGFORMER_REF_MODULES + VIDEO_MODULES + B2B_MODULES
-              + MAT_MODULES):
+              + MAT_MODULES + IMAGE_TRANSFORMER_MODULES):
         assert "joligen_tpu_torch." + m in names, m
 
 
