@@ -65,8 +65,13 @@ GPU. Run from the repository root with no arguments:
    full-width denoiser in fp32 on the card against the CPU. Then 2 steps and
    one request each of mapillary (canny sketch conditioning, checked on the
    host batch; a request with fixed canny thresholds), df2kost
-   (``low_res`` super-resolution, no mask), SEN2VEN (``aligned`` pix2pix)
-   and mario (class conditioning; ``inference_per_class``).
+   (``low_res`` super-resolution, no mask; as written, its train-time
+   metrics PSNR, SSIM and LPIPS over a test split of 2 images, evaluated
+   at the last step and after the epoch with the config's DDPM sampler cut
+   to 100 steps, ``eval_results.json``; then ``python -m
+   joligen_tpu_torch.test`` on its run directory, FID, PSNR, SSIM and
+   LPIPS at DDIM-10), SEN2VEN (``aligned`` pix2pix) and mario (class
+   conditioning; ``inference_per_class``).
 7. The CUT GANs, over synthetic unaligned datasets written here:
    ``example_gan_horse2zebra.json`` at full width (resnet_attn G, ngf 64, 9
    blocks; projected and basic Ds, ndf 64; MoNCE; DiffAugment color,cutout;
@@ -124,8 +129,11 @@ GPU. Run from the repository root with no arguments:
    config's DDPM sampler (its test schedule cut to 100 steps) through
    ``scripts/gen_vid_diffusion``; ``_ft`` (batch 3) and ``_ft_from_image``
    (277,532,355 parameters, 6 frames at 128 px, 89 K1 a call) an epoch of
-   one series and a DDIM-10 ``--cond_canny`` request each from the
-   trained model; the full-width UNetVid in fp32, card against CPU.
+   one series, as written: their train-time metrics (PSNR, LPIPS, SSIM)
+   over one test clip at the last micro-step and after the epoch, the
+   DDPM sampler cut to 100 steps; and a DDIM-10 ``--cond_canny`` request
+   each from the trained model; the full-width UNetVid in fp32, card
+   against CPU.
 11. b2b flow matching: ``example_b2b_vid_mario.json`` at full width
    (vit_vid JiT-B/16, 156,640,512 parameters; one clip of 8 frames at 128
    px a step, online crops with delta 16 of 192 px frames; AdamW, EMA,
@@ -165,7 +173,17 @@ GPU. Run from the repository root with no arguments:
    ``/dev/shm``, where the machine has it); JiT-B/16 and HDiT at full
    width in fp32, card against CPU to 1e-4 of the largest output, and one
    LoRA merge card against CPU bit for bit.
-14. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
+14. Perceptual steps: cm (``example_cm_noglasses2glasses``) and
+   b2b_image_256 with ``alg_*_perceptual_loss LPIPS DISTS``, 4 steps each
+   with ``G_perceptual`` among the finite losses and the VGG16 trunk
+   frozen; the warm step time.
+15. Metrics: ``RandomConvFeatures`` (2048-d, 128 px), ``InceptionV3FID``
+   (299 px), the VGG16 trunk with LPIPS and DISTS (256 px), ``I3D`` (8
+   frames of 224 px) and the DINOv2 fallback at full width from seeded
+   trees, each timed with its peak memory and held against the CPU to 1e-4
+   of the largest output (fp32, TF32 off); FID, KID, PSNR, SSIM and LPIPS
+   of one pair of sets, card against CPU to 1e-3.
+16. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
    bf16 and ``tools.bw_probe3`` over 1 GiB arrays, each with the launch
    counters set to 0 just before it and read just after.
 
@@ -227,6 +245,9 @@ ONLINE_SIZE = 320                   # the online configs' source images
 # writer's box classes (mario's embedding has one class besides the null
 # class)
 CONFIG_STEPS = 2
+# df2kost's test split: its train-time metrics (and ``test.py``'s FID) over
+# this many test batches
+METRIC_TEST_BATCHES = 2
 CONFIG_RUNS = {
     "mapillary": ("online", ONLINE_SIZE, (1, 2)),
     "df2kost": ("single", 160, None),
@@ -450,6 +471,18 @@ B2B_IMAGE_ARGS = ["--model_type", "b2b", "--G_netG", "vit",
 B2B_LORA_ARGS = B2B_IMAGE_ARGS + ["--alg_b2b_lora"]
 IMAGE_STEPS = 8
 LORA_STEPS = 4
+# the metrics phase: images a batch, clips a batch, timed calls, the card
+# against the CPU (fp32, TF32 off) of the largest output; compute_metrics'
+# list and its tolerance (relative; KID against 1: a difference of means of
+# terms ~1)
+METRIC_BATCH = 16
+METRIC_CLIPS = 2
+METRIC_ITERS = 5
+METRIC_TOL = 1e-4
+METRIC_LIST = ["FID", "KID", "PSNR", "SSIM", "LPIPS"]
+METRIC_FLOOR = {"KID": 1.0}
+METRIC_SET_TOL = 1e-3
+PERCEPTUAL_STEPS = 4
 B2B_IMAGE_HEUN_STEPS = 50
 JIT_K1_PER_CALL = 12
 EXPECTED_PARAMS_B2B_IMAGE = 130_454_784
@@ -1368,12 +1401,13 @@ def _train(workdir, size, n_images, epochs, hook=None):
 
 
 def _train_run(opt, steps, epochs, label, expected_params=None, hook=None,
-               attention_per_step=1):
+               attention_per_step=1, eval_k1=0):
     """``launch_training(opt)`` with the launch counters at 0 just before it
     and read just after (one main path). Checks the step count, the
     parameter count (when given) and bf16, ``attention_per_step`` launches
     of each attention kernel a step (a dict: per kernel; none for the GANs)
-    and finite losses, every loss the model logs. ``hook(model, iters,
+    and ``eval_k1`` more of K1 (the train-time metrics' sampling), and
+    finite losses, every loss the model logs. ``hook(model, iters,
     steps)`` runs after each step, outside the step times. Returns (model,
     opt, record): losses, median warm step, images/s, peak memory, the
     loop's data wait."""
@@ -1411,6 +1445,8 @@ def _train_run(opt, steps, epochs, label, expected_params=None, hook=None,
     per = attention_per_step
     want = _attention_only(launches, {k: steps * v for k, v in per.items()}
                            if isinstance(per, dict) else steps * per)
+    if eval_k1:
+        want["flash_attention_fwd"] += eval_k1
     if len(marks) != steps or launches != want:
         raise AssertionError(f"{label}: {len(marks)} steps, launches "
                              f"{launches}; expected {want}")
@@ -1430,7 +1466,8 @@ def _train_run(opt, steps, epochs, label, expected_params=None, hook=None,
            "median_warm_step_s": step_s, "warm_steps": len(warm),
            "images_per_s": opt.train_batch_size / step_s,
            "max_memory_allocated": peak, "data_wait_s": data_s,
-           "data_wait_per_step_s": data_s / steps, "wall_s": wall}
+           "data_wait_per_step_s": data_s / steps, "wall_s": wall,
+           "metrics_s": model.loop_times["metrics_s"]}
     log(f"{label}: {steps} steps, {n_params} parameters, launches "
         f"{launches}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, median warm "
         f"step {step_s * 1e3:.1f} ms ({opt.train_batch_size / step_s:.1f} "
@@ -1845,9 +1882,51 @@ def _config_opt(name, workdir, steps=None, layout=None, size=None,
     opt.output_print_freq = opt.train_batch_size
     opt.output_display_freq = 0
     opt.train_save_epoch_freq = 10 ** 6
-    # train-time metrics (df2kost's FID) are not ported
-    opt.train_compute_metrics_test = False
+    if steps and opt.train_compute_metrics_test:
+        _metric_test_split(opt, layout, size, steps)
     return opt
+
+
+def _metric_test_split(opt, layout, size, steps):
+    """For a config with its train-time metrics on: a test split of
+    METRIC_TEST_BATCHES test batches (``layout``, ``size`` px; FID, which
+    ``_offline_test`` adds, needs two images), an evaluation at the last
+    step (inside the loop) as well as the final one, and the DDPM sampler's
+    test schedule cut to DDPM_TEST_STEPS steps (the requests' cut)."""
+    from joligen_tpu_torch.tools import synthetic_datasets as synth
+
+    if layout != "video":                 # the video writer writes it
+        synth.write_test_split(layout, opt.dataroot, METRIC_TEST_BATCHES
+                               * opt.test_batch_size, size, seed=SEED + 13)
+    opt.train_metrics_every = steps * opt.train_batch_size
+    opt.G_diff_n_timestep_test = DDPM_TEST_STEPS
+
+
+def _metric_evals_k1(opt, k1_per_call, batches=METRIC_TEST_BATCHES):
+    """K1 launches of the train-time metrics of a ``_metric_test_split``
+    run: two evaluations of ``batches`` test batches, DDPM_TEST_STEPS
+    denoiser calls each."""
+    return 2 * batches * DDPM_TEST_STEPS * k1_per_call if \
+        opt.train_compute_metrics_test else 0
+
+
+def _check_eval_results(opt, label, metrics_s):
+    """``eval_results.json`` of a run with its train-time metrics on: the
+    config's metric list, ``_test`` keys, finite values; ``metrics_s``, the
+    evaluations' seconds (``model.loop_times``), goes on its line."""
+    import numpy as np
+    path = os.path.join(opt.checkpoints_dir, opt.name, "eval_results.json")
+    with open(path) as f:
+        res = json.load(f)["test"]
+    names = sorted(k.split("(")[0].removesuffix("_test") for k in res)
+    log(f"{label} train-time metrics (eval at step "
+        f"{opt.train_metrics_every // opt.train_batch_size} and the final "
+        f"one; DDPM cut to {DDPM_TEST_STEPS} steps) in {metrics_s:.2f} s: "
+        f"{json.dumps(res)}")
+    if names != sorted(opt.train_metrics_list) or not all(
+            np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"{label}: eval_results.json {res}")
+    return res
 
 
 def _capture_set_input():
@@ -2061,9 +2140,13 @@ def other_configs_phase(workdir):
         seen, undo = _capture_set_input()
         try:
             model, opt, rec = _train_run(opt, CONFIG_STEPS, 1,
-                                         f"{name} training")
+                                         f"{name} training",
+                                         eval_k1=_metric_evals_k1(opt, 1))
         finally:
             undo()
+        if opt.train_compute_metrics_test:
+            rec["eval_results"] = _check_eval_results(
+                opt, name, model.loop_times["metrics_s"])
         batch, host = seen[0]
         gt, cond = host["gt"], host["y_cond"]
         if name == "mapillary":
@@ -2116,6 +2199,9 @@ def other_configs_phase(workdir):
                 full, img, req["window"], name)
         rec["request"] = req
         paths[f"{name}_request"] = req["launches"]
+        if name == "df2kost":
+            rec["offline_test"] = _offline_test(opt)
+            paths["df2kost_offline_test"] = rec["offline_test"]["launches"]
         if name == "mario":
             # one DDIM-10 output per class on two dataset items
             ds = create_dataset(served.opt)
@@ -2142,6 +2228,36 @@ def other_configs_phase(workdir):
         torch.cuda.empty_cache()
         recs[name] = rec
     return recs, paths
+
+
+def _offline_test(opt):
+    """``python -m joligen_tpu_torch.test`` (in process, on the card) on a
+    trained run's directory: FID, PSNR, SSIM and LPIPS over its test split
+    at DDIM-10, ``metrics/<timestamp>.json`` written; the launch counters
+    read around it."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch import test as ttest
+
+    run_dir = os.path.join(opt.checkpoints_dir, opt.name)
+    n_test = len(os.listdir(os.path.join(opt.dataroot, "testA")))
+    reset_launches()
+    t0 = time.perf_counter()
+    out = ttest.main(["--test_model_dir", run_dir, "--test_metrics_list",
+                      "FID", "PSNR", "SSIM", "LPIPS", "--sampling_method",
+                      "ddim", "--sampling_steps", "10"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    files = os.listdir(os.path.join(run_dir, "metrics"))
+    want = _attention_only(launches, {"flash_attention_fwd": 10 * n_test})
+    ok = (len(files) == 1 and launches == want and len(out["test"]) == 4
+          and all(np.isfinite(v) for v in out["test"].values()))
+    log(f"offline test.py on {opt.name}: {json.dumps(out)} in {wall:.1f} s, "
+        f"launches {launches}")
+    if not ok:
+        raise AssertionError(f"offline test.py: {out}, {files}, {launches}")
+    return {"metrics": out["test"], "wall_s": wall, "launches": launches}
 
 
 def _example_opt(example, workdir, name, args=()):
@@ -3020,13 +3136,18 @@ def unetref_cross_check():
 def _vid_opt(example, workdir, name, n_series, frames):
     """A video example config (``_example_opt``) over a synthetic video
     dataset of ``n_series`` series of ``frames`` frames of VID_IMAGE px,
-    written here; train-time metrics (the _ft configs') are not ported."""
+    written here (its test split too); where the config has its train-time
+    metrics on (the _ft configs), they run over one test clip
+    (``train_nb_img_max_fid``: its frames; ``_metric_test_split``)."""
     from joligen_tpu_torch.tools.synthetic_datasets import write_video
 
     opt = _example_opt(example, workdir, name)
     write_video(opt.dataroot, frames, VID_IMAGE, seed=SEED + 41,
                 n_series=n_series)
-    opt.train_compute_metrics_test = False
+    if opt.train_compute_metrics_test:
+        opt.train_nb_img_max_fid = opt.data_temporal_number_frames
+        _metric_test_split(opt, "video", VID_IMAGE,
+                           frames // opt.train_batch_size)
     return opt
 
 
@@ -3184,7 +3305,11 @@ def vid_phase(workdir):
         steps = frames // opt.train_batch_size
         per_call = _k1_per_call(opt)
         model, opt, sub = _train_run(opt, steps, 1, f"{name} training",
-                                     n_params, attention_per_step=per_call)
+                                     n_params, attention_per_step=per_call,
+                                     eval_k1=_metric_evals_k1(opt, per_call,
+                                                              1))
+        sub["eval_results"] = _check_eval_results(
+            opt, name, model.loop_times["metrics_s"])
         # served from the trained model (vid_mario's run holds the
         # checkpoint round trip)
         sub["request"] = _serve_vid(
@@ -3840,6 +3965,167 @@ def image_transformer_cross_check():
     return recs
 
 
+def _timed_peak(fn, iters):
+    """(ms a call by ``wall_ms``, peak bytes allocated across the calls)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = wall_ms(fn, iters)
+    return ms, torch.cuda.max_memory_allocated()
+
+
+def metrics_phase():
+    """The metric networks at full width on the card, each built from a
+    seeded tree (the fallbacks' own generator; the real-size InceptionV3
+    and I3D, whose weights files are not in the repository, in flax's
+    default law from CPU generators): ``RandomConvFeatures`` (2048-d) at
+    128 px, ``InceptionV3FID`` at 299 px, the VGG16 trunk with LPIPS and
+    DISTS at 256 px, ``I3D`` on 8 frames of 224 px and the DINOv2 fallback,
+    each timed (ms a batch of METRIC_BATCH, clips: METRIC_CLIPS) with its
+    peak memory, and its card output held against the port's CPU output
+    (TF32 off) to METRIC_TOL of the largest; then FID, KID, PSNR, SSIM and
+    LPIPS of one fixed pair of sets, card against CPU. No kernel of the
+    port runs here."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.gan_networks import flax_default_init
+    from joligen_tpu_torch.utils import metrics as M
+    from joligen_tpu_torch.utils.i3d import I3D
+    from joligen_tpu_torch.utils.inception import InceptionV3FID
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(SEED + 91)
+    imgs = rng.uniform(-1, 1, (METRIC_BATCH, 256, 256, 3)).astype(np.float32)
+    others = np.clip(imgs + 0.3 * rng.standard_normal(imgs.shape), -1,
+                     1).astype(np.float32)
+    clips = rng.uniform(-1, 1, (METRIC_CLIPS, 8, 224, 224, 3)).astype(
+        np.float32)
+
+    def seeded(net, seed):
+        return flax_default_init(net, torch.Generator().manual_seed(seed))
+
+    def vgg_distances(net):
+        def run(x, y):
+            fa, fb = net(x), net(y)
+            return torch.stack([M.lpips_from_feats(fa, fb),
+                                M.dists_from_feats(fa, fb)], -1)
+        return run
+
+    def normalised(net):
+        def run(x):
+            f = net(M._resized(x, 128))
+            return f / torch.linalg.vector_norm(f, dim=-1, keepdim=True)
+        return run
+
+    cases = {   # name: (net, its call, inputs, CPU rows)
+        "random_conv_2048_128px": (
+            M._seeded(M.RandomConvFeatures(), 0),
+            lambda net: lambda x: net(M._resized(x, 128)), (imgs,), 4),
+        "inception_v3_299px": (
+            seeded(InceptionV3FID(), SEED + 92),
+            lambda net: lambda x: net(M._resized(x, 299)), (imgs,), 2),
+        "vgg16_lpips_dists_256px": (
+            M._VGGish(generator=torch.Generator().manual_seed(0)),
+            vgg_distances, (imgs, others), 2),
+        "i3d_8x224px": (seeded(I3D(), SEED + 93), lambda net: net, (clips,),
+                        1),
+        "dinov2_fallback_128px": (M._seeded(M.RandomConvFeatures(), 1),
+                                  normalised, (imgs,), 4),
+    }
+    recs = {}
+    for name, (net, call, inputs, n_cpu) in cases.items():
+        net = net.eval().requires_grad_(False)
+        dev_in = [torch.from_numpy(a).cuda() for a in inputs]
+        fn = call(net.cuda())
+        with torch.inference_mode():
+            ms, peak = _timed_peak(lambda: fn(*dev_in), METRIC_ITERS)
+            card = fn(*(a[:n_cpu] for a in dev_in)).float().cpu()
+            cpu = call(net.cpu())(*(torch.from_numpy(a[:n_cpu])
+                                    for a in inputs)).float()
+        err = (card - cpu).abs().max().item()
+        scale = cpu.abs().max().item()
+        recs[name] = {"batch": inputs[0].shape[0], "ms_a_batch": ms,
+                      "max_memory_allocated": peak,
+                      "card_vs_cpu_max_abs_err": err, "output_max": scale,
+                      "output_shape": list(card.shape)}
+        log(f"metric net {name}: {ms:.2f} ms a batch of "
+            f"{inputs[0].shape[0]}, max_memory_allocated {peak} B; card vs "
+            f"CPU on {n_cpu}: max abs err {err:.3e} of {scale:.3e} (tol "
+            f"{METRIC_TOL} of the largest)")
+        if not (torch.isfinite(card).all() and scale > 0
+                and err <= METRIC_TOL * scale):
+            raise AssertionError(f"{name}: card and CPU disagree")
+        del net, fn
+        torch.cuda.empty_cache()
+    # one fixed pair of sets, card against CPU, the seeded fallbacks
+    fakes, reals = imgs[:, ::2, ::2], others[:, ::2, ::2]
+    want = M.compute_metrics(fakes, reals, METRIC_LIST, device="cpu")
+    t0 = time.perf_counter()
+    got = M.compute_metrics(fakes, reals, METRIC_LIST, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    errs = {k: abs(got[k] - v) / max(abs(v), METRIC_FLOOR.get(
+        k.split("(")[0], 1e-12)) for k, v in want.items()}
+    recs["compute_metrics"] = {"card": got, "cpu": want, "rel_err": errs,
+                               "wall_s": wall, "images": len(fakes)}
+    log(f"compute_metrics of {len(fakes)} pairs at 128 px on the card in "
+        f"{wall:.2f} s: {json.dumps(got)}; against the CPU (relative; KID "
+        f"of 1): {json.dumps(errs)} (tol {METRIC_SET_TOL})")
+    if list(got) != list(want) or max(errs.values()) > METRIC_SET_TOL:
+        raise AssertionError("compute_metrics: card and CPU disagree")
+    return recs
+
+
+def perceptual_phase(workdir):
+    """cm (``example_cm_noglasses2glasses``, 128 px, batch 16) and
+    b2b_image_256 (the image transformer phase's config) with
+    ``alg_*_perceptual_loss LPIPS DISTS``, PERCEPTUAL_STEPS steps each: the
+    VGG16 trunk frozen in fp32, ``G_perceptual`` among the finite losses,
+    the warm step time; their files in RAM (``/dev/shm``) where the
+    machine has it. Returns (records, launch counts per path)."""
+    import torch
+    from joligen_tpu_torch.tools.synthetic_datasets import write_labeled
+
+    if os.path.isdir("/dev/shm") and os.access("/dev/shm", os.W_OK):
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_perc_", dir="/dev/shm")
+    else:
+        workdir = tempfile.mkdtemp(prefix="perc_", dir=workdir)
+    recs, paths = {}, {}
+    k1 = {"flash_attention_fwd": JIT_K1_PER_CALL,
+          "flash_attention_bwd_dq": JIT_K1_PER_CALL,
+          "flash_attention_bwd_dkv": JIT_K1_PER_CALL}
+    try:
+        runs = (("cm_perceptual", CM_EXAMPLE, ["--alg_cm_perceptual_loss",
+                                               "LPIPS", "DISTS"], 128,
+                 CM_PER_STEP),
+                ("b2b_image_perceptual", IMAGE_EXAMPLE, B2B_IMAGE_ARGS + [
+                    "--alg_b2b_perceptual_loss", "LPIPS", "DISTS"], 256, k1))
+        for name, example, args, size, per_step in runs:
+            opt = _example_opt(example, workdir, name, args)
+            write_labeled(opt.dataroot, PERCEPTUAL_STEPS
+                          * opt.train_batch_size, size, seed=SEED + 95)
+            model, opt, rec = _train_run(opt, PERCEPTUAL_STEPS, 1,
+                                         f"{name} training",
+                                         attention_per_step=per_step)
+            trunk = model._perc_feats.trunk
+            frozen = not any(p.requires_grad for p in trunk.parameters())
+            perc_losses = rec["losses_last"].get("G_perceptual")
+            log(f"{name}: G_perceptual {perc_losses} (last step), trunk "
+                f"frozen {frozen}, median warm step "
+                f"{rec['median_warm_step_s'] * 1e3:.1f} ms")
+            if not (perc_losses and perc_losses > 0 and frozen):
+                raise AssertionError(f"{name}: no perceptual term")
+            del model
+            torch.cuda.empty_cache()
+            recs[name] = rec
+            paths[f"{name}_training"] = rec["launches"]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return recs, paths
+
+
 def ptxas_spills(ptxas):
     """The functions of a ``-Xptxas=-v`` log whose registers spill, each
     with its log line."""
@@ -3946,6 +4232,9 @@ def main():
         mat, mat_paths = phase("mat", mat_phase, workdir)
         images, image_paths = phase("image transformers",
                                     image_transformer_phase, workdir)
+        percs, perc_paths = phase("perceptual steps", perceptual_phase,
+                                  workdir)
+    metric_nets = phase("metrics", metrics_phase)
     grad_check = phase("gradient cross-check", gradient_cross_check)
     vid["cross_check_fp32_max_abs_err"] = phase("video cross-check",
                                                 vid_cross_check)
@@ -3968,7 +4257,7 @@ def main():
              "training_256px": training_256["launches"], **xview["paths"],
              **config_paths, **gan_paths, **glasses_paths, **cm_paths,
              **mario_paths, **unetref_paths, **vid_paths, **b2b_paths,
-             **mat_paths, **image_paths, **probe_launches}
+             **mat_paths, **image_paths, **perc_paths, **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -3989,6 +4278,8 @@ def main():
     log("b2b_vid_mario: " + json.dumps(b2b))
     log("mat_inpainting: " + json.dumps(mat))
     log("image transformers: " + json.dumps(images))
+    log("perceptual steps: " + json.dumps(percs))
+    log("metrics: " + json.dumps(metric_nets))
     log("phases (s): " + json.dumps(seconds))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     k1["training_gradient_cross_check"] = grad_check

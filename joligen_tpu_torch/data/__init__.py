@@ -5,10 +5,15 @@ fixed-shape NHWC batches ((B, F, H, W, C) clips for the video modes). Ported
 modes (``PORTED_MODES``): the labeled-mask modes, their online bbox-crop
 variants and the four ref modes, ``unaligned``, ``aligned`` and
 ``single``, and the online video modes; any other mode raises
-``NotImplementedError``.
+``NotImplementedError``. ``list_test_sets`` names a dataroot's test sets
+(phase ``test``, ``testA<name>``/``testB<name>``), which the train-time
+metrics and ``test.py`` evaluate.
 """
 
 from __future__ import annotations
+
+import glob
+import os
 
 from .loader import DataLoader
 
@@ -78,3 +83,16 @@ def create_dataloader(opt, dataset, shuffle=None, batch_size=None,
                       prefetch=max(1, getattr(opt, "tpu_prefetch", 2) or 2),
                       num_workers=getattr(opt, "data_num_threads", 4),
                       seed=getattr(opt, "seed", None))
+
+
+def list_test_sets(dataroot):
+    """The names of the test sets under ``dataroot``: the suffixes of its
+    ``testA*`` and ``testB*`` entries, sorted (``""`` for ``testA``)."""
+    names = set()
+    for d in glob.glob(os.path.join(dataroot, "test*")):
+        base = os.path.basename(d)
+        if base.startswith("testA"):
+            names.add(base[len("testA"):])
+        elif base.startswith("testB"):
+            names.add(base[len("testB"):])
+    return sorted(names)

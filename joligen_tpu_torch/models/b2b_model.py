@@ -37,8 +37,9 @@ are saved as ``{prefix}_net_G_lora.pth``.
 ``denoise_timesteps`` steps (default: the first of
 ``alg_b2b_denoise_timesteps``) and ``cfg_scale`` on the EMA weights.
 
-Raises ``NotImplementedError`` for the perceptual terms
-(``alg_b2b_perceptual_loss``, ROADMAP Queue 1 item 14).
+``alg_b2b_perceptual_loss`` (LPIPS, DISTS) adds ``G_perceptual``:
+``alg_b2b_lambda_perceptual`` times the terms of the masked x-prediction
+against the masked ground truth.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ import torch.nn.functional as F
 
 from .. import compute_dtype
 from .base import BaseModel, dequantize, quantize_batch
-from .cm_model import is_conditional, refuse_perceptual
+from .cm_model import is_conditional, perceptual_options
 from .diffusion_networks import define_inner_G, init_weights
 from .lora import (DEFAULT_TARGETS, LoRAAdapters, merge_deltas, merge_into,
                    merged_weights)
@@ -61,7 +62,6 @@ from .train_state import apply_updates, param_grads
 
 class B2BModel(BaseModel):
     def __init__(self, opt, phase="train", device=None, cpu=False):
-        refuse_perceptual(opt, "alg_b2b_perceptual_loss")
         super().__init__(opt, phase=phase, device=device, cpu=cpu)
         g = lambda name, default: getattr(opt, name, default)  # noqa: E731
         self.task = g("alg_diffusion_task", "inpainting")
@@ -101,6 +101,8 @@ class B2BModel(BaseModel):
                             if self.autoregressive and self.is_video
                             else 0.0)
         self.minsnr = bool(g("alg_b2b_minsnr", False))
+        (self.perceptual, self.lambda_perceptual, self._perc_mean,
+         self._perc_std) = perceptual_options(opt, "b2b")
         self.degrade_prob = float(g("alg_b2b_ref_frame_degradation_prob",
                                     0.0) or 0.0)
         self.degrade_std = float(g("alg_b2b_ref_frame_degradation_std", 0.0)
@@ -230,8 +232,8 @@ class B2BModel(BaseModel):
         return torch.mean(err)
 
     def _loss_fn(self, dev, draws=None):
-        """(G_tot, {G_ref_copy}) of one training forward on a prepared
-        batch."""
+        """(G_tot, {G_perceptual, G_ref_copy}) of one training forward on a
+        prepared batch."""
         gt = dequantize(dev["gt"], "image")
         y_cond = dequantize(dev.get("y_cond"), "image")
         mask = dequantize(dev.get("mask"), "label")
@@ -254,6 +256,16 @@ class B2BModel(BaseModel):
             loss_mask = lm if loss_mask is None else loss_mask * lm
         loss = self.lambda_G * self._loss(v_pred, v_target, loss_mask)
         aux = {}
+        if self.perceptual:
+            mb = (torch.clamp(mask.to(gt.dtype), 0.0, 1.0)
+                  if mask is not None else None)
+            pp = raw_x_pred * mb if mb is not None else raw_x_pred
+            tt = gt * mb if mb is not None else gt
+            terms = self.perceptual_terms(pp, tt, self.perceptual,
+                                          self._perc_mean, self._perc_std)
+            aux["G_perceptual"] = self.lambda_perceptual * sum(
+                terms.values())
+            loss = loss + aux["G_perceptual"]
         if self.lambda_ref_copy > 0.0 and is_ref is not None:
             num = torch.sum((raw_x_pred - gt).abs() * is_ref)
             den = torch.clamp(torch.sum(is_ref.expand(gt.shape)), min=1.0)

@@ -5,7 +5,10 @@ EMA, step), the losses, and the checkpoints: ``{prefix}_net_{name}.pth`` /
 ``_ema.pth`` in flax's msgpack layout (a net with its own tree, as the LoRA
 adapters, gives it by ``flax_tree`` / ``load_flax_tree``), and
 ``{prefix}_optim.pkl``, a pickle of plain dicts of ints and numpy arrays
-written and read by the port.
+written and read by the port; the perceptual training terms
+(``perceptual_terms``: LPIPS and DISTS over the frozen VGG16 trunk) and the
+train-time metrics (``init_metrics``, ``compute_metrics_test``) of every
+model.
 """
 
 from __future__ import annotations
@@ -132,6 +135,137 @@ class BaseModel:
         # LR schedules are step-driven (train_state.make_lr_schedule);
         # nothing to do per epoch
         pass
+
+    def perceptual_terms(self, pred, target, kinds, mean=None, std=None):
+        """The LPIPS and DISTS distances of ``pred`` to ``target`` (NHWC or
+        (B, F, H, W, C) clips, frames folded into the batch; 1 channel
+        tiled to 3) over the frozen VGG16 trunk of ``utils/metrics.py``,
+        built on first use (``mean``/``std``: the weights file's input
+        normalisation). Returns {"lpips", "dists"} as ``kinds`` names them,
+        each the batch mean, with a graph to ``pred`` only."""
+        from ..utils.metrics import (dists_from_feats, lpips_from_feats,
+                                     vgg_feature_fn)
+        a, b = target, pred
+        if a.ndim == 5:
+            a = a.reshape((-1,) + tuple(a.shape[2:]))
+            b = b.reshape((-1,) + tuple(b.shape[2:]))
+        if a.shape[-1] == 1:
+            a = a.repeat(1, 1, 1, 3)
+            b = b.repeat(1, 1, 1, 3)
+        if getattr(self, "_perc_feats", None) is None:
+            self._perc_feats = vgg_feature_fn(tuple(a.shape[1:]), mean=mean,
+                                              std=std, device=self.device)
+        with torch.no_grad():
+            fa = self._perc_feats(a)
+        fb = self._perc_feats(b)
+        out = {}
+        if "LPIPS" in kinds:
+            out["lpips"] = torch.mean(lpips_from_feats(fa, fb))
+        if "DISTS" in kinds:
+            out["dists"] = torch.mean(dists_from_feats(fa, fb))
+        return out
+
+    # ---------------- metrics ----------------
+    def init_metrics(self, dataloader_real=None):
+        """The FID extractor on the model's device, and the activation
+        statistics of the real images (``B``) of ``dataloader_real``, at
+        most ``train_nb_img_max_fid`` of them, clips' frames folded."""
+        from ..utils.metrics import InceptionV3Features, _cov_mean
+        self.metric_extractor = InceptionV3Features(device=self.device)
+        self.real_stats = None
+        if dataloader_real is None:
+            return
+        reals = []
+        nmax = int(getattr(self.opt, "train_nb_img_max_fid", 10 ** 9))
+        for batch in dataloader_real:
+            reals.append(np.asarray(batch["B"], np.float32))
+            if sum(r.shape[0] for r in reals) >= nmax:
+                break
+        if reals:
+            reals = np.concatenate(reals)[:nmax]
+            if reals.ndim == 5:
+                reals = reals.reshape((-1,) + reals.shape[2:])
+            acts = self.metric_extractor(reals)
+            mu, sigma = _cov_mean(acts)
+            self.real_stats = (mu, sigma, acts)
+
+    def compute_metrics_test(self, dataloader_test, n_epoch="latest",
+                             n_iter=0, save_images=None, test_name="",
+                             **infer_kwargs):
+        """``inference`` over ``dataloader_test`` (at most
+        ``train_nb_img_max_fid`` images; clips' frames folded, the clips
+        kept for FVD) and ``train_metrics_list`` over the fakes against the
+        ``B`` images, as the JAX method: ``B_label_mask`` restricts PSNR
+        under ``alg_<model_type>_metric_mask``; ``save_images`` (default
+        ``train_metrics_save_images``) writes the first 8 pairs under
+        ``metrics_imgs_<test_name or test>``. Keys end in ``_test``."""
+        from ..utils.metrics import (VideoFeatures, compute_metrics, fvd,
+                                     metric_key)
+        if save_images is None:
+            save_images = bool(getattr(self.opt, "train_metrics_save_images",
+                                       False))
+        metrics_list = list(getattr(self.opt, "train_metrics_list", ["FID"])
+                            or ["FID"])
+        nmax = int(getattr(self.opt, "train_nb_img_max_fid", 10 ** 9))
+        fakes, reals, masks = [], [], []
+        fake_clips, real_clips = [], []
+        for batch in dataloader_test:
+            fake = self.inference(batch, **infer_kwargs)
+            real = np.asarray(batch["B"], np.float32)
+            if fake.ndim == 5:
+                fake_clips.append(fake)
+                real_clips.append(real)
+                fake = fake.reshape((-1,) + fake.shape[2:])
+                real = real.reshape((-1,) + real.shape[2:])
+            base = sum(f.shape[0] for f in fakes)
+            if save_images and base < 8:
+                self._save_metric_images(fake, real, base, n_epoch,
+                                         test_name)
+            fakes.append(fake)
+            reals.append(real)
+            m = batch.get("B_label_mask")
+            if m is not None:
+                m = np.asarray(m, np.float32)
+                if m.ndim == 5:
+                    m = m.reshape((-1,) + m.shape[2:])
+                masks.append(m)
+            if sum(f.shape[0] for f in fakes) >= nmax:
+                break
+        if not fakes:
+            return {}
+        fakes = np.concatenate(fakes)[:nmax]
+        reals = np.concatenate(reals)[:nmax]
+        mask = np.concatenate(masks)[:nmax] if masks else None
+        use_mask = bool(getattr(self.opt,
+                                f"alg_{self.opt.model_type}_metric_mask",
+                                False))
+        out = compute_metrics(
+            fakes, reals, [m for m in metrics_list if m != "FVD"],
+            extractor=getattr(self, "metric_extractor", None),
+            real_stats=getattr(self, "real_stats", None),
+            mask=mask if use_mask else None, device=self.device)
+        if "FVD" in metrics_list and fake_clips:
+            vf = VideoFeatures(device=self.device)
+            out[metric_key("FVD", vf.is_fallback)] = fvd(
+                np.concatenate(real_clips), np.concatenate(fake_clips),
+                extractor=vf)
+        return {f"{k}_test": v for k, v in out.items()}
+
+    def _save_metric_images(self, fake, real, base, n_epoch, test_name):
+        """PNGs of the pairs ``base`` onwards, up to 8 in all."""
+        from PIL import Image
+
+        from ..utils.visualizer import tensor2im
+        d = os.path.join(self.save_dir, f"metrics_imgs_{test_name or 'test'}")
+        os.makedirs(d, exist_ok=True)
+        for j in range(min(fake.shape[0], 8 - base)):
+            Image.fromarray(tensor2im(fake[j])).save(
+                os.path.join(d, f"{n_epoch}_{base + j}_fake.png"))
+            Image.fromarray(tensor2im(real[j])).save(
+                os.path.join(d, f"{n_epoch}_{base + j}_real.png"))
+
+    def inference(self, batch, **kwargs):
+        raise NotImplementedError
 
     # ---------------- checkpoint contract ----------------
     def _net_path(self, prefix, name, ema=False):

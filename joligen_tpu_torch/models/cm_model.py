@@ -24,9 +24,12 @@ The conditioning: ``self.conditional`` compares the option
 so an unset option (None) makes the model conditional on ``A``: the example
 configs' trunks take 6 input channels.
 
-Raises ``NotImplementedError`` for the perceptual terms
-(``alg_cm_perceptual_loss``) and for the ``previous_frame`` conditioning of
-video batches.
+``alg_cm_perceptual_loss`` (LPIPS, DISTS) adds ``G_perceptual``,
+``alg_cm_lambda_perceptual`` times the terms' sum, of the masked output
+against the masked ground truth (``BaseModel.perceptual_terms``; the
+ImageNet normalisation of a weights file overridden by ``alg_cm_dists_mean``
+/ ``_std``). Raises ``NotImplementedError`` for the ``previous_frame``
+conditioning of video batches.
 """
 
 from __future__ import annotations
@@ -45,16 +48,17 @@ from .modules.image_pool import ImagePool
 from .train_state import apply_updates, param_grads
 
 SAMPLING_SIGMAS = (80.0, 24.4, 5.84, 0.9, 0.661)
-PERCEPTUAL = ("ROADMAP Queue 1 item 14, metrics and frozen nets: LPIPS and "
-              "DISTS need frozen VGG features")
 
 
-def refuse_perceptual(opt, option):
-    """Raise if ``option`` names a perceptual loss."""
-    terms = [x for x in (getattr(opt, option, [""]) or [""]) if x]
-    if terms:
-        raise NotImplementedError(f"{option}={terms} is not ported "
-                                  f"({PERCEPTUAL})")
+def perceptual_options(opt, algo):
+    """(kinds, lambda, mean, std) of ``alg_<algo>_perceptual_loss``,
+    ``_lambda_perceptual``, ``_dists_mean`` and ``_dists_std``, read as
+    the JAX models read them."""
+    kinds = [x for x in (getattr(opt, f"alg_{algo}_perceptual_loss", [""])
+                         or [""]) if x]
+    lam = float(getattr(opt, f"alg_{algo}_lambda_perceptual", 1.0) or 1.0)
+    return (kinds, lam, getattr(opt, f"alg_{algo}_dists_mean", None),
+            getattr(opt, f"alg_{algo}_dists_std", None))
 
 
 def is_conditional(opt, task):
@@ -71,13 +75,14 @@ def trunk_in_channels(opt, conditional):
 
 class CMModel(BaseModel):
     def __init__(self, opt, phase="train", device=None, cpu=False):
-        refuse_perceptual(opt, "alg_cm_perceptual_loss")
         super().__init__(opt, phase=phase, device=device, cpu=cpu)
         g = lambda name, default: getattr(opt, name, default)  # noqa: E731
         self.task = g("alg_diffusion_task", "inpainting")
         self.is_ect = (g("alg_ddpm_ft_mode", "cm") == "ect"
                        and g("alg_diffusion_ddpm_cm_ft", False))
         self.lambda_G = float(g("alg_diffusion_lambda_G", 1.0))
+        (self.perceptual, self.lambda_perceptual, self._perc_mean,
+         self._perc_std) = perceptual_options(opt, "cm")
         self.use_ema = bool(g("train_G_ema", False))
         self.ema_beta = float(g("train_G_ema_beta", 0.999))
         self.total_steps = int(g("alg_cm_num_steps", 1000000))
@@ -153,6 +158,12 @@ class CMModel(BaseModel):
             pred_m, target_m = pred, target
         losses = {"G_tot": torch.mean(pseudo_huber_loss(pred_m, target_m)
                                       * w) * self.lambda_G}
+        if self.perceptual:
+            gt_m = gt * m if mask is not None else gt
+            terms = self.perceptual_terms(pred_m, gt_m, self.perceptual,
+                                          self._perc_mean, self._perc_std)
+            losses["G_perceptual"] = self.lambda_perceptual * sum(
+                terms.values())
         if self.with_gan:
             losses["G_GAN"] = sum(gan_loss(self.nets[n](pred), True,
                                            self.gan_mode)

@@ -4,7 +4,7 @@ A flax leaf ``params/inner/ResBlock_5/GroupNorm32_1/GroupNorm_0/scale`` is
 the torch key ``inner.ResBlock_5.GroupNorm32_1.GroupNorm_0.weight``: the
 port's modules carry the flax names. Leaf mappings:
 
-- conv ``kernel`` HWIO <-> ``weight`` OIHW;
+- conv ``kernel`` HWIO <-> ``weight`` OIHW (3-D: DHWIO <-> OIDHW);
 - dense ``kernel`` (in, out) <-> ``weight`` (out, in);
 - norm ``scale`` <-> ``weight``; ``bias`` <-> ``bias``;
 - embedding tables (modules named ``embedder_*``) ``embedding`` <-> ``weight``;
@@ -57,6 +57,11 @@ their leaves ``weight`` in flax too: a conv ``weight`` HWIO <-> OIHW, a
 dense ``weight`` (in, out) <-> (out, in), and the 0-D ``noise_strength`` as
 it is. No other tree has a flax ``weight``, and without the flag the
 mapping of every other tree is as above.
+
+The metric networks (``utils/metrics.py``, ``inception.py``, ``i3d.py``)
+need no other rule: their convs and denses map as above, I3D's 3-D kernels
+too, and I3D's flat ``<block>.<branch>`` unit names are the state-dict
+keys of its branches (``I3D.flax_tree`` joins them again on the way back).
 
 Both directions only transpose, so they are exact. The same mapping carries
 an optax adam/adamw state (count, mu, nu) to the port's optimizer state and
@@ -120,6 +125,8 @@ def flax_to_torch(params, weight_leaves=False):
                                  f"{arr.shape}")
         elif name == "kernel" and arr.ndim == 4:
             arr, tname = arr.transpose(3, 2, 0, 1), "weight"
+        elif name == "kernel" and arr.ndim == 5:
+            arr, tname = arr.transpose(4, 3, 0, 1, 2), "weight"
         elif name == "kernel" and arr.ndim == 2:
             arr, tname = arr.T, "weight"
         elif name in ("scale", "embedding"):
@@ -227,6 +234,8 @@ def torch_to_flax(state_dict, weight_leaves=False):
             raise ValueError(f"unmapped torch parameter {key}")
         elif arr.ndim == 4:
             arr, fname = arr.transpose(2, 3, 1, 0), "kernel"
+        elif arr.ndim == 5:
+            arr, fname = arr.transpose(2, 3, 4, 1, 0), "kernel"
         elif arr.ndim == 1:
             fname = "scale"
         elif module.startswith("embedder"):

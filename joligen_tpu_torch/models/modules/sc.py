@@ -46,8 +46,10 @@ class SCDenoiser(nn.Module):
 
 def sc_training_outputs(apply_fn, generator, y0, y_cond=None, mask=None,
                         num_timesteps=128, bootstrap_ratio=0.125,
-                        draws=None):
-    """Returns (v_pred, v_target). ``apply_fn(x, t, dt_base, x_cond)``.
+                        draws=None, return_x=False):
+    """Returns (v_pred, v_target), plus the one-step x-prediction
+    x_t + (1 - t) v_pred when ``return_x`` (for the perceptual terms).
+    ``apply_fn(x, t, dt_base, x_cond)``.
     ``draws`` (the JAX keys r_dt, r_t, r_n, r_mode): ``dt_base`` (B,) ints
     in [0, log2(num_timesteps)), ``t_u`` (B,) uniforms, ``noise`` like
     ``y0`` and ``mode_u`` (a 0-d uniform: bootstrap targets where it is
@@ -91,6 +93,8 @@ def sc_training_outputs(apply_fn, generator, y0, y_cond=None, mask=None,
         v_flow = x1 - (1 - 1e-5) * x0
         v_target = torch.where(mode_u < bootstrap_ratio, v_boot, v_flow)
     v_pred = apply_fn(x_t, t, dt_base, y_cond)
+    if return_x:
+        return v_pred, v_target, x_t + (1.0 - t_full) * v_pred
     return v_pred, v_target
 
 

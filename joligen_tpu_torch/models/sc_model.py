@@ -7,7 +7,9 @@ target velocities (``modules/sc.py``), Adam(W) and the EMA; inference at
 The batch goes to the device in float32, as in the JAX model. ``draws``
 feeds the step's draws (``dt_base``, ``t_u``, ``noise``, ``mode_u``). The
 conditioning is that of ``cm_model.py``: the example configs' trunks take
-[A, x]. ``alg_sc_perceptual_loss`` raises ``NotImplementedError``.
+[A, x]. ``alg_sc_perceptual_loss`` (LPIPS, DISTS) adds ``G_perceptual``
+to the loss: ``alg_sc_lambda_perceptual`` times the terms of the one-step
+x-prediction x_t + (1 - t) v_pred against the ground truth.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from .. import compute_dtype
 from .base import BaseModel
-from .cm_model import is_conditional, refuse_perceptual, trunk_in_channels
+from .cm_model import is_conditional, perceptual_options, trunk_in_channels
 from .diffusion_networks import define_inner_G, init_weights
 from .modules.sc import SCDenoiser, sc_sample, sc_training_outputs
 from .train_state import apply_updates, param_grads
@@ -24,10 +26,11 @@ from .train_state import apply_updates, param_grads
 
 class SCModel(BaseModel):
     def __init__(self, opt, phase="train", device=None, cpu=False):
-        refuse_perceptual(opt, "alg_sc_perceptual_loss")
         super().__init__(opt, phase=phase, device=device, cpu=cpu)
         self.task = getattr(opt, "alg_diffusion_task", "inpainting")
         self.lambda_G = float(getattr(opt, "alg_diffusion_lambda_G", 1.0))
+        (self.perceptual, self.lambda_perceptual, self._perc_mean,
+         self._perc_std) = perceptual_options(opt, "sc")
         self.use_ema = bool(getattr(opt, "train_G_ema", False))
         self.ema_beta = float(getattr(opt, "train_G_ema_beta", 0.999))
         self.denoise_timesteps = [int(x) for x in (getattr(
@@ -60,12 +63,22 @@ class SCModel(BaseModel):
     def optimize_prepared(self, dev, draws=None):
         """One step on a prepared batch; the loss stays on the device."""
         state = self.states["G_A"]
-        v_pred, v_target = sc_training_outputs(
+        out = sc_training_outputs(
             self._apply_fn(self.nets["G_A"]), self.generator, dev["gt"],
-            y_cond=dev.get("y_cond"), mask=dev.get("mask"), draws=draws)
+            y_cond=dev.get("y_cond"), mask=dev.get("mask"), draws=draws,
+            return_x=bool(self.perceptual))
+        v_pred, v_target = out[:2]
         loss = self.lambda_G * torch.mean((v_pred - v_target) ** 2)
+        aux = {}
+        if self.perceptual:
+            terms = self.perceptual_terms(out[2], dev["gt"], self.perceptual,
+                                          self._perc_mean, self._perc_std)
+            aux["G_perceptual"] = self.lambda_perceptual * sum(
+                terms.values())
+            loss = loss + aux["G_perceptual"]
         apply_updates(state, param_grads(loss, state.params), self.ema_beta)
-        self.loss_log = {"G_tot": loss.detach()}
+        self.loss_log = {"G_tot": loss.detach(),
+                         **{k: v.detach() for k, v in aux.items()}}
         return self.loss_log
 
     def optimize_parameters(self, batch):

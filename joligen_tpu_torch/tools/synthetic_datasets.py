@@ -10,6 +10,8 @@ example configs: ``unaligned`` (``horse2zebra``, ``mnist2USPS``),
 ``mario2sonic``); and ``video`` (``self_supervised_vid_mask_online``:
 series of frames with a box file each, the ``vid_mario`` configs).
 Paths in ``paths.txt`` are relative to the root (``data_relative_paths``).
+``write_test_split`` adds a layout's ``test*`` split (the train-time
+metrics' test sets).
 
     python -m joligen_tpu_torch.tools.synthetic_datasets online DIR [N [SIZE]]
 """
@@ -219,6 +221,27 @@ def write_video(root, n, size, seed=0, n_series=2, domains=("A",)):
                     lines.append(f"{ipath} {bpath}")
             with open(os.path.join(root, base, "paths.txt"), "w") as f:
                 f.write("\n".join(lines) + "\n")
+
+
+def write_test_split(kind, root, n, size, seed=1, **kw):
+    """The ``kind`` layout's test split in ``root``: what ``WRITERS[kind]``
+    writes as ``train*`` (``n`` images from ``seed``), moved to ``test*``,
+    the paths in its list files renamed alike. (The video layout writes
+    its test split itself.)"""
+    tmp = os.path.join(root, "_test_split")
+    WRITERS[kind](tmp, n, size, seed=seed, **kw)
+    for d in sorted(os.listdir(tmp)):
+        dst = os.path.join(root, "test" + d[len("train"):])
+        os.rename(os.path.join(tmp, d), dst)
+        for fname in ("paths.txt", "conditions.txt"):
+            path = os.path.join(dst, fname)
+            if os.path.exists(path):
+                with open(path) as f:
+                    text = f.read()
+                with open(path, "w") as f:
+                    f.write(text.replace(d + "/", "test" + d[len("train"):]
+                                         + "/"))
+    os.rmdir(tmp)
 
 
 WRITERS = {"labeled": write_labeled, "online": write_online, "single": write_single,

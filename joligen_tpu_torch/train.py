@@ -13,8 +13,13 @@ save of ``latest`` on SIGINT/SIGTERM; for the GANs, the attention masks
 among the visuals (``output_display_G_attention_masks``), the D accuracy
 every ``train_D_accuracy_every`` images (``train_compute_D_accuracy``) and
 f_s's mIoU every ``train_mask_miou_every`` images
-(``train_mask_compute_miou``).
-Train-time metrics and profiling are not ported and raise.
+(``train_mask_compute_miou``); the train-time metrics
+(``train_compute_metrics_test``): a loader at ``test_batch_size`` for each
+test set (``data.list_test_sets``, else phase ``test`` unnamed),
+``init_metrics`` on the first, ``compute_metrics_test`` of each every
+``train_metrics_every`` images and after the last epoch, the final values
+in ``<checkpoints_dir>/<name>/eval_results.json``. ``tpu_profile_dir``
+raises.
 """
 
 from __future__ import annotations
@@ -92,17 +97,13 @@ def launch_training(opt, cpu=False, step_callback=None):
     import numpy as np
 
     resolve_device(cpu=cpu)        # no card and no --cpu: raise before work
-    if getattr(opt, "train_compute_metrics_test", False):
-        raise NotImplementedError(
-            "train-time metrics (train_compute_metrics_test) are not ported "
-            "(ROADMAP Queue 1 item 14, metrics and frozen nets)")
     if getattr(opt, "tpu_profile_dir", ""):
         raise NotImplementedError(
             "tpu_profile_dir: traces inside training are not ported; "
             "python -m joligen_tpu_torch.scripts.profile_request --train "
             "traces one training step")
 
-    from .data import create_dataloader, create_dataset
+    from .data import create_dataloader, create_dataset, list_test_sets
     from .models import create_model
     from .utils.visualizer import Visualizer
 
@@ -138,19 +139,45 @@ def launch_training(opt, cpu=False, step_callback=None):
     elif getattr(opt, "train_continue_from", ""):
         model.load_networks("latest", load_optim=False, strict=False)
 
+    metric_loaders = []
+    if getattr(opt, "train_compute_metrics_test", False):
+        for name in (list_test_sets(opt.dataroot) or [""]):
+            try:
+                tds = create_dataset(opt, "test", name=name)
+                metric_loaders.append((name, create_dataloader(
+                    opt, tds, shuffle=False,
+                    batch_size=opt.test_batch_size)))
+            except (AssertionError, FileNotFoundError) as e:
+                print(f"no test set '{name}': {e}")
+        if metric_loaders:
+            model.init_metrics(metric_loaders[0][1])
+
     # save latest on SIGINT/SIGTERM (reference train.py:88-90)
     stop = {"now": False}
     handlers = {s: signal.signal(s, lambda signum, frame: stop.update(now=True))
                 for s in (signal.SIGINT, signal.SIGTERM)}
     try:
         return _train_loop(opt, model, dataloader, visualizer, stop,
-                           step_callback)
+                           step_callback, metric_loaders)
     finally:
         for s, h in handlers.items():
             signal.signal(s, h)
 
 
-def _train_loop(opt, model, dataloader, visualizer, stop, step_callback):
+def _evaluate(model, metric_loaders, results):
+    """``compute_metrics_test`` of every test set into ``results`` (keyed
+    ``test<name>``), its seconds added to ``model.loop_times``'
+    ``metrics_s``; returns ``results``."""
+    t0 = time.time()
+    for name, loader in metric_loaders:
+        results[f"test{name}" if name else "test"] = \
+            model.compute_metrics_test(loader)
+    model.loop_times["metrics_s"] += time.time() - t0
+    return results
+
+
+def _train_loop(opt, model, dataloader, visualizer, stop, step_callback,
+                metric_loaders=()):
     import numpy as np
 
     batch = opt.train_batch_size
@@ -158,8 +185,14 @@ def _train_loop(opt, model, dataloader, visualizer, stop, step_callback):
     save_every = _every(batch, opt.train_save_latest_freq)
     display_freq = getattr(opt, "output_display_freq", 0)
     depth = int(getattr(opt, "tpu_prefetch", 2) or 1)
+    metrics_every = _every(batch, int(getattr(opt, "train_metrics_every",
+                                              1000) or 1000))
+    last_metrics = {}
     total_iters = 0
     t_data, t_compute = 0.0, 0.0
+    # seconds the loop has waited for batches, spent in steps and in the
+    # train-time metrics
+    model.loop_times = {"data_s": 0.0, "compute_s": 0.0, "metrics_s": 0.0}
     for epoch in range(getattr(opt, "train_epoch_count", 1),
                        opt.train_n_epochs + opt.train_n_epochs_decay + 1):
         epoch_t0 = time.time()
@@ -174,8 +207,7 @@ def _train_loop(opt, model, dataloader, visualizer, stop, step_callback):
             t_compute += t1 - t0
             t_prev = t1
             total_iters += batch
-            # seconds the loop has waited for batches and spent in steps
-            model.loop_times = {"data_s": t_data, "compute_s": t_compute}
+            model.loop_times.update(data_s=t_data, compute_s=t_compute)
 
             if total_iters % print_every == 0:
                 # the one host read of the device loss
@@ -228,6 +260,13 @@ def _train_loop(opt, model, dataloader, visualizer, stop, step_callback):
                 except Exception as e:
                     print(f"mIoU failed: {e!r}")
 
+            if metric_loaders and total_iters % metrics_every == 0:
+                for key, m in _evaluate(model, metric_loaders, {}).items():
+                    last_metrics[key] = m
+                    print(f"metrics[{key}] " + " ".join(
+                        f"{k}: {v:.4f}" for k, v in m.items()), flush=True)
+                    visualizer.log_metrics(epoch, total_iters, m)
+
             if total_iters % save_every == 0:
                 model.save_networks("iter_%d" % total_iters
                                     if getattr(opt, "train_save_by_iter",
@@ -250,6 +289,11 @@ def _train_loop(opt, model, dataloader, visualizer, stop, step_callback):
               flush=True)
 
     model.save_networks("latest")
+    if metric_loaders:
+        expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
+        with open(os.path.join(expr_dir, "eval_results.json"), "w") as f:
+            json.dump(_evaluate(model, metric_loaders, last_metrics), f,
+                      indent=2)
     return model
 
 

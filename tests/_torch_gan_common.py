@@ -26,13 +26,14 @@ SIZE, BATCH = 32, 2
 
 @pytest.fixture(autouse=True, scope="module")
 def few_torch_threads():
-    """Two intra-op threads for torch while a GAN test module runs (the
+    """One intra-op thread for torch while a port test module runs (the
     previous count is restored after it): these modules run beside others
     in parallel workers, where a thread per core in each worker
-    oversubscribes the CPU (4 workers ran them in 81 s with 2 threads, 198 s
-    with 8)."""
+    oversubscribes the CPU (4 workers ran the GAN modules in 81 s with 2
+    threads, 198 s with 8; 6 workers ran every port module in 4,754
+    test-seconds with 1)."""
     n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
@@ -152,6 +153,43 @@ def fast_init_net_state(seed_base):
                                     if use_ema else None),
                         step=jnp.zeros((), jnp.int32))
     return init
+
+
+def memo_init_net_state(init_net_state):
+    """``init_net_state`` with its params computed once per net: the JAX
+    init of a flax module depends on the key, the module's fields and the
+    example inputs' shapes only, so a test module that builds one net under
+    several configs (losses, options) compiles its init once and gets the
+    same values each time; the optimizer state and EMA are built anew."""
+    cache = {}
+
+    def init(rng, module, example_inputs, tx, use_ema=False,
+             init_kwargs=None):
+        shapes = jax.tree.map(lambda a: (np.shape(a), str(np.result_type(a))),
+                              (list(example_inputs), init_kwargs or {}))
+        key = (repr(module), repr(shapes),
+               np.asarray(jax.random.key_data(rng)).tobytes())
+        if key not in cache:
+            cache[key] = init_net_state(rng, module, example_inputs, tx,
+                                        use_ema, init_kwargs).params
+        params = cache[key]
+        return NetState(params=params, opt_state=tx.init(params),
+                        ema_params=(jax.tree.map(jnp.copy, params)
+                                    if use_ema else None),
+                        step=jnp.zeros((), jnp.int32))
+    return init
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_palette_init():
+    """The JAX palette model's ``init_net_state`` memoised while a test
+    module runs (``memo_init_net_state``): a module that builds one
+    denoiser under several configs compiles its init once."""
+    from joligen_tpu.models import palette_model
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(palette_model, "init_net_state",
+                   memo_init_net_state(palette_model.init_net_state))
+        yield
 
 
 def load_flax(module, params):

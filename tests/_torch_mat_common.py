@@ -4,6 +4,7 @@ and noise strengths would hide errors), the random draws the JAX generator
 and step take from their keys, laid out as the port takes them, and the
 comparison helpers; the example config cut small."""
 
+import contextlib
 import json
 import os
 
@@ -36,9 +37,9 @@ def to_np(t):
     return t.detach().float().cpu().numpy()
 
 
-def nchw(a):
+def nchw(a, dtype=np.float32):
     return torch.from_numpy(np.array(
-        np.asarray(a, np.float32).transpose(0, 3, 1, 2), order="C"))
+        np.asarray(a, dtype).transpose(0, 3, 1, 2), order="C"))
 
 
 def seeded_mat_tree(shapes, seed):
@@ -89,7 +90,9 @@ def load_mat(net, tree):
 def noise_draws(key, net, batch, dtype=jnp.float32):
     """The JAX generator's draws from its noise key ``key``: the first
     stage's and the bottleneck's mul_maps and the decoder's noise, in the
-    port's layout (``MATGenerator.noise_shapes``)."""
+    port's layout (``MATGenerator.noise_shapes``); float64 tensors when
+    ``dtype`` is (call it under ``jax.enable_x64``, as the JAX generator then
+    draws), else float32."""
     shapes = net.noise_shapes(batch)
     r1, r2, r_inj = jax.random.split(key, 3)
     stage1 = jax.random.bernoulli(r1, 0.5, shapes["stage1_mul_map"])
@@ -98,10 +101,10 @@ def noise_draws(key, net, batch, dtype=jnp.float32):
     rngs = jax.random.split(r2, len(shapes["noise"]))
     noise = [jax.random.normal(r, (s[0], s[2], s[3], 1), dtype)
              for r, s in zip(rngs, shapes["noise"])]
-    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
-    return {"stage1_mul_map": f32(stage1),
-            "inj_mul_map": nchw(np.asarray(inj, np.float32)),
-            "noise": [nchw(np.asarray(n, np.float32)) for n in noise]}
+    nd = np.float64 if dtype == jnp.float64 else np.float32
+    return {"stage1_mul_map": torch.from_numpy(np.asarray(stage1, nd)),
+            "inj_mul_map": nchw(inj, nd),
+            "noise": [nchw(n, nd) for n in noise]}
 
 
 def mix_draws(key, batch, z_dim, n_layers):
@@ -144,32 +147,50 @@ def cotangent(shape, seed):
         np.float32)
 
 
-def kink_ties(net, run):
-    """The number of lrelu outputs of ``net`` (``StyleConv``, and
-    ``EqualConv`` or ``EqualDense`` with ``act``) whose sign differs between
-    ``run(torch.float32)`` and ``run(torch.float64)`` (``net`` in that
-    dtype; ``run`` casts the inputs). Such an output is within rounding of
-    the kink, where an fp32 gradient is either of two valid ones: a
-    gradient test holds its input to none."""
-    from joligen_tpu_torch.models.modules import mat as tm
-    signs = {}
-    for dt in (torch.float64, torch.float32):
-        out = signs[dt] = {}
-        hooks = [mod.register_forward_hook(
-                     lambda m, i, o, n=name, out=out: out.__setitem__(n, o > 0))
-                 for name, mod in net.named_modules()
-                 if isinstance(mod, tm.StyleConv)
-                 or (isinstance(mod, (tm.EqualConv, tm.EqualDense))
-                     and mod.act)]
-        net.to(dt)
-        if hasattr(net, "dtype"):
-            net.dtype = dt
-        with torch.no_grad():
-            run(dt)
-        for h in hooks:
-            h.remove()
-    return sum(int((signs[torch.float32][k] != v).sum())
-               for k, v in signs[torch.float64].items())
+def jax_fwd_bwd64(jfn, params, ins, cot):
+    """``jax_fwd_bwd`` in float64 (``jax.enable_x64``; the tree, ``ins`` and
+    ``cot`` cast), as numpy. ``jfn``'s own draws are then float64 draws
+    from its keys: the port is fed the same, made under ``jax.enable_x64``."""
+    f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    with jax.enable_x64(True):
+        return jax.device_get(jax_fwd_bwd(
+            jfn, jax.tree.map(f64, params), [f64(a) for a in ins], f64(cot)))
+
+
+@contextlib.contextmanager
+def float64(net):
+    """``net`` (and its compute ``dtype``, where it has one) in float64
+    while the block runs, in float32 after it (the seeded fp32 values
+    survive the round trip exactly; gradients are cast along)."""
+    has_dtype = hasattr(net, "dtype")
+    net.to(torch.float64)
+    if has_dtype:
+        net.dtype = torch.float64
+    try:
+        yield net
+    finally:
+        net.to(torch.float32)
+        if has_dtype:
+            net.dtype = torch.float32
+
+
+def grads64(jfn, params, ins, net, tfn, seed):
+    """The gradients of sum(output x ``cotangent(seed)``) for the
+    parameters and each of ``ins`` in float64 on both sides: ``jfn(params,
+    *ins)`` under ``jax.enable_x64`` and ``tfn(*ins)`` with ``net`` in float64.
+    In fp32 an lrelu input within rounding of the kink may fall on either
+    side, and the two packages then hold either of two valid gradients; in
+    float64 both take the same side. Leaves ``net``'s gradients set;
+    returns the port's input gradients and the JAX gradients (params
+    first)."""
+    with float64(net):
+        xs = [torch.from_numpy(np.asarray(a, np.float64)).requires_grad_(
+            True) for a in ins]
+        got = tfn(*xs)
+        cot = cotangent(tuple(got.shape), seed)
+        (got * torch.from_numpy(cot).to(got.dtype)).sum().backward()
+    _, jg = jax_fwd_bwd64(jfn, params, ins, cot)
+    return [x.grad for x in xs], jg
 
 
 def close(got, want, rtol, norm=False):

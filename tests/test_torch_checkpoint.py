@@ -13,6 +13,8 @@ import jax
 import jax.numpy as jnp
 from flax import serialization, traverse_util
 
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu.models.diffusion_networks import define_G as jax_define_G
 from joligen_tpu.options import TrainOptions as JaxTrainOptions
 from joligen_tpu_torch.models.base import BaseModel

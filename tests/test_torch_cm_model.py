@@ -8,7 +8,8 @@ in fp32, at the small width of ``tests/_torch_cm_common.py``:
 2. one ECT step (``alg_ddpm_ft_mode ect`` with the finetune projection);
 3. checkpoints the JAX ``load_networks`` reads, and the reverse, bit for
    bit;
-4. the perceptual terms and ``previous_frame`` video conditioning raise.
+4. the perceptual terms add ``G_perceptual`` to a step; ``previous_frame``
+   video conditioning raises.
 
 ``cm_gan`` is in ``tests/test_torch_cm_gan.py``.
 """
@@ -67,11 +68,19 @@ def test_checkpoints_cross_both_ways(tmp_path, monkeypatch):
     ("cm", "alg_cm_perceptual_loss"), ("cm_gan", "alg_cm_perceptual_loss"),
     ("sc", "alg_sc_perceptual_loss")])
 def test_perceptual_terms_raise(tmp_path, model_type, option):
-    opt = TrainOptions().parse_json(small_cfg(tmp_path), verbose=False)
+    """The perceptual option builds the model, and a step adds its
+    ``G_perceptual`` (the term against the JAX package:
+    ``tests/test_torch_metrics_models.py``)."""
+    # cm_gan with the basic D of ``test_torch_cm_gan.py`` (16 px)
+    extra = ({"D": {"netDs": ["basic"], "ndf": 8, "n_layers": 2}}
+             if model_type == "cm_gan" else None)
+    opt = TrainOptions().parse_json(small_cfg(tmp_path, extra),
+                                    verbose=False)
     opt.model_type = model_type
     setattr(opt, option, ["LPIPS"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        create_model(opt, device="cpu")
+    tm = create_model(opt, phase="train", device="cpu")
+    losses = tm.optimize_parameters(batch(0))
+    assert 0.0 < float(losses["G_perceptual"]) < float(losses["G_tot"])
 
 
 def test_previous_frame_video_batches_raise(tmp_path):

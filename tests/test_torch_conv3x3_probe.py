@@ -18,6 +18,8 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu_torch.ops import conv3x3
 from joligen_tpu_torch.tools import fused_resblock_probe as probe
 

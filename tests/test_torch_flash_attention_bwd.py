@@ -17,6 +17,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu.ops.flash_attention import flash_attention as jax_flash
 from joligen_tpu_torch.ops import flash_attention as fa
 

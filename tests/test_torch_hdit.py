@@ -38,7 +38,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_gan_common import fast_init_net_state, seeded_tree
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import (fast_init_net_state, few_torch_threads,
+                               seeded_tree)
 from joligen_tpu.models import create_model as jax_create_model
 from joligen_tpu.models import palette_model as jpm
 from joligen_tpu.models import train_state as jts

@@ -1,10 +1,10 @@
 """The port stands alone: it imports with jax, flax, jaxlib, msgpack, the
-JAX package, cv2, tifffile and scipy blocked (every module, the training slice's,
-the probes', the video slice's, b2b's, MAT's, the image JiT's, HDiT's and
-LoRA's included), no source file of it (nor chip_smoke.py) imports
-them, and without a CUDA device its
-entry points (model, serving script, train CLI) raise unless the CPU is
-asked for."""
+JAX package, cv2, tifffile and scipy blocked (every module, the training
+slice's, the probes', the video slice's, b2b's, MAT's, the image JiT's,
+HDiT's, LoRA's and the metrics' included), no source file of it (nor
+chip_smoke.py) imports them, and without a CUDA device its entry points
+(model, serving script, train CLI, test CLI, the metric extractors) raise
+unless the CPU is asked for."""
 
 import ast
 import json
@@ -103,6 +103,10 @@ IMAGE_TRANSFORMER_MODULES = ("models.modules.hdit", "models.lora",
                              "models.modules.palette_diffusion",
                              "scripts.gen_single_image_diffusion")
 
+# the metrics: FID/KID/MSID, PSNR, SSIM, LPIPS/DISTS, DINOv2 and FVD with
+# their extractors, and the offline evaluation
+METRIC_MODULES = ("utils.metrics", "utils.inception", "utils.i3d", "test")
+
 
 def test_package_imports_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -114,7 +118,7 @@ def test_package_imports_with_jax_blocked():
     for m in (TRAINING_MODULES + PROBE_MODULES + CONDITIONING_MODULES
               + GAN_MODULES + CM_MODULES + GLASSES_MODULES
               + SEGFORMER_REF_MODULES + VIDEO_MODULES + B2B_MODULES
-              + MAT_MODULES + IMAGE_TRANSFORMER_MODULES):
+              + MAT_MODULES + IMAGE_TRANSFORMER_MODULES + METRIC_MODULES):
         assert "joligen_tpu_torch." + m in names, m
 
 
@@ -174,3 +178,14 @@ def test_no_silent_cpu_fallback(monkeypatch, tmp_path):
         "--dir_in", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gen_vid_diffusion.inference(args)
+    # python -m joligen_tpu_torch.test without --cpu, and the metrics'
+    # extractors without a device: raise before any work
+    from joligen_tpu_torch import test as offline_test
+    from joligen_tpu_torch.utils import metrics
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        offline_test.main(["--test_model_dir", str(tmp_path)])
+    assert not (tmp_path / "metrics").exists()
+    for make in (metrics.InceptionV3Features, metrics.DINOv2Features,
+                 metrics.VideoFeatures, metrics.LPIPS):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

@@ -21,7 +21,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_gan_common import seeded_tree
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads, seeded_tree
 from joligen_tpu.models.modules import jit as jjit
 from joligen_tpu_torch.models.convert import flax_to_torch
 from joligen_tpu_torch.models.modules import jit as tjit

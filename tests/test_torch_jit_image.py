@@ -36,7 +36,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_gan_common import seeded_tree
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads, seeded_tree
 from joligen_tpu.models import diffusion_networks as jdn
 from joligen_tpu.models.modules import jit as jj
 from joligen_tpu.models.modules import palette_diffusion as jpd

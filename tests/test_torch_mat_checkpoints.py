@@ -9,8 +9,9 @@ port against the JAX package, on the CPU:
    JAX model's ``load_networks``, and the JAX model's files read by the
    port in phase test, bit for bit;
 3. the R1 penalty (the squared input gradient of both trunks' summed
-   logits) and its D gradient alone, to 1e-4 of the largest value (fp32),
-   on an input with no lrelu output within fp32 rounding of the kink;
+   logits) in fp32, and its D gradient in float64 on both sides (in fp32
+   an lrelu input within rounding of its kink takes either of two valid
+   gradients), to 1e-4 of the largest value;
 4. ``_ema_beta`` with and without the ramp against the JAX method (1e-6);
    ``set_input`` (the label mask inverted, the mask classes inside the
    hole); the noise modes (``none`` draws nothing, ``const`` the same
@@ -32,9 +33,9 @@ import jax.numpy as jnp
 
 # few_torch_threads: an autouse fixture, active once imported
 from _torch_gan_common import few_torch_threads  # noqa: F401
-from _torch_mat_common import (BASE, WZ, batch, close, grads_close,
-                               init_tree, kink_ties, load_mat, mat_models,
-                               small_cfg, to_np)
+from _torch_mat_common import (BASE, WZ, batch, close, float64, grads_close,
+                               init_tree, load_mat, mat_models, small_cfg,
+                               to_np)
 from joligen_tpu.models import mat_model as jmm
 from joligen_tpu.models.modules import mat as jm
 from joligen_tpu.models.train_state import make_optimizer as jax_optimizer
@@ -149,23 +150,30 @@ def test_r1_penalty_and_its_d_gradient_match_jax():
     jd = jm.MATDiscriminator(base=BASE)
     params = init_tree(jd, (real, m, real), {}, 5)
     td = load_mat(tm.MATDiscriminator(32, 3, BASE), params)
-    assert kink_ties(td, lambda dt: td(torch.from_numpy(real).to(dt),
-                                       torch.from_numpy(m),
-                                       torch.from_numpy(real).to(dt))) == 0
 
-    def pen(p):
+    def pen(p, r, d=jd):
         def d_real(img):
-            a, b = jd.apply(p, img, m, img)
+            a, b = d.apply(p, img, m, img)
             return jnp.sum(a) + jnp.sum(b)
-        g = jax.grad(d_real)(real)
+        g = jax.grad(d_real)(r)
         return jnp.mean(jnp.sum(g ** 2, axis=(1, 2, 3)))
-    want, jgrads = jax.jit(jax.value_and_grad(pen))(params)
-    x = torch.from_numpy(real).requires_grad_(True)
-    a, b = td(x, torch.from_numpy(m), x)
-    got = tmm.r1_penalty(a.sum() + b.sum(), x)
-    got.backward()
+
+    def port_pen(x):
+        a, b = td(x, torch.from_numpy(m), x)
+        return tmm.r1_penalty(a.sum() + b.sum(), x)
+    want = jax.jit(pen)(params, real)
+    got = port_pen(torch.from_numpy(real).requires_grad_(True))
     close(to_np(got), want, 1e-4)
     assert float(want) > 0
+    # D's gradient of the penalty, in float64 on both sides
+    jd64 = jm.MATDiscriminator(base=BASE, dtype=jnp.float64)
+    f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    with jax.enable_x64(True):
+        jgrads = jax.device_get(jax.jit(jax.grad(
+            lambda p, r: pen(p, r, jd64)))(jax.tree.map(f64, params),
+                                           f64(real)))
+    with float64(td):
+        port_pen(torch.from_numpy(f64(real)).requires_grad_(True)).backward()
     grads_close(jgrads, td, 1e-4)
 
 

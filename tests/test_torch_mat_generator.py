@@ -3,11 +3,12 @@ against the JAX package, on the CPU, on seeded weights with every leaf
 non-zero (``_torch_mat_common``), the JAX draws fed to the port:
 
 - ``FirstStage`` at 32 px (coarse = the input: one ToRGB) and at 128 px
-  (one partial down conv, the ``dec0`` blocks), forward and gradients for
-  the image, w and every parameter, to 1e-4 of the largest value (fp32);
-  each gradient test first holds its input to no lrelu output within fp32
-  rounding of the kink (``kink_ties``), where the gradient is either of
-  two valid ones;
+  (one partial down conv, the ``dec0`` blocks), the fp32 forward and the
+  gradients for the image, w and every parameter, to 1e-4 of the largest
+  value; every gradient is taken in float64 on both sides (``grads64``:
+  in fp32 an lrelu input within rounding of its kink takes either of two
+  valid gradients, and which input lands there depends on the CPU, the
+  thread count and the BLAS path);
 - the second stage: ``Encoder`` at 128 px (its down convs), ``ToStyle``,
   ``DecBlockFirst``, ``DecBlockRef`` and ``Decoder`` with their noise, the
   same way;
@@ -35,9 +36,9 @@ import jax.numpy as jnp
 
 # few_torch_threads: an autouse fixture, active once imported
 from _torch_gan_common import few_torch_threads  # noqa: F401
-from _torch_mat_common import (BASE, DIM, WZ, close, cotangent, grads_close,
-                               init_tree, jax_fwd_bwd, kink_ties, load_mat,
-                               mix_draws, nchw, noise_draws, to_np)
+from _torch_mat_common import (BASE, DIM, WZ, close, grads64, grads_close,
+                               init_tree, load_mat, mix_draws, nchw,
+                               noise_draws, to_np)
 from joligen_tpu.models.modules import mat as jm
 from joligen_tpu_torch.models.modules import mat as tm
 
@@ -61,13 +62,12 @@ def _inputs(seed, size, classes=False):
     return img, m, z, mc
 
 
-def _backward(jfn, ins, params, got, seed):
-    """The JAX output and gradients of sum(jfn(params, *ins) x cotangent)
-    (params and ``ins``), after the port's backward of the same sum over
-    ``got``."""
-    cot = cotangent(tuple(got.shape), seed)
-    (got * torch.from_numpy(cot)).sum().backward()
-    return jax_fwd_bwd(jfn, params, ins, cot)
+def _t(a, dtype=None):
+    """A tensor of ``a`` (None stays None), cast to ``dtype``."""
+    if a is None:
+        return None
+    t = torch.from_numpy(np.array(a))
+    return t if dtype is None else t.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -76,9 +76,6 @@ def _backward(jfn, ins, params, got, seed):
 
 @pytest.mark.parametrize("size", [32, 128])
 def test_first_stage_matches_jax(size):
-    # an input whose lrelu outputs lie clear of the kink at 1 and 2 torch
-    # threads (``kink_ties``; the input of seed 1 at 128 px has one within
-    # fp32 rounding of 0, where the two gradients differ by 1.1e-3 of w's)
     img, m, _, _ = _inputs(3, size)
     w = np.random.default_rng(4).standard_normal((B, WZ)).astype(np.float32)
     key = jax.random.PRNGKey(3)
@@ -87,25 +84,27 @@ def test_first_stage_matches_jax(size):
     params = init_tree(jmod, (img, m, w), {"rng": key}, 6)
     load_mat(tmod, params)
     assert tmod.down_time == (0 if size == 32 else 1)
-    mul = np.asarray(jax.random.bernoulli(
-        key, 0.5, (B, tmod.mid_res ** 2, DIM)), np.float32)
-    t = lambda a, dt: torch.from_numpy(a).to(dt)  # noqa: E731
-    assert kink_ties(tmod, lambda dt: tmod(
-        t(img, dt).permute(0, 3, 1, 2), t(m, dt).permute(0, 3, 1, 2),
-        t(w, dt), mul_map=t(mul, dt))) == 0
+    shape = (B, tmod.mid_res ** 2, DIM)
+    mul = jax.random.bernoulli(key, 0.5, shape)
+    with jax.enable_x64(True):       # the JAX draw of the float64 run
+        mul64 = jax.random.bernoulli(key, 0.5, shape)
 
     def jfn(p, a, b):
         return jmod.apply(p, a, m, b, key)
-    x = torch.from_numpy(img).requires_grad_(True)
-    wt = torch.from_numpy(w).requires_grad_(True)
-    got = _nhwc(tmod(x.permute(0, 3, 1, 2),
-                     torch.from_numpy(m).permute(0, 3, 1, 2), wt,
-                     mul_map=torch.from_numpy(mul)))
-    want, jg = _backward(jfn, (img, w), params, got, 5)
+
+    def tfn(a, b):
+        dt = a.dtype
+        return _nhwc(tmod(a.permute(0, 3, 1, 2),
+                          _t(m, dt).permute(0, 3, 1, 2), b,
+                          mul_map=_t(mul64 if dt == torch.float64 else mul,
+                                     dt)))
+    got = tfn(_t(img), _t(w))
+    want = jax.jit(jfn)(params, img, w)
     close(to_np(got), want, RTOL)
     assert (np.abs(np.asarray(want)) < 0.999).mean() > 0.9   # not clamped
-    close(to_np(x.grad), jg[1], RTOL)
-    close(to_np(wt.grad), jg[2], RTOL)
+    (gx, gw), jg = grads64(jfn, params, (img, w), tmod, tfn, 5)
+    close(to_np(gx), jg[1], RTOL)
+    close(to_np(gw), jg[2], RTOL)
     grads_close(jg[0], tmod, RTOL)
 
 
@@ -121,14 +120,15 @@ def test_encoder_and_to_style_match_jax():
     params = init_tree(jenc, (x,), {}, 7)
     load_mat(tenc, params)
     want_h, want_f = jenc.apply(params, x)
-    xt = torch.from_numpy(x).requires_grad_(True)
-    got_h, got_f = tenc(xt.permute(0, 3, 1, 2))
+    got_h, got_f = tenc(_t(x).permute(0, 3, 1, 2))
     assert sorted(got_f) == sorted(want_f) == [4, 5, 6, 7]
     for k in want_f:
         close(to_np(_nhwc(got_f[k])), want_f[k], RTOL)
-    _, jg = _backward(lambda p, a: jenc.apply(p, a)[0], (x,), params,
-                      _nhwc(got_h), 8)
-    close(to_np(xt.grad), jg[1], RTOL)
+    close(to_np(_nhwc(got_h)), want_h, RTOL)
+    (gx,), jg = grads64(lambda p, a: jenc.apply(p, a)[0], params, (x,),
+                        tenc, lambda a: _nhwc(tenc(a.permute(0, 3, 1, 2))[0]),
+                        8)
+    close(to_np(gx), jg[1], RTOL)
     grads_close(jg[0], tenc, RTOL)
 
     h = np.array(want_h)
@@ -136,11 +136,11 @@ def test_encoder_and_to_style_match_jax():
     tsty = tm.ToStyle(h.shape[-1], 40, h.shape[1])
     params = init_tree(jsty, (h,), {}, 9)
     load_mat(tsty, params)
-    ht = torch.from_numpy(h).requires_grad_(True)
-    got = tsty(ht.permute(0, 3, 1, 2))
+    got = tsty(_t(h).permute(0, 3, 1, 2))
     close(to_np(got), jsty.apply(params, h), RTOL)
-    _, jg = _backward(lambda p, a: jsty.apply(p, a), (h,), params, got, 10)
-    close(to_np(ht.grad), jg[1], RTOL)
+    (gh,), jg = grads64(lambda p, a: jsty.apply(p, a), params, (h,), tsty,
+                        lambda a: tsty(a.permute(0, 3, 1, 2)), 10)
+    close(to_np(gh), jg[1], RTOL)
     grads_close(jg[0], tsty, RTOL)
 
 
@@ -156,6 +156,9 @@ def test_decoder_blocks_match_jax():
     noise = [jax.random.normal(k, (B, r, r, 1)) for k, r in
              zip(keys, (16, 32, 32))]
     tnoise = [nchw(n) for n in noise]
+    with jax.enable_x64(True):       # the JAX draws of the float64 run
+        tnoise64 = [nchw(jax.random.normal(k, (B, r, r, 1), jnp.float64),
+                         np.float64) for k, r in zip(keys, (16, 32, 32))]
 
     # DecBlockFirst and DecBlockRef alone
     jfirst = jm.DecBlockFirst(128, 3)
@@ -163,8 +166,7 @@ def test_decoder_blocks_match_jax():
     p1 = init_tree(jfirst, (h, feats[4], styles[0], styles[1], keys[0]), {},
                    13)
     load_mat(tfirst, p1)
-    ht = torch.from_numpy(h).requires_grad_(True)
-    gh, gimg = tfirst(ht.permute(0, 3, 1, 2), nchw(feats[4]),
+    gh, gimg = tfirst(_t(h).permute(0, 3, 1, 2), nchw(feats[4]),
                       torch.from_numpy(styles[0]),
                       torch.from_numpy(styles[1]), tnoise[0])
     jh, jimg = jfirst.apply(p1, h, feats[4], styles[0], styles[1], keys[0])
@@ -193,22 +195,19 @@ def test_decoder_blocks_match_jax():
         return jdec.apply(p, a, feats, lambda i: s[i], g, key)
     params = init_tree(jdec, (h, feats, lambda i: stab[i], gs, key), {}, 15)
     load_mat(tdec, params)
-    t = lambda a, dt: torch.from_numpy(np.array(a)).to(dt)  # noqa: E731
-    assert kink_ties(tdec, lambda dt: tdec(
-        t(h, dt).permute(0, 3, 1, 2),
-        {k: t(v, dt).permute(0, 3, 1, 2) for k, v in feats.items()},
-        lambda i: torch.cat([t(stab[i], dt), t(gs, dt)], dim=-1),
-        [n.to(dt) for n in tnoise])) == 0
-    ht = torch.from_numpy(h).requires_grad_(True)
-    st = torch.from_numpy(stab).requires_grad_(True)
-    gt = torch.from_numpy(gs).requires_grad_(True)
-    got = _nhwc(tdec(ht.permute(0, 3, 1, 2),
-                     {k: nchw(v) for k, v in feats.items()},
-                     lambda i: torch.cat([st[i], gt], dim=-1), tnoise))
-    want, jg = _backward(jfn, (h, stab, gs), params, got, 16)
-    close(to_np(got), want, RTOL)
-    for t, g in zip((ht, st, gt), jg[1:]):
-        close(to_np(t.grad), g, RTOL)
+
+    def tfn(a, s, g):
+        dt = a.dtype
+        return _nhwc(tdec(a.permute(0, 3, 1, 2),
+                          {k: _t(v, dt).permute(0, 3, 1, 2)
+                           for k, v in feats.items()},
+                          lambda i: torch.cat([s[i], g], dim=-1),
+                          tnoise64 if dt == torch.float64 else tnoise))
+    got = tfn(_t(h), _t(stab), _t(gs))
+    close(to_np(got), jax.jit(jfn)(params, h, stab, gs), RTOL)
+    xgrads, jg = grads64(jfn, params, (h, stab, gs), tdec, tfn, 16)
+    for g, want in zip(xgrads, jg[1:]):
+        close(to_np(g), want, RTOL)
     grads_close(jg[0], tdec, RTOL)
 
 
@@ -256,26 +255,27 @@ def test_generator_matches_jax(case):
         np.float32) * 0.1 if psi != 1.0 else None)
     kw = dict(mask_class=mc, truncation_psi=psi, w_avg=w_avg,
               return_stg1=True, return_w=True)
-    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
     noise = None if key is None else noise_draws(key, tmod, B)
     mix = mix_draws(mkey, B, WZ, tmod.n_style_layers) if mixing else None
 
-    def run(x):
-        return tmod(x, t(m), t(z), noise=noise, mix=mix, mask_class=t(mc),
-                    truncation_psi=psi, w_avg=t(w_avg), return_stg1=True,
-                    return_w=True)
-
-    def jfn(p, a):
-        return jmod.apply(p, a, m, z, rng=key, mix_rng=mkey, **kw)
-    grad = case == "mixing"        # the gradients of one case
-    if grad:
-        assert kink_ties(tmod, lambda dt: run(t(img).to(dt))) == 0
-    x = torch.from_numpy(img).requires_grad_(grad)
-    got = run(x)
-    if grad:
-        jout, jg = _backward(lambda p, a: jfn(p, a)[0], (img,), params,
-                             got[0], 23)
-        close(to_np(x.grad), jg[1], RTOL)
+    def jfn(p, a, mod=jmod):
+        return mod.apply(p, a, m, z, rng=key, mix_rng=mkey, **kw)
+    got = tmod(_t(img), _t(m), _t(z), noise=noise, mix=mix,
+               mask_class=_t(mc), truncation_psi=psi, w_avg=_t(w_avg),
+               return_stg1=True, return_w=True)
+    if case == "mixing":           # the gradients of one case, in float64
+        jmod64 = jm.MATGenerator(base=BASE, w_dim=WZ, z_dim=WZ,
+                                 stage1_dim=dim, style_mixing_prob=0.6,
+                                 mask_class=classes, dtype=jnp.float64)
+        with jax.enable_x64(True):         # the JAX draws of the float64 run
+            noise64 = noise_draws(key, tmod, B, jnp.float64)
+            mix64 = mix_draws(mkey, B, WZ, tmod.n_style_layers)
+        (gx,), jg = grads64(
+            lambda p, a: jfn(p, a, jmod64)[0], params, (img,), tmod,
+            lambda a: tmod(a, _t(m), _t(z), noise=noise64, mix=mix64,
+                           mask_class=_t(mc), truncation_psi=psi,
+                           w_avg=_t(w_avg)), 23)
+        close(to_np(gx), jg[1], RTOL)
         grads_close(jg[0], tmod, RTOL)
     out, stg1, w = jax.jit(jfn)(params, img)
     for g, want in zip(got, (out, stg1, w)):

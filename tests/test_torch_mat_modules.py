@@ -1,10 +1,11 @@
 """MAT's layers in the port (``joligen_tpu_torch/models/modules/mat.py``,
 ``utils/metrics.py``'s ``_VGGish``) against the JAX package, on the CPU,
-fp32, on seeded weights with every leaf non-zero (``_torch_mat_common``):
-each forward, and the gradients of sum(output x a fixed cotangent) for the
-inputs and every parameter, to 1e-4 of the largest value (gradients: of
-the largest leaf's), on inputs with no lrelu output within fp32 rounding
-of the kink (``kink_ties``):
+on seeded weights with every leaf non-zero (``_torch_mat_common``): each
+forward in fp32, and the gradients of sum(output x a fixed cotangent) for
+the inputs and every parameter in float64 on both sides (``grads64``: in
+fp32 an lrelu input within rounding of its kink takes either of two valid
+gradients), to 1e-4 of the largest value (gradients: of the largest
+leaf's):
 
 - the resampling convs at k = 1 and k = 3 (plain, 2x down through the
   full-resolution FIR, 2x up through the stuffed input), boundary pixels
@@ -31,8 +32,8 @@ import jax.numpy as jnp
 
 # few_torch_threads: an autouse fixture, active once imported
 from _torch_gan_common import few_torch_threads  # noqa: F401
-from _torch_mat_common import (close, cotangent, grads_close, init_tree,
-                               jax_fwd_bwd, kink_ties, load_mat, to_np)
+from _torch_mat_common import (close, grads64, grads_close,
+                               init_tree, load_mat, to_np)
 from joligen_tpu.models.modules import mat as jm
 from joligen_tpu.utils import metrics as jmetrics
 from joligen_tpu_torch.models.convert import flax_to_torch
@@ -51,24 +52,20 @@ def _nchw(t):
 
 
 def check(jmod, tmod, jfn, tfn, ins, seed, init_kw=None, init_args=None):
-    """Forward and gradients of ``jfn(params, *ins)`` (JAX) against
-    ``tfn(*ins)`` (the port's module ``tmod`` loaded with the same seeded
-    tree, built for ``init_args``, default ``ins``), both in the JAX layout;
-    returns the port's output."""
+    """The fp32 forward of ``jfn(params, *ins)`` (JAX) against ``tfn(*ins)``
+    (the port's module ``tmod`` loaded with the same seeded tree, built for
+    ``init_args``, default ``ins``), both in the JAX layout, and their
+    gradients in float64 on both sides (``grads64``); returns the port's
+    fp32 output."""
     params = init_tree(jmod, ins if init_args is None else init_args,
                        init_kw or {}, seed)
     load_mat(tmod, params)
-    assert kink_ties(tmod, lambda dt: tfn(*[torch.from_numpy(
-        np.array(a)).to(dt) for a in ins])) == 0
-    xs = [torch.from_numpy(np.array(a)).requires_grad_(True) for a in ins]
-    got = tfn(*xs)
-    cot = cotangent(tuple(got.shape), seed + 1)
-    want, jg = jax_fwd_bwd(jfn, params, ins, cot)
-    close(to_np(got), want, RTOL)
-    (got * torch.from_numpy(cot)).sum().backward()
-    for x, g in zip(xs, jg[1:]):
-        assert torch.isfinite(x.grad).all()
-        close(to_np(x.grad), g, RTOL)
+    got = tfn(*[torch.from_numpy(np.array(a)) for a in ins])
+    close(to_np(got), jax.jit(jfn)(params, *ins), RTOL)
+    xgrads, jg = grads64(jfn, params, ins, tmod, tfn, seed + 1)
+    for g, want in zip(xgrads, jg[1:]):
+        assert torch.isfinite(g).all()
+        close(to_np(g), want, RTOL)
     grads_close(jg[0], tmod, RTOL)
     return got
 
@@ -151,11 +148,14 @@ def test_style_conv_with_noise_matches_jax():
     x, s = _x(11, (2, 8, 8, 6)), _x(12, (2, 10))
     key = jax.random.PRNGKey(3)
     noise = jax.random.normal(key, (2, 16, 16, 1), jnp.float32)
+    with jax.enable_x64(True):   # the JAX layer's draw in float64 (``check``)
+        noise64 = jax.random.normal(key, (2, 16, 16, 1), jnp.float64)
     jmod = jm.StyleConv(5, up=True)
     tmod = tm.StyleConv(6, 5, 10, up=True)
-    tn = _nchw(torch.from_numpy(np.array(noise)))
+    tn = {t.dtype: _nchw(t) for t in (torch.from_numpy(np.array(noise)),
+                                       torch.from_numpy(np.array(noise64)))}
     check(jmod, tmod, lambda p, a, b: jmod.apply(p, a, b, key),
-          lambda a, b: _nhwc(tmod(_nchw(a), b, tn)), (x, s), 13,
+          lambda a, b: _nhwc(tmod(_nchw(a), b, tn[a.dtype])), (x, s), 13,
           init_kw={"rng": key})
     assert tmod.noise.noise_strength.grad.abs() > 0
 

@@ -14,9 +14,11 @@ package:
    gradient (1e-4 of the leaf's largest, as ``test_torch_palette_train.py``)
    on the same converted weights, batch and host draws;
 3. DDIM-10 from a shared ``y_t`` (1e-3, as ``test_torch_palette_slice.py``);
-4. end to end on the port alone: ``launch_training`` for two steps, then one
-   request through ``scripts/gen_single_image_diffusion.py`` from the trained
-   checkpoint in the config's request mode (``--bbox_in`` for the online
+4. end to end on the port alone: ``launch_training`` for two steps
+   (df2kost with its train-time metrics over a test split,
+   ``eval_results.json``), then one request through
+   ``scripts/gen_single_image_diffusion.py`` from the trained checkpoint
+   in the config's request mode (``--bbox_in`` for the online
    configs, with fixed canny thresholds for mapillary; super-resolution and
    pix2pix whole images; viton_tutorial with ``--mask_in``), and for mario
    ``inference_per_class``.
@@ -35,6 +37,8 @@ import jax
 import jax.numpy as jnp
 from PIL import Image
 
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu.data import create_dataset as jax_create_dataset
 from joligen_tpu.models import create_model as jax_create_model
 from joligen_tpu.models.modules import palette_diffusion as jpd
@@ -66,8 +70,10 @@ CONFIGS = {
         "crop_size_A": 40, "crop_delta_A": 4}}}),
     "mario": ("online", 64, {"data": {"online_creation": {
         "crop_size_A": 40, "crop_delta_A": 4, "mask_delta_A": [[3]]}}}),
-    # train-time metrics (FID on the test set) are not ported
-    "df2kost": ("single", 40, {"train": {"compute_metrics_test": False}}),
+    # as written: train-time metrics (PSNR, SSIM, LPIPS) over a test set of
+    # two images, sampled by DDIM-10 as the requests
+    "df2kost": ("single", 40, {"alg": {"palette": {
+        "sampling_method_test": "ddim", "sampling_steps_test": 10}}}),
     "SEN2VEN": ("aligned", 48, {"data": {"load_size": 40}}),
     # the noglasses2glasses layout, with random masks (rand_mask_A)
     "viton_tutorial": ("labeled", 40, {}),
@@ -103,6 +109,8 @@ def config(request, tmp_path_factory):
     root = tmp_path_factory.mktemp(f"data_{name}")
     kw = {"classes": (1,)} if name == "mario" else {}
     synth.WRITERS[layout](str(root), 4, size, seed=len(name), **kw)
+    if name == "df2kost":
+        synth.write_test_split(layout, str(root), 2, size)
     with open(os.path.join(ROOT, "examples", f"example_ddpm_{name}.json")) \
             as f:
         cfg = json.load(f)
@@ -320,6 +328,13 @@ def test_trains_and_serves_end_to_end(config, tmp_path):
     model = launch_training(opt, cpu=True, step_callback=lambda m, i:
                             losses.append(float(m.loss_log["G_tot"])))
     assert len(losses) == 4 // BATCH and np.isfinite(losses).all()
+    if opt.train_compute_metrics_test:       # df2kost
+        with open(os.path.join(opt.checkpoints_dir, opt.name,
+                               "eval_results.json")) as f:
+            res = json.load(f)["test"]
+        assert sorted(k.split("(")[0] for k in res) == ["LPIPS", "PSNR_test",
+                                                         "SSIM_test"]
+        assert all(np.isfinite(v) for v in res.values())
     assert model.param_count()["G_A"] > 0
     ckpt = os.path.join(opt.checkpoints_dir, opt.name, "latest_net_G_A.pth")
     img_path, args = _request_args(name, root, ckpt, str(tmp_path))

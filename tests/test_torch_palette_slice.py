@@ -27,6 +27,8 @@ import jax
 import jax.numpy as jnp
 from PIL import Image
 
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu.data.transforms import fill_mask_with_random
 from joligen_tpu.models import create_model as jax_create_model
 from joligen_tpu.models.modules.palette_diffusion import ddim_sample

@@ -27,6 +27,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
+# few_torch_threads, one_palette_init: autouse fixtures, active once
+# imported
+from _torch_gan_common import few_torch_threads, one_palette_init  # noqa: F401
 from joligen_tpu.models import create_model as jax_create_model
 from joligen_tpu.models import train_state as jts
 from joligen_tpu.models.modules import palette_diffusion as jpd

@@ -21,6 +21,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu.models.modules import unet_mha as junet
 from joligen_tpu_torch.models.convert import flax_to_torch
 from joligen_tpu_torch.models.diffusion_networks import define_G, init_weights

@@ -9,6 +9,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu.models.modules import palette_diffusion as jpd
 from joligen_tpu.models.modules.unet_mha import UNetMHA as JUNet
 from joligen_tpu.ops import resize as jresize

@@ -21,6 +21,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 from tools.make_fake_dataset import make  # noqa: E402
 
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu.models import create_model as jax_create_model  # noqa: E402
 from joligen_tpu.options import TrainOptions as JaxTrainOptions  # noqa: E402
 from joligen_tpu_torch.models import create_model  # noqa: E402
@@ -47,7 +49,10 @@ FILES = ("latest_net_G_A.pth", "latest_net_G_A_ema.pth", "latest_optim.pkl")
 
 
 def _train(dataroot, ckpt, *extra):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    # the train CLI's process takes this one's torch thread count (the
+    # fixture's), as the in-process runs of the other files do
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               OMP_NUM_THREADS=str(torch.get_num_threads()))
     return subprocess.run(
         [sys.executable, "-m", "joligen_tpu_torch.train", "--cpu",
          "--dataroot", dataroot, "--checkpoints_dir", ckpt, *FLAGS, *extra],

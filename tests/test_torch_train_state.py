@@ -19,6 +19,8 @@ import pytest
 import torch
 from torch import nn
 
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu.models import train_state as jts
 from joligen_tpu_torch.models import train_state as tts
 from joligen_tpu_torch.models.convert import (flax_to_torch,

@@ -11,6 +11,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu.models.modules import unet_mha as junet
 from joligen_tpu.models.modules.palette_diffusion import \
     PaletteDenoiser as JDenoiser

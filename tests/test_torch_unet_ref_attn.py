@@ -52,7 +52,8 @@ from PIL import Image
 
 # few_torch_threads: an autouse fixture, active once imported
 from _torch_gan_common import (err_and_scale, few_torch_threads, grads_close,
-                               load_flax, merge, seeded_tree, to_np)
+                               load_flax, merge, one_palette_init,
+                               seeded_tree, to_np)
 from joligen_tpu.data import create_dataset as jax_create_dataset
 from joligen_tpu.models import create_model as jax_create_model
 from joligen_tpu.models import diffusion_networks as jdn

@@ -31,7 +31,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_gan_common import seeded_tree
+# few_torch_threads: an autouse fixture, active once imported
+from _torch_gan_common import few_torch_threads, seeded_tree
 from joligen_tpu.models.modules import vit_vid as jvv
 from joligen_tpu.options import TrainOptions as JaxTrainOptions
 from joligen_tpu_torch.models.convert import (flax_to_torch,
