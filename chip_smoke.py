@@ -8,7 +8,11 @@ GPU. Run from the repository root with no arguments:
 2. Build: compiles every kernel of the serving and training paths and of
    the probes from ``csrc/`` (one ``nvcc`` per source, started together);
    fails if ``ptxas`` spills in a ``wgmma`` kernel or injects a
-   ``warpgroup.wait`` (C7517) anywhere.
+   ``warpgroup.wait`` (C7517) anywhere. The attention backward's nvcc
+   (minutes: 72 kernels at eight head dims) runs on while the phases that
+   launch no attention kernel run (items 7 and 9: CUT, glasses,
+   mario2sonic, unetref and their cross-checks), and is awaited before
+   the kernel phases.
 3. Kernels: K1 (flash-attention forward), K2 (dQ) and K3 (dK, dV) each
    against its plain PyTorch version on the same CUDA tensors at the paths'
    shapes (K1 and K2 in bf16 at both query tilings; xview's 32 heads at
@@ -21,7 +25,14 @@ GPU. Run from the repository root with no arguments:
    (8, 256, 12, 64) and (8, 288, 12, 64); ragged ones) in both dtypes and,
    where S <= 32, both tilings, packed and plain (the card tests'
    tolerance there, TOL (1 + |want|): one bf16 ulp of those gradients
-   exceeds TOL), then timed at those shapes in both tilings beside sdpa; the autograd Function
+   exceeds TOL), then timed at those shapes in both tilings beside sdpa;
+   the head dims 80, 128 and 160 at their paths' shapes (video MAT's
+   motion module at 8 and 4 heads over 5 frames, (2048, 5, 8, 64) and
+   (2048, 5, 4, 128); JiT-H's and JiT-L's motion modules, (64, 8, 8, 160)
+   and (64, 8, 8, 128); JiT-H's blocks, (8, 64 | 96, 16, 80) on video and
+   (8, 288, 16, 80) on images at 256 px) and ragged ones (S of 1, 5, 17,
+   32, 63, 65 and 100 over odd B*H) the same way, timed at the path
+   shapes beside their bounds and sdpa; the autograd Function
    against autograd through the plain forward; P1 and P2 (the 3×3 tap
    conv, each s2; bf16 on wgmma, fp32 on FMAs) against their plain versions
    in bf16 and fp32 at the conv probe's hot site (batch 2) and at ragged
@@ -40,7 +51,7 @@ GPU. Run from the repository root with no arguments:
    ``examples/example_ddpm_noglasses2glasses.json`` (128 px, ngf 64, 62.8M
    parameters, bf16) with seeded random weights, saved and reloaded through
    the checkpoint files, serving DDIM-10 requests and a DDPM one (its
-   test schedule cut to 100 steps) through
+   test schedule cut to 50 steps) through
    ``scripts/gen_single_image_diffusion.inference``; launch counts per
    request; outputs checked; the full-width denoiser in fp32 on the card
    against the same forward on the CPU.
@@ -68,7 +79,7 @@ GPU. Run from the repository root with no arguments:
    (``low_res`` super-resolution, no mask; as written, its train-time
    metrics PSNR, SSIM and LPIPS over a test split of 2 images, evaluated
    at the last step and after the epoch with the config's DDPM sampler cut
-   to 100 steps, ``eval_results.json``; then ``python -m
+   to 50 steps, ``eval_results.json``; then ``python -m
    joligen_tpu_torch.test`` on its run directory, FID, PSNR, SSIM and
    LPIPS at DDIM-10), SEN2VEN (``aligned`` pix2pix) and mario (class
    conditioning; ``inference_per_class``).
@@ -115,7 +126,7 @@ GPU. Run from the repository root with no arguments:
    output); ``example_ddpm_unetref_viton.json`` at full width
    (unet_mha_ref_attn, 147,557,059 parameters; batch 16, 128 px online
    crops with a reference each; EMA; bf16), 8 steps, two DDIM-10 and one
-   DDPM (its test schedule cut to 100 steps) ``--bbox_in --ref_in`` requests,
+   DDPM (its test schedule cut to 50 steps) ``--bbox_in --ref_in`` requests,
    the memory of the legacy attention's fp32 logits at ds 4, and the
    full-width ``UNetRefAttn`` in fp32, card against CPU. Step time,
    images/s, peak memory, data wait and request latency for each. No
@@ -123,15 +134,15 @@ GPU. Run from the repository root with no arguments:
 10. Video palette, over synthetic series of frames with a box file each:
    ``example_ddpm_vid_mario.json`` at full width (unet_vid, 132,645,763
    parameters; one clip of 8 frames at 64 px a micro-step, iter_size 32;
-   EMA; bf16), 64 micro-steps with K1, K2 and K3 81 times each a
+   EMA; bf16), 32 micro-steps with K1, K2 and K3 81 times each a
    micro-step, the weights still until the 32nd, its checkpoint reloaded
    (the EMA bit for bit), two DDIM-10 clip requests and one with the
-   config's DDPM sampler (its test schedule cut to 100 steps) through
+   config's DDPM sampler (its test schedule cut to 50 steps) through
    ``scripts/gen_vid_diffusion``; ``_ft`` (batch 3) and ``_ft_from_image``
    (277,532,355 parameters, 6 frames at 128 px, 89 K1 a call) an epoch of
    one series, as written: their train-time metrics (PSNR, LPIPS, SSIM)
    over one test clip at the last micro-step and after the epoch, the
-   DDPM sampler cut to 100 steps; and a DDIM-10 ``--cond_canny`` request
+   DDPM sampler cut to 50 steps; and a DDIM-10 ``--cond_canny`` request
    each from the trained model; the full-width UNetVid in fp32, card
    against CPU.
 11. b2b flow matching: ``example_b2b_vid_mario.json`` at full width
@@ -186,6 +197,24 @@ GPU. Run from the repository root with no arguments:
 16. Probes: ``tools.fused_resblock_probe.stage_a`` at (16, 128, 128, 128)
    bf16 and ``tools.bw_probe3`` over 1 GiB arrays, each with the launch
    counters set to 0 just before it and read just after.
+17. Video MAT and the wide head dims: ``example_mat_inpainting.json`` with
+   ``--alg_mat_motion --data_dataset_mode self_supervised_vid_mask_online``
+   at the options' defaults (clips of 5 frames, frame step 30, centred
+   crops of 512 +- 50 px to 256 px; the motion module's 8 heads of 64, 2
+   blocks, at most 8 frames; 70,809,338 generator parameters; batch 8,
+   bf16) over one synthetic series of 121 frames of 576 px: an epoch (15
+   steps, R1 at step 0, K1, K2 and K3 4 each a step), a clip through
+   ``model.inference`` (K1 4; the history frames and known pixels kept)
+   and 4 frames through ``scripts/gen_video_mat`` (frame by frame, as the
+   JAX script: no kernel); the fp32 generator on a clip and D on its last
+   frame, card against CPU to 1e-4 of the largest output. Then
+   ``example_b2b_vid_mario.json`` with JiT-H/16 (1,023,910,976
+   parameters, head dims 80 and 160; K1-K3 36 a step) for 4 of the model's
+   own steps (no save) and one clip request of 50 Heun steps from it; 2
+   steps each of video MAT at 4 motion heads (head dim 128), b2b_vid_mario
+   with JiT-L/16 (504,401,632 parameters, head dim 128 in its motion
+   module) and the image JiT-H/16 under b2b at 256 px (951,432,256
+   parameters, (8, 256 | 288, 16, 80)), their data in RAM (``/dev/shm``).
 
 Prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -195,6 +224,7 @@ Without a CUDA device it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import json
 import math
 import os
@@ -208,10 +238,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 EXAMPLE = os.path.join(ROOT, "examples", "example_ddpm_noglasses2glasses.json")
 SEED = 0
 DDIM_REQUESTS = 3
-# the serving, unetref and video phases' DDPM requests on a test schedule
-# cut to this many steps (cut_test_schedule: a DDPM-1000 request is 1,000
-# denoiser calls of the same kernels)
-DDPM_TEST_STEPS = 100
+# the serving, unetref and video phases' DDPM requests, and the train-time
+# metrics' DDPM sampling, on a test schedule cut to this many steps
+# (cut_test_schedule: a DDPM-1000 request is 1,000 denoiser calls of the
+# same kernels; 100 until the smoke took the wide head dims' phases)
+DDPM_TEST_STEPS = 50
 EXPECTED_PARAMS = 62_838_467    # the example config's denoiser
 # Published H100 SXM peaks (NVIDIA data sheet): memory 3.35 TB/s; bf16 on
 # the tensor cores 989 TFLOP/s; fp32 outside them 67 TFLOP/s.
@@ -260,19 +291,26 @@ EDGE_CHECKS = [((3, 1, 1, 16), "bfloat16"), ((1, 63, 3, 64), "bfloat16"),
                ((3, 65, 1, 16), "bfloat16"), ((2, 100, 2, 64), "bfloat16"),
                ((1, 1000, 3, 64), "bfloat16"), ((2, 100, 2, 64), "float32"),
                ((2, 5, 2, 16), "float32")]
+# the head dims 80, 128 and 160 past S = 32 (both query tilings in bf16):
+# the image JiT-H/16's blocks after its prefix at 256 px, batch 8, and
+# ragged S of 63, 65 and 100 over odd B*H
+WIDE_CHECKS = [((8, 288, 16, 80), "bfloat16"), ((8, 288, 16, 80), "float32"),
+               ((1, 63, 3, 80), "bfloat16"), ((3, 65, 1, 128), "bfloat16"),
+               ((1, 100, 3, 128), "float32"), ((2, 100, 3, 160), "bfloat16"),
+               ((3, 65, 1, 160), "float32")]
 FWD_CHECKS = [(PATH_SHAPE, "bfloat16"), (PATH_SHAPE, "float32"),
               (TRAIN_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
               (XVIEW_PATH_SHAPE, "bfloat16"), (XVIEW_TRAIN_SHAPE, "bfloat16"),
               (CM_TRAIN_SHAPE, "bfloat16"), (CM_GAN_TRAIN_SHAPE, "bfloat16"),
               ((8, 64, 16, 32), "bfloat16"), ((2, 100, 2, 8), "bfloat16"),
-              ((2, 100, 2, 8), "float32"), *EDGE_CHECKS]
+              ((2, 100, 2, 8), "float32"), *EDGE_CHECKS, *WIDE_CHECKS]
 BWD_CHECKS = [(TRAIN_SHAPE, "bfloat16"), (TRAIN_SHAPE, "float32"),
               (PATH_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
               (XVIEW_PATH_SHAPE, "bfloat16"),
               (XVIEW_TRAIN_SHAPE, "bfloat16"), (CM_TRAIN_SHAPE, "bfloat16"),
               (CM_GAN_TRAIN_SHAPE, "bfloat16"), ((8, 64, 16, 32), "bfloat16"),
               ((2, 100, 2, 8), "bfloat16"), ((2, 100, 2, 8), "float32"),
-              *EDGE_CHECKS]
+              *EDGE_CHECKS, *WIDE_CHECKS]
 # P1/P2: the probe's hot site at batch 2; shapes whose H, W and Co are not
 # multiples of the kernels' tiles; C = 8 and 24 (part of a 64-channel K
 # step of the wgmma route), C = 256 (two K steps a tap); errors relative to
@@ -363,7 +401,8 @@ EXPECTED_PARAMS_UNETREF = 147_557_059
 # images, 8 heads of 32 over 1024 tokens (qkv of 3 x 256 rows)
 UNETREF_ATTN_QKV = (16, 768, 1024)
 # the video palette configs (unet_vid): vid_mario one epoch of VID_STEPS
-# micro-steps at batch 1 (two updates at iter_size 32) over clips of 8
+# micro-steps at batch 1 (one update at iter_size 32; two until the smoke
+# took the wide head dims' phases) over clips of 8
 # frames cropped from VID_IMAGE px frames (VID_SERIES series of VID_FRAMES
 # frames: the dataset's length is its frame count), then VID_DDIM_REQUESTS
 # DDIM-10 clip requests and one with the config's DDPM sampler at its test
@@ -373,8 +412,8 @@ UNETREF_ATTN_QKV = (16, 768, 1024)
 VID_EXAMPLES = ("example_ddpm_vid_mario.json",
                 "example_ddpm_vid_mario_ft.json",
                 "example_ddpm_vid_mario_ft_from_image.json")
-VID_STEPS = 64
-VID_SERIES, VID_FRAMES = 4, 16
+VID_STEPS = 32
+VID_SERIES, VID_FRAMES = 2, 16
 VID_IMAGE = 160
 VID_DDIM_REQUESTS = 2
 EXPECTED_PARAMS_VID = 132_645_763         # the denoiser; its trunk 132,643,651
@@ -404,6 +443,19 @@ B2B_POST_SHAPE = (8, 96, 12, 64)
 # B2B_POST_SHAPE
 JIT_IMAGE_PRE_SHAPE = (8, 256, 12, 64)
 JIT_IMAGE_POST_SHAPE = (8, 288, 12, 64)
+# the wide head dims on their paths: video MAT's motion module over the
+# 16 x 16 bottleneck of 5 frames, (B * 256, 5, heads, 512 / heads), at
+# MAT_VIDEO_BATCH clips (8 heads: D = 64; 4: D = 128); JiT-H/16 under
+# vit_vid (its blocks (B * F, 64 | 96, 16, 80), its motion module (B * T,
+# 8, 8, 160)); JiT-L/16's motion module (B * T, 8, 8, 128); the image
+# JiT-H/16 at 256 px, batch 8, after its prefix (8, 288, 16, 80)
+MAT_VIDEO_BATCH = 8
+MAT_MOTION_SHAPE = (MAT_VIDEO_BATCH * 256, 5, 8, 64)
+MAT_MOTION_4H_SHAPE = (MAT_VIDEO_BATCH * 256, 5, 4, 128)
+JITH_MOTION_SHAPE = (64, 8, 8, 160)
+JITL_MOTION_SHAPE = (64, 8, 8, 128)
+JITH_VID_POST_SHAPE = (8, 96, 16, 80)
+JITH_IMAGE_POST_SHAPE = (8, 288, 16, 80)
 # K1-K3 at the video paths' shapes, in both dtypes, and at S <= 32 in both
 # tilings (packed and plain): every motion-module shape of the video path
 # (vid_mario's levels 1-4, _ft_from_image's levels 1-4; D = 8), b2b's
@@ -415,7 +467,11 @@ SHORT_CHECKS = [VID_L1_SHAPE, (1024, 8, 8, 16), (256, 8, 8, 32),
                 (7, 8, 3, 16), (2, 17, 3, 8), (3, 32, 2, 8), (2, 1, 3, 8),
                 B2B_MOTION_SHAPE, B2B_PRE_SHAPE, B2B_POST_SHAPE,
                 (5, 7, 3, 96), (3, 100, 2, 96), JIT_IMAGE_PRE_SHAPE,
-                JIT_IMAGE_POST_SHAPE]
+                JIT_IMAGE_POST_SHAPE, MAT_MOTION_SHAPE, MAT_MOTION_4H_SHAPE,
+                JITH_MOTION_SHAPE, JITL_MOTION_SHAPE, (8, 64, 16, 80),
+                JITH_VID_POST_SHAPE, (3, 1, 1, 80), (5, 5, 3, 160),
+                (7, 8, 3, 128), (3, 17, 3, 80), (3, 32, 3, 160),
+                (1, 63, 3, 128), (2, 100, 3, 80)]
 VID_TIMINGS = (("vid_level1", VID_L1_SHAPE, 50),
                ("vid_level4", VID_L4_SHAPE, 50),
                ("vid_s6_level1", VID_S6_SHAPE, 20),
@@ -424,7 +480,13 @@ VID_TIMINGS = (("vid_level1", VID_L1_SHAPE, 50),
                ("b2b_jit_pre", B2B_PRE_SHAPE, 50),
                ("b2b_jit_post", B2B_POST_SHAPE, 50),
                ("jit_image_pre", JIT_IMAGE_PRE_SHAPE, 50),
-               ("jit_image_post", JIT_IMAGE_POST_SHAPE, 50))
+               ("jit_image_post", JIT_IMAGE_POST_SHAPE, 50),
+               ("mat_motion", MAT_MOTION_SHAPE, 20),
+               ("mat_motion_4h", MAT_MOTION_4H_SHAPE, 20),
+               ("jith_motion", JITH_MOTION_SHAPE, 20),
+               ("jitl_motion", JITL_MOTION_SHAPE, 20),
+               ("jith_vid_post", JITH_VID_POST_SHAPE, 20),
+               ("jith_image_post", JITH_IMAGE_POST_SHAPE, 20))
 # b2b_vid_mario (example_b2b_vid_mario.json) as it is but for its mesh
 # (tpu_mesh_fsdp 2 cannot hold on one card): B2B_STEPS steps at batch 1
 # over one series of 8 frames of B2B_IMAGE px (its crops are 128 px with
@@ -455,6 +517,36 @@ MAT_KNOWN_TOL = 1e-6
 MAT_TOL = 1e-4
 MAT_R1_SIZE = 64
 EXPECTED_PARAMS_MAT = {"G_A": 59_779_834, "D": 36_083_330}
+# video MAT: MAT_EXAMPLE + MAT_VIDEO_ARGS at the options' defaults (clips of
+# 5 frames, a frame step of 30, centred crops of 512 +- 50 px; the motion
+# module's 8 heads, 2 blocks, at most 8 frames) over one synthetic series
+# of MAT_VIDEO_SERIES frames of MAT_VIDEO_IMAGE px: an epoch (its steps,
+# R1 at step 0), a clip through ``model.inference`` and a clip through
+# ``scripts/gen_video_mat``; K1, K2 and K3 MAT_VIDEO_K1 times each a step
+# (2 blocks of 2 temporal attentions); the fp32 generator on one clip and
+# D on its last frame at full width, card against CPU to MAT_TOL
+MAT_VIDEO_ARGS = ["--alg_mat_motion", "--data_dataset_mode",
+                  "self_supervised_vid_mask_online"]
+MAT_VIDEO_SERIES = 121
+MAT_VIDEO_IMAGE = 576
+MAT_VIDEO_K1 = 4
+EXPECTED_PARAMS_MAT_VIDEO = {"G_A": 70_809_338, "D": 36_083_330}
+# the wide variants (the parameter counts are the JAX package's, by
+# jax.eval_shape; the tests hold them): b2b_vid_jith (B2B_EXAMPLE with
+# JiT-H/16: its 32 blocks and the motion module's 4 temporal attentions a
+# call), WIDE_STEPS of the model's own steps (no save: its checkpoint with
+# EMA and AdamW is ~16 GB) and one clip request of the config's 50 Heun
+# steps from the trained model; then SHORT_STEPS each of video MAT at 4
+# motion heads, b2b_vid_mario with JiT-L/16 and the image JiT-H/16 under
+# b2b at 256 px
+WIDE_STEPS = 4
+SHORT_STEPS = 2
+EXPECTED_PARAMS_JITH_VID = 1_023_910_976
+EXPECTED_PARAMS_JITL_VID = 504_401_632
+EXPECTED_PARAMS_JITH_IMAGE = 951_432_256
+JITH_VID_K1 = 36
+JITL_VID_K1 = 28
+JITH_IMAGE_K1 = 32
 # the image transformer trunks, each EXAMPLE plus command-line overrides:
 # b2b_image_256 (the image JiT-B/16 under b2b, 256 px, batch 8; IMAGE_STEPS
 # steps, a request of the config's B2B_IMAGE_HEUN_STEPS Heun steps and one
@@ -3222,7 +3314,7 @@ def vid_phase(workdir):
     """``example_ddpm_vid_mario.json`` as it is (unet_vid, 132,645,763
     parameters; clips of 8 frames at 64 px, batch 1, iter_size 32; EMA;
     bf16) for VID_STEPS micro-steps, the parameters still at the 31st and
-    moved at the 32nd (two updates), its checkpoint reloaded (the EMA bit
+    moved at the 32nd (one update), its checkpoint reloaded (the EMA bit
     for bit), VID_DDIM_REQUESTS DDIM-10 clip requests and one with the
     config's DDPM sampler at its test schedule; then the two _ft configs
     (canny sketches with per-frame dropout) one epoch and one DDIM-10
@@ -3371,11 +3463,11 @@ def _b2b_k1_per_call(opt):
 
 
 def _serve_b2b(ckpt, served, sopt, frames_dir, out_dir, n, clips, extra,
-               label):
+               label, per_call=B2B_K1_PER_CALL):
     """``n`` requests of ``clips`` clips each through
     ``scripts/gen_vid_diffusion`` with the loaded b2b model, ``extra``
     arguments, the launch counters at 0 just before them and read just
-    after: B2B_K1_PER_CALL K1 launches a denoiser call (2 * steps - 1 calls
+    after: ``per_call`` K1 launches a denoiser call (2 * steps - 1 calls
     a clip) and no other kernel. Each writes its frames, finite, of the
     input frames' size; outside each clip's mask the model's output is its
     input (to 1e-6). Returns latencies and launches."""
@@ -3424,7 +3516,7 @@ def _serve_b2b(ckpt, served, sopt, frames_dir, out_dir, n, clips, extra,
         f"{[round(t, 4) for t in secs]} s, launches {launches}, outside "
         f"the mask moved {kept:.2e}")
     want = _attention_only(launches, {"flash_attention_fwd":
-                                      calls * B2B_K1_PER_CALL})
+                                      calls * per_call})
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     return {"request_s": secs, "launches": launches, "clips": clips,
@@ -3744,6 +3836,321 @@ def mat_cross_check():
             <= MAT_TOL * abs(grads["cpu"][0])):
         raise AssertionError(f"MAT cross-check R1: {rec['r1']}")
     return rec
+
+
+def _model_steps(opt, n, label, expected_params, per_step):
+    """``create_model(opt)`` and ``n`` of its own steps
+    (``optimize_parameters``) over the first ``n`` batches of its dataset,
+    with no save: the launch counters at 0 just before the steps and read
+    just after, ``per_step`` launches of each attention kernel a step; the
+    parameter count, bf16 and finite losses checked. Returns (model,
+    record)."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.data import create_dataloader, create_dataset
+    from joligen_tpu_torch.models import create_model
+
+    loader = create_dataloader(opt, create_dataset(opt, "train"))
+    opt.steps_per_epoch = max(1, len(loader))
+    torch.cuda.reset_peak_memory_stats()
+    model = create_model(opt, phase="train")
+    n_params = model.param_count()["G_A"]
+    if n_params != expected_params or model.device_dtype != torch.bfloat16:
+        raise AssertionError(f"{label}: {n_params} parameters in "
+                             f"{model.device_dtype}")
+    batches, secs, losses = iter(loader), [], []
+    reset_launches()                             # the steps start here
+    for _ in range(n):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.optimize_parameters(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in model.loss_log.items()})
+    launches = read_launches()                   # and end here
+    want = _attention_only(launches, {k: n * v for k, v in per_step.items()})
+    if launches != want or not all(np.isfinite(v) for d in losses
+                                   for v in d.values()):
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want}; losses {losses}")
+    rec = {"batch": opt.train_batch_size, "steps": n,
+           "parameters": n_params, "launches": launches, "step_s": secs,
+           "losses_last": losses[-1],
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"{label}: {n} steps of the model, {n_params} parameters, "
+        f"launches {launches}, steps {[round(t, 4) for t in secs]} s, "
+        f"peak {rec['max_memory_allocated']} B, losses {losses[-1]}")
+    return model, rec
+
+
+def _mat_video_opt(workdir, name, args=()):
+    """``example_mat_inpainting.json`` + MAT_VIDEO_ARGS (+ ``args``) over
+    one synthetic series of MAT_VIDEO_SERIES frames of MAT_VIDEO_IMAGE px
+    with a box file each, written under ``workdir`` once."""
+    from joligen_tpu_torch.tools.synthetic_datasets import write_video
+
+    opt = _example_opt(MAT_EXAMPLE, workdir, "mat_video",
+                       MAT_VIDEO_ARGS + list(args))
+    opt.name = f"smoke_{name}"
+    if not (opt.data_crop_size == 256 and opt.train_batch_size == 8
+            and opt.G_ngf == 64 and opt.tpu_bf16
+            and opt.data_temporal_number_frames == 5
+            and opt.alg_mat_motion_num_transformer_blocks == 2
+            and opt.alg_mat_motion_max_frames == 8
+            and opt.alg_mat_d_reg_every == 16):
+        raise AssertionError("mat_video is not the example config at the "
+                             "options' defaults")
+    opt.train_batch_size = MAT_VIDEO_BATCH
+    if not os.path.isdir(opt.dataroot):
+        write_video(opt.dataroot, MAT_VIDEO_SERIES, MAT_VIDEO_IMAGE,
+                    seed=SEED + 81, n_series=1, phases=("train",))
+    return opt
+
+
+def mat_video_phase(workdir):
+    """Video MAT at full width (see the module doc, item 17): an epoch
+    through ``launch_training``, a clip through ``model.inference`` and one
+    through ``scripts/gen_video_mat``. Returns (record, launch counts per
+    path)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from joligen_tpu_torch.data import create_dataloader, create_dataset
+    from joligen_tpu_torch.scripts import gen_video_mat as gen_vid
+    from joligen_tpu_torch.scripts.common import load_model_from_file
+
+    opt = _mat_video_opt(workdir, "mat_video")
+    if opt.alg_mat_motion_num_attention_heads != 8:
+        raise AssertionError("mat_video: not the options' 8 motion heads")
+    steps = MAT_VIDEO_SERIES // opt.train_batch_size
+    r1_losses = []
+
+    def watch(model, iters, n):
+        r1_losses.append(float(model.loss_log["D_r1"]))
+    model, opt, rec = _train_run(opt, steps, 1, "mat_video training",
+                                 EXPECTED_PARAMS_MAT_VIDEO["G_A"],
+                                 hook=watch, attention_per_step=MAT_VIDEO_K1)
+    rec["parameters_per_net"] = model.param_count()
+    net = model.nets["G_A"]
+    if not (rec["parameters_per_net"] == EXPECTED_PARAMS_MAT_VIDEO
+            and net.frames == 5 and net.motion.n_blocks == 2
+            and net.motion.block0.attn0.heads == 8):
+        raise AssertionError(f"mat_video: {rec['parameters_per_net']}")
+    if not (r1_losses[0] > 0 and not any(r1_losses[1:])):
+        raise AssertionError(f"mat_video R1 losses by step {r1_losses}")
+    rec["D_r1_by_step"] = r1_losses
+    rec["frames_per_s"] = 5 * opt.train_batch_size / rec["median_warm_step_s"]
+    del model, net
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(opt.checkpoints_dir, opt.name, "latest_net_G_A.pth")
+    served, sopt = load_model_from_file(ckpt)
+    clip = next(iter(create_dataloader(sopt, create_dataset(sopt, "train"),
+                                       batch_size=1)))
+    reset_launches()                             # the requests start here
+    t0 = time.perf_counter()
+    out = served.inference(clip, seed=0)
+    torch.cuda.synchronize()
+    rec["clip_request_s"] = time.perf_counter() - t0
+    clip_launches = read_launches()
+    keep = np.broadcast_to(np.asarray(clip["B_label_mask"])[:, -1] == 0,
+                           out[:, -1].shape)
+    rec["clip_known_max_abs_err"] = float(
+        np.abs(out[:, -1] - clip["B"][:, -1])[keep].max())
+    if not (out.shape == (1, 5, 256, 256, 3) and np.isfinite(out).all()
+            and np.array_equal(out[:, :-1], clip["B"][:, :-1])
+            and rec["clip_known_max_abs_err"] <= MAT_KNOWN_TOL
+            and clip_launches == _attention_only(
+                clip_launches, {"flash_attention_fwd": MAT_VIDEO_K1})):
+        raise AssertionError(f"mat_video clip request: {out.shape}, "
+                             f"launches {clip_launches}")
+    # the same checkpoint frame by frame through the script
+    frames_dir = os.path.join(sopt.dataroot, "trainA", "vid0")
+    masks_dir = os.path.join(workdir, "mat_video_masks")
+    os.makedirs(masks_dir)
+    for i in range(MAT_FRAMES):
+        m = np.zeros((MAT_VIDEO_IMAGE, MAT_VIDEO_IMAGE), np.uint8)
+        m[200:360, 180 + 10 * i:380 + 10 * i] = 255
+        Image.fromarray(m).save(os.path.join(masks_dir, f"m{i:03d}.png"))
+    args = gen_vid.build_parser().parse_args([
+        "--model_in_file", ckpt, "--dir_in", frames_dir,
+        "--mask_dir_in", masks_dir, "--max_frames", str(MAT_FRAMES),
+        "--dir_out", os.path.join(workdir, "out_mat_video"), "--seed", "0"])
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = gen_vid.inference(args, served, sopt)
+    torch.cuda.synchronize()
+    rec["script_request_s"] = time.perf_counter() - t0
+    script_launches = read_launches()
+    if len(outs) != MAT_FRAMES or any(script_launches.values()):
+        raise AssertionError(f"mat_video script: {len(outs)} frames, "
+                             f"launches {script_launches}")
+    del served
+    torch.cuda.empty_cache()
+    log(f"mat_video: clip request {rec['clip_request_s']:.4f} s (K1 "
+        f"{clip_launches['flash_attention_fwd']}), known pixels "
+        f"{rec['clip_known_max_abs_err']:.2e}; {MAT_FRAMES} frames through "
+        f"gen_video_mat {rec['script_request_s']:.4f} s")
+    return rec, {"mat_video_training": rec["launches"],
+                 "mat_video_clip_request": clip_launches,
+                 "mat_video_script_request": script_launches}
+
+
+def mat_video_cross_check():
+    """The fp32 video MAT generator at full width (base 64, 8 motion
+    heads, 2 blocks) on one clip of 5 frames at 256 px, noise mode none,
+    and D on its last frame, TF32 off, card (K1 MAT_VIDEO_K1 times) against
+    CPU on the same seeded weights (the ToRGB weights scaled by 0.1, the
+    motion module's zero proj_out seeded small), to MAT_TOL of the largest
+    output."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.modules.mat import (MATDiscriminator,
+                                                      MATGenerator, init_mat)
+    from joligen_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(SEED + 82)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, 5, 256, 256, 3)).astype(
+        np.float32))
+    mask = torch.ones(1, 5, 256, 256, 1)
+    mask[:, -1, 40:150, 60:200] = 0.0
+    z = torch.from_numpy(rng.standard_normal((1, 512)).astype(np.float32))
+    g = torch.Generator().manual_seed(SEED + 83)
+    netG = init_mat(MATGenerator(256, 3, 64, 512, 512, stage1_dim=180,
+                                 frames=5, motion_heads=8, motion_blocks=2,
+                                 motion_max_frames=8), g)
+    netD = init_mat(MATDiscriminator(256, 3, 64), g)
+    with torch.no_grad():
+        for n, p in netG.named_parameters():
+            if "rgb" in n and n.endswith("weight"):
+                p.mul_(0.1)
+        for p in netG.motion.proj_out.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.01)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        netG, netD = netG.to(dev), netD.to(dev)
+        a = [t.to(dev) for t in (img, mask, z)]
+        before = fa.LAUNCHES["flash_attention_fwd"]
+        with torch.inference_mode():
+            fake, stg1 = netG(*a, return_stg1=True)
+            lg = torch.cat(netD(fake[:, -1], a[1][:, -1], stg1[:, -1]),
+                           dim=-1)
+        launched = fa.LAUNCHES["flash_attention_fwd"] - before
+        if launched != (MAT_VIDEO_K1 if dev == "cuda" else 0):
+            raise AssertionError(f"mat_video cross-check: {dev} launched "
+                                 f"K1 {launched} times")
+        outs[dev] = [t.cpu() for t in (fake[:, -1], stg1[:, -1], lg)]
+    rec = {}
+    for i, name in enumerate(("G_output", "G_stage1", "D_logits")):
+        want, got = outs["cpu"][i], outs["cuda"][i]
+        rec[name] = {"max_abs_err": (got - want).abs().max().item(),
+                     "max_abs": want.abs().max().item()}
+        if not (torch.isfinite(got).all() and rec[name]["max_abs_err"]
+                <= MAT_TOL * rec[name]["max_abs"]):
+            raise AssertionError(f"mat_video cross-check {name}: "
+                                 f"{rec[name]}")
+    log("mat_video cross-check fp32 card vs CPU: " + json.dumps(rec))
+    return rec
+
+
+def wide_transformer_phase(workdir):
+    """The wide head dims on their paths (see the module doc, item 17):
+    b2b_vid_jith (its steps and a clip request), then the short runs of
+    video MAT at 4 motion heads, b2b_vid_mario with JiT-L/16 and the image
+    JiT-H/16 under b2b at 256 px. Their data under ``/dev/shm`` where the
+    machine has it. Returns (records, launch counts per path)."""
+    if os.path.isdir("/dev/shm") and os.access("/dev/shm", os.W_OK):
+        shm = tempfile.mkdtemp(prefix="chip_smoke_wide_", dir="/dev/shm")
+    else:
+        shm = tempfile.mkdtemp(prefix="wide_", dir=workdir)
+    try:
+        return _wide_runs(workdir, shm)
+    finally:
+        shutil.rmtree(shm, ignore_errors=True)
+
+
+def _wide_runs(workdir, shm):
+    import torch
+    from joligen_tpu_torch.tools.synthetic_datasets import (write_labeled,
+                                                            write_video)
+
+    recs, paths = {}, {}
+
+    def each(k1):
+        return {"flash_attention_fwd": k1, "flash_attention_bwd_dq": k1,
+                "flash_attention_bwd_dkv": k1}
+
+    # b2b_vid_jith: the b2b example with JiT-H/16, WIDE_STEPS steps and a
+    # 50-step clip request from the trained model
+    opt = _example_opt(B2B_EXAMPLE, shm, "b2b_jith",
+                       ["--tpu_mesh_fsdp", "1", "--G_vit_variant",
+                        "JiT-H/16"])
+    if _b2b_k1_per_call(opt) != JITH_VID_K1:
+        raise AssertionError("b2b_vid_jith's attention sites changed")
+    write_video(opt.dataroot, B2B_STEPS * opt.train_batch_size, B2B_IMAGE,
+                seed=SEED + 91, n_series=1)
+    model, rec = _model_steps(opt, WIDE_STEPS, "b2b_vid_jith",
+                              EXPECTED_PARAMS_JITH_VID, each(JITH_VID_K1))
+    net = model.nets["G_A"]
+    if not (net.hidden_size // net.num_heads == 80
+            and net.hidden_size // net.motion.block0.attn0.heads == 160):
+        raise AssertionError("b2b_vid_jith: not head dims 80 and 160")
+    serve_root = os.path.join(shm, "b2b_jith_serve")
+    write_video(serve_root, opt.data_temporal_number_frames, B2B_IMAGE,
+                seed=SEED + 92, n_series=1)
+    rec["request"] = _serve_b2b(
+        "unused", model, opt, os.path.join(serve_root, "trainA", "vid0"),
+        os.path.join(shm, "out_b2b_jith"), 1, 1, [], "b2b_vid_jith_request",
+        per_call=JITH_VID_K1)
+    del model, net
+    torch.cuda.empty_cache()
+    recs["b2b_vid_jith"] = rec
+    paths["b2b_vid_jith_steps"] = rec["launches"]
+    paths["b2b_vid_jith_request"] = rec["request"]["launches"]
+
+    # b2b_vid_mario with JiT-L/16: SHORT_STEPS steps on the same clips
+    lopt = _example_opt(B2B_EXAMPLE, shm, "b2b_jitl",
+                        ["--tpu_mesh_fsdp", "1", "--G_vit_variant",
+                         "JiT-L/16"])
+    lopt.dataroot = opt.dataroot
+    if _b2b_k1_per_call(lopt) != JITL_VID_K1:
+        raise AssertionError("b2b_vid_jitl's attention sites changed")
+    model, rec = _model_steps(lopt, SHORT_STEPS, "b2b_vid_jitl",
+                              EXPECTED_PARAMS_JITL_VID, each(JITL_VID_K1))
+    del model
+    torch.cuda.empty_cache()
+    recs["b2b_vid_jitl"] = rec
+    paths["b2b_vid_jitl_steps"] = rec["launches"]
+
+    # the image JiT-H/16 under b2b at 256 px
+    iopt = _example_opt(IMAGE_EXAMPLE, shm, "b2b_image_jith",
+                        B2B_IMAGE_ARGS + ["--G_vit_variant", "JiT-H/16"])
+    write_labeled(iopt.dataroot, SHORT_STEPS * iopt.train_batch_size, 256,
+                  seed=SEED + 93)
+    model, rec = _model_steps(iopt, SHORT_STEPS, "b2b_image_jith",
+                              EXPECTED_PARAMS_JITH_IMAGE, each(JITH_IMAGE_K1))
+    del model
+    torch.cuda.empty_cache()
+    recs["b2b_image_jith"] = rec
+    paths["b2b_image_jith_steps"] = rec["launches"]
+
+    # video MAT at 4 motion heads (D = 128) on mat_video's clips
+    mopt = _mat_video_opt(workdir, "mat_video_4h", [
+        "--alg_mat_motion_num_attention_heads", "4"])
+    model, rec = _model_steps(mopt, SHORT_STEPS, "mat_video_4h",
+                              EXPECTED_PARAMS_MAT_VIDEO["G_A"],
+                              each(MAT_VIDEO_K1))
+    if model.nets["G_A"].motion.block0.attn0.heads != 4:
+        raise AssertionError("mat_video_4h: not 4 motion heads")
+    del model
+    torch.cuda.empty_cache()
+    recs["mat_video_4h"] = rec
+    paths["mat_video_4h_steps"] = rec["launches"]
+    return recs, paths
 
 
 def _jit_k1_per_call(net):
@@ -4170,26 +4577,33 @@ def main():
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)}")
 
+    def check_build(built):
+        for name, (secs, ptxas) in built.items():
+            log(f"build {name}: nvcc {secs:.2f} s")
+            for line in ptxas.splitlines():
+                if any(w in line for w in ("entry function", "registers",
+                                           "spill", "(C7")):
+                    log("  " + line.strip())
+            # the tensor-core kernels keep every value in registers; the
+            # fp32 FMA kernels spill (at D >= 128 much: Queue 2 item 4)
+            spilled = [f for f in ptxas_spills(ptxas) if "wgmma" in f]
+            if spilled:
+                raise AssertionError(f"{name}: ptxas spilled in {spilled}")
+            # a wait ptxas injects serialises what the source overlaps
+            injected = sorted(ptxas_injected_waits(ptxas))
+            if injected:
+                raise AssertionError(f"{name}: ptxas injected "
+                                     f"warpgroup.wait (C7517) in {injected}")
+
+    # the attention backward (72 kernels, its fp32 ones at D = 128 and 160
+    # spilling) builds for minutes: its nvcc runs beside the build of the
+    # three other sources and the phases that launch no attention kernel
     t0 = time.perf_counter()
-    built = _build.build(["flash_attention_fwd", "flash_attention_bwd",
-                          "conv3x3_tap", "dma_copy"])
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    bwd_build = pool.submit(_build.build, ["flash_attention_bwd"])
+    built = _build.build(["flash_attention_fwd", "conv3x3_tap", "dma_copy"])
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(built)}")
-    for name, (secs, ptxas) in built.items():
-        log(f"build {name}: nvcc {secs:.2f} s")
-        for line in ptxas.splitlines():
-            if any(w in line for w in ("entry function", "registers",
-                                       "spill", "(C7")):
-                log("  " + line.strip())
-        # the tensor-core kernels keep every value in registers; the fp32
-        # FMA kernels of the backward spill a few bytes at D = 32 and 64
-        spilled = [f for f in ptxas_spills(ptxas) if "wgmma" in f]
-        if spilled:
-            raise AssertionError(f"{name}: ptxas spilled in {spilled}")
-        # a wait ptxas injects serialises what the source overlaps
-        injected = sorted(ptxas_injected_waits(ptxas))
-        if injected:
-            raise AssertionError(f"{name}: ptxas injected warpgroup.wait "
-                                 f"(C7517) in {injected}")
+    check_build(built)
 
     seconds = {}                       # the smoke's time, phase by phase
 
@@ -4200,10 +4614,28 @@ def main():
         log(f"phase {name}: {seconds[name]:.1f} s")
         return out
 
-    k1 = phase("K1", kernel_phase)
-    k2, k3 = phase("K2/K3", backward_kernel_phase)
-    p1, p2, p3 = phase("P1-P3", probe_kernel_phase)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        # no attention kernel on these paths (the backward still builds)
+        gans, gan_paths = phase("CUT", cut_phase, workdir)
+        glasses, glasses_paths = phase("glasses", glasses_phase, workdir)
+        mario, mario_paths = phase("mario2sonic", mario2sonic_phase, workdir)
+        unetref, unetref_paths = phase("unetref", unetref_phase, workdir)
+        mario["cross_check_fp32"] = phase("MiT cross-check", mit_cross_check)
+        unetref["cross_check_fp32_max_abs_err"] = phase(
+            "ref cross-check", unetref_cross_check)
+        gans["horse2zebra"]["cross_check_fp32"] = phase(
+            "CUT cross-check", cut_cross_check)
+        glasses["noglasses2glasses"]["cross_check_fp32"] = phase(
+            "vision-aided cross-check", vision_aided_cross_check)
+        t0 = time.perf_counter()
+        built = bwd_build.result()
+        pool.shutdown()
+        log(f"build: waited {time.perf_counter() - t0:.2f} s more for "
+            f"{sorted(built)}")
+        check_build(built)
+        k1 = phase("K1", kernel_phase)
+        k2, k3 = phase("K2/K3", backward_kernel_phase)
+        p1, p2, p3 = phase("P1-P3", probe_kernel_phase)
         model, serving = phase("serving", slice_phase, workdir)
         k1["cross_check_fp32_max_abs_err"] = phase(
             "serving cross-check", cross_check, model.opt,
@@ -4222,16 +4654,16 @@ def main():
             "K3": k3["timings"]["xview_128px_batch16"]["dkv_ms"]})
         configs, config_paths = phase("other configs", other_configs_phase,
                                       workdir)
-        gans, gan_paths = phase("CUT", cut_phase, workdir)
-        glasses, glasses_paths = phase("glasses", glasses_phase, workdir)
         cms, cm_paths = phase("cm", cm_phase, workdir)
-        mario, mario_paths = phase("mario2sonic", mario2sonic_phase, workdir)
-        unetref, unetref_paths = phase("unetref", unetref_phase, workdir)
         vid, vid_paths = phase("video", vid_phase, workdir)
         b2b, b2b_paths = phase("b2b", b2b_phase, workdir)
         mat, mat_paths = phase("mat", mat_phase, workdir)
+        mat_video, mat_video_paths = phase("mat video", mat_video_phase,
+                                           workdir)
         images, image_paths = phase("image transformers",
                                     image_transformer_phase, workdir)
+        wide, wide_paths = phase("wide head dims", wide_transformer_phase,
+                                 workdir)
         percs, perc_paths = phase("perceptual steps", perceptual_phase,
                                   workdir)
     metric_nets = phase("metrics", metrics_phase)
@@ -4241,15 +4673,10 @@ def main():
     b2b["cross_check_fp32_max_abs_err"] = phase("b2b cross-check",
                                                 b2b_cross_check)
     mat["cross_check_fp32"] = phase("mat cross-check", mat_cross_check)
+    mat_video["cross_check_fp32"] = phase("mat video cross-check",
+                                          mat_video_cross_check)
     images["cross_check_fp32"] = phase("image transformer cross-check",
                                        image_transformer_cross_check)
-    mario["cross_check_fp32"] = phase("MiT cross-check", mit_cross_check)
-    unetref["cross_check_fp32_max_abs_err"] = phase("ref cross-check",
-                                                    unetref_cross_check)
-    gans["horse2zebra"]["cross_check_fp32"] = phase("CUT cross-check",
-                                                    cut_cross_check)
-    glasses["noglasses2glasses"]["cross_check_fp32"] = phase(
-        "vision-aided cross-check", vision_aided_cross_check)
     probe_launches, probes = phase("probes", probe_paths)
     paths = {"serving": serving, "training": training["launches"],
              "trained_checkpoint_request":
@@ -4257,7 +4684,8 @@ def main():
              "training_256px": training_256["launches"], **xview["paths"],
              **config_paths, **gan_paths, **glasses_paths, **cm_paths,
              **mario_paths, **unetref_paths, **vid_paths, **b2b_paths,
-             **mat_paths, **image_paths, **perc_paths, **probe_launches}
+             **mat_paths, **mat_video_paths, **image_paths, **wide_paths,
+             **perc_paths, **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -4277,6 +4705,8 @@ def main():
     log("vid_mario: " + json.dumps(vid))
     log("b2b_vid_mario: " + json.dumps(b2b))
     log("mat_inpainting: " + json.dumps(mat))
+    log("mat_video: " + json.dumps(mat_video))
+    log("wide head dims: " + json.dumps(wide))
     log("image transformers: " + json.dumps(images))
     log("perceptual steps: " + json.dumps(percs))
     log("metrics: " + json.dumps(metric_nets))

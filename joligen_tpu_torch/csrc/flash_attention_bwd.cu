@@ -54,12 +54,32 @@
 // and Q read MN-major). lse and delta vary along the accumulator's columns;
 // queries at or past S get P = 0 explicitly.
 //
+// K3 at D >= 128 (dkv_warpgroups): dK and dV of 64 keys are D fp32
+// accumulators a thread in one warpgroup, 128 or 160 beside the 64 of S^T
+// and dP^T and the 32 of their bf16 fragments: past the 255 registers a
+// thread may hold. So D is split in halves over two warpgroups of the same
+// 64 keys: each forms S^T and dP^T at full depth from the shared tiles (the
+// same values in both) and owns the dV and dK columns of its half, reading
+// that half of dO and Q MN-major (hopper_wgmma.cuh: a column offset is a
+// descriptor offset), D / 2 accumulators a thread each: 32 + 32 at D =
+// 128, 40 + 40 at 160 (ptxas: 182 and 198 registers). The other design, one warpgroup owning dV and one dK, would need
+// only S^T in the first but both products in the second (dS needs P), so
+// the halves' load is uneven; and sharing P^T through shared memory costs a
+// barrier a tile. Splitting D repeats S^T and dP^T (half of K3's products
+// at one warpgroup) for an even split and no exchange.
+//
 // Head dim 96 (vit_vid's token motion modules): the products of depth D
 // are 6 k16 steps, the D-wide ones m64n96k16 (48 fp32 accumulators a
 // thread); K3 then holds dK and dV, 96 accumulators a thread, beside the
 // 64 of S^T and dP^T, within the 255 registers of its one warpgroup. Every
 // bf16 tile is 12 KiB and the fp32 kernels' tiles 49,664 bytes, so both
-// routes take the opt-in dynamic shared memory past 48 KiB.
+// routes take the opt-in dynamic shared memory past 48 KiB. Head dims 80,
+// 128 and 160 (JiT-H's blocks; JiT-L's and MAT's 4-head motion modules;
+// JiT-H's motion module) run the same way, 5, 8 or 10 k16 steps deep and
+// m64n80k16, m64n128k16 or m64n160k16 wide; K2 holds D / 2 accumulators a
+// thread (80 at D = 160) beside S and dP, and K3 at 128 and 160 splits D
+// over two warpgroups (below). A bf16 tile is 20 KiB at D = 160: K2's
+// plain tiling at 128 queries takes 160 KiB, K3's 120 KiB.
 //
 // Head dim 8 and short sequences, as in flash_attention_fwd.cu: at D = 8
 // the bf16 kernels zero-pad their tiles to 16 columns in shared memory for
@@ -362,8 +382,8 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
   using namespace jg_hopper;
   using L = DqSmem<D, WG>;
   constexpr int NT = WG * 128;
-  static_assert((D % 16 == 0 || D == 8) && D <= 96,
-                "D: 8 or a multiple of 16, at most 96");
+  static_assert((D % 16 == 0 || D == 8) && D <= 160,
+                "D: 8 or a multiple of 16, at most 160");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
 
@@ -496,6 +516,12 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
 // Shared memory of a K3 block: the K and V tiles, then 2 stages of the Q
 // and dO tiles (64 rows x D each, the core-matrix layout of hopper_wgmma.cuh)
 // and 2 stages of 64 lse and 64 delta values.
+// K3's warpgroups: D split in halves over two at D >= 128 (see the top)
+template <int D>
+__host__ __device__ constexpr int dkv_warpgroups() {
+  return D >= 128 ? 2 : 1;
+}
+
 template <int D>
 struct DkvSmem {
   static constexpr int DP = D < 16 ? 16 : D;  // columns: D, or 16 at D = 8
@@ -509,7 +535,7 @@ struct DkvSmem {
 };
 
 template <int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(dkv_warpgroups<D>() * 128)
 flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v,
@@ -523,16 +549,23 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
                            float sm_scale) {
   using namespace jg_hopper;
   using L = DkvSmem<D>;
-  static_assert((D % 16 == 0 || D == 8) && D <= 96,
-                "D: 8 or a multiple of 16, at most 96");
+  static_assert((D % 16 == 0 || D == 8) && D <= 160,
+                "D: 8 or a multiple of 16, at most 160");
+  constexpr int NT = dkv_warpgroups<D>() * 128;
+  constexpr int DH = D / dkv_warpgroups<D>();  // this warpgroup's columns
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
   const float* s_lse = reinterpret_cast<const float*>(smem + L::LSE);
   const float* s_delta = reinterpret_cast<const float*>(smem + L::DELTA);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
+  // the first column of this warpgroup's half, and its byte offset in a
+  // tile (column chunks of 64 rows x 16 bytes)
+  const int col0 = wg * DH;
+  const uint32_t half = static_cast<uint32_t>(col0 / 8) * 1024;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
@@ -544,30 +577,30 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
 
   // 64 queries' Q, dO, lse and delta into stage st
   auto load_queries = [&](int q0, int st) {
-    load_rows<D, 128>(base + L::Q + st * L::TILE, qb, q_ss, q0, S);
-    load_rows<D, 128>(base + L::DO + st * L::TILE, dob, do_ss, q0, S);
+    load_rows<D, NT>(base + L::Q + st * L::TILE, qb, q_ss, q0, S);
+    load_rows<D, NT>(base + L::DO + st * L::TILE, dob, do_ss, q0, S);
     const int i = tid & 63;
     const bool ok = q0 + i < S;
     if (tid < 64) {
       cp_async4(base + L::LSE + (st * 64 + i) * 4, lb + (ok ? q0 + i : 0), ok);
-    } else {
+    } else if (tid < 128) {
       cp_async4(base + L::DELTA + (st * 64 + i) * 4, db + (ok ? q0 + i : 0),
                 ok);
     }
   };
 
   // the block's K and V tiles and the first query stage: one cp.async group
-  load_rows<D, 128>(base, k + b * k_sb + static_cast<long long>(h) * D, k_ss,
-                    k0, S);
-  load_rows<D, 128>(base + L::V, v + b * v_sb + static_cast<long long>(h) * D,
-                    v_ss, k0, S);
+  load_rows<D, NT>(base, k + b * k_sb + static_cast<long long>(h) * D, k_ss,
+                   k0, S);
+  load_rows<D, NT>(base + L::V, v + b * v_sb + static_cast<long long>(h) * D,
+                   v_ss, k0, S);
   load_queries(0, 0);
   cp_async_commit();
-  zero_pad_tiles<D, 128>(smem, 6, L::TILE);
+  zero_pad_tiles<D, NT>(smem, 6, L::TILE);
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DH / 2], dv_acc[DH / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const float scale_log2 = sm_scale * LOG2E;
   const int n_tiles = (S + BLOCK_Q - 1) / BLOCK_Q;
 
@@ -621,23 +654,24 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
     acc_to_a_frags(p, pa);
     acc_to_a_frags(ds, dsa);
 
-    // dV += P^T.dO and dK += dS^T.Q: dO and Q read MN-major
+    // dV += P^T.dO and dK += dS^T.Q over this warpgroup's columns: dO and
+    // Q read MN-major
     fence_regs(dv_acc);
     fence_regs(dk_acc);
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      wgmma_rs<D>(dv_acc, pa[t], desc_mn_major<64>(sdo, t));
+      wgmma_rs<DH>(dv_acc, pa[t], desc_mn_major<64>(sdo + half, t));
     }
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      wgmma_rs<D>(dk_acc, dsa[t], desc_mn_major<64>(sq, t));
+      wgmma_rs<DH>(dk_acc, dsa[t], desc_mn_major<64>(sq + half, t));
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv_acc);
     fence_regs(dk_acc);
-    __syncthreads();  // the warpgroup is done with this stage
+    __syncthreads();  // every warpgroup is done with this stage
   }
 
   const int row0 = k0 + 16 * warp + (lane >> 2);
@@ -645,10 +679,10 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int kj = row0 + 8 * r;
     if (kj >= S) continue;
-    const long long off =
-        ((static_cast<long long>(b) * S + kj) * H + h) * D + 2 * (lane & 3);
+    const long long off = ((static_cast<long long>(b) * S + kj) * H + h) * D +
+                          col0 + 2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
           __floats2bfloat162_rn(dk_acc[4 * j + 2 * r],
                                 dk_acc[4 * j + 2 * r + 1]);
@@ -950,7 +984,7 @@ flash_bwd_dq_wgmma_packed_kernel(
 // dP^T = V.dO^T, P^T and dS^T on the block-diagonal mask, dV = P^T.dO and
 // dK = dS^T.Q (dO and Q read MN-major).
 template <int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(dkv_warpgroups<D>() * 128)
 flash_bwd_dkv_wgmma_packed_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -961,6 +995,8 @@ flash_bwd_dkv_wgmma_packed_kernel(
     float sm_scale, int sp_log2) {
   using namespace jg_hopper;
   using L = DkvSmem<D>;
+  constexpr int NT = dkv_warpgroups<D>() * 128;
+  constexpr int DH = D / dkv_warpgroups<D>();  // this warpgroup's columns
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sk = smem_u32(smem);
   const uint32_t sv = sk + L::TILE;
@@ -969,18 +1005,21 @@ flash_bwd_dkv_wgmma_packed_kernel(
   float* s_lse = reinterpret_cast<float*>(smem + 4 * L::TILE);
   float* s_delta = s_lse + 64;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
   const int n0 = blockIdx.x << (6 - sp_log2);
+  const int col0 = wg * DH;
+  const uint32_t half = static_cast<uint32_t>(col0 / 8) * 1024;
 
-  load_rows_packed<D, 128>(sk, k, k_sb, k_ss, n0, n_seq, H, S, sp_log2);
-  load_rows_packed<D, 128>(sv, v, v_sb, v_ss, n0, n_seq, H, S, sp_log2);
-  load_rows_packed<D, 128>(sq, q, q_sb, q_ss, n0, n_seq, H, S, sp_log2);
-  load_rows_packed<D, 128>(sdo, dout, do_sb, do_ss, n0, n_seq, H, S,
-                           sp_log2);
+  load_rows_packed<D, NT>(sk, k, k_sb, k_ss, n0, n_seq, H, S, sp_log2);
+  load_rows_packed<D, NT>(sv, v, v_sb, v_ss, n0, n_seq, H, S, sp_log2);
+  load_rows_packed<D, NT>(sq, q, q_sb, q_ss, n0, n_seq, H, S, sp_log2);
+  load_rows_packed<D, NT>(sdo, dout, do_sb, do_ss, n0, n_seq, H, S,
+                          sp_log2);
   cp_async_commit();
-  zero_pad_tiles<D, 128>(smem, 4, L::TILE);
-  {
+  zero_pad_tiles<D, NT>(smem, 4, L::TILE);
+  if (tid < 128) {
     // query column c = tid % 64: its lse (threads 0-63) or delta (64-127)
     int b, h, pos;
     const int c = tid & 63;
@@ -1030,19 +1069,19 @@ flash_bwd_dkv_wgmma_packed_kernel(
   uint32_t pa[4][4], dsa[4][4];
   acc_to_a_frags(p, pa);
   acc_to_a_frags(ds, dsa);
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DH / 2], dv_acc[DH / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   fence_regs(dv_acc);
   fence_regs(dk_acc);
   wgmma_fence();
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    wgmma_rs<D>(dv_acc, pa[t], desc_mn_major<64>(sdo, t));
+    wgmma_rs<DH>(dv_acc, pa[t], desc_mn_major<64>(sdo + half, t));
   }
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    wgmma_rs<D>(dk_acc, dsa[t], desc_mn_major<64>(sq, t));
+    wgmma_rs<DH>(dk_acc, dsa[t], desc_mn_major<64>(sq + half, t));
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -1055,10 +1094,10 @@ flash_bwd_dkv_wgmma_packed_kernel(
     if (!locate_packed(row0 + 8 * r, n0, sp_log2, S, H, n_seq, b, h, pos)) {
       continue;
     }
-    const long long off =
-        ((static_cast<long long>(b) * S + pos) * H + h) * D + 2 * (lane & 3);
+    const long long off = ((static_cast<long long>(b) * S + pos) * H + h) *
+                              D + col0 + 2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
           __floats2bfloat162_rn(dk_acc[4 * j + 2 * r],
                                 dk_acc[4 * j + 2 * r + 1]);
@@ -1130,7 +1169,7 @@ int launch_dkv_wgmma(const Args& a) {
   auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
   jg_hopper::set_smem(kernel, L::BYTES);
   const dim3 grid(a.B * a.H, (a.S + BLOCK_K - 1) / BLOCK_K);
-  kernel<<<grid, 128, L::BYTES, a.stream>>>(
+  kernel<<<grid, dkv_warpgroups<D>() * 128, L::BYTES, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -1176,7 +1215,8 @@ int launch_packed(const Args& a, int dtype, bool dkv) {
     if (dkv) {
       constexpr int BYTES = 4 * DkvSmem<D>::TILE + 2 * 64 * 4;
       jg_hopper::set_smem(flash_bwd_dkv_wgmma_packed_kernel<D>, BYTES);
-      flash_bwd_dkv_wgmma_packed_kernel<D><<<grid, 128, BYTES, a.stream>>>(
+      flash_bwd_dkv_wgmma_packed_kernel<D>
+          <<<grid, dkv_warpgroups<D>() * 128, BYTES, a.stream>>>(
           q, k, v, dout, lse, delta, static_cast<bf16*>(a.out0),
           static_cast<bf16*>(a.out1), n_seq, a.S, a.H, a.q_sb, a.q_ss,
           a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale,
@@ -1224,8 +1264,14 @@ int dispatch(const Args& a, int D, int dtype, bool dkv) {
       return launch_d<32>(a, dtype, dkv);
     case 64:
       return launch_d<64>(a, dtype, dkv);
+    case 80:
+      return launch_d<80>(a, dtype, dkv);
     case 96:
       return launch_d<96>(a, dtype, dkv);
+    case 128:
+      return launch_d<128>(a, dtype, dkv);
+    case 160:
+      return launch_d<160>(a, dtype, dkv);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -29,14 +29,22 @@
 // owns (batch*head, 64 queries), converts each K/V tile to fp32 in shared
 // memory, four threads share a query row and combine by warp shuffles.
 //
-// Head dims 8, 16, 32, 64 and 96. At D = 8 the bf16 route zero-pads Q and K
-// to 16 columns in shared memory for Q.K^T (wgmma's depth is 16) and runs
-// P.V as m64n8k16; sm_scale stays the caller's (1/sqrt(8) by default). At
-// D = 96 (the token motion modules of vit_vid, 768 channels over 8 heads)
-// Q.K^T is 6 k16 steps and P.V is m64n96k16, 48 fp32 accumulators a
-// thread; each 64 x 96 tile is 12 KiB, so the plain tiling's 4 or 5 tiles
-// take the opt-in dynamic shared memory past 48 KiB, and the fp32 route's
-// K/V tiles (49,408 bytes) live in dynamic shared memory too.
+// Head dims 8, 16, 32, 64, 80, 96, 128 and 160. At D = 8 the bf16 route
+// zero-pads Q and K to 16 columns in shared memory for Q.K^T (wgmma's depth
+// is 16) and runs P.V as m64n8k16; sm_scale stays the caller's (1/sqrt(8)
+// by default). At D = 96 (the token motion modules of vit_vid, 768 channels
+// over 8 heads) Q.K^T is 6 k16 steps and P.V is m64n96k16, 48 fp32
+// accumulators a thread; each 64 x 96 tile is 12 KiB, so the plain tiling's
+// 4 or 5 tiles take the opt-in dynamic shared memory past 48 KiB, and the
+// fp32 route's K/V tiles (49,408 bytes) live in dynamic shared memory too.
+// D = 80 (JiT-H's blocks, 1280 channels over 16 heads), 128 (JiT-L's
+// motion module, MAT's motion module at 4 heads) and 160 (JiT-H's motion
+// module) follow the same scheme: Q.K^T is 5, 8 or 10 k16 steps, P.V is
+// m64n80k16, m64n128k16 or m64n160k16. At D = 160 the accumulator is 80
+// fp32 registers a thread beside the 32 scores and 16 packed P values, one
+// warpgroup's share of the register file; a 64 x 160 tile is 20 KiB, so
+// two warpgroups' plain tiling takes 120 KiB and the packed tiling's three
+// tiles 60 KiB, both through set_smem.
 //
 // Short sequences (S <= 32: the motion modules of unet_vid attend over 6 or
 // 8 frames) take the packed tiling, in both routes: a block's 64 rows hold
@@ -89,8 +97,8 @@ template <> __device__ __forceinline__ float from_float<float>(float x) {
 // ---- fp32 route: FMAs on the CUDA cores -----------------------------------
 
 // The fp32 kernels' K and V tiles, in dynamic shared memory: at D = 96 the
-// two are 49,408 bytes, past the 48 KiB of static shared memory, so the
-// launch opts in (fma_smem_bytes, set_smem).
+// two are 49,408 bytes (at 160, 82,176), past the 48 KiB of static shared
+// memory, so the launch opts in (fma_smem_bytes, set_smem).
 template <int D>
 constexpr int fma_smem_bytes() {
   return BLOCK_K * (2 * D + 1) * 4;
@@ -346,8 +354,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using namespace jg_hopper;
   using L = FwdSmem<D, WG>;
   constexpr int NT = WG * 128;
-  static_assert((D % 16 == 0 || D == 8) && D <= 96,
-                "D: 8 or a multiple of 16, at most 96");
+  static_assert((D % 16 == 0 || D == 8) && D <= 160,
+                "D: 8 or a multiple of 16, at most 160");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
 
@@ -636,6 +644,7 @@ int launch_packed(const Args& a, int dtype, int sp_log2) {
         a.k_ss, a.v_sb, a.v_ss, a.sm_scale, sp_log2);
   } else {
     constexpr int BYTES = 3 * FwdSmem<D, 1>::TILE;
+    jg_hopper::set_smem(flash_fwd_wgmma_packed_kernel<D>, BYTES);
     flash_fwd_wgmma_packed_kernel<D><<<grid, 128, BYTES, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
@@ -691,8 +700,14 @@ extern "C" int jg_flash_attention_fwd(
       return launch_d<32>(a, dtype, q_tile, sp_log2);
     case 64:
       return launch_d<64>(a, dtype, q_tile, sp_log2);
+    case 80:
+      return launch_d<80>(a, dtype, q_tile, sp_log2);
     case 96:
       return launch_d<96>(a, dtype, q_tile, sp_log2);
+    case 128:
+      return launch_d<128>(a, dtype, q_tile, sp_log2);
+    case 160:
+      return launch_d<160>(a, dtype, q_tile, sp_log2);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

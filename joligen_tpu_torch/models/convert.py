@@ -56,7 +56,10 @@ MAT's trees (``weight_leaves``; its nets set ``flax_weight_leaves``) name
 their leaves ``weight`` in flax too: a conv ``weight`` HWIO <-> OIHW, a
 dense ``weight`` (in, out) <-> (out, in), and the 0-D ``noise_strength`` as
 it is. No other tree has a flax ``weight``, and without the flag the
-mapping of every other tree is as above.
+mapping of every other tree is as above. The video generator's ``motion``
+subtree (``MAT_KERNEL_SUBTREES``) is a flax ``MotionModule`` of ``kernel``,
+``scale`` and ``bias`` leaves: it takes the rules above, not MAT's, in both
+directions (its torch ``weight``s would otherwise pass for MAT's).
 
 The metric networks (``utils/metrics.py``, ``inception.py``, ``i3d.py``)
 need no other rule: their convs and denses map as above, I3D's 3-D kernels
@@ -82,6 +85,14 @@ RAW_LEAVES = ("W", "class_embedding", "positional_embedding", "proj",
 RAW_LEAF = re.compile(r"lerp\d+$")
 # a module whose child ``block`` is an ``nn.scan`` stack of blocks
 SCAN_STACK = re.compile(r"blocks(\d+|_pre|_post)$")
+# the top-level subtrees of a MAT tree that keep the ``kernel`` rules
+MAT_KERNEL_SUBTREES = ("motion",)
+
+
+def _mat_leaf(weight_leaves, path, name):
+    """Whether a leaf named ``name`` at ``path`` takes MAT's rule."""
+    return (weight_leaves and name in ("weight", "noise_strength")
+            and path[0] not in MAT_KERNEL_SUBTREES)
 
 
 def _flatten(tree, prefix=()):
@@ -114,7 +125,7 @@ def flax_to_torch(params, weight_leaves=False):
     for path, arr in (pair for p, leaf in _flatten(params)
                       for pair in _unstack(p, np.asarray(leaf))):
         name = path[-1]
-        if weight_leaves and name in ("weight", "noise_strength"):
+        if _mat_leaf(weight_leaves, path, name):
             tname = name
             if name == "weight" and arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
@@ -219,7 +230,7 @@ def torch_to_flax(state_dict, weight_leaves=False):
         parts = key.split(".")
         arr = t.detach().cpu().numpy()
         name, module = parts[-1], parts[-2] if len(parts) > 1 else ""
-        if weight_leaves and name in ("weight", "noise_strength"):
+        if _mat_leaf(weight_leaves, parts, name):
             fname = name
             if name == "weight" and arr.ndim == 4:
                 arr = arr.transpose(2, 3, 1, 0)

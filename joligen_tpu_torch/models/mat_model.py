@@ -1,6 +1,6 @@
-"""MAT inpainting (``joligen_tpu/models/mat_model.py``), image path: the
-MAT generator and its two-trunk discriminator (``modules/mat.py``),
-StyleGAN2 training.
+"""MAT inpainting (``joligen_tpu/models/mat_model.py``): the MAT generator
+and its two-trunk discriminator (``modules/mat.py``), StyleGAN2 training,
+on images and, with ``alg_mat_motion``, on clips.
 
 One step (``optimize_prepared``), in the JAX step's order:
 
@@ -30,7 +30,17 @@ package, is not saved with the checkpoint).
 
 ``alg_mat_transformer_lr`` > 0 trains the parameters whose path holds
 ``tran``, ``motion`` or ``attn`` with their own Adam at that rate.
-Video MAT (``alg_mat_motion``, 5-D batches) raises.
+
+Video MAT (``alg_mat_motion``; ``data_temporal_number_frames`` frames a
+clip, 5-D batches): the generator's motion module takes the options'
+heads, blocks and longest clip (``or`` defaults 4, 1 and 25, as the JAX
+model's; the parsed options give 8, 2 and 8). ``set_input`` keeps every
+history frame whole (mask all "keep"), and with
+``alg_mat_motion_prob_use_previous_frames`` < 1 each sample it drops (a
+host draw from ``np.random``, as in the JAX package) takes copies of its
+last frame and mask as history. The generator decodes the last frame
+only; D, its losses, R1 and the perceptual term see the last frame alone.
+``inference`` returns the clip, the history frames as they came in.
 """
 
 from __future__ import annotations
@@ -41,11 +51,15 @@ import torch.nn.functional as F
 
 from ..utils.metrics import _VGGish
 from .base import BaseModel
-from .modules.mat import (VIDEO_UNPORTED, MATDiscriminator, MATGenerator,
-                          init_mat)
+from .modules.mat import MATDiscriminator, MATGenerator, init_mat
 from .train_state import apply_updates, make_optimizer, param_grads
 
 TRANSFORMER_KEYS = ("tran", "motion", "attn")
+
+
+def last_frame(t):
+    """The last frame of a (B, F, H, W, C) clip; an image as it is."""
+    return t[:, -1] if t.ndim == 5 else t
 
 
 def r1_penalty(logits_sum, real):
@@ -79,8 +93,6 @@ class ParamGroups:
 
 class MATModel(BaseModel):
     def __init__(self, opt, phase="train", device=None, cpu=False):
-        if getattr(opt, "alg_mat_motion", False):
-            raise NotImplementedError(VIDEO_UNPORTED)
         super().__init__(opt, phase=phase, device=device, cpu=cpu)
         g = lambda name, default: getattr(opt, name, default)  # noqa: E731
         # the JAX model's ``or`` defaults: a 0 takes the default
@@ -97,6 +109,11 @@ class MATModel(BaseModel):
         self.noise_mode_eval = g("alg_mat_noise_mode_eval", "const") or "const"
         self.mask_class_cond = bool(g("alg_mat_mask_class_conditioning",
                                       False))
+        keep = g("alg_mat_motion_prob_use_previous_frames", None)
+        self.motion_keep_prob = float(keep) if keep is not None else 1.0
+        # G takes (B, F, H, W, C) clips (the JAX model's ``motion``)
+        self.is_video = bool(g("alg_mat_motion", False))
+        self.num_frames = int(g("data_temporal_number_frames", 1) or 1)
         size = opt.data_crop_size
         cout = opt.model_output_nc
         dtype = self.device_dtype
@@ -107,6 +124,12 @@ class MATModel(BaseModel):
             style_mixing_prob=float(g("alg_mat_style_mixing_prob", 0.0)
                                     or 0.0),
             stage1_dim=int(g("alg_mat_first_stage_dim", 180) or 180),
+            frames=self.num_frames if self.is_video else 1,
+            motion_heads=int(g("alg_mat_motion_num_attention_heads", 4)
+                             or 4),
+            motion_blocks=int(g("alg_mat_motion_num_transformer_blocks", 1)
+                              or 1),
+            motion_max_frames=int(g("alg_mat_motion_max_frames", 25) or 25),
             dtype=dtype), init_gen)
         self.add_net("G_A", netG, use_ema=True, lr=g("train_G_lr", 2e-3))
         self.w_avg = torch.zeros(self.w_dim, device=self.device)
@@ -135,16 +158,28 @@ class MATModel(BaseModel):
 
     # ------------------------------------------------------------------
     def set_input(self, batch):
-        """Host batch -> {real, mask (1 = keep), mask_class}, numpy fp32."""
+        """Host batch -> {real, mask (1 = keep), mask_class}, numpy fp32. A
+        clip of more than one frame: the history frames all "keep", or, for
+        the samples dropped in training, copies of the last frame and its
+        mask (JAX ``mat_model.py:139-171``)."""
         real = np.asarray(batch["B"], np.float32)
-        if real.ndim == 5:
-            raise NotImplementedError(VIDEO_UNPORTED)
         label_mask = batch.get("B_label_mask")
         if label_mask is None:
             label_mask = batch.get("A_label_mask")
         ids = np.asarray(label_mask, np.float32)
         m = np.clip(ids, 0.0, 1.0)
-        out = {"real": real, "mask": 1.0 - m}
+        keep = 1.0 - m
+        if real.ndim == 5 and keep.shape[1] > 1:
+            real, ids, m, keep = (a.copy() for a in (real, ids, m, keep))
+            keep[:, :-1] = 1.0
+            if self.phase == "train" and self.motion_keep_prob < 1.0:
+                drop = np.random.rand(keep.shape[0]) >= self.motion_keep_prob
+                n_hist = real.shape[1] - 1
+                for a in (real, ids, m):
+                    a[drop, :-1] = np.repeat(a[drop, -1:], n_hist, axis=1)
+                keep[drop, :-1] = np.repeat(1.0 - m[drop, -1:], n_hist,
+                                            axis=1)
+        out = {"real": real, "mask": keep}
         if self.mask_class_cond:
             out["mask_class"] = ids * m
         return out
@@ -177,9 +212,10 @@ class MATModel(BaseModel):
             halflife = min(halflife, nimg * f32(self.ema_rampup))
         return float(f32(0.5) ** (f32(batch) / max(halflife, f32(1e-8))))
 
-    def _noise(self, mode, batch, fed, generator):
-        """The generator's ``noise`` for ``mode``: none, the fed draws, or
-        draws from ``generator`` (``const``: seeded 0)."""
+    def _noise(self, mode, batch, fed, generator, frames=1):
+        """The generator's ``noise`` for ``mode`` and a batch of ``batch``
+        clips of ``frames``: none, the fed draws, or draws from
+        ``generator`` (``const``: seeded 0)."""
         if mode == "none":
             return None
         if fed is not None:
@@ -187,7 +223,7 @@ class MATModel(BaseModel):
         net = self.nets["G_A"]
         if mode == "const":
             generator = torch.Generator(self.device).manual_seed(0)
-        return net.draw_noise(generator, batch)
+        return net.draw_noise(generator, batch, frames)
 
     def optimize_prepared(self, dev, draws=None):
         """One step on a prepared batch (see the module doc). Losses stay
@@ -198,20 +234,23 @@ class MATModel(BaseModel):
         real, mask = dev["real"], dev["mask"]
         mask_class = dev.get("mask_class")
         b = real.shape[0]
+        frames = real.shape[1] if real.ndim == 5 else 1
         z = draws.get("z")
         if z is None:
             z = torch.randn((b, self.z_dim), generator=self.generator,
                             device=self.device)
         noise = self._noise(self.noise_mode_train, b, draws.get("noise"),
-                            self.generator)
+                            self.generator, frames)
         mix = draws.get("mix")
         if mix is None and netG.style_mixing_prob > 0:
             mix = netG.draw_mix(self.generator, b)
 
-        # ---- G
+        # ---- G (on a clip, every term of the last frame)
         fake, stg1, w = netG(real, mask, z.to(self.device), noise=noise,
                              mix=mix, mask_class=mask_class,
                              return_stg1=True, return_w=True)
+        real, mask, fake, stg1 = (last_frame(t)
+                                  for t in (real, mask, fake, stg1))
         lg, lg1 = netD(fake, mask, stg1)
         adv = torch.mean(F.softplus(-lg))
         adv1 = torch.mean(F.softplus(-lg1))
@@ -255,7 +294,8 @@ class MATModel(BaseModel):
         """Inpaint a host batch with the EMA weights (``use_ema``), the
         truncation ``truncation_psi`` (default the config's) toward
         ``w_avg``; ``seed`` fixes z and the noise. (B, H, W, C) float32
-        numpy; known pixels are the input's."""
+        numpy, or (B, F, H, W, C) for a clip (the last frame inpainted);
+        known pixels are the input's."""
         dev = self.put_batch(self.set_input(batch))
         psi = self.truncation_psi if truncation_psi is None \
             else truncation_psi
@@ -264,11 +304,13 @@ class MATModel(BaseModel):
         gen = (torch.Generator(self.device).manual_seed(int(seed))
                if seed is not None else self.generator)
         b = dev["real"].shape[0]
+        frames = dev["real"].shape[1] if dev["real"].ndim == 5 else 1
         z = draws.get("z")
         if z is None:
             z = torch.randn((b, self.z_dim), generator=gen,
                             device=self.device)
-        noise = self._noise(self.noise_mode_eval, b, draws.get("noise"), gen)
+        noise = self._noise(self.noise_mode_eval, b, draws.get("noise"), gen,
+                            frames)
         with torch.inference_mode():
             fake = net(dev["real"], dev["mask"], z.to(self.device),
                        noise=noise, mask_class=dev.get("mask_class"),

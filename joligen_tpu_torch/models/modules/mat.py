@@ -1,6 +1,6 @@
 """MAT, the Mask-Aware Transformer inpainting generator and its two-trunk
-StyleGAN2 discriminator (``joligen_tpu/models/modules/mat.py``), image
-path.
+StyleGAN2 discriminator (``joligen_tpu/models/modules/mat.py``), image and
+video paths.
 
 Layers run NCHW inside; the public edges (``MATGenerator``,
 ``MATDiscriminator``) take and return NHWC, as the JAX package does. Every
@@ -20,8 +20,18 @@ maps are then 0.5), and style mixing's second latent, coin and crossover
 
 Window attention is plain torch (bf16 products, fp32 softmax): its -100
 soft key bias and head dim 30 fit no flash kernel, so no kernel of the
-port runs on this path. Video MAT (``alg_mat_motion``, 5-D input) is not
-ported.
+port runs on the image path.
+
+Video MAT (``alg_mat_motion``: ``frames`` > 1 and a 5-D clip (B, F, H, W,
+C)): the first stage and the encoder run on every frame (the frames folded
+into the batch, one z a clip), a ``motion.MotionModule`` (``motion``) mixes
+the 16 x 16 bottleneck over the frames, and only the last frame is
+decoded, with the skips and the stage-1 output of the last frame and the
+w of frame 0; the history frames come back as they went in. The motion
+module's temporal attention runs through the flash-attention kernels (K1,
+K2/K3 in the backward): (B * 256, F, heads, 512 / heads) at base 64, head
+dim 64 at the options' 8 heads, 128 at 4. A 4-D batch takes the image path
+whatever ``frames`` is, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,9 +47,6 @@ from ...ops.resize import nearest_up2, resize_bilinear
 from ...ops.upfirdn2d import setup_filter, upfirdn2d
 
 SQRT2 = math.sqrt(2.0)
-VIDEO_UNPORTED = ("video MAT (alg_mat_motion, 5-D clips) is not ported: "
-                  "ROADMAP Queue 1 item 11 (video MAT, left from item 12); "
-                  "its motion module needs head dim 128 (Queue 2 item 1)")
 _FIR = setup_filter([1, 3, 3, 1])
 _FIR_CACHE = {}
 _BIAS_CACHE = {}
@@ -689,10 +696,12 @@ class MATGenerator(nn.Module):
 
     def __init__(self, size, channels=3, base=64, w_dim=512, z_dim=512,
                  mask_class=False, style_mixing_prob=0.0, stage1_dim=180,
-                 dtype=torch.float32):
+                 frames=1, motion_heads=4, motion_blocks=1,
+                 motion_max_frames=25, dtype=torch.float32):
         super().__init__()
         self.size, self.channels = size, channels
         self.z_dim, self.w_dim = z_dim, w_dim
+        self.frames = frames
         self.mask_class = mask_class
         self.style_mixing_prob = style_mixing_prob
         self.dtype = dtype
@@ -709,24 +718,31 @@ class MATGenerator(nn.Module):
         self.decoder = Decoder(size, base, channels,
                                w_dim + nf(2, base) * 2)
         self.n_style_layers = 2 * (self.encoder.res_log2 - self.bottom) + 2
+        if frames > 1:
+            from .motion import MotionModule
+            self.motion = MotionModule(
+                self.bottom_ch, num_heads=motion_heads,
+                num_transformer_blocks=motion_blocks,
+                max_len=motion_max_frames, dtype=dtype)
 
-    def noise_shapes(self, batch):
-        """The random sites' shapes: the first stage's mul_map (tokens),
-        the bottleneck's (NCHW) and each decoder noise layer's."""
+    def noise_shapes(self, batch, frames=1):
+        """The random sites' shapes: the first stage's mul_map (tokens;
+        every frame of a clip of ``frames``), the bottleneck's (NCHW) and
+        each decoder noise layer's (the decoded frame alone)."""
         fs = self.first_stage
         noise = [(batch, 1, 2 ** self.bottom, 2 ** self.bottom)]
         for res in range(self.bottom + 1, self.encoder.res_log2 + 1):
             noise += [(batch, 1, 2 ** res, 2 ** res)] * 2
-        return {"stage1_mul_map": (batch, fs.mid_res ** 2, fs.dim),
+        return {"stage1_mul_map": (batch * frames, fs.mid_res ** 2, fs.dim),
                 "inj_mul_map": (batch, self.bottom_ch, 2 ** self.bottom,
                                 2 ** self.bottom),
                 "noise": noise}
 
-    def draw_noise(self, generator, batch):
+    def draw_noise(self, generator, batch, frames=1):
         """The ``noise`` draws from ``generator`` (on its device): both
         mul_maps 0 or 1 with probability 0.5, the noise N(0, 1) in the
         compute dtype."""
-        dev, shapes = generator.device, self.noise_shapes(batch)
+        dev, shapes = generator.device, self.noise_shapes(batch, frames)
 
         def coin(shape):
             return (torch.rand(shape, generator=generator, device=dev)
@@ -750,10 +766,18 @@ class MATGenerator(nn.Module):
     def forward(self, img, mask, z, noise=None, mix=None, mask_class=None,
                 truncation_psi=1.0, w_avg=None, return_stg1=False,
                 return_w=False):
-        if img.ndim == 5:
-            raise NotImplementedError(VIDEO_UNPORTED)
+        video = img.ndim == 5
+        if video and self.frames <= 1:
+            raise ValueError("5D input requires frames > 1 (motion mode)")
         dt = self.dtype
         img_raw = img.float()
+        if video:
+            # the frames folded into the batch, one latent a clip
+            b, f = img.shape[:2]
+            img, mask = img.flatten(0, 1), mask.flatten(0, 1)
+            if mask_class is not None:
+                mask_class = mask_class.flatten(0, 1)
+            z = z.repeat_interleave(f, dim=0)
         x_img = img.to(dt).permute(0, 3, 1, 2)
         mask_c = torch.clamp(mask.to(dt), 0.0, 1.0).permute(0, 3, 1, 2)
         mc = (mask_class.permute(0, 3, 1, 2)
@@ -772,6 +796,15 @@ class MATGenerator(nn.Module):
             parts.append((mc if mc is not None
                           else torch.zeros_like(mask_c)).to(dt))
         h, feats = self.encoder(torch.cat(parts, dim=1))
+        if video:
+            # the bottleneck mixed over the frames, then the last frame
+            # alone (JAX ``mat.py:742-761``)
+            def last(t):
+                return t.reshape((b, f) + t.shape[1:])[:, -1]
+            h = last(self.motion(h, f))
+            feats = {k: last(v) for k, v in feats.items()}
+            mask_c, stg1 = last(mask_c), last(stg1)
+            w = w.reshape(b, f, -1)[:, 0]
         add_n = self.to_square(w).reshape(-1, 1, 16, 16)
         if add_n.shape[-1] != h.shape[-1]:
             add_n = resize_bilinear(add_n, h.shape[-2:])
@@ -804,12 +837,19 @@ class MATGenerator(nn.Module):
         out = self.decoder(h, feats, style,
                            noise["noise"] if noise is not None else None)
         mask_f = mask_c.float().permute(0, 2, 3, 1)
+        img_keep = img_raw[:, -1] if video else img_raw
         out = out.float().permute(0, 2, 3, 1) * (1 - mask_f) \
-            + img_raw * mask_f
+            + img_keep * mask_f
         out = torch.clamp(out, -1.0, 1.0)
+        if video:
+            # the clip again: the history frames as they came in
+            out = torch.cat([img_raw[:, :-1], out[:, None]], dim=1)
         extra = ()
         if return_stg1:
-            extra += (stg1.float().permute(0, 2, 3, 1),)
+            stg1 = stg1.float().permute(0, 2, 3, 1)
+            if video:
+                stg1 = torch.cat([img_raw[:, :-1], stg1[:, None]], dim=1)
+            extra += (stg1,)
         if return_w:
             extra += (w,)
         return (out,) + extra if extra else out
@@ -906,4 +946,10 @@ def init_mat(net, generator):
     for mod in net.modules():
         if hasattr(mod, "reset"):
             mod.reset(generator)
+    motion = getattr(net, "motion", None)
+    if motion is not None:
+        # flax's defaults (lecun-normal kernels; proj_out zero), as the
+        # video denoisers' motion modules
+        from ..diffusion_networks import init_weights
+        init_weights(motion, generator)
     return net

@@ -23,9 +23,12 @@ cast to ``q.dtype``. When a gradient is needed it runs through
   algorithm, which the tests hold against the JAX kernels and
   ``chip_smoke.py`` holds the CUDA kernels against.
 
-Head dims 8, 16, 32, 64 and 96 (``SUPPORTED_HEAD_DIMS``; 8 is the first
-level of ``unet_vid``'s motion modules, 96 the token motion modules of
-``vit_vid``, 768 channels over 8 heads). Sequences of at most ``PACK_MAX_S`` (32)
+Head dims 8, 16, 32, 64, 80, 96, 128 and 160 (``SUPPORTED_HEAD_DIMS``; 8
+is the first level of ``unet_vid``'s motion modules, 96 the token motion
+modules of ``vit_vid``, 768 channels over 8 heads; 80 JiT-H's blocks, 1280
+over 16; 128 JiT-L's motion module, 1024 over 8, and MAT's at 4 heads, 512
+over 4; 160 JiT-H's motion module, 1280 over 8). Any other head dim raises
+on the card. Sequences of at most ``PACK_MAX_S`` (32)
 take the packed tiling on the card (``tiling``): a block holds whole
 (batch, head) sequences, each padded to the power of two ``2**pack_log2(S)``
 rows, and masks the scores to each sequence's own keys; longer ones the
@@ -50,7 +53,7 @@ NEG_INF = -1e30
 # keys per tile of every CUDA kernel, both routes (BLOCK_K in the .cu files;
 # K3 owns a tile of this many keys), and of the plain versions' key chunks
 BLOCK_K = 64
-SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 96)
+SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 80, 96, 128, 160)
 # the longest sequence the packed tiling takes: a block's 64 rows hold at
 # least two sequences of 32
 PACK_MAX_S = 32
@@ -162,9 +165,13 @@ def _check_kernel_inputs(q, named):
     alignment."""
     d = q.shape[-1]
     if d not in SUPPORTED_HEAD_DIMS:
+        refused = [m for m in range(16, 161, 16)
+                   if m not in SUPPORTED_HEAD_DIMS]
         raise ValueError(f"flash_attention kernel: head dim {d} not in "
-                         f"{SUPPORTED_HEAD_DIMS} (ROADMAP Queue 2 item 1: "
-                         "JiT-H's 80 among the head dims still to teach)")
+                         f"{SUPPORTED_HEAD_DIMS}; still refused: "
+                         f"{', '.join(map(str, refused))}, any head dim "
+                         "past 160 and any other that is not a multiple "
+                         "of 16")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_attention kernel: dtype {q.dtype} not in "
                          f"{tuple(_DTYPE_CODES)}")

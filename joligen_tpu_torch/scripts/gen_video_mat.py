@@ -9,6 +9,9 @@ through the single-image path. Runs on the CUDA device unless ``--cpu``.
 The frames and masks are the sorted images of each directory (a mask file
 instead of a directory serves every frame); outputs are written as
 ``frame_{i:05d}_generated.png``. ``--seed`` keeps z fixed across frames.
+A video MAT checkpoint (``alg_mat_motion``) is served the same way, one
+frame a call, as the JAX script serves it: its motion module runs on clips
+only, so it does not run here.
 ``--video_out`` (an MP4 through cv2) raises: the port does not import cv2.
 """
 

@@ -21,7 +21,8 @@ with ``--model_type sc``; a cm_gan step is one micro-step; the video
 a request its ``denoise_timesteps`` Heun steps; MAT from
 ``examples/example_mat_inpainting.json``, a step one ``optimize_prepared``
 (the warm-up steps leave the timed and traced ones without R1), a request
-one ``inference``; any other option of the train CLI overrides the
+one ``inference``, and with ``--alg_mat_motion`` on clips of
+``data_temporal_number_frames`` frames; any other option of the train CLI overrides the
 config's, as ``--model_type b2b --G_netG vit`` (the image b2b, a request
 its 50 Heun steps) with ``--alg_b2b_lora`` (a LoRA step), or ``--G_netG
 vit`` or ``hdit`` under palette) at full width

@@ -190,16 +190,18 @@ def write_online_ref(root, n, size, seed=0):
     write_refs(root, n, seed)
 
 
-def write_video(root, n, size, seed=0, n_series=2, domains=("A",)):
+def write_video(root, n, size, seed=0, n_series=2, domains=("A",),
+                phases=("train", "test")):
     """The video layout, as ``tools/make_fake_dataset.py``'s ``make_video``
-    writes it: in ``train{domain}`` and ``test{domain}``, ``n_series``
-    directories ``vid{s}`` of ``n`` noise frames ``frame_{i:03d}.png`` of
-    ``size``² px, each with a box file ``frame_{i:03d}.txt`` ('1 x1 y1 x2
-    y2') around a flat square that moves a few pixels a frame, and
-    ``paths.txt`` lines 'img bbox'."""
+    writes it: in ``{phase}{domain}`` (``train`` and ``test``, or
+    ``phases``), ``n_series`` directories ``vid{s}`` of ``n`` noise frames
+    ``frame_{i:03d}.png`` of ``size``² px (zlib level 1: noise does not
+    compress), each with a box file ``frame_{i:03d}.txt`` ('1 x1 y1 x2 y2')
+    around a flat square that moves a few pixels a frame, and ``paths.txt``
+    lines 'img bbox'."""
     rng = np.random.RandomState(seed)
     for dom in domains:
-        for phase in ("train", "test"):
+        for phase in phases:
             base = f"{phase}{dom}"
             lines = []
             for s in range(n_series):
@@ -214,7 +216,8 @@ def write_video(root, n, size, seed=0, n_series=2, domains=("A",)):
                     ya = int(np.clip(y1 + i * vy, 0, size - w - 1))
                     img[ya:ya + w, xa:xa + w] = rng.randint(0, 255, 3)
                     ipath = os.path.join(base, f"vid{s}", f"frame_{i:03d}.png")
-                    Image.fromarray(img).save(os.path.join(root, ipath))
+                    Image.fromarray(img).save(os.path.join(root, ipath),
+                                              compress_level=1)
                     bpath = os.path.join(base, f"vid{s}", f"frame_{i:03d}.txt")
                     with open(os.path.join(root, bpath), "w") as f:
                         f.write(f"1 {xa} {ya} {xa + w} {ya + w}\n")

@@ -87,13 +87,14 @@ def load_mat(net, tree):
     return net
 
 
-def noise_draws(key, net, batch, dtype=jnp.float32):
+def noise_draws(key, net, batch, dtype=jnp.float32, frames=1):
     """The JAX generator's draws from its noise key ``key``: the first
     stage's and the bottleneck's mul_maps and the decoder's noise, in the
-    port's layout (``MATGenerator.noise_shapes``); float64 tensors when
+    port's layout (``MATGenerator.noise_shapes``; the first stage's over
+    every frame of ``batch`` clips of ``frames``); float64 tensors when
     ``dtype`` is (call it under ``jax.enable_x64``, as the JAX generator then
     draws), else float32."""
-    shapes = net.noise_shapes(batch)
+    shapes = net.noise_shapes(batch, frames)
     r1, r2, r_inj = jax.random.split(key, 3)
     stage1 = jax.random.bernoulli(r1, 0.5, shapes["stage1_mul_map"])
     b, c, h, w = shapes["inj_mul_map"]
@@ -118,10 +119,10 @@ def mix_draws(key, batch, z_dim, n_layers):
                                                        n_layers)))}
 
 
-def step_draws(key, net, batch, z_dim, mode):
+def step_draws(key, net, batch, z_dim, mode, frames=1):
     """The JAX ``MATModel`` step's draws from its step key: z from
     rngs[0], the noise from rngs[1] (``const``: key 0; ``none``: no
-    draws), style mixing from rngs[3]."""
+    draws), style mixing from rngs[3]; ``frames`` a clip."""
     rngs = jax.random.split(key, 4)
     z = torch.from_numpy(np.array(jax.random.normal(rngs[0],
                                                     (batch, z_dim))))
@@ -129,7 +130,7 @@ def step_draws(key, net, batch, z_dim, mode):
                                     net.n_style_layers)}
     if mode != "none":
         nkey = jax.random.PRNGKey(0) if mode == "const" else rngs[1]
-        out["noise"] = noise_draws(nkey, net, batch)
+        out["noise"] = noise_draws(nkey, net, batch, frames=frames)
     return out
 
 
@@ -159,19 +160,21 @@ def jax_fwd_bwd64(jfn, params, ins, cot):
 
 @contextlib.contextmanager
 def float64(net):
-    """``net`` (and its compute ``dtype``, where it has one) in float64
-    while the block runs, in float32 after it (the seeded fp32 values
-    survive the round trip exactly; gradients are cast along)."""
-    has_dtype = hasattr(net, "dtype")
+    """``net`` (and the compute ``dtype`` of every module that has one: the
+    video generator's motion module keeps its own) in float64 while the
+    block runs, in float32 after it, each ``dtype`` as it was (the seeded
+    fp32 values survive the round trip exactly; gradients are cast
+    along)."""
+    typed = [(m, m.dtype) for m in net.modules() if hasattr(m, "dtype")]
     net.to(torch.float64)
-    if has_dtype:
-        net.dtype = torch.float64
+    for m, _ in typed:
+        m.dtype = torch.float64
     try:
         yield net
     finally:
         net.to(torch.float32)
-        if has_dtype:
-            net.dtype = torch.float32
+        for m, dt in typed:
+            m.dtype = dt
 
 
 def grads64(jfn, params, ins, net, tfn, seed):

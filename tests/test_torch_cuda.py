@@ -45,11 +45,15 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # head dim 8 and short sequences (the motion modules of unet_vid: S of 8
 # and 6 frames, 8 heads, D of 8 to 64), with ragged sequence counts and S
 # of 1, 3, 17 and 32 at the packed tiling's edges; head dim 96 (the token
-# motion module of vit_vid over 8 frames, ragged ones)
+# motion module of vit_vid over 8 frames, ragged ones); head dims 80, 128
+# and 160 (JiT-H's blocks, JiT-L's and MAT's 4-head motion modules,
+# JiT-H's motion module), ragged
 SHORT_SHAPES = [(64, 8, 8, 8), (37, 6, 8, 8), (5, 8, 8, 64), (3, 6, 8, 32),
                 (7, 8, 3, 16), (2, 1, 3, 8), (3, 3, 5, 8), (2, 17, 3, 16),
                 (3, 32, 2, 8), (2, 100, 2, 8), (1, 33, 3, 8),
-                (64, 8, 8, 96), (5, 7, 3, 96), (3, 100, 2, 96)]
+                (64, 8, 8, 96), (5, 7, 3, 96), (3, 100, 2, 96),
+                (3, 5, 3, 80), (2, 70, 3, 80), (7, 8, 3, 128),
+                (2, 100, 3, 128), (5, 8, 3, 160), (2, 65, 3, 160)]
 
 
 @pytest.fixture
@@ -346,9 +350,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.randn(1, 8, 2, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q)
-    q80 = torch.randn(1, 8, 2, 80, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q80, q80, q80)
+    q112 = torch.randn(1, 8, 2, 112, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="still refused"):
+        fa.flash_attention(q112, q112, q112)
     q40 = torch.randn(1, 40, 2, 16, device=cuda)
     with pytest.raises(ValueError, match="packed"):
         fa._launch(q40, q40, q40, 0.25, tiling="packed")

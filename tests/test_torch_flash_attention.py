@@ -1,6 +1,6 @@
 """Kernel K1 of the port (flash-attention forward): its plain PyTorch version
 against the JAX Pallas kernel run in interpret mode, on the grid of
-tests/test_flash_attention.py. The CUDA kernel itself is held against the
+tests/test_flash_attention.py plus the head dims 80, 128 and 160. The CUDA kernel itself is held against the
 same plain version on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import numpy as np
@@ -14,9 +14,15 @@ from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu.ops.flash_attention import flash_attention as jax_flash
 from joligen_tpu_torch.ops import flash_attention as fa
 
+# the head dims 80 (JiT-H's blocks), 128 (JiT-L's motion module, MAT's at
+# 4 heads) and 160 (JiT-H's motion module), one head, at S <= 32 (the
+# packed tiling's side on the card) and past one 64-key tile
+WIDE = [(5, 80, 1), (70, 80, 1), (8, 128, 1), (72, 128, 1), (5, 160, 1),
+        (66, 160, 1)]
 # the motion modules of unet_vid: head dim 8 over 8 and 6 frames
 GRID = [(128, 64, 2), (256, 32, 1), (100, 64, 2), (5, 16, 2), (8, 8, 8),
-        (6, 8, 8)]
+        (6, 8, 8),
+        *WIDE]
 # vit_vid, small: its token motion modules, (B * T, F, 8 heads, 96), and
 # its JiT blocks at S = 96 (32 in-context tokens and 64 patches), (B * F,
 # 96, heads, 64); (B, S, H, D)

@@ -3,7 +3,9 @@ PyTorch version, and gradients through the port's autograd Function on the
 CPU, against ``jax.vjp`` of the JAX flash attention with the Pallas kernels
 K1-K3 run in interpret mode, on the grid of tests/test_flash_attention.py
 plus S = 160, the motion modules' head dim 8 over 8 and 6 frames, and
-vit_vid's shapes (head dim 96 over 8 frames, S = 96 at head dim 64). The same seeded cotangent goes to both. The CUDA kernels are
+vit_vid's shapes (head dim 96 over 8 frames, S = 96 at head dim 64), and
+the head dims 80, 128 and 160 at S <= 32 and past one key tile. The same
+seeded cotangent goes to both. The CUDA kernels are
 held against the same plain version on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 
@@ -22,9 +24,15 @@ from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu.ops.flash_attention import flash_attention as jax_flash
 from joligen_tpu_torch.ops import flash_attention as fa
 
+# the head dims 80 (JiT-H's blocks), 128 (JiT-L's motion module, MAT's at
+# 4 heads) and 160 (JiT-H's motion module), one head, at S <= 32 (the
+# packed tiling's side on the card) and past one 64-key tile
+WIDE = [(5, 80, 1), (70, 80, 1), (8, 128, 1), (72, 128, 1), (5, 160, 1),
+        (66, 160, 1)]
 # the motion modules of unet_vid: head dim 8 over 8 and 6 frames
 GRID = [(128, 64, 2), (256, 32, 1), (100, 64, 2), (5, 16, 2), (160, 16, 2),
-        (8, 8, 8), (6, 8, 8)]
+        (8, 8, 8), (6, 8, 8),
+        *WIDE]
 # vit_vid, small: its token motion modules at head dim 96 over 8 frames and
 # its JiT blocks at S = 96; (B, S, H, D)
 VIT_VID = [(4, 8, 8, 96), (2, 96, 3, 64)]

@@ -18,7 +18,9 @@ converter (every zero-initialised leaf, ``adaLN``, ``final_adaLN``,
    b2b_image_256 denoiser (JiT-B/16 at 256 px, 6 input channels) at full
    width on the meta device: every name and shape against
    ``jax.eval_shape`` of the JAX module, 130,454,784 parameters, 4 + 8
-   blocks; JiT-H's head dim 80 refused by the kernels' check;
+   blocks; JiT-H's head dim 80 on a JiT cut to depth 2 and 2 heads,
+   forward and gradients against JAX; head dims outside the kernels'
+   list refused by their check;
 4. palette's raw-t denoiser (``PaletteDenoiser`` with the JiT trunk, mask
    and class conditioning, one clipped mask channel): the loss of a
    training forward and every gradient against the JAX composition with
@@ -244,15 +246,71 @@ def test_b2b_image_256_tree_matches_jax_names_and_shapes():
     assert tnet.hidden_size // tnet.num_heads == 64
 
 
-def test_jit_h_head_dim_80_is_refused_by_the_kernels():
+def test_jit_h_image_256_tree_matches_jax_count():
+    """The image JiT-H/16 under b2b at 256 px: 951,432,256 parameters,
+    the JAX package's count, 32 blocks of 16 heads of 80."""
+    topt, jopt = _opts(["--model_type", "b2b", "--G_netG", "vit",
+                        "--data_load_size", "256", "--data_crop_size",
+                        "256", "--G_vit_variant", "JiT-H/16"])
+    jnet = jj.JiT.from_opt(jopt)
+    shapes = jax.eval_shape(lambda r: jnet.init(
+        r, jnp.zeros((1, 256, 256, 6)), jnp.zeros((1,)),
+        jnp.zeros((1,), jnp.int32)), jax.random.PRNGKey(0))["params"]
+    with torch.device("meta"):
+        tnet = tj.JiT.from_opt(topt, 6)
+    n = sum(p.numel() for p in tnet.parameters())
+    assert n == sum(int(np.prod(leaf.shape))
+                    for leaf in jax.tree.leaves(shapes)) == 951_432_256
+    assert tnet.depth == 32 and tnet.hidden_size // tnet.num_heads == 80
+
+
+def test_jit_h_head_dim_80_blocks_match_jax():
+    """JiT-H/16's head dim (1280 over 16 heads) on a JiT cut to depth 2 and
+    2 heads of 80: forward and every gradient against JAX; its full-width
+    tree on the meta device gives the same head dim."""
     topt, _ = _opts(["--model_type", "b2b", "--G_netG", "vit",
                      "--G_vit_variant", "JiT-H/16"])
     with torch.device("meta"):
-        tnet = tj.JiT.from_opt(topt, 6)
-    hd = tnet.hidden_size // tnet.num_heads
-    assert hd == 80 and hd not in fa.SUPPORTED_HEAD_DIMS
+        full = tj.JiT.from_opt(topt, 6)
+    assert full.hidden_size // full.num_heads == 80
+    assert 80 in fa.SUPPORTED_HEAD_DIMS
+    kw = dict(SMALL, hidden_size=160, num_heads=2, depth=2,
+              in_context_start=1, num_register_tokens=2, in_context_len=4)
+    x, t, y, ms = _inputs(3)
+    jnet = jj.JiT(**kw)
+    shapes = jax.eval_shape(lambda r: jnet.init(
+        r, jnp.asarray(x), jnp.asarray(t), y=jnp.asarray(y)),
+        jax.random.PRNGKey(0))
+    tree = seeded_tree(shapes, 14, 0.05, lecun=True)
+    cot = np.random.default_rng(4).standard_normal(
+        (B, SIZE, SIZE, 3)).astype(np.float32)
+    @jax.jit
+    def fwd_bwd(p, xx):
+        out, vjp = jax.vjp(lambda a, b: jnet.apply(
+            a, b, jnp.asarray(t), y=jnp.asarray(y)), p, xx)
+        return out, vjp(jnp.asarray(cot))
+    want, (jp, jx) = fwd_bwd(jax.tree.map(jnp.asarray, tree),
+                             jnp.asarray(x))
+    tnet = tj.JiT(CIN, **kw)
+    tnet.load_state_dict(flax_to_torch(tree), strict=True)
+    assert tnet.hidden_size // tnet.num_heads == 80
+    xt = torch.from_numpy(x).requires_grad_()
+    got = tnet(xt, torch.from_numpy(t), y=torch.from_numpy(y).long())
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    got.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(_np(xt.grad), np.asarray(jx), atol=TOL,
+                               rtol=TOL)
+    _grads_close(jp, tnet)
+
+
+@pytest.mark.parametrize("hd", [48, 112, 144, 176, 12])
+def test_head_dims_outside_the_list_are_refused_by_the_kernels(hd):
+    """What the kernels take is checked before a launch (on a CUDA tensor);
+    here on a CPU tensor of the same shape."""
+    assert hd not in fa.SUPPORTED_HEAD_DIMS
     q = torch.zeros(1, 4, 16, hd)
-    with pytest.raises(ValueError, match="Queue 2 item 1"):
+    with pytest.raises(ValueError, match="still refused: 48, 112, 144"):
         fa._check_kernel_inputs(q, (("q", q),))
 
 

@@ -17,9 +17,10 @@ port against the JAX package, on the CPU:
    hole); the noise modes (``none`` draws nothing, ``const`` the same
    draws at every call, ``random`` new ones); a request in noise mode
    ``none`` against the JAX model to 1e-4;
-5. the raises: video MAT (``alg_mat_motion``, a 5-D batch) naming ROADMAP
-   Queue 1 item 11 and Queue 2 item 1; ``create_model`` without a card
-   and without the CPU asked for.
+5. the raises: the image generator on a clip; ``create_model`` without a
+   card and without the CPU asked for; video MAT (``alg_mat_motion``)
+   builds, steps and serves a clip (held against JAX in
+   ``tests/test_torch_mat_video.py``).
 """
 
 import types
@@ -221,22 +222,41 @@ def test_set_input_noise_modes_and_a_none_request(tmp_path, monkeypatch):
 
 
 def test_raises(tmp_path, monkeypatch):
-    cfg = small_cfg(tmp_path, {"alg": {"mat": {"motion": True}}})
-    opt = TrainOptions().parse_json(cfg, verbose=False)
-    with pytest.raises(NotImplementedError,
-                       match="item 11.*Queue 2 item 1"):
-        create_model(opt, device="cpu")
     opt = TrainOptions().parse_json(small_cfg(tmp_path), verbose=False)
     opt.steps_per_epoch = 1
     model = create_model(opt, phase="test", device="cpu")
-    clip = {"B": np.zeros((1, 3, 32, 32, 3), np.float32),
-            "B_label_mask": np.zeros((1, 3, 32, 32, 1), np.int32)}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.set_input(clip)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # the image model's generator refuses a clip, as the JAX one does
+    with pytest.raises(ValueError, match="frames > 1"):
         model.nets["G_A"](torch.zeros(1, 3, 32, 32, 3),
                           torch.ones(1, 3, 32, 32, 1), torch.zeros(1, WZ))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_model(opt, phase="test")
     assert create_model(opt, phase="test", cpu=True).device.type == "cpu"
+
+
+def test_video_mat_builds_and_steps(tmp_path):
+    """``alg_mat_motion`` with the options' defaults (8 heads, 2 blocks, at
+    most 8 frames) over clips of 3 frames: the generator holds a motion
+    module, a step (R1 at step 0) gives finite losses and moves it, and a
+    clip request keeps the history frames."""
+    cfg = small_cfg(tmp_path, {"alg": {"mat": {"motion": True}},
+                               "data": {"temporal_number_frames": 3}})
+    opt = TrainOptions().parse_json(cfg, verbose=False)
+    opt.steps_per_epoch = 1
+    model = create_model(opt, device="cpu")
+    net = model.nets["G_A"]
+    assert net.frames == 3 and net.motion.n_blocks == 2
+    assert net.motion.block0.attn0.heads == 8
+    before = net.motion.proj_out.weight.detach().clone()
+    rng = np.random.default_rng(0)
+    clip = {"B": rng.uniform(-1, 1, (2, 3, 32, 32, 3)).astype(np.float32),
+            "B_label_mask": np.zeros((2, 3, 32, 32, 1), np.int32)}
+    clip["B_label_mask"][:, :, 8:20, 6:26] = 1
+    losses = model.optimize_parameters(clip)
+    assert all(np.isfinite(float(v)) for v in losses.values())
+    assert float(losses["D_r1"]) > 0
+    assert not torch.equal(net.motion.proj_out.weight, before)
+    out = model.inference(clip)
+    assert out.shape == clip["B"].shape and np.isfinite(out).all()
+    np.testing.assert_array_equal(out[:, :-1], clip["B"][:, :-1])

@@ -234,3 +234,45 @@ def test_raises(run, tmp_path, monkeypatch):
             "--img_out", "x"]))
     with open(os.path.join(run_dir, "train_config.json")) as f:
         assert json.load(f)["model_type"] == "mat"
+
+
+def test_video_mat_trains_on_clips_and_serves_a_motion_checkpoint(tmp_path):
+    """``--alg_mat_motion`` over ``self_supervised_vid_mask_online`` clips
+    of 3 frames (a synthetic series with a box file a frame): the dataset
+    gives 5-D ``B`` and ``B_label_mask``, the train CLI takes an epoch, and
+    ``gen_video_mat.py`` serves the motion checkpoint frame by frame, as the
+    JAX script does (one frame a call: the motion module does not run)."""
+    from joligen_tpu_torch.data import create_dataset
+    from joligen_tpu_torch.tools.synthetic_datasets import write_video
+    data = str(tmp_path / "data")
+    write_video(data, 3, 32, seed=2, n_series=2)
+    flags = [f for f in FLAGS if f != "self_supervised_labeled_mask"]
+    flags[flags.index("--data_dataset_mode") + 1:
+          flags.index("--data_dataset_mode") + 1] = [
+        "self_supervised_vid_mask_online"]
+    opt = TrainOptions().parse_cli([
+        "--dataroot", data, "--checkpoints_dir", str(tmp_path / "ckpt"),
+        *flags, "--alg_mat_motion", "--data_temporal_number_frames", "3",
+        "--data_online_creation_crop_size_B", "24",
+        "--data_online_creation_crop_delta_B", "4",
+        "--data_online_creation_crop_size_A", "24",
+        "--data_online_creation_crop_delta_A", "4",
+        "--data_temporal_frame_step", "1", "--name", "matv"])
+    item = create_dataset(opt)[0]
+    assert item["B"].shape == (3, 32, 32, 3)
+    assert item["B_label_mask"].shape == (3, 32, 32, 1)
+    model = train.launch_training(opt, cpu=True)
+    # an epoch: 6 frames (two series of 3), batch 2
+    assert model.states["G_A"].step == 3 and model.nets["G_A"].frames == 3
+    assert all(np.isfinite(float(v)) for v in model.loss_log.values())
+    run_dir = str(tmp_path / "ckpt" / "matv")
+    frames = _frames(str(tmp_path / "frames"), 3, (32, 32), 5)
+    masks = str(tmp_path / "masks")
+    os.makedirs(masks)
+    for i in range(3):
+        _mask_file(os.path.join(masks, f"m{i:03d}.png"), (32, 32))
+    outs = gen_vid.inference(gen_vid.build_parser().parse_args([
+        "--model_in_file", os.path.join(run_dir, "latest_net_G_A.pth"),
+        "--dir_in", frames, "--mask_dir_in", masks,
+        "--dir_out", str(tmp_path / "out"), "--seed", "0", "--cpu"]))
+    assert len(outs) == 3 and all(o.shape == (32, 32, 3) for o in outs)

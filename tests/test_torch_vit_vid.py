@@ -226,6 +226,37 @@ def test_full_width_tree_matches_jax_names_and_shapes():
     assert tnet.motion.block0.attn0.heads == 8     # 768 / 8: head dim 96
 
 
+@pytest.mark.parametrize("variant,count,blocks,heads,motion_hd", [
+    ("JiT-L/16", 504_401_632, (8, 16), 16, 128),
+    ("JiT-H/16", 1_023_910_976, (10, 22), 16, 160)])
+def test_wide_variants_match_jax_count_and_head_dims(variant, count, blocks,
+                                                     heads, motion_hd):
+    """b2b_vid_mario with ``--G_vit_variant`` JiT-L/16 or JiT-H/16: the
+    parameter count against ``jax.eval_shape`` of the JAX module, the
+    blocks' head dim (1024 / 16 = 64, 1280 / 16 = 80) and the motion
+    module's (1024 / 8 = 128, 1280 / 8 = 160), each in the kernels'
+    list."""
+    from joligen_tpu_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
+    topt, jopt = _example_opts()
+    topt.G_vit_variant = jopt.G_vit_variant = variant
+    f, size = jopt.data_temporal_number_frames, jopt.data_crop_size
+    jnet = jvv.JiTViD.from_opt(jopt)
+    shapes = jax.eval_shape(lambda r: jnet.init(
+        r, jnp.zeros((1, f, size, size, CIN)), jnp.zeros((1,))),
+        jax.random.PRNGKey(0))["params"]
+    with torch.device("meta"):
+        tnet = tvv.JiTViD.from_opt(topt, CIN)
+    assert _flax_shapes(tnet.state_dict()) == {
+        ".".join(str(k.key) for k in path): leaf.shape
+        for path, leaf in jax.tree_util.tree_leaves_with_path(shapes)}
+    assert sum(p.numel() for p in tnet.parameters()) == count
+    assert (len(tnet.blocks0), len(tnet.blocks1)) == blocks
+    hd = tnet.hidden_size // tnet.num_heads
+    mhd = tnet.hidden_size // tnet.motion.block0.attn0.heads
+    assert tnet.num_heads == heads and mhd == motion_hd
+    assert hd in SUPPORTED_HEAD_DIMS and mhd in SUPPORTED_HEAD_DIMS
+
+
 def test_global_context_and_object_refs_raise():
     topt, _ = _example_opts()
     topt.alg_b2b_global_context_mode = "tokens"
