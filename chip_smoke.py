@@ -16,8 +16,10 @@ GPU. Run from the repository root with no arguments:
 3. Kernels: K1 (flash-attention forward), K2 (dQ) and K3 (dK, dV) each
    against its plain PyTorch version on the same CUDA tensors at the paths'
    shapes (K1 and K2 in bf16 at both query tilings; xview's 32 heads at
-   (1, 256, 32, 32) and (16, 256, 32, 32), cm's (16, 256, 16, 32) and
-   cm_gan's (4, 256, 16, 32) among them), and at the video paths' shapes
+   (1, 256, 32, 32) and (16, 256, 32, 32), cm's (16, 256, 16, 32),
+   cm_gan's (4, 256, 16, 32) and the unet GAN generators' middle block at
+   horse2zebra's 256 px and batch 4, (4, 1024, 16, 32), timed there too,
+   among them), and at the video paths' shapes
    (the motion modules of unet_vid at S <= 32 and head dim 8:
    (4096, 8, 8, 8), (64, 8, 8, 64), (16384, 6, 8, 8); vit_vid's token
    motion module at head dim 96, (64, 8, 8, 96), and JiT blocks,
@@ -51,7 +53,7 @@ GPU. Run from the repository root with no arguments:
    ``examples/example_ddpm_noglasses2glasses.json`` (128 px, ngf 64, 62.8M
    parameters, bf16) with seeded random weights, saved and reloaded through
    the checkpoint files, serving DDIM-10 requests and a DDPM one (its
-   test schedule cut to 50 steps) through
+   test schedule cut to 10 steps) through
    ``scripts/gen_single_image_diffusion.inference``; launch counts per
    request; outputs checked; the full-width denoiser in fp32 on the card
    against the same forward on the CPU.
@@ -79,7 +81,7 @@ GPU. Run from the repository root with no arguments:
    (``low_res`` super-resolution, no mask; as written, its train-time
    metrics PSNR, SSIM and LPIPS over a test split of 2 images, evaluated
    at the last step and after the epoch with the config's DDPM sampler cut
-   to 50 steps, ``eval_results.json``; then ``python -m
+   to 10 steps, ``eval_results.json``; then ``python -m
    joligen_tpu_torch.test`` on its run directory, FID, PSNR, SSIM and
    LPIPS at DDIM-10), SEN2VEN (``aligned`` pix2pix) and mario (class
    conditioning; ``inference_per_class``).
@@ -111,8 +113,8 @@ GPU. Run from the repository root with no arguments:
    sampler through ``scripts/gen_single_image_diffusion`` (K1 5 times each,
    the image outside the mask the input's to 1e-6), the fp32 denoiser card
    against the CPU; ``example_cm_gan_noglasses2glasses.json`` (the same G,
-   projected and basic Ds, batch 4, iter_size 16), 32 micro-steps, every
-   net changing at the 16th and 32nd only, one request; the cm config as
+   projected and basic Ds, batch 4, iter_size 16), 16 micro-steps, every
+   net changing at the 16th only, one request; the cm config as
    ``sc`` (62,822,083 parameters), 2 steps with K1 three times a step and
    one 16-step request (K1 16 times). Step time, images/s, peak memory,
    data wait and request latency for each.
@@ -126,7 +128,7 @@ GPU. Run from the repository root with no arguments:
    output); ``example_ddpm_unetref_viton.json`` at full width
    (unet_mha_ref_attn, 147,557,059 parameters; batch 16, 128 px online
    crops with a reference each; EMA; bf16), 8 steps, two DDIM-10 and one
-   DDPM (its test schedule cut to 50 steps) ``--bbox_in --ref_in`` requests,
+   DDPM (its test schedule cut to 10 steps) ``--bbox_in --ref_in`` requests,
    the memory of the legacy attention's fp32 logits at ds 4, and the
    full-width ``UNetRefAttn`` in fp32, card against CPU. Step time,
    images/s, peak memory, data wait and request latency for each. No
@@ -137,12 +139,12 @@ GPU. Run from the repository root with no arguments:
    EMA; bf16), 32 micro-steps with K1, K2 and K3 81 times each a
    micro-step, the weights still until the 32nd, its checkpoint reloaded
    (the EMA bit for bit), two DDIM-10 clip requests and one with the
-   config's DDPM sampler (its test schedule cut to 50 steps) through
+   config's DDPM sampler (its test schedule cut to 10 steps) through
    ``scripts/gen_vid_diffusion``; ``_ft`` (batch 3) and ``_ft_from_image``
    (277,532,355 parameters, 6 frames at 128 px, 89 K1 a call) an epoch of
    one series, as written: their train-time metrics (PSNR, LPIPS, SSIM)
    over one test clip at the last micro-step and after the epoch, the
-   DDPM sampler cut to 50 steps; and a DDIM-10 ``--cond_canny`` request
+   DDPM sampler cut to 10 steps; and a DDIM-10 ``--cond_canny`` request
    each from the trained model; the full-width UNetVid in fp32, card
    against CPU.
 11. b2b flow matching: ``example_b2b_vid_mario.json`` at full width
@@ -215,6 +217,25 @@ GPU. Run from the repository root with no arguments:
    with JiT-L/16 (504,401,632 parameters, head dim 128 in its motion
    module) and the image JiT-H/16 under b2b at 256 px (951,432,256
    parameters, (8, 256 | 288, 16, 80)), their data in RAM (``/dev/shm``).
+18. CycleGAN and the GAN generator zoo, their data and checkpoints in RAM
+   (``/dev/shm``), each run's deleted once served: horse2zebra with
+   ``--model_type cycle_gan`` at full width (resnet_attn G_A and G_B,
+   11,853,669 parameters each; projected and basic Ds for each domain;
+   batch 4, 256 px), 8 steps with every loss finite, the warm step time,
+   images/s, peak memory, data wait, a profiled step's launches and idle
+   share, and 2 requests through ``scripts/gen_single_image`` from G_A's
+   checkpoint (no kernel); the same with ``--G_netG unet_256`` (45,192,387
+   parameters a G), 6 steps with K1, K2 and K3 6 times each a step (3
+   forwards of each G, fake, rec and idt, each with its backward; the Ds
+   reuse the fakes) and 2 requests of one K1; CUT over horse2zebra with
+   ``--G_netG`` unet_mha (K1-K3 2 a step, 1 a request), uvit, hdit, ittr
+   and hat (batch 1, ``--tpu_remat``) at their factory widths, 2 steps and
+   a request each; palette (the example config at 128 px) with
+   ``--G_netG uvit``, ``--G_netG resnet_attn`` and
+   ``--train_feat_wavelet`` (K1-K3 1 a step, 10 K1 a request), 2 steps
+   and a DDIM-10 request each; the CycleGAN G and Ds, HAT (128 px), ITTR
+   and the UViT denoiser at full width in fp32, card against CPU to 1e-4
+   of the largest output.
 
 Prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -241,8 +262,9 @@ DDIM_REQUESTS = 3
 # the serving, unetref and video phases' DDPM requests, and the train-time
 # metrics' DDPM sampling, on a test schedule cut to this many steps
 # (cut_test_schedule: a DDPM-1000 request is 1,000 denoiser calls of the
-# same kernels; 100 until the smoke took the wide head dims' phases)
-DDPM_TEST_STEPS = 50
+# same kernels; 100 until the smoke took the wide head dims' phases, 50
+# until it took the GAN zoo's)
+DDPM_TEST_STEPS = 10
 EXPECTED_PARAMS = 62_838_467    # the example config's denoiser
 # Published H100 SXM peaks (NVIDIA data sheet): memory 3.35 TB/s; bf16 on
 # the tensor cores 989 TFLOP/s; fp32 outside them 67 TFLOP/s.
@@ -262,6 +284,7 @@ TRAIN_256_IMAGES = 48               # one epoch of 6 steps at 256 px
 PATH_SHAPE = (1, 256, 16, 32)       # the mid block of a 128 px request
 TRAIN_SHAPE = (8, 256, 16, 32)      # the mid block at 128 px, batch 8
 BIG_SHAPE = (8, 1024, 16, 32)       # the mid block at 256 px, batch 8
+GAN_SHAPE = (4, 1024, 16, 32)       # the unet GAN Gs' mid block, 256 px
 # xview's mid block (1024 channels, 32 heads of 32) at 128 px: a request and
 # a training step at batch 16
 XVIEW_PATH_SHAPE = (1, 256, 32, 32)
@@ -300,12 +323,14 @@ WIDE_CHECKS = [((8, 288, 16, 80), "bfloat16"), ((8, 288, 16, 80), "float32"),
                ((3, 65, 1, 160), "float32")]
 FWD_CHECKS = [(PATH_SHAPE, "bfloat16"), (PATH_SHAPE, "float32"),
               (TRAIN_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
+              (GAN_SHAPE, "bfloat16"),
               (XVIEW_PATH_SHAPE, "bfloat16"), (XVIEW_TRAIN_SHAPE, "bfloat16"),
               (CM_TRAIN_SHAPE, "bfloat16"), (CM_GAN_TRAIN_SHAPE, "bfloat16"),
               ((8, 64, 16, 32), "bfloat16"), ((2, 100, 2, 8), "bfloat16"),
               ((2, 100, 2, 8), "float32"), *EDGE_CHECKS, *WIDE_CHECKS]
 BWD_CHECKS = [(TRAIN_SHAPE, "bfloat16"), (TRAIN_SHAPE, "float32"),
               (PATH_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
+              (GAN_SHAPE, "bfloat16"),
               (XVIEW_PATH_SHAPE, "bfloat16"),
               (XVIEW_TRAIN_SHAPE, "bfloat16"), (CM_TRAIN_SHAPE, "bfloat16"),
               (CM_GAN_TRAIN_SHAPE, "bfloat16"), ((8, 64, 16, 32), "bfloat16"),
@@ -356,7 +381,8 @@ EXPECTED_PARAMS_TOWERS = {"freezenet_clip": 86_192_640,
                           "freezenet_dino": 86_579_712}
 # the consistency and shortcut models on the cm configs: cm one epoch of
 # CM_STEPS steps at batch 16, then CM_REQUESTS requests; cm_gan CM_GAN_STEPS
-# micro-steps at batch 4 (two real updates at iter_size 16), one request; sc
+# micro-steps at batch 4 (one real update at iter_size 16; two until the
+# smoke took the GAN zoo's phases), one request; sc
 # SC_STEPS steps at batch 16, one request
 CM_EXAMPLE = "example_cm_noglasses2glasses.json"
 CM_GAN_EXAMPLE = "example_cm_gan_noglasses2glasses.json"
@@ -366,9 +392,9 @@ EXPECTED_PARAMS_CM_D = {"D_B_projected_d": 5_948_532,
                         "D_B_basic": 2_764_737}
 CM_STEPS = 8
 CM_REQUESTS = 2
-CM_GAN_STEPS = 32
+CM_GAN_STEPS = 16
 SC_STEPS = 2
-CM_IMAGES = 128         # an epoch of cm (8 x 16) and of cm_gan (32 x 4)
+CM_IMAGES = 128         # an epoch of cm (8 x 16)
 # attention launches a step: cm's student (K1, then K2 and K3 in its
 # backward) and teacher (K1 without a graph); sc's two bootstrap forwards
 # and its student; and a request: one K1 a sigma (cm's 5) or a step (sc's
@@ -582,6 +608,49 @@ EXPECTED_LORA = (10, 1_253_376)            # adapter leaves, parameters
 EXPECTED_PARAMS_PALETTE_VIT = 130_487_552
 EXPECTED_PARAMS_PALETTE_HDIT = 62_901_014
 IMAGE_TOL = 1e-4
+# CycleGAN over horse2zebra (``example_gan_horse2zebra.json`` with
+# ``--model_type cycle_gan``, as written otherwise: resnet_attn Gs,
+# projected_d and basic Ds for each domain, batch 4, 256 px), and the same
+# with ``--G_netG unet_256``, whose middle AttentionBlock (16 heads of 32
+# over 32 x 32 tokens) runs K1-K3 at GAN_SHAPE: 3 forwards of each G a step
+# (fake, rec, idt; the Ds reuse the fakes), each with its backward, and one
+# K1 a request
+GAN_EXAMPLE = "example_gan_horse2zebra.json"
+CYCLEGAN_STEPS = 8
+CYCLEGAN_REQUESTS = 2
+CYCLEGAN_UNET_STEPS = 6
+CYCLEGAN_UNET_REQUESTS = 2
+CYCLEGAN_UNET_PER_STEP = 6
+EXPECTED_PARAMS_CYCLEGAN = {"G_A": 11_853_669, "G_B": 11_853_669,
+                            "D_B_projected_d_A": 9_227_252,
+                            "D_B_basic_A": 2_764_737,
+                            "D_B_projected_d_B": 9_227_252,
+                            "D_B_basic_B": 2_764_737}
+EXPECTED_PARAMS_UNET256 = 45_192_387
+# CUT over horse2zebra with each new generator at its factory width, 2
+# steps and a request each: (name, overrides, G parameters, K1 a step, K1
+# a request). The unet Gs take ``--G_nblocks 2``, which picks their NCE
+# taps (G_nblocks·i - 1 of 12 encoder features: horse2zebra's 9 reaches
+# past them in both packages) and nothing else; their middle
+# AttentionBlock runs K1-K3 at GAN_SHAPE for G on A and on B. HAT at batch
+# 1 with ``--tpu_remat``: a graph of it at 256 px holds ~32 GB an image and
+# a CUT step takes four.
+ZOO_STEPS = 2
+CUT_ZOO = (("unet_mha", ["--G_nblocks", "2"], 62_557_187, 2, 1),
+           ("uvit", ["--G_nblocks", "2"], 72_170_307, 0, 0),
+           ("hdit", [], 62_100_758, 0, 0),
+           ("ittr", [], 11_509_507, 0, 0),
+           ("hat", ["--train_batch_size", "1", "--tpu_remat"], 5_128_147,
+            0, 0))
+# palette (the example config at 128 px) with the new denoisers: 2 steps
+# and a DDIM-10 request each: (name, overrides, parameters, K1 a call); the
+# Haar trunk's middle block runs K1-K3 at (8, 64, 16, 32)
+PALETTE_ZOO = (("palette_uvit_128", ["--G_netG", "uvit"], 72_451_587, 0),
+               ("palette_resnet_attn_128", ["--G_netG", "resnet_attn"],
+                12_929_573, 0),
+               ("palette_wavelet_128", ["--train_feat_wavelet"], 63_296_396,
+                1))
+ZOO_TOL = 1e-4
 PROBE_ITERS = 32
 TRACE_ATTEMPTS = 4                  # traces of one timing, at most
 SPIN_HZ = 1.98e9                    # the H100's top SM clock, cycles a second
@@ -826,6 +895,7 @@ def kernel_phase():
     for label, shape, iters in (("128px_batch1", PATH_SHAPE, 200),
                                 ("128px_batch8", TRAIN_SHAPE, 100),
                                 ("256px_batch8", BIG_SHAPE, 20),
+                                ("gan_256px_batch4", GAN_SHAPE, 20),
                                 ("xview_128px_batch1", XVIEW_PATH_SHAPE, 200),
                                 ("xview_128px_batch16", XVIEW_TRAIN_SHAPE,
                                  50),
@@ -1056,6 +1126,7 @@ def backward_kernel_phase():
             f"{rec['dq_ms'] + rec['dkv_ms']:.4f} ms")
     for label, shape, iters in (("128px_batch8", TRAIN_SHAPE, 100),
                                 ("256px_batch8", BIG_SHAPE, 10),
+                                ("gan_256px_batch4", GAN_SHAPE, 10),
                                 ("xview_128px_batch16", XVIEW_TRAIN_SHAPE,
                                  50),
                                 ("cm_128px_batch16", CM_TRAIN_SHAPE, 50)):
@@ -2561,6 +2632,273 @@ def cut_cross_check():
     return rec
 
 
+def _shm_workdir(workdir, prefix):
+    """A directory under ``/dev/shm`` where the machine has it (in RAM: its
+    files add nothing to the disk's writes), else under ``workdir``."""
+    if os.path.isdir("/dev/shm") and os.access("/dev/shm", os.W_OK):
+        return tempfile.mkdtemp(prefix=f"chip_smoke_{prefix}_",
+                                dir="/dev/shm")
+    return tempfile.mkdtemp(prefix=f"{prefix}_", dir=workdir)
+
+
+def _profiled_step(model, opt):
+    """One warm step of ``model`` on a synthetic batch timed by the host
+    clock, and another traced (``torch.profiler``): latency, device
+    launches, busy time (the union of the kernels' intervals) and the idle
+    share of the latency, as ``scripts/profile_request.py`` reads them."""
+    import torch
+    from joligen_tpu_torch.scripts.profile_request import (busy_us,
+                                                           synthetic_batch)
+    batch = synthetic_batch(opt.data_crop_size, SEED + 80,
+                            opt.train_batch_size)
+
+    def step():
+        model.optimize_parameters(batch)
+        torch.cuda.synchronize()
+    step()
+    t0 = time.perf_counter()
+    step()
+    latency_us = (time.perf_counter() - t0) * 1e6
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_us([(e.time_range.start, e.time_range.end)
+                    for e in kernels])
+    rec = {"latency_ms": latency_us / 1e3, "device_launches": len(kernels),
+           "device_busy_ms": busy / 1e3,
+           "device_idle_share": (max(0.0, 1.0 - busy / latency_us)
+                                 if kernels else None)}
+    return rec
+
+
+def cyclegan_phase(workdir, unet=False):
+    """CycleGAN over horse2zebra at full width (see GAN_EXAMPLE): with the
+    config's resnet_attn Gs, CYCLEGAN_STEPS steps and CYCLEGAN_REQUESTS
+    requests, no kernel; with ``unet``, ``--G_netG unet_256``,
+    CYCLEGAN_UNET_STEPS steps with K1, K2 and K3 CYCLEGAN_UNET_PER_STEP
+    times each a step, and CYCLEGAN_UNET_REQUESTS requests of one K1. Each
+    with the nets' parameter counts, finite losses, the warm step time,
+    images/s, peak memory, data wait, a profiled step's launches and idle
+    share, and the requests through ``scripts/gen_single_image`` from G_A's
+    checkpoint. Returns (records, launch counts per path)."""
+    import torch
+    from joligen_tpu_torch.tools.synthetic_datasets import write_unaligned
+
+    name = "cyclegan_h2z_unet256" if unet else "cyclegan_h2z"
+    steps = CYCLEGAN_UNET_STEPS if unet else CYCLEGAN_STEPS
+    n_req = CYCLEGAN_UNET_REQUESTS if unet else CYCLEGAN_REQUESTS
+    per = CYCLEGAN_UNET_PER_STEP if unet else 0
+    workdir = _shm_workdir(workdir, name)
+    try:
+        opt = _example_opt(GAN_EXAMPLE, workdir, name, [
+            "--model_type", "cycle_gan",
+            *(["--G_netG", "unet_256"] if unet else [])])
+        write_unaligned(opt.dataroot, steps * opt.train_batch_size, 300,
+                        seed=SEED + 81)
+        model, opt, rec = _train_run(
+            opt, steps, 1, f"{name} training",
+            EXPECTED_PARAMS_UNET256 if unet else
+            EXPECTED_PARAMS_CYCLEGAN["G_A"], attention_per_step=per)
+        counts = model.param_count()
+        want = dict(EXPECTED_PARAMS_CYCLEGAN)
+        if unet:
+            want["G_A"] = want["G_B"] = EXPECTED_PARAMS_UNET256
+            mid = model.nets["G_A"].AttentionBlock_0
+            if mid.heads != GAN_SHAPE[2]:
+                raise AssertionError(f"{name}: {mid.heads} heads")
+        if (counts != want or opt.train_batch_size != GAN_SHAPE[0]
+                or opt.data_crop_size != 256 or opt.G_ngf != 64
+                or opt.D_ndf != 64):
+            raise AssertionError(f"{name} is not at full width: {counts}")
+        rec["parameters_per_net"] = counts
+        rec["profiled_step"] = _profiled_step(model, opt)
+        log(f"{name}: parameters {counts}; a profiled step "
+            + json.dumps(rec["profiled_step"]))
+        del model
+        torch.cuda.empty_cache()
+        ckpt = os.path.join(opt.checkpoints_dir, opt.name,
+                            "latest_net_G_A.pth")
+        out_dir = os.path.join(workdir, f"out_{name}")
+        os.makedirs(out_dir)
+        req = _serve_gan(ckpt, os.path.join(opt.dataroot, "trainA",
+                                            "0000.png"), out_dir, n_req)
+        if req["launches"] != _attention_only(
+                req["launches"], {"flash_attention_fwd": n_req * bool(unet)}):
+            raise AssertionError(f"{name} requests launched "
+                                 f"{req['launches']}")
+        log(f"{name}: {n_req} requests from G_A's checkpoint, "
+            f"{[round(t, 4) for t in req['request_s']]} s, launches "
+            f"{req['launches']}")
+        rec["requests"] = req
+        return {name: rec}, {f"{name}_training": rec["launches"],
+                             f"{name}_requests": req["launches"]}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def gan_zoo_phase(workdir):
+    """CUT over horse2zebra with each new generator at its factory width
+    (CUT_ZOO): ZOO_STEPS steps (finite losses, the G's parameter count,
+    K1-K3 where its middle block has them) and one request through
+    ``scripts/gen_single_image`` each. Returns (records, launch counts per
+    path)."""
+    import torch
+    from joligen_tpu_torch.tools.synthetic_datasets import write_unaligned
+
+    recs, paths = {}, {}
+    for netg, args, count, k1_step, k1_req in CUT_ZOO:
+        name = f"cut_h2z_{netg}"
+        wd = _shm_workdir(workdir, name)
+        try:
+            opt = _example_opt(GAN_EXAMPLE, wd, name,
+                               ["--G_netG", netg, *args])
+            write_unaligned(opt.dataroot, ZOO_STEPS * opt.train_batch_size,
+                            300, seed=SEED + 82)
+            model, opt, rec = _train_run(opt, ZOO_STEPS, 1,
+                                         f"{name} training", count,
+                                         attention_per_step=k1_step)
+            rec["nce_layers"] = list(model.nce_layers)
+            del model
+            torch.cuda.empty_cache()
+            ckpt = os.path.join(opt.checkpoints_dir, opt.name,
+                                "latest_net_G_A.pth")
+            out_dir = os.path.join(wd, "out")
+            os.makedirs(out_dir)
+            req = _serve_gan(ckpt, os.path.join(opt.dataroot, "trainA",
+                                                "0000.png"), out_dir, 1)
+            if req["launches"] != _attention_only(
+                    req["launches"], {"flash_attention_fwd": k1_req}):
+                raise AssertionError(f"{name} request launched "
+                                     f"{req['launches']}")
+            log(f"{name}: batch {opt.train_batch_size}, NCE taps "
+                f"{rec['nce_layers']}, a request {req['request_s'][0]:.4f} "
+                f"s, launches {req['launches']}")
+            rec["requests"] = req
+            recs[name] = rec
+            paths[f"{name}_training"] = rec["launches"]
+            paths[f"{name}_request"] = req["launches"]
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+    return recs, paths
+
+
+def palette_zoo_phase(workdir):
+    """Palette (the example config at 128 px) with the uvit and
+    resnet_attn denoisers and with ``--train_feat_wavelet`` (PALETTE_ZOO):
+    ZOO_STEPS steps and a DDIM-10 ``--mask_in`` request each. Returns
+    (records, launch counts per path)."""
+    import torch
+    from joligen_tpu_torch.models.modules.resnet_generator import \
+        ResnetGeneratorAttnDiff
+    from joligen_tpu_torch.models.modules.unet_mha import UNetMHA
+    from joligen_tpu_torch.tools.synthetic_datasets import write_labeled
+
+    recs, paths = {}, {}
+    kernels = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
+    for name, args, count, per_call in PALETTE_ZOO:
+        wd = _shm_workdir(workdir, name)
+        try:
+            opt = _example_opt(IMAGE_EXAMPLE, wd, name, args)
+            write_labeled(opt.dataroot, ZOO_STEPS * opt.train_batch_size,
+                          128, seed=SEED + 83)
+            model, opt, rec = _train_run(
+                opt, ZOO_STEPS, 1, f"{name} training", count,
+                attention_per_step=dict.fromkeys(kernels, per_call))
+            inner = model.nets["G_A"].inner
+            trunk = (ResnetGeneratorAttnDiff if "resnet" in name
+                     else UNetMHA)
+            if not (isinstance(inner, trunk) and opt.data_crop_size == 128
+                    and getattr(inner, "freq_space", False)
+                    == ("wavelet" in name)
+                    and ("uvit" not in name or inner._mid is None)):
+                raise AssertionError(f"{name} did not train as configured")
+            ema = {k: v.detach().cpu().clone()
+                   for k, v in model.ema_nets["G_A"].state_dict().items()}
+            del model, inner
+            torch.cuda.empty_cache()
+            ckpt = os.path.join(opt.checkpoints_dir, opt.name,
+                                "latest_net_G_A.pth")
+            rec["request"] = _serve_masked(
+                ckpt, wd, 1, [10 * per_call], name, trained_ema=ema,
+                extra=[["--sampling_method", "ddim", "--sampling_steps",
+                        "10"]], wire=True)
+            recs[name] = rec
+            paths[f"{name}_training"] = rec["launches"]
+            paths[f"{name}_request"] = rec["request"]["launches"]
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+    return recs, paths
+
+
+def gan_zoo_cross_check():
+    """fp32 at full width, batch 1, TF32 off, card against CPU to ZOO_TOL
+    of the largest output: CycleGAN's G (resnet_attn, 256 px) and its Ds
+    (projected_d and basic) on a 256 px image, at the model's own init
+    (the scheme; the Ds' frozen trunk at flax's law); HAT (128 px: windows
+    of 16, odd blocks shifted), ITTR (256 px, dim_head 64: both top-k
+    prunings) and palette's UViT denoiser (128 px, the mask embedding; its
+    zero-initialised layers seeded small), their raw leaves drawn as
+    flax's."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.cut_model import (init_discriminator,
+                                                    init_generator)
+    from joligen_tpu_torch.models.diffusion_networks import (define_G,
+                                                             init_weights)
+    from joligen_tpu_torch.models.gan_networks import define_D
+    from joligen_tpu_torch.options import TrainOptions
+
+    rng = np.random.default_rng(SEED + 84)
+    recs = {}
+
+    def image(size):
+        return torch.from_numpy(rng.uniform(-1, 1, (1, size, size, 3))
+                                .astype(np.float32))
+
+    def gan_opt(*args):
+        return _fp32(TrainOptions().parse_cli([
+            "--config_json", os.path.join(ROOT, "examples", GAN_EXAMPLE),
+            "--model_type", "cycle_gan", *args]))
+    opt = gan_opt()
+    runs = [("cyclegan_G", lambda: init_generator(
+        opt, torch.Generator().manual_seed(SEED + 85)), (image(256),), {})]
+    for dname in opt.D_netDs:
+        runs.append((f"cyclegan_D_B_{dname}", lambda dname=dname:
+                     init_discriminator(
+                         f"D_B_{dname}", define_D(opt, [dname])[
+                             f"D_B_{dname}"],
+                         torch.Generator().manual_seed(SEED + 86), opt),
+                     (image(256),), {}))
+    for netg, size in (("hat", 128), ("ittr", 256)):
+        zopt = gan_opt("--G_netG", netg, "--data_crop_size", str(size))
+        runs.append((netg, lambda zopt=zopt: init_generator(
+            zopt, torch.Generator().manual_seed(SEED + 87)),
+            (image(size),), {}))
+    popt = _fp32(TrainOptions().parse_cli(["--config_json", EXAMPLE,
+                                           "--G_netG", "uvit"]))
+    mask = torch.zeros(1, 128, 128, 1, dtype=torch.int32)
+    mask[:, 32:96, 40:88] = 1
+    x6 = torch.from_numpy(rng.uniform(-1, 1, (1, 128, 128, 6)).astype(
+        np.float32))
+    runs.append(("palette_uvit", lambda: init_weights(
+        define_G(popt), torch.Generator().manual_seed(SEED + 88),
+        zero_init_std=0.01), (x6, torch.tensor([0.37])), {"mask": mask}))
+    for label, build, args, kwargs in runs:
+        err, out = _card_vs_cpu(build, args, kwargs, label, k1=0,
+                                tol=float("inf"))
+        scale = out.abs().max().item()
+        recs[label] = {"max_abs_err": err, "max_abs_output": scale,
+                       "tol": ZOO_TOL}
+        if not (scale > 0 and err <= ZOO_TOL * scale):
+            raise AssertionError(f"{label} cross-check: {recs[label]}")
+    log("GAN zoo cross-checks fp32 card vs CPU: " + json.dumps(recs))
+    return recs
+
+
 def _glasses_opt(example, workdir, n_images, size, name):
     """A glasses config over a synthetic ``unaligned_labeled_mask`` dataset
     of ``n_images`` a domain, ``size`` px, written here (``_example_opt``;
@@ -2872,7 +3210,7 @@ def cm_phase(workdir):
     5-sigma requests, the fp32 denoiser card against the CPU; cm_gan
     (``example_cm_gan_noglasses2glasses``: the same G, the projected and
     basic Ds, batch 4, iter_size 16) CM_GAN_STEPS micro-steps, each net
-    changing on the 16th and 32nd only, one request; sc (the cm config with
+    changing on the 16th only, one request; sc (the cm config with
     ``model_type sc``, 62,822,083 parameters) SC_STEPS steps and one
     16-step request. Returns (records, launch counts per path)."""
     import torch
@@ -4063,10 +4401,7 @@ def wide_transformer_phase(workdir):
     video MAT at 4 motion heads, b2b_vid_mario with JiT-L/16 and the image
     JiT-H/16 under b2b at 256 px. Their data under ``/dev/shm`` where the
     machine has it. Returns (records, launch counts per path)."""
-    if os.path.isdir("/dev/shm") and os.access("/dev/shm", os.W_OK):
-        shm = tempfile.mkdtemp(prefix="chip_smoke_wide_", dir="/dev/shm")
-    else:
-        shm = tempfile.mkdtemp(prefix="wide_", dir=workdir)
+    shm = _shm_workdir(workdir, "wide")
     try:
         return _wide_runs(workdir, shm)
     finally:
@@ -4166,11 +4501,7 @@ def image_transformer_phase(workdir):
     run's end) go under ``/dev/shm`` where the machine has it, in RAM, so
     that they do not add to the disk's writes, and each run's go once its
     requests are served. Returns (records, launch counts per path)."""
-    if os.path.isdir("/dev/shm") and os.access("/dev/shm", os.W_OK):
-        workdir = tempfile.mkdtemp(prefix="chip_smoke_images_",
-                                   dir="/dev/shm")
-    else:
-        workdir = tempfile.mkdtemp(prefix="images_", dir=workdir)
+    workdir = _shm_workdir(workdir, "images")
     try:
         return _image_transformer_runs(workdir)
     finally:
@@ -4617,6 +4948,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         # no attention kernel on these paths (the backward still builds)
         gans, gan_paths = phase("CUT", cut_phase, workdir)
+        cyclegan, cyclegan_paths = phase("CycleGAN", cyclegan_phase,
+                                         workdir)
         glasses, glasses_paths = phase("glasses", glasses_phase, workdir)
         mario, mario_paths = phase("mario2sonic", mario2sonic_phase, workdir)
         unetref, unetref_paths = phase("unetref", unetref_phase, workdir)
@@ -4627,6 +4960,7 @@ def main():
             "CUT cross-check", cut_cross_check)
         glasses["noglasses2glasses"]["cross_check_fp32"] = phase(
             "vision-aided cross-check", vision_aided_cross_check)
+        zoo_cross_check = phase("GAN zoo cross-check", gan_zoo_cross_check)
         t0 = time.perf_counter()
         built = bwd_build.result()
         pool.shutdown()
@@ -4666,6 +5000,11 @@ def main():
                                  workdir)
         percs, perc_paths = phase("perceptual steps", perceptual_phase,
                                   workdir)
+        cyclegan_unet, cyclegan_unet_paths = phase(
+            "CycleGAN unet_256", cyclegan_phase, workdir, True)
+        zoo, zoo_paths = phase("GAN zoo", gan_zoo_phase, workdir)
+        palette_zoo, palette_zoo_paths = phase("palette zoo",
+                                               palette_zoo_phase, workdir)
     metric_nets = phase("metrics", metrics_phase)
     grad_check = phase("gradient cross-check", gradient_cross_check)
     vid["cross_check_fp32_max_abs_err"] = phase("video cross-check",
@@ -4685,7 +5024,8 @@ def main():
              **config_paths, **gan_paths, **glasses_paths, **cm_paths,
              **mario_paths, **unetref_paths, **vid_paths, **b2b_paths,
              **mat_paths, **mat_video_paths, **image_paths, **wide_paths,
-             **perc_paths, **probe_launches}
+             **perc_paths, **cyclegan_paths, **cyclegan_unet_paths,
+             **zoo_paths, **palette_zoo_paths, **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -4709,6 +5049,10 @@ def main():
     log("wide head dims: " + json.dumps(wide))
     log("image transformers: " + json.dumps(images))
     log("perceptual steps: " + json.dumps(percs))
+    log("cyclegan: " + json.dumps({**cyclegan, **cyclegan_unet,
+                                   "cross_check_fp32": zoo_cross_check}))
+    log("GAN zoo: " + json.dumps(zoo))
+    log("palette zoo: " + json.dumps(palette_zoo))
     log("metrics: " + json.dumps(metric_nets))
     log("phases (s): " + json.dumps(seconds))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -3,8 +3,9 @@
 
 def create_model(opt, phase="train", device=None, cpu=False):
     """Name -> model class (``joligen_tpu/models/__init__.py``) for phase
-    ``train`` or ``test``: palette, cm, cm_gan, sc, b2b (video), cut, mat
-    (images) and test are ported. The device is CUDA unless ``cpu`` or an explicit ``device`` is
+    ``train`` or ``test``: palette, cm, cm_gan, sc, b2b, cut, cycle_gan, mat
+    and test are ported (re_cut, re_cycle_gan and segmentation are not).
+    The device is CUDA unless ``cpu`` or an explicit ``device`` is
     given."""
     if opt.model_type == "palette":
         from .palette_model import PaletteModel
@@ -21,6 +22,10 @@ def create_model(opt, phase="train", device=None, cpu=False):
     if opt.model_type == "cut":
         from .cut_model import CUTModel
         return CUTModel(opt, phase=phase, device=device, cpu=cpu)
+    if opt.model_type in ("cycle_gan", "re_cycle_gan",
+                          "re_cycle_gan_semantic_mask"):
+        from .cycle_gan_model import CycleGANModel
+        return CycleGANModel(opt, phase=phase, device=device, cpu=cpu)
     if opt.model_type == "mat":
         from .mat_model import MATModel
         return MATModel(opt, phase=phase, device=device, cpu=cpu)
@@ -28,6 +33,6 @@ def create_model(opt, phase="train", device=None, cpu=False):
         from .test_model import TestModel
         return TestModel(opt, phase=phase, device=device, cpu=cpu)
     raise NotImplementedError(
-        f"model type {opt.model_type}: palette, cm, cm_gan, sc, b2b, cut, mat "
-        "and test are ported (ROADMAP Queue 1 items 9 to 13, the model families after "
-        "the main path)")
+        f"model type {opt.model_type}: palette, cm, cm_gan, sc, b2b, cut, "
+        "cycle_gan, mat and test are ported (ROADMAP Queue 1 item 10, what "
+        "is left of the model families)")

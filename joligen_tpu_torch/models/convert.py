@@ -45,6 +45,15 @@ projected D's frozen trunk and projections are plain convs and GroupNorms.
 HDiT adds its per-head ``attn_scale`` (1-D) and the skips' 0-D ``lerp{i}``,
 as they are (``RAW_LEAVES``, ``RAW_LEAF``).
 
+The rest of the GAN zoo adds raw leaves, as they are, under their own
+names (``RAW_LEAVES``): UViT's attention ``qkv_kernel`` (3C, C) and
+``proj_kernel`` (C, C), already (out, in) and applied as ``W @ x``, so not
+a Dense and not transposed, with ``qkv_bias`` and ``proj_bias``; HAT's
+relative-position bias tables ``rpb`` ((2w - 1)² or (w + ow - 1)², heads);
+ITTR's ``ChanLayerNorm`` gain ``g`` and bias ``b``. ITTR's transposed convs
+are ``TorchConvTranspose``, above; HAT's LayerNorms are ``scale`` and
+``bias``.
+
 The LoRA adapter tree (``models/lora.py``) is keyed by the flax path of the
 kernel it adapts, as flax's ``to_state_dict`` writes a dict with tuple keys
 (``"('blocks_pre', 'block', 'qkv', 'kernel')"``), each an ``a`` (d_in, r)
@@ -81,7 +90,9 @@ import torch
 
 RAW_LEAVES = ("W", "class_embedding", "positional_embedding", "proj",
               "cls_token", "pos_embed", "ls1", "ls2", "y_embed",
-              "register_tokens", "in_context_posemb", "attn_scale")
+              "register_tokens", "in_context_posemb", "attn_scale",
+              "qkv_kernel", "qkv_bias", "proj_kernel", "proj_bias", "rpb",
+              "g", "b")
 RAW_LEAF = re.compile(r"lerp\d+$")
 # a module whose child ``block`` is an ``nn.scan`` stack of blocks
 SCAN_STACK = re.compile(r"blocks(\d+|_pre|_post)$")

@@ -1,6 +1,9 @@
 """CUT / FastCUT contrastive unpaired translation
 (``joligen_tpu/models/cut_model.py``) along the options the ``cut`` example
-configs reach: a resnet generator G, the ``PatchSampleF`` projector F with
+configs reach: a generator G of any name the factory builds (resnet,
+resnet_attn, segformer, the unet Gs, uvit, hdit, hat, ittr; its encoder
+taps are the NCE layers, ``select_nce_layers``), the ``PatchSampleF``
+projector F with
 the PatchNCE, MoNCE or SRC + hDCE loss (identity NCE, ``MSE_idt``), and one
 or more discriminators (the vision-aided one among them) with the fake
 pool, DiffAugment, ``D_noise``, one-sided label smoothing and
@@ -50,7 +53,8 @@ from ..ops.diff_aug import apply_diff_augment, draw_diff_augment
 from ..utils.clip_vit import load_clip_ref_encoder
 from ..utils.dinov2 import load_dino_into
 from .base import BaseModel, dequantize, quantize_batch
-from .gan_networks import define_D, define_F, define_G, flax_default_init
+from .gan_networks import (define_D, define_F, define_G, flax_default_init,
+                           init_raw_leaves)
 from .modules.cut_networks import (gan_loss, monce_loss, patch_nce_loss,
                                    sample_patch_ids, src_hdce_loss)
 from .modules.image_pool import ImagePool
@@ -86,12 +90,40 @@ def check_unported(opt):
         check_f_s_net(opt)
 
 
+def init_discriminator(name, netD, generator, opt):
+    """A D's init (``cut_model.py:194-217``, ``cycle_gan_model.py:54-80``):
+    the PatchGAN Ds take the init scheme; the projected and vision-aided
+    Ds keep flax's default init, then their frozen trunks load their
+    weights files where those exist. Returns ``netD``."""
+    if any(t in name for t in PATCH_DS):
+        return scheme_from_opt(netD, generator, opt)
+    flax_default_init(netD, generator)
+    if "vision_aided" in name:
+        load_clip_ref_encoder(netD)
+        load_dino_into(netD)
+    elif netD.mit:
+        load_mit_backbone(netD, "feature_network")
+    else:
+        load_efficientnet_trunk(netD.feature_network)
+    return netD
+
+
+def init_generator(opt, generator):
+    """``define_G`` at flax's init of its raw leaves, then the init scheme
+    (``train_state.py:252-260``)."""
+    return scheme_from_opt(init_raw_leaves(define_G(opt), generator),
+                           generator, opt)
+
+
 def select_nce_layers(opt):
     """The NCE taps (``cut_model.py:316-327``): the segformer G's four
-    stages, else the config's ``alg_cut_nce_layers``."""
+    stages, ITTR's blocks, the unet Gs' ``G_nblocks * i - 1`` for each
+    level i, else the config's ``alg_cut_nce_layers``."""
     netG = opt.G_netG
     if "segformer" in netG:
         return [0, 1, 2, 3]
+    if "ittr" in netG:
+        return list(range(opt.G_nblocks))
     if "unet" in netG or "uvit" in netG:
         return [opt.G_nblocks * i - 1
                 for i in range(1, len(opt.G_unet_mha_channel_mults) + 1)]
@@ -154,7 +186,7 @@ class CUTModel(BaseModel):
                                      or 1e-6)
 
         init_gen = torch.Generator().manual_seed(self.seed)
-        netG = scheme_from_opt(define_G(opt), init_gen, opt)
+        netG = init_generator(opt, init_gen)
         # the MiT weights file, where it exists, after the scheme
         # (cut_model.py:162-168)
         load_mit_backbone(netG)
@@ -167,25 +199,10 @@ class CUTModel(BaseModel):
         self.add_net("F", scheme_from_opt(netF, init_gen, opt),
                      lr=g("train_G_lr", 2e-4))
         for name, netD in define_D(opt).items():
-            if any(t in name for t in PATCH_DS):
-                # only the PatchGAN Ds take the init scheme (cut_model.py:
-                # 194-197); the projected and vision-aided Ds keep flax's
-                # default init, then their frozen trunks load their weights
-                # files where those exist (:199-217)
-                scheme_from_opt(netD, init_gen, opt)
-            elif "vision_aided" in name:
-                flax_default_init(netD, init_gen)
-                load_clip_ref_encoder(netD)
-                load_dino_into(netD)
-            elif netD.mit:
-                flax_default_init(netD, init_gen)
-                load_mit_backbone(netD, "feature_network")
-            else:
-                flax_default_init(netD, init_gen)
-                load_efficientnet_trunk(netD.feature_network)
             # the frozen towers stay in the optimizer, as in optax's tree:
             # zero gradients, so adam leaves them as they are
-            self.add_net(name, netD, lr=g("train_D_lr", 2e-4))
+            self.add_net(name, init_discriminator(name, netD, init_gen, opt),
+                         lr=g("train_D_lr", 2e-4))
             self.d_names.append(name)
         if self.semantic_mask:
             # f_s (and, disjoint, f_s_B) at flax's default init, with its

@@ -1,7 +1,8 @@
-"""Diffusion denoiser factory: the ``unet_mha``, ``unet_vid``,
-``unet_mha_ref_attn``, ``hdit``, ``vit``/``dit`` and ``vit_vid`` branches of
-``joligen_tpu/models/diffusion_networks.py:20-45,57-112,119-134``, plus the
-seeded flax-style weight init. torch layers need their input channel count,
+"""Diffusion denoiser factory: every branch of
+``joligen_tpu/models/diffusion_networks.py:19-134`` (``unet_mha`` and
+``uvit``, with ``train_feat_wavelet`` too, ``resnet_attn`` and
+``mobile_resnet_attn``, ``unet_vid``, ``unet_mha_ref_attn``, ``hdit``,
+``vit``/``dit``, ``vit_vid``), plus the seeded flax-style weight init. torch layers need their input channel count,
 which flax infers lazily: palette's trunk takes ``[y_cond, y_t]`` and, with
 mask conditioning, the mask embedding's ``cond_embed_dim`` channels, or
 under a ``RAW_T_NETGS`` trunk (which embeds t itself) the one clipped mask
@@ -17,11 +18,14 @@ import torch
 from torch import nn
 
 from .. import compute_dtype
+from .gan_networks import init_raw_leaves
 from .modules.cm import NoiseLevelEmbedding
 from .modules.hdit import HDiT
 from .modules.jit import JiT
 from .modules.palette_diffusion import LabelEmbedder, PaletteDenoiser
-from .modules.unet_mha import Conv, Dense, GroupNorm, UNetMHA
+from .modules.resnet_generator import Conv as ResnetConv
+from .modules.resnet_generator import ResnetGeneratorAttnDiff
+from .modules.unet_mha import Conv, Dense, GroupNorm, UNetMHA, UViTAttention
 from .modules.unet_ref_attn import UNetRefAttn
 from .modules.unet_vid import UNetVid
 from .modules.vit_vid import JiTViD
@@ -37,13 +41,10 @@ def define_inner_G(opt, in_channel=None):
     input channel count. ``G_unet_vid_cross_attention_dim`` is read by
     neither package."""
     netG = opt.G_netG
-    if netG not in ("unet_mha", "unet_mha_ref_attn", "unet_vid", "vit_vid",
-                    "vit", "dit", "hdit"):
-        raise NotImplementedError(
-            f"diffusion generator {netG}: only unet_mha, unet_vid, "
-            "unet_mha_ref_attn, hdit, vit (dit) and vit_vid are ported "
-            "(ROADMAP Queue 1 items 9 to 13, the model families after the "
-            "main path: uvit is item 9, the resnet_attn denoisers item 10)")
+    if netG not in ("unet_mha", "uvit", "unet_mha_ref_attn", "unet_vid",
+                    "vit_vid", "vit", "dit", "hdit", "resnet_attn",
+                    "mobile_resnet_attn"):
+        raise NotImplementedError(f"diffusion generator {netG}")
     if netG == "vit_vid":
         if in_channel is None:
             raise ValueError("vit_vid takes its input channel count from "
@@ -98,7 +99,19 @@ def define_inner_G(opt, in_channel=None):
             group_size=opt.G_unet_mha_group_norm_size,
             remat=bool(getattr(opt, "tpu_remat", False)),
             dtype=compute_dtype(opt))
+    if netG in ("resnet_attn", "mobile_resnet_attn"):
+        return ResnetGeneratorAttnDiff(
+            in_channels=in_channel, out_channels=opt.model_output_nc,
+            nb_mask_attn=opt.G_attn_nb_mask_attn,
+            nb_mask_input=opt.G_attn_nb_mask_input,
+            ngf=opt.G_ngf, n_blocks=opt.G_nblocks,
+            cond_embed_dim=opt.alg_diffusion_cond_embed_dim,
+            norm=opt.G_norm, padding_type=opt.G_padding_type,
+            freq_space=getattr(opt, "train_feat_wavelet", False),
+            dtype=compute_dtype(opt))
     return UNetMHA(
+        transformer_blocks=(getattr(opt, "G_uvit_num_transformer_blocks", 6)
+                            if netG == "uvit" else 0),
         in_channel=in_channel,
         out_channel=opt.model_output_nc,
         inner_channel=opt.G_ngf,
@@ -150,11 +163,17 @@ def init_weights(module, generator, zero_init_std=0.0):
     JiT's and JiTViD's class tables, register tokens and in-context
     positions N(0, 0.02); HDiT's attention scales (10) and skip lerps (0.5)
     keep their construction values.
+    The resnet convs of ``resnet_attn``'s denoiser take lecun-normal
+    kernels and zero biases too; UViT's raw ``qkv_kernel`` lecun-normal
+    over its first axis, as flax reads it (``gan_networks.
+    init_raw_leaves``).
     Layers that flax zero-initialises (``out_conv``, ``proj_out``,
     ``out_proj``, JiT's ``adaLN``, ``final_adaLN``, ``final_proj``, ``ms_1``,
     ``fs_1``, HDiT's ``lin``, ``proj``, ``ff_out``, ``down{i}`` and
-    ``patch_out``) stay zero unless ``zero_init_std`` > 0, which gives them a
-    small seeded N(0, zero_init_std) value instead. ``generator`` is a CPU
+    ``patch_out``, UViT's ``to_scale_shift``, ``proj_kernel`` and
+    ``proj_bias``, ``resnet_attn``'s ``film``) stay zero unless
+    ``zero_init_std`` > 0, which gives them a small seeded
+    N(0, zero_init_std) value instead. ``generator`` is a CPU
     generator: values are drawn on the CPU and copied, so they do not depend
     on the module's device."""
 
@@ -168,9 +187,9 @@ def init_weights(module, generator, zero_init_std=0.0):
 
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (Conv, Dense)):
+            if isinstance(m, (Conv, Dense, ResnetConv)):
                 biases = [] if m.bias is None else [m.bias]
-                if m.zero_init:
+                if getattr(m, "zero_init", False):
                     for p in [m.weight, *biases]:
                         if zero_init_std > 0:
                             fill(p, normal(zero_init_std))
@@ -195,6 +214,11 @@ def init_weights(module, generator, zero_init_std=0.0):
             elif isinstance(m, (JiT, JiTViD)):
                 for p in m.embedding_params():
                     fill(p, normal(0.02))
+            elif isinstance(m, UViTAttention):
+                init_raw_leaves(m, generator)
+                if zero_init_std > 0:
+                    fill(m.proj_kernel, normal(zero_init_std))
+                    fill(m.proj_bias, normal(zero_init_std))
         # the frozen CLIP ref encoder: flax's default init, then its
         # weights file where it exists (palette_model.py:75-80)
         clip = getattr(module, "freezenet_clip", None)

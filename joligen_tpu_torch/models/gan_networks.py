@@ -1,8 +1,10 @@
-"""GAN network factories (``joligen_tpu/models/gan_networks.py``): the
-resnet and segformer generators, the ``basic`` / ``n_layers`` / ``pixel`` /
-``projected_d`` / ``vision_aided`` discriminators and the ``PatchSampleF``
-projector. Any other generator or discriminator raises, naming its ROADMAP
-item.
+"""GAN network factories (``joligen_tpu/models/gan_networks.py``): every
+generator of the JAX package (resnet, resnet_attn and their mobile
+variants, unet_mha, uvit, unet_256/128, segformer, hdit, hat, ittr), the
+``basic`` / ``n_layers`` / ``pixel`` / ``projected_d`` / ``vision_aided``
+discriminators and the ``PatchSampleF`` projector. A generator name the
+JAX package refuses raises as there; any other discriminator raises,
+naming its ROADMAP item.
 
 torch layers need their input sizes, which flax infers: the factories take
 them from the options (``model_input_nc``, ``model_output_nc``, the crop)
@@ -22,11 +24,6 @@ from .modules.discriminators import NLayerDiscriminator, PixelDiscriminator
 from .modules.resnet_generator import ResnetGenerator, ResnetGeneratorAttn
 
 _ROADMAP_ZOO = "ROADMAP Queue 1 item 13, rest of the zoo"
-UNPORTED_G = {
-    **{n: "ROADMAP Queue 1 item 9 (UViT) and item 10 (GAN families)"
-       for n in ("unet_mha", "uvit", "unet_256", "unet_128")},
-    **{n: _ROADMAP_ZOO for n in ("hdit", "hat", "ittr")},
-}
 UNPORTED_D = {
     "temporal": "ROADMAP Queue 1 item 11, video diffusion",
     "depth": _ROADMAP_ZOO, "sam": _ROADMAP_ZOO,
@@ -57,8 +54,69 @@ def define_G(opt):
             in_channels=opt.model_input_nc, out_channels=opt.model_output_nc,
             nb_mask_attn=opt.G_attn_nb_mask_attn,
             nb_mask_input=opt.G_attn_nb_mask_input, dtype=dtype)
-    where = UNPORTED_G.get(netG, "ROADMAP Queue 1 item 10")
-    raise NotImplementedError(f"GAN generator {netG} is not ported ({where})")
+    if netG in ("unet_mha", "uvit", "unet_256", "unet_128"):
+        from .modules.unet_mha import UNetMHA
+        unet = dict(in_channel=opt.model_input_nc,
+                    out_channel=opt.model_output_nc, inner_channel=opt.G_ngf,
+                    cond_embed_dim=opt.G_ngf * 4, tanh=True, dtype=dtype)
+        if netG in ("unet_256", "unet_128"):
+            # the pix2pix unet as the attention-free unet_mha (its middle
+            # block keeps its attention)
+            return UNetMHA(res_blocks=(1, 1, 1, 1), attn_res=(),
+                           channel_mults=(1, 2, 4, 8), **unet)
+        return UNetMHA(
+            transformer_blocks=(getattr(opt, "G_uvit_num_transformer_blocks",
+                                        6) if netG == "uvit" else 0),
+            res_blocks=tuple(opt.G_unet_mha_res_blocks),
+            attn_res=tuple(opt.G_unet_mha_attn_res),
+            channel_mults=tuple(opt.G_unet_mha_channel_mults),
+            num_heads=opt.G_unet_mha_num_heads,
+            num_head_channels=opt.G_unet_mha_num_head_channels,
+            norm=opt.G_unet_mha_norm_layer,
+            group_size=opt.G_unet_mha_group_norm_size,
+            freq_space=getattr(opt, "train_feat_wavelet", False), **unet)
+    if netG == "hdit":
+        from .modules.hdit import HDiT
+        return HDiT.gan_from_opt(opt, dtype=dtype)
+    if netG == "hat":
+        from .modules.hat import HAT
+        # window 16, upscale 1 (gan_networks.py:77-83); its bias tables
+        # take the crop's window, as flax sizes them at init
+        return HAT(in_channels=opt.model_input_nc,
+                   out_channels=opt.model_output_nc,
+                   img_size=opt.data_crop_size, window_size=16, upscale=1,
+                   remat=bool(getattr(opt, "tpu_remat", False)),
+                   dtype=dtype)
+    if netG == "ittr":
+        from .modules.ittr import ITTRGenerator
+        return ITTRGenerator(
+            in_channels=opt.model_input_nc, out_channels=opt.model_output_nc,
+            ngf=opt.G_ngf, n_blocks=opt.G_nblocks,
+            img_size=opt.data_crop_size, dtype=dtype)
+    raise NotImplementedError(f"GAN generator {netG}")
+
+
+def init_raw_leaves(module, generator):
+    """flax's init of the raw leaves that neither the init schemes nor
+    ``init_weights`` draw: UViT's ``qkv_kernel`` lecun-normal (flax reads
+    its first axis, 3C, as the fan-in), HAT's bias tables ``rpb``
+    N(0, 0.02) truncated at 2 std; drawn from the CPU ``generator``. The
+    zero-initialised ones (``proj_kernel``, ``proj_bias``) stay zero, the
+    constants (ITTR's ``g`` and ``b``, HDiT's scales) as constructed."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "qkv_kernel":
+                std = math.sqrt(1.0 / p.shape[0]) / 0.87962566103423978
+            elif leaf == "rpb":
+                std = 0.02
+            else:
+                continue
+            t = torch.empty(p.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            p.copy_(t)
+    return module
 
 
 def define_D(opt, names=None):

@@ -17,6 +17,11 @@ out_channels)`` fp32:
    from the encoder's (``bi + depths[i]``);
 4. ``final_norm``, the zero-init ``patch_out`` back to pixels.
 
+As a GAN generator (``gan=True``, ``gan_networks.py:65-76``) c is a
+constant of ones into the mapping network (no ``t_0``/``t_1``), and
+``patch_out`` is not zero-initialised; the post-merge encoder features are
+CUT's NCE taps.
+
 ``HDiTBlock``: AdaRMSNorm (x · rsqrt(mean x² + 1e-6) · (1 + ``lin``(c)),
 ``lin`` zero-init and bias-free, fp32 statistics), the bias-free ``qkv``,
 q and k L2-normalised per head and scaled by the square root of the
@@ -36,7 +41,7 @@ the partition and by -shift after it, and the seam mask
 Attention here is plain torch ops: the JAX package reaches no Pallas kernel
 in HDiT. The middle level's dropout (``mid_dropout``) is inactive under
 palette, whose denoiser call is deterministic, and is not ported. The GAN
-use of ``hdit`` (``gan_networks.py``) raises (ROADMAP Queue 1 item 13).
+generator is called deterministic by the GAN models, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -290,8 +295,9 @@ class HDiT(nn.Module):
     def __init__(self, in_channels, patch_size=4,
                  widths=(192, 384, 768), depths=(2, 2, 4), d_head=64,
                  window=8, num_classes=1, out_channels=3, mapping_depth=2,
-                 dtype=torch.float32):
+                 gan=False, dtype=torch.float32):
         super().__init__()
+        self.gan = gan
         self.patch_size = patch_size
         self.widths = tuple(widths)
         self.depths = tuple(depths)
@@ -309,8 +315,9 @@ class HDiT(nn.Module):
 
         self.patch_in = Dense(patch_size * patch_size * in_channels,
                               self.widths[0], dtype=dtype, use_bias=False)
-        self.t_0 = Dense(256, mw, dtype=dtype)
-        self.t_1 = Dense(mw, mw, dtype=dtype)
+        if not gan:
+            self.t_0 = Dense(256, mw, dtype=dtype)
+            self.t_1 = Dense(mw, mw, dtype=dtype)
         if num_classes > 1:
             self.y_embed = nn.Parameter(torch.zeros(num_classes + 1, mw))
         self.mapping = MappingNetwork(mw, mapping_depth, dtype=dtype)
@@ -336,8 +343,8 @@ class HDiT(nn.Module):
                     dtype))
         self.final_norm = RMSNorm(self.widths[0])
         self.patch_out = Dense(self.widths[0], patch_size * patch_size
-                               * out_channels, dtype=dtype, zero_init=True,
-                               use_bias=False)
+                               * out_channels, dtype=dtype,
+                               zero_init=not gan, use_bias=False)
 
     @classmethod
     def from_opt(cls, opt, in_channels, dtype=torch.float32):
@@ -352,7 +359,34 @@ class HDiT(nn.Module):
                                 or (2, 2, 4)),
                    out_channels=opt.model_output_nc, dtype=dtype)
 
-    def forward(self, x, t, y=None):
+    @classmethod
+    def gan_from_opt(cls, opt, dtype=torch.float32):
+        """``hdit`` as a GAN generator (``gan_networks.py:65-76``)."""
+        return cls(opt.model_input_nc,
+                   patch_size=getattr(opt, "G_hdit_patch_size", 4) or 4,
+                   widths=tuple(getattr(opt, "G_hdit_widths", None)
+                                or (192, 384, 768)),
+                   depths=tuple(getattr(opt, "G_hdit_depths", None)
+                                or (2, 2, 4)),
+                   out_channels=opt.model_output_nc, gan=True, dtype=dtype)
+
+    def _taps(self, layer_ids):
+        """The encoder features ``layer_ids`` selects: those ids where all
+        are in range, else all of them (``hdit.py:396-402``)."""
+        n = len(self.widths) - 1
+        if all(0 <= i < n for i in layer_ids):
+            return list(layer_ids)
+        return list(range(n))
+
+    def layer_channels(self, layer_ids):
+        return [self.widths[i + 1] for i in self._taps(layer_ids)]
+
+    def forward(self, x, t=None, y=None, extract_layer_ids=None,
+                with_features=None):
+        """``t`` None: GAN mode, a constant conditioning of ones into the
+        mapping network. ``extract_layer_ids``: the NHWC post-merge
+        encoder features (CUT's NCE taps); ``with_features``: the pair
+        (output, taps)."""
         b, hh, ww, cin = x.shape
         p = self.patch_size
         gh, gw = hh // p, ww // p
@@ -361,20 +395,31 @@ class HDiT(nn.Module):
             0, 1, 3, 2, 4, 5).reshape(b, gh * gw, p * p * cin)
         h = self.patch_in(patches.to(self.dtype))
 
-        t = torch.as_tensor(t, device=x.device).reshape(b)
-        c = self.t_0(timestep_embedding(t * 1000.0, 256))
-        c = self.t_1(F.silu(c))
+        if t is None:
+            c = torch.ones(b, self.widths[-1], device=x.device,
+                           dtype=self.dtype)
+        else:
+            t = torch.as_tensor(t, device=x.device).reshape(b)
+            c = self.t_0(timestep_embedding(t * 1000.0, 256))
+            c = self.t_1(F.silu(c))
         if self.num_classes > 1 and y is not None:
             c = c + self.y_embed[y.long()].to(c.dtype)
         c = self.mapping(c)
 
-        skips = []
+        skips, feats = [], []
         for li in range(n_levels - 1):
             for bi in range(self.depths[li]):
                 h = getattr(self, f"enc{li}_{bi}")(h, c, (gh, gw))
             skips.append(h)
             h = getattr(self, f"merge{li}")(token_merge(h, gh, gw))
             gh, gw = gh // 2, gw // 2
+            feats.append(h.reshape(b, gh, gw, -1))
+        taps = extract_layer_ids if extract_layer_ids is not None \
+            else with_features
+        if taps is not None:
+            feats = [feats[i] for i in self._taps(taps)]
+            if extract_layer_ids is not None:
+                return feats
         for bi in range(self.depths[-1]):
             h = getattr(self, f"mid_{bi}")(h, c, (gh, gw))
         for li in reversed(range(n_levels - 1)):
@@ -388,4 +433,5 @@ class HDiT(nn.Module):
         h = self.patch_out(self.final_norm(h))
         p, oc = self.patch_size, self.out_channels
         h = h.reshape(b, gh, gw, p, p, oc).permute(0, 1, 3, 2, 4, 5)
-        return h.reshape(b, hh, ww, oc).float()
+        out = h.reshape(b, hh, ww, oc).float()
+        return (out, feats) if with_features is not None else out

@@ -16,6 +16,9 @@ Dtype policy (``tpu_bf16``): convs keep fp32 parameters and compute in
 ``dtype``; ``InstanceNorm`` takes fp32 statistics as E[x²] − E[x]² and
 normalises in the input dtype; the decoders return fp32.
 
+``ResnetGeneratorAttnDiff`` is ``resnet_attn`` as palette's denoiser: a
+FiLM from the noise-level embedding at the bottleneck, no tanh.
+
 ``_pad``'s custom VJP in the JAX package is an HLO workaround; here
 ``F.pad``'s autograd is the transpose.
 """
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.upfirdn2d import haar_transform, inverse_haar_transform
-from .unet_mha import GroupNorm
+from .unet_mha import Dense, GroupNorm
 
 PAD_MODES = {"reflect": "reflect", "replicate": "replicate",
              "zeros": "constant"}
@@ -374,9 +377,55 @@ class ResnetGeneratorAttn(nn.Module):
 
 
 class ResnetGeneratorAttnDiff(nn.Module):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ResnetGeneratorAttnDiff (resnet_attn as a diffusion denoiser) is "
-            "not ported (ROADMAP Queue 1 item 10, what is left of the GAN "
-            "families)")
+    """``resnet_attn`` as palette's denoiser (``resnet_generator.py:
+    411-475``): the encoder, a FiLM of its output from the embedding
+    (``film``, zero-initialised: scale then shift), a content decoder and an
+    attention decoder without tanh; the softmax (fp32, cast to the input's
+    dtype) over ``nb_mask_attn`` masks blends the contents and the input's
+    first ``out_channels`` channels. With ``freq_space`` the trunk runs on
+    the Haar bands and the blend in pixel space. ``forward(x NHWC, emb (B,
+    cond_embed_dim) or None: ones)`` -> NHWC fp32."""
 
+    def __init__(self, in_channels, out_channels=3, nb_mask_attn=10,
+                 nb_mask_input=1, ngf=64, n_blocks=9, cond_embed_dim=256,
+                 norm="instance", padding_type="reflect", freq_space=False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.out_channels = out_channels
+        self.nb_mask_attn, self.nb_mask_input = nb_mask_attn, nb_mask_input
+        self.cond_embed_dim = cond_embed_dim
+        self.freq_space = freq_space
+        self.dtype = dtype
+        self.encoder = ResnetEncoder(
+            _freq_in(in_channels, freq_space), ngf, n_blocks, 2, norm,
+            padding_type, 0.0, False, dtype=dtype)
+        c = self.encoder.out_channels
+        self.film = Dense(cond_embed_dim, 2 * c, dtype=dtype, zero_init=True)
+        n_content = nb_mask_attn - nb_mask_input
+        kw = dict(tanh=False, freq_space=freq_space, dtype=dtype)
+        self.content_decoder = ResnetDecoder(
+            out_channels * n_content, ngf, 2, norm, padding_type, **kw)
+        self.attn_decoder = ResnetDecoder(
+            nb_mask_attn, ngf, 2, norm, padding_type, **kw)
+
+    def forward(self, x, emb=None):
+        x_pix = x.permute(0, 3, 1, 2)
+        x = haar_transform(x_pix) if self.freq_space else x_pix
+        h, _ = self.encoder(x)
+        if emb is None:
+            emb = torch.ones(x.shape[0], self.cond_embed_dim,
+                             device=x.device)
+        film = self.film(F.silu(emb.to(self.dtype)))[:, :, None, None]
+        scale, shift = torch.chunk(film, 2, dim=1)
+        h = h * (1 + scale) + shift
+        n_content = self.nb_mask_attn - self.nb_mask_input
+        contents = self.content_decoder(h)
+        att = torch.softmax(self.attn_decoder(h).float(), dim=1).to(x.dtype)
+        inp = x_pix[:, :self.out_channels]
+        oc = self.out_channels
+        out = 0.0
+        for i in range(n_content):
+            out = out + contents[:, i * oc:(i + 1) * oc] * att[:, i:i + 1]
+        for i in range(n_content, self.nb_mask_attn):
+            out = out + inp * att[:, i:i + 1]
+        return out.float().permute(0, 2, 3, 1)

@@ -10,6 +10,21 @@ Dtype policy: conv and dense layers keep fp32 parameters and compute in
 ``dtype`` (bf16 under ``tpu_bf16``); GroupNorm takes fp32 statistics and
 returns the input dtype; the network output is fp32.
 
+The GAN generator (``tanh=True``, ``gan_networks.py``: ``unet_mha``,
+``uvit``, ``unet_256``, ``unet_128``) takes no embedding (a ones vector of
+``cond_embed_dim``) and ends in a 3x3 ``out_proj`` (no SiLU, not
+zero-initialised) and a tanh. ``freq_space`` (``train_feat_wavelet``) runs
+the trunk on the Haar bands of the input: the first conv takes 4x the
+input channels, every resampling goes through pixel space, ``out_proj``
+has 4x the output channels, and the tanh (GAN) comes before the inverse
+transform. ``transformer_blocks`` > 0 is UViT (``unet_mha.py:220-321,
+440-452``): no attention in the encoder and decoder, plain conv
+resampling, and a middle of ``TransformerBlock``s over the NCHW buffer read
+as (B, H*W, C) tokens (a reshape of its memory, not a transpose); its
+attention is the reference's ``QKVAttentionLegacy`` in plain torch ops
+(``legacy_attention``, shared with ``unet_ref_attn.py``), which reaches no kernel in the JAX
+package either.
+
 Remat (``tpu_remat``, ``unet_mha.py:383-397``): each ResBlock and
 AttentionBlock call runs under ``torch.utils.checkpoint``. Modules are not
 wrapped, so parameter names, and checkpoints, are the same with and without
@@ -24,6 +39,7 @@ from __future__ import annotations
 import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -32,6 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ...ops.flash_attention import flash_attention
 from ...ops.resize import nearest_up2
+from ...ops.upfirdn2d import haar_transform, inverse_haar_transform
 
 
 # The ops whose outputs ``remat_policy="conv"`` keeps (the JAX package's
@@ -150,27 +167,52 @@ def _down2(x):
     return F.avg_pool2d(x, 2, 2)
 
 
-class Upsample(nn.Module):
-    """Nearest 2x upsample then a 3x3 conv (``unet_mha.py:82-96``)."""
+def _to_pixel(x, freq_space):
+    return inverse_haar_transform(x) if freq_space else x
 
-    def __init__(self, channels, out_channel, dtype=torch.float32):
+
+def _to_freq(x, freq_space):
+    return haar_transform(x) if freq_space else x
+
+
+def _resample(x, up, freq_space):
+    """Nearest 2x up or 2x2 mean down, in pixel space (``unet_mha.py:
+    130-141``)."""
+    x = _to_pixel(x, freq_space)
+    return _to_freq(_up2(x) if up else _down2(x), freq_space)
+
+
+class Upsample(nn.Module):
+    """Nearest 2x upsample then a 3x3 conv (``unet_mha.py:82-96``); in
+    ``freq_space`` both in pixel space, at a quarter of the channels."""
+
+    def __init__(self, channels, out_channel, freq_space=False,
+                 dtype=torch.float32):
         super().__init__()
-        self.Conv_0 = Conv(channels, out_channel, 3, dtype=dtype)
+        q = 4 if freq_space else 1
+        self.freq_space = freq_space
+        self.Conv_0 = Conv(channels // q, out_channel // q, 3, dtype=dtype)
 
     def forward(self, x):
-        return self.Conv_0(_up2(x))
+        x = _up2(_to_pixel(x, self.freq_space))
+        return _to_freq(self.Conv_0(x), self.freq_space)
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 conv (``unet_mha.py:99-114``)."""
+    """Stride-2 3x3 conv (``unet_mha.py:99-114``); in ``freq_space`` in
+    pixel space, at a quarter of the channels."""
 
-    def __init__(self, channels, out_channel, dtype=torch.float32):
+    def __init__(self, channels, out_channel, freq_space=False,
+                 dtype=torch.float32):
         super().__init__()
-        self.Conv_0 = Conv(channels, out_channel, 3, stride=2, padding=1,
-                           dtype=dtype)
+        q = 4 if freq_space else 1
+        self.freq_space = freq_space
+        self.Conv_0 = Conv(channels // q, out_channel // q, 3, stride=2,
+                           padding=1, dtype=dtype)
 
     def forward(self, x):
-        return self.Conv_0(x)
+        x = self.Conv_0(_to_pixel(x, self.freq_space))
+        return _to_freq(x, self.freq_space)
 
 
 class ResBlock(nn.Module):
@@ -178,9 +220,10 @@ class ResBlock(nn.Module):
 
     def __init__(self, channels, out_channel, emb_dim, norm="groupnorm",
                  group_size=32, use_scale_shift_norm=True, up=False,
-                 down=False, dtype=torch.float32):
+                 down=False, freq_space=False, dtype=torch.float32):
         super().__init__()
         self.up, self.down = up, down
+        self.freq_space = freq_space
         self.use_scale_shift_norm = use_scale_shift_norm
         self.GroupNorm32_0 = _norm(norm, group_size, channels)
         self.in_conv = Conv(channels, out_channel, 3, dtype=dtype)
@@ -195,10 +238,9 @@ class ResBlock(nn.Module):
 
     def forward(self, x, emb):
         h = F.silu(self.GroupNorm32_0(x))
-        if self.up:
-            h, x = _up2(h), _up2(x)
-        elif self.down:
-            h, x = _down2(h), _down2(x)
+        if self.up or self.down:
+            h = _resample(h, self.up, self.freq_space)
+            x = _resample(x, self.up, self.freq_space)
         h = self.in_conv(h)
         emb_out = self.emb_proj(F.silu(emb))[:, :, None, None]
         if self.use_scale_shift_norm:
@@ -255,18 +297,123 @@ class AttentionBlock(nn.Module):
         return x + a.transpose(1, 2).reshape(n, c, hh, ww)
 
 
+def legacy_attention(qkv, heads):
+    """``QKVAttentionLegacy`` over (B, 3C, N) rows read head-major; returns
+    (B, C, N)."""
+    b, w, n = qkv.shape
+    ch = w // (3 * heads)
+    q, k, v = torch.split(qkv.reshape(b * heads, 3 * ch, n), ch, dim=1)
+    scale = 1.0 / torch.sqrt(torch.sqrt(torch.tensor(float(ch),
+                                                     device=qkv.device)))
+    wgt = torch.bmm((q.float() * scale).transpose(1, 2), k.float() * scale)
+    wgt = F.softmax(wgt, dim=-1).to(v.dtype)
+    a = torch.bmm(v, wgt.transpose(1, 2))            # (b·heads, ch, n)
+    return a.reshape(b, heads * ch, n)
+
+
+def sinu_pos_encoding_1d(n, channels):
+    """The interleaved [sin f0, cos f0, sin f1, ...] table of ``n``
+    positions (``unet_mha.py:220-229``), (n, channels) fp32."""
+    ch = int(np.ceil(channels / 2) * 2)
+    inv = 1.0 / (10000 ** (np.arange(0, ch, 2, dtype=np.float64) / ch))
+    sin_inp = np.arange(n, dtype=np.float64)[:, None] * inv[None]
+    emb = np.stack([np.sin(sin_inp), np.cos(sin_inp)], -1).reshape(n, ch)
+    return torch.from_numpy(emb[:, :channels].astype(np.float32))
+
+
+def uvit_layernorm(x):
+    """LayerNorm without affine over the last dim: fp32 statistics, rsqrt
+    of the variance clamped at 1e-5 (not var + eps), output in x.dtype
+    (``unet_mha.py:232-240``)."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    return ((x32 - mean) * torch.rsqrt(torch.clamp(var, min=1e-5))).to(
+        x.dtype)
+
+
+class UViTFeedForward(nn.Module):
+    """The non-residual token MLP (``unet_mha.py:243-263``): LayerNorm,
+    bias-free ``proj_in`` to 4C, SiLU, FiLM of the hidden units from the
+    embedding (``to_scale_shift``, zero-initialised), bias-free
+    ``proj_out``; its output replaces the input."""
+
+    def __init__(self, channels, emb_dim, dtype=torch.float32):
+        super().__init__()
+        self.proj_in = Dense(channels, 4 * channels, dtype=dtype,
+                             use_bias=False)
+        self.to_scale_shift = Dense(emb_dim, 8 * channels, dtype=dtype,
+                                    zero_init=True)
+        self.proj_out = Dense(4 * channels, channels, dtype=dtype,
+                              use_bias=False)
+
+    def forward(self, x, emb):
+        h = F.silu(self.proj_in(uvit_layernorm(x)))
+        scale, shift = torch.chunk(self.to_scale_shift(F.silu(emb))[:, None],
+                                   2, dim=-1)
+        return self.proj_out(h * (scale + 1) + shift)
+
+
+class UViTAttention(nn.Module):
+    """UViT's middle attention (``unet_mha.py:266-306``): the (B, N, C)
+    tokens read as (B, C, N) (a reshape), InstanceNorm1d per channel, the
+    raw (3C, C) ``qkv_kernel`` and (C, C) ``proj_kernel`` (out, in) with
+    their biases, ``legacy_attention``, the residual, read back as (B, N,
+    C). ``proj_kernel`` and ``proj_bias`` are zero-initialised in flax."""
+
+    def __init__(self, channels, num_heads=1, num_head_channels=-1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.heads = (num_heads if num_head_channels == -1
+                      else max(1, channels // num_head_channels))
+        self.dtype = dtype
+        self.qkv_kernel = nn.Parameter(torch.zeros(3 * channels, channels))
+        self.qkv_bias = nn.Parameter(torch.zeros(3 * channels))
+        self.proj_kernel = nn.Parameter(torch.zeros(channels, channels))
+        self.proj_bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, z):
+        b, n, c = z.shape
+        za = z.reshape(b, c, n)
+        zn = instance_norm_tokens(za.transpose(1, 2)).transpose(1, 2)
+        zn = zn.to(self.dtype)
+        qkv = torch.matmul(self.qkv_kernel.to(self.dtype), zn) \
+            + self.qkv_bias.to(self.dtype)[None, :, None]
+        a = legacy_attention(qkv, self.heads)
+        a = torch.matmul(self.proj_kernel.to(self.dtype), a) \
+            + self.proj_bias.to(self.dtype)[None, :, None]
+        return (za + a).reshape(b, n, c)
+
+
+class TransformerBlock(nn.Module):
+    """One UViT middle entry: ``ff`` then ``attn`` (``unet_mha.py:
+    309-321``)."""
+
+    def __init__(self, channels, emb_dim, num_heads=1, num_head_channels=-1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.ff = UViTFeedForward(channels, emb_dim, dtype=dtype)
+        self.attn = UViTAttention(channels, num_heads, num_head_channels,
+                                  dtype=dtype)
+
+    def forward(self, z, emb):
+        return self.attn(self.ff(z, emb))
+
+
 class UNetMHA(nn.Module):
-    """The unet_mha denoiser, non-UViT and pixel-space
-    (``unet_mha.py:324-498``), without the GAN variant's tanh head.
-    ``forward``: x (B, H, W, in_channel) NHWC, emb (B, cond_embed_dim) ->
-    (B, H, W, out) fp32."""
+    """The unet_mha denoiser and GAN generator (``unet_mha.py:324-498``).
+    ``forward``: x (B, H, W, in_channel) NHWC, emb (B, cond_embed_dim) or
+    None (GAN mode: ones) -> (B, H, W, out) fp32; with
+    ``extract_layer_ids`` the NHWC encoder features at those indices of
+    [in_conv, each encoder block and resample] (CUT's NCE taps), and with
+    ``with_features`` (tap ids) the pair (output, taps)."""
 
     def __init__(self, in_channel, out_channel, inner_channel, cond_embed_dim,
                  res_blocks: Sequence[int] = (2, 2, 2, 2),
                  attn_res: Sequence[int] = (16,),
                  channel_mults: Sequence[int] = (1, 2, 4, 8),
                  num_heads=1, num_head_channels=32, norm="groupnorm",
-                 group_size=32, use_scale_shift_norm=True,
+                 group_size=32, tanh=False, use_scale_shift_norm=True,
                  resblock_updown=True, transformer_blocks=0,
                  attn_norm="group", freq_space=False, remat=False,
                  remat_policy="conv", dtype=torch.float32):
@@ -276,15 +423,13 @@ class UNetMHA(nn.Module):
                              f"{tuple(_REMAT_CONTEXTS)}")
         self.remat = remat
         self.remat_policy = remat_policy
-        if transformer_blocks > 0:
-            raise NotImplementedError(
-                "UViT transformer middle stack (ROADMAP Queue 1 item 9, ref "
-                "conditioning, UViT and frequency space)")
-        if freq_space:
-            raise NotImplementedError(
-                "freq_space / train_feat_wavelet (ROADMAP Queue 1 item 9, ref "
-                "conditioning, UViT and frequency space)")
         self.dtype = dtype
+        self.tanh = tanh
+        self.freq_space = freq_space
+        self.cond_embed_dim = cond_embed_dim
+        # UViT: no encoder/decoder attention, plain conv resampling
+        is_uvit = transformer_blocks > 0
+        q = 4 if freq_space else 1
         counters = {}
 
         def add(kind, module):
@@ -295,12 +440,15 @@ class UNetMHA(nn.Module):
             return name
 
         blk = dict(emb_dim=cond_embed_dim, norm=norm, group_size=group_size,
-                   use_scale_shift_norm=use_scale_shift_norm, dtype=dtype)
+                   use_scale_shift_norm=use_scale_shift_norm,
+                   freq_space=freq_space, dtype=dtype)
         attn = dict(num_heads=num_heads, num_head_channels=num_head_channels,
                     norm_kind=attn_norm, dtype=dtype)
+        res = dict(freq_space=freq_space, dtype=dtype)
+        updown = resblock_updown and not is_uvit
 
         ch = int(channel_mults[0] * inner_channel)
-        self.in_conv = Conv(in_channel, ch, 3, dtype=dtype)
+        self.in_conv = Conv(in_channel * q, ch, 3, dtype=dtype)
         chans = [ch]
         ds = 1
         # encoder plan: (block, attention or None, block is a Downsample)
@@ -311,22 +459,32 @@ class UNetMHA(nn.Module):
                 r = add("ResBlock", ResBlock(ch, out, **blk))
                 ch = out
                 a = (add("AttentionBlock", AttentionBlock(ch, **attn))
-                     if ds in attn_res else None)
+                     if ds in attn_res and not is_uvit else None)
                 self._enc.append((r, a, False))
                 chans.append(ch)
             if level != len(channel_mults) - 1:
-                if resblock_updown:
+                if updown:
                     r = add("ResBlock", ResBlock(ch, ch, down=True, **blk))
                     self._enc.append((r, None, False))
                 else:
-                    d = add("Downsample", Downsample(ch, ch, dtype=dtype))
+                    d = add("Downsample", Downsample(ch, ch, **res))
                     self._enc.append((d, None, True))
                 chans.append(ch)
                 ds *= 2
+        self._enc_channels = list(chans)
 
-        self._mid = (add("ResBlock", ResBlock(ch, ch, **blk)),
-                     add("AttentionBlock", AttentionBlock(ch, **attn)),
-                     add("ResBlock", ResBlock(ch, ch, **blk)))
+        if is_uvit:
+            self._mid = None
+            self._uvit = [f"mid_t{ti}" for ti in range(transformer_blocks)]
+            for name in self._uvit:
+                self.add_module(name, TransformerBlock(
+                    ch, cond_embed_dim, num_heads, num_head_channels,
+                    dtype=dtype))
+        else:
+            self._uvit = []
+            self._mid = (add("ResBlock", ResBlock(ch, ch, **blk)),
+                         add("AttentionBlock", AttentionBlock(ch, **attn)),
+                         add("ResBlock", ResBlock(ch, ch, **blk)))
 
         # decoder plan: (block, attention or None, resample or None,
         # resample is an Upsample)
@@ -337,19 +495,32 @@ class UNetMHA(nn.Module):
                 r = add("ResBlock", ResBlock(ch + chans.pop(), out, **blk))
                 ch = out
                 a = (add("AttentionBlock", AttentionBlock(ch, **attn))
-                     if ds in attn_res else None)
+                     if ds in attn_res and not is_uvit else None)
                 up, plain = None, False
                 if level and i == res_blocks[level]:
-                    if resblock_updown:
+                    if updown:
                         up = add("ResBlock", ResBlock(ch, ch, up=True, **blk))
                     else:
                         up, plain = add("Upsample",
-                                        Upsample(ch, ch, dtype=dtype)), True
+                                        Upsample(ch, ch, **res)), True
                     ds //= 2
                 self._dec.append((r, a, up, plain))
 
         self.GroupNorm32_0 = _norm(norm, group_size, ch)
-        self.out_proj = Conv(ch, out_channel, 3, dtype=dtype, zero_init=True)
+        # the GAN head is not zero-initialised in flax
+        self.out_proj = Conv(ch, out_channel * q, 3, dtype=dtype,
+                             zero_init=not tanh)
+
+    def layer_channels(self, layer_ids):
+        """Channels of the encoder taps ``layer_ids`` (PatchSampleF's
+        inputs); an index past the taps raises, as the JAX list does."""
+        n = len(self._enc_channels)
+        bad = [i for i in layer_ids if not -n <= i < n]
+        if bad:
+            raise IndexError(f"NCE taps {bad} past the {n} encoder features "
+                             "of this UNet (alg_cut_nce_layers follows "
+                             "G_nblocks for unet generators)")
+        return [self._enc_channels[i] for i in layer_ids]
 
     def _block(self, name, *args):
         """Call block ``name``, under activation checkpointing with
@@ -360,17 +531,39 @@ class UNetMHA(nn.Module):
         return checkpoint(m, *args, use_reentrant=False,
                           **_REMAT_CONTEXTS[self.remat_policy])
 
-    def forward(self, x, emb):
+    def forward(self, x, emb=None, extract_layer_ids=None,
+                with_features=None):
+        if emb is None:
+            emb = torch.ones(x.shape[0], self.cond_embed_dim, device=x.device)
         emb = emb.to(self.dtype)
-        h = self.in_conv(x.to(self.dtype).permute(0, 3, 1, 2))
+        x = _to_freq(x.to(self.dtype).permute(0, 3, 1, 2), self.freq_space)
+        h = self.in_conv(x)
         hs = [h]
         for r, a, plain in self._enc:
             h = getattr(self, r)(h) if plain else self._block(r, h, emb)
             if a is not None:
                 h = self._block(a, h)
             hs.append(h)
-        r0, a0, r1 = self._mid
-        h = self._block(r1, self._block(a0, self._block(r0, h, emb)), emb)
+        taps = extract_layer_ids if extract_layer_ids is not None \
+            else with_features
+        if taps is not None:
+            self.layer_channels(taps)
+            feats = [hs[i].permute(0, 2, 3, 1) for i in taps]
+            if extract_layer_ids is not None:
+                return feats
+        if self._mid is None:
+            # the NCHW buffer read as (B, H*W, C) tokens (unet_mha.py:
+            # 440-452), plus the 1-D sinusoidal table
+            n, c, hh, ww = h.shape
+            z = h.reshape(n, hh * ww, c)
+            z = z + sinu_pos_encoding_1d(hh * ww, c).to(z.device, z.dtype)
+            for name in self._uvit:
+                z = self._block(name, z, emb)
+            h = z.reshape(n, c, hh, ww)
+        else:
+            r0, a0, r1 = self._mid
+            h = self._block(r1, self._block(a0, self._block(r0, h, emb)),
+                            emb)
         for r, a, up, plain in self._dec:
             h = torch.cat([h, hs.pop().to(h.dtype)], dim=1)
             h = self._block(r, h, emb)
@@ -378,5 +571,10 @@ class UNetMHA(nn.Module):
                 h = self._block(a, h)
             if up is not None:
                 h = getattr(self, up)(h) if plain else self._block(up, h, emb)
-        out = self.out_proj(F.silu(self.GroupNorm32_0(h)))
-        return out.float().permute(0, 2, 3, 1)
+        h = self.GroupNorm32_0(h)
+        if self.tanh:
+            out = torch.tanh(self.out_proj(h))
+        else:
+            out = self.out_proj(F.silu(h))
+        out = _to_pixel(out, self.freq_space).float().permute(0, 2, 3, 1)
+        return (out, feats) if with_features is not None else out

@@ -35,21 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .unet_mha import Conv, Dense, ResBlock, _norm, instance_norm_tokens
-
-
-def legacy_attention(qkv, heads):
-    """``QKVAttentionLegacy`` over (B, 3C, N) rows read head-major; returns
-    (B, C, N)."""
-    b, w, n = qkv.shape
-    ch = w // (3 * heads)
-    q, k, v = torch.split(qkv.reshape(b * heads, 3 * ch, n), ch, dim=1)
-    scale = 1.0 / torch.sqrt(torch.sqrt(torch.tensor(float(ch),
-                                                     device=qkv.device)))
-    wgt = torch.bmm((q.float() * scale).transpose(1, 2), k.float() * scale)
-    wgt = F.softmax(wgt, dim=-1).to(v.dtype)
-    a = torch.bmm(v, wgt.transpose(1, 2))            # (b·heads, ch, n)
-    return a.reshape(b, heads * ch, n)
+from .unet_mha import (Conv, Dense, ResBlock, _norm, instance_norm_tokens,
+                       legacy_attention)
 
 
 class AttentionBlockRef(nn.Module):

@@ -1,6 +1,7 @@
 """GAN single-image inference (``scripts/gen_single_image.py``): load a
-trained generator checkpoint, translate one image, save the result. Runs on
-the CUDA device unless ``--cpu`` is given.
+trained generator checkpoint (CUT's G, or CycleGAN's G_A: A to B), translate
+one image, save the result. Runs on the CUDA device unless ``--cpu`` is
+given.
 
     python -m joligen_tpu_torch.scripts.gen_single_image \\
         --model_in_file checkpoints/horse2zebra/latest_net_G_A.pth \\

@@ -6,7 +6,8 @@
         [--out profile_request.json] [--<option> VALUE ...]
 
 Builds the config's model (palette; a GAN such as
-``examples/example_gan_horse2zebra.json``, or
+``examples/example_gan_horse2zebra.json``, as CUT or with ``--model_type
+cycle_gan`` as CycleGAN (a request: G_A), or
 ``examples/example_gan_noglasses2glasses.json`` or
 ``examples/example_gan_mario2sonic.json`` with their semantic-mask
 branch, whose batch then carries the mask as A's and B's label; the

@@ -3,7 +3,8 @@
 (csrc/dma_copy.cu) on the card, against their plain PyTorch versions, each
 dtype on its route (``ROUTES``); one
 training step of a small palette model counting one launch of each attention
-kernel, and one of an online bbox-crop batch with and without remat; and
+kernel, one of an online bbox-crop batch with and without remat, and one
+bf16 CycleGAN step with unet_256 Gs against fp32 on the CPU; and
 one run of each probe counting its kernels' launches. Marked
 ``cuda``: they skip without a CUDA device. This file imports neither jax nor
 the JAX package, so it runs on a machine with only PyTorch:
@@ -27,14 +28,19 @@ EDGE_SHAPES = [(3, 1, 1, 16), (1, 63, 3, 64), (3, 65, 1, 16),
                (1, 1000, 3, 64)]
 # xview's mid block (32 heads of 32) at 128 px: a request and a batch-16 step
 XVIEW_SHAPES = [(1, 256, 32, 32), (16, 256, 32, 32)]
+# the unet GAN generators' middle block at 256 px, batch 4 (CycleGAN and
+# CUT with unet_256 or unet_mha)
+GAN_SHAPE = (4, 1024, 16, 32)
 SHAPES = [(2, 128, 2, 64), (2, 256, 1, 32), (2, 100, 2, 64), (2, 5, 2, 16),
-          (1, 256, 16, 32), (8, 96, 12, 64), *XVIEW_SHAPES, *EDGE_SHAPES]
+          (1, 256, 16, 32), (8, 96, 12, 64), GAN_SHAPE, *XVIEW_SHAPES,
+          *EDGE_SHAPES]
 # the backward checks of chip_smoke.py: the training shape, batch 1, 256 px
 # batch 8, and ragged ones
 BWD_CHECKS = [((8, 256, 16, 32), torch.bfloat16),
               ((8, 256, 16, 32), torch.float32),
               ((1, 256, 16, 32), torch.bfloat16),
               ((8, 1024, 16, 32), torch.bfloat16),
+              (GAN_SHAPE, torch.bfloat16), (GAN_SHAPE, torch.float32),
               ((2, 100, 2, 64), torch.float32),
               ((2, 5, 2, 16), torch.float32),
               ((2, 160, 2, 16), torch.bfloat16),
@@ -411,6 +417,66 @@ def test_training_step_launches_each_kernel_once(cuda, tmp_path):
                            "flash_attention_bwd_dq": 1,
                            "flash_attention_bwd_dkv": 1}
     assert torch.isfinite(losses["G_tot"]).item()
+
+
+def test_cycle_gan_bf16_step_on_the_card_matches_fp32_cpu(cuda, tmp_path):
+    """One CycleGAN step with unet_256 Gs (ngf 16, 64 px: the middle
+    block's 4 heads of 32 over 8 x 8 tokens, the plain tiling), bf16 on
+    the card against fp32 on the CPU from the same weights and the same
+    draws (pools, DiffAugment): K1, K2 and K3 6 times each (3 forwards of
+    each G, each with its backward), every loss within 5e-2 of the CPU's
+    (relative, at least 1: bf16's 8 bits of mantissa through the step)."""
+    import copy
+
+    from joligen_tpu_torch.models import create_model
+    from joligen_tpu_torch.ops.diff_aug import draw_diff_augment
+    from joligen_tpu_torch.options import TrainOptions
+
+    cfg = {"model_type": "cycle_gan", "name": "cuda_cycle_gan",
+           "checkpoints_dir": str(tmp_path),
+           "data": {"crop_size": 64, "load_size": 64},
+           "G": {"netG": "unet_256", "ngf": 16},
+           "D": {"netDs": ["basic"], "ndf": 16},
+           "dataaug": {"diff_aug_policy": "color,cutout"},
+           "train": {"batch_size": 2, "pool_size": 4}}
+    models = {}
+    for dev, bf16 in (("cpu", False), ("cuda", True)):
+        opt = TrainOptions().parse_json(copy.deepcopy(cfg), verbose=False)
+        opt.tpu_bf16 = bf16
+        models[dev] = create_model(opt, phase="train",
+                                   device=torch.device(dev))
+    for name, net in models["cpu"].nets.items():
+        models["cuda"].nets[name].load_state_dict(net.state_dict())
+    rng = np.random.default_rng(0)
+    batch = {k: rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+             for k in ("A", "B")}
+    g = torch.Generator().manual_seed(1)
+    m = models["cpu"]
+    draws = {"pool_A": m.pool_A.draw_query(g, 2),
+             "pool_B": m.pool_B.draw_query(g, 2), "d_real_aug": {},
+             "d_fake_aug": {}}
+    for sname, _, _ in m.d_names:
+        for k in ("d_real_aug", "d_fake_aug"):
+            draws[k][sname] = draw_diff_augment(g, (2, 3, 64, 64),
+                                                m.diff_policy, m.diff_prob)
+
+    def moved(d, dev):
+        if isinstance(d, dict):
+            return {k: moved(v, dev) for k, v in d.items()}
+        return d.to(dev) if torch.is_tensor(d) else d
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
+    losses = {}
+    for dev, model in models.items():
+        losses[dev] = {k: float(v) for k, v in model.optimize_prepared(
+            model.prepare_batch(batch), moved(draws, dev)).items()}
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention_fwd": 6,
+                           "flash_attention_bwd_dq": 6,
+                           "flash_attention_bwd_dkv": 6}
+    for k, want in losses["cpu"].items():
+        assert abs(losses["cuda"][k] - want) <= 5e-2 * max(1.0, abs(want)), (
+            k, losses["cuda"][k], want)
 
 
 @pytest.mark.parametrize("remat,k1", [(None, 1), ("conv", 1), ("full", 2)])

@@ -369,14 +369,15 @@ def test_init_scheme_statistics(init_type):
 
 
 def test_unported_networks_raise():
-    _, opt = _h2z_opts()
-    opt.G_netG = "hdit"
-    with pytest.raises(NotImplementedError, match="hdit"):
-        tgan.define_G(opt)
+    jopt, opt = _h2z_opts()
+    # every generator of the JAX factory is ported: a name it refuses is
+    # refused here too
+    opt.G_netG = jopt.G_netG = "no_such_generator"
+    for factory in (tgan.define_G, jgan.define_G):
+        with pytest.raises(NotImplementedError, match="no_such_generator"):
+            factory(opt if factory is tgan.define_G else jopt)
     with pytest.raises(NotImplementedError, match="temporal"):
         tgan.define_D(opt, ["temporal"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tres.ResnetGeneratorAttnDiff()
     # the JAX factory builds the same names for the ported Ds
     jopt, _ = _h2z_opts()
     assert list(jgan.define_D(jopt)) == list(tgan.define_D(opt))

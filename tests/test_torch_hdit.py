@@ -23,7 +23,7 @@ and ``patch_out``, filled from a seed; the attention scales positive):
    (mask conditioning: one mask channel), the JAX keys' draws replayed,
    against the JAX model's step: the loss to 1e-4, parameters and EMA to
    2e-5 (the Adam allowance for exactly-zero gradients);
-5. ``hdit`` as a GAN generator raises with its ROADMAP item;
+5. ``hdit`` as a GAN generator builds the JAX GAN HDiT's tree;
 6. the example config with ``--G_netG vit`` and ``hdit`` at full width on
    the meta device: names and shapes against ``jax.eval_shape``,
    130,487,552 and 62,901,014 parameters.
@@ -341,11 +341,26 @@ def test_palette_step_matches_jax(tmp_path, monkeypatch, jax_embedding,
 
 
 def test_hdit_gan_generator_raises(tmp_path):
+    """``hdit`` as a GAN generator no longer raises: it builds the JAX
+    GAN HDiT's tree (no t layers), and a generator name the JAX factory
+    refuses still raises."""
+    from joligen_tpu.models.gan_networks import define_G as jdefine
+    from joligen_tpu_torch.models.convert import torch_to_flax
     from joligen_tpu_torch.models.gan_networks import define_G
     cfg = _palette_cfg(tmp_path, "hdit")
     cfg["model_type"] = "cut"
     opt = TrainOptions().parse_json(cfg, verbose=False)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    net = define_G(opt)
+    assert net.gan and not hasattr(net, "t_0")
+    jnet = jdefine(JaxTrainOptions().parse_json(cfg, verbose=False))
+    shapes = jax.eval_shape(lambda r: jnet.init(
+        r, jnp.zeros((1, SIZE, SIZE, 3))), jax.random.PRNGKey(0))
+    want = jax.tree.map(lambda a: a.shape, shapes["params"])
+    got = jax.tree.map(lambda a: a.shape,
+                       torch_to_flax(net.state_dict())["params"])
+    assert got == want
+    opt.G_netG = "hdit_unknown"
+    with pytest.raises(NotImplementedError, match="hdit_unknown"):
         define_G(opt)
 
 

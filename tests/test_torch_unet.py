@@ -154,10 +154,19 @@ def test_palette_denoiser_conditioning(conditioning):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tunet.UNetMHA(in_channel=6, transformer_blocks=2, **SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tunet.UNetMHA(in_channel=6, freq_space=True, **SMALL)
+    """UViT and ``freq_space`` are ported: each builds the JAX tree (their
+    values are held in ``tests/test_torch_gan_zoo.py``); the ImageBind ref
+    encoder still raises."""
+    for kw in (dict(transformer_blocks=2), dict(freq_space=True)):
+        jnet = junet.UNetMHA(in_channel=6, **SMALL, **kw)
+        shapes = jax.eval_shape(lambda r: jnet.init(
+            r, jnp.zeros((1, 16, 16, 6)), jnp.zeros((1, 32))),
+            jax.random.PRNGKey(0))
+        want = {k: tuple(v.shape) for k, v in flax_to_torch(jax.tree.map(
+            lambda a: np.zeros(a.shape, np.float32), shapes)).items()}
+        tnet = tunet.UNetMHA(in_channel=6, **SMALL, **kw)
+        assert {k: tuple(v.shape) for k, v in
+                tnet.state_dict().items()} == want
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PaletteDenoiser(torch.nn.Identity(), 32, conditioning="ref",
                         ref_embed_net="imagebind")
