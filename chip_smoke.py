@@ -8,11 +8,11 @@ GPU. Run from the repository root with no arguments:
 2. Build: compiles every kernel of the serving and training paths and of
    the probes from ``csrc/`` (one ``nvcc`` per source, started together);
    fails if ``ptxas`` spills in a ``wgmma`` kernel or injects a
-   ``warpgroup.wait`` (C7517) anywhere. The attention backward's nvcc
-   (minutes: 72 kernels at eight head dims) runs on while the phases that
-   launch no attention kernel run (items 7 and 9: CUT, glasses,
-   mario2sonic, unetref and their cross-checks), and is awaited before
-   the kernel phases.
+   ``warpgroup.wait`` (C7517) anywhere. Every nvcc (the attention
+   backward's for minutes: 72 kernels at eight head dims) runs on while
+   the phases that launch no kernel of the port run (items 7 and 9: CUT,
+   glasses, mario2sonic, unetref and their cross-checks); the forward's
+   is awaited before K1's phase, the backward's before K2/K3's.
 3. Kernels: K1 (flash-attention forward), K2 (dQ) and K3 (dK, dV) each
    against its plain PyTorch version on the same CUDA tensors at the paths'
    shapes (K1 and K2 in bf16 at both query tilings; xview's 32 heads at
@@ -99,7 +99,7 @@ GPU. Run from the repository root with no arguments:
    width (mobile_resnet_attn G, 2,462,565 parameters; projected, basic and
    vision-aided Ds, the last 175,001,860 with its frozen CLIP ViT-B/16 and
    DINOv2 ViT-B/14 towers; the unet f_s, 3,469,506; the out-mask loss; G
-   EMA; batch 2, 256 px, bf16), 8 steps, the towers bit for bit after them
+   EMA; batch 2, 256 px, bf16), 4 steps, the towers bit for bit after them
    and every head and f_s changed, two requests; the vision-aided D in
    fp32, card against CPU; ``example_gan_glasses2noglasses.json`` (128 px)
    2 steps and one request. No kernel of the port runs on these paths
@@ -122,12 +122,12 @@ GPU. Run from the repository root with no arguments:
    in its config's layout: ``example_gan_mario2sonic.json`` at full width
    (the segformer G, 3,931,824 parameters; the unet f_s of 7 classes; the
    projected, basic and vision-aided Ds; batch 2, 128 px online crops of
-   180 px images in both domains, bf16), 8 steps and 2 requests through
+   180 px images in both domains, bf16), 4 steps and 2 requests through
    ``scripts/gen_single_image``; its segformer G and a segformer f_s of
    19 classes at 512 px in fp32, card against CPU (1e-4 of the largest
    output); ``example_ddpm_unetref_viton.json`` at full width
    (unet_mha_ref_attn, 147,557,059 parameters; batch 16, 128 px online
-   crops with a reference each; EMA; bf16), 8 steps, two DDIM-10 and one
+   crops with a reference each; EMA; bf16), 4 steps, two DDIM-10 and one
    DDPM (its test schedule cut to 10 steps) ``--bbox_in --ref_in`` requests,
    the memory of the legacy attention's fp32 logits at ds 4, and the
    full-width ``UNetRefAttn`` in fp32, card against CPU. Step time,
@@ -225,7 +225,7 @@ GPU. Run from the repository root with no arguments:
    images/s, peak memory, data wait, a profiled step's launches and idle
    share, and 2 requests through ``scripts/gen_single_image`` from G_A's
    checkpoint (no kernel); the same with ``--G_netG unet_256`` (45,192,387
-   parameters a G), 6 steps with K1, K2 and K3 6 times each a step (3
+   parameters a G), 3 steps with K1, K2 and K3 6 times each a step (3
    forwards of each G, fake, rec and idt, each with its backward; the Ds
    reuse the fakes) and 2 requests of one K1; CUT over horse2zebra with
    ``--G_netG`` unet_mha (K1-K3 2 a step, 1 a request), uvit, hdit, ittr
@@ -236,6 +236,22 @@ GPU. Run from the repository root with no arguments:
    and a DDIM-10 request each; the CycleGAN G and Ds, HAT (128 px), ITTR
    and the UViT denoiser at full width in fp32, card against CPU to 1e-4
    of the largest output.
+19. ReCycleGAN and ReCUT over synthetic data in the labeled-mask layout
+   read as nuplets of 3 frames (frames 0 and 1 fold into the batch, frame
+   2 is the P nets' target), in RAM (``/dev/shm``): horse2zebra with
+   ``--model_type re_cycle_gan`` at full width (recycle_h2z: the CycleGAN
+   nets and P_A, P_B, unet_128 over 6 channels, 45,194,115 parameters
+   each; batch 4 nuplets, 256 px), 3 steps with K1, K2 and K3 4 times each
+   a step (P_A and P_B on the real sequences, then on the stacks of the
+   fakes, each with its backward), and noglasses2glasses with
+   ``--model_type re_cut_semantic_mask --alg_cut_flip_equivariance``
+   (recut_glasses: batch 2 nuplets; P_B; K1-K3 2 a step), 3 steps; each
+   with the nets' parameter counts, the P and recycle or ReCUT losses
+   finite, the warm step time, images/s, peak memory, data wait, a
+   profiled step's launches and idle share, and a request through
+   ``scripts/gen_single_image`` from G_A's checkpoint (no kernel); and a
+   ReCycleGAN step in bf16 on the card against fp32 on the CPU at a
+   reduced width (1 nuplet, 64 px), every loss within 5e-2 (relative).
 
 Prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -246,6 +262,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -285,6 +302,7 @@ PATH_SHAPE = (1, 256, 16, 32)       # the mid block of a 128 px request
 TRAIN_SHAPE = (8, 256, 16, 32)      # the mid block at 128 px, batch 8
 BIG_SHAPE = (8, 1024, 16, 32)       # the mid block at 256 px, batch 8
 GAN_SHAPE = (4, 1024, 16, 32)       # the unet GAN Gs' mid block, 256 px
+RECUT_SHAPE = (2, 1024, 16, 32)     # ReCUT's P_B mid block, batch 2, 256 px
 # xview's mid block (1024 channels, 32 heads of 32) at 128 px: a request and
 # a training step at batch 16
 XVIEW_PATH_SHAPE = (1, 256, 32, 32)
@@ -323,14 +341,14 @@ WIDE_CHECKS = [((8, 288, 16, 80), "bfloat16"), ((8, 288, 16, 80), "float32"),
                ((3, 65, 1, 160), "float32")]
 FWD_CHECKS = [(PATH_SHAPE, "bfloat16"), (PATH_SHAPE, "float32"),
               (TRAIN_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
-              (GAN_SHAPE, "bfloat16"),
+              (GAN_SHAPE, "bfloat16"), (RECUT_SHAPE, "bfloat16"),
               (XVIEW_PATH_SHAPE, "bfloat16"), (XVIEW_TRAIN_SHAPE, "bfloat16"),
               (CM_TRAIN_SHAPE, "bfloat16"), (CM_GAN_TRAIN_SHAPE, "bfloat16"),
               ((8, 64, 16, 32), "bfloat16"), ((2, 100, 2, 8), "bfloat16"),
               ((2, 100, 2, 8), "float32"), *EDGE_CHECKS, *WIDE_CHECKS]
 BWD_CHECKS = [(TRAIN_SHAPE, "bfloat16"), (TRAIN_SHAPE, "float32"),
               (PATH_SHAPE, "bfloat16"), (BIG_SHAPE, "bfloat16"),
-              (GAN_SHAPE, "bfloat16"),
+              (GAN_SHAPE, "bfloat16"), (RECUT_SHAPE, "bfloat16"),
               (XVIEW_PATH_SHAPE, "bfloat16"),
               (XVIEW_TRAIN_SHAPE, "bfloat16"), (CM_TRAIN_SHAPE, "bfloat16"),
               (CM_GAN_TRAIN_SHAPE, "bfloat16"), ((8, 64, 16, 32), "bfloat16"),
@@ -371,7 +389,7 @@ CUT_LOSS_TOL = 1e-3
 # batch 2 (256 px), then GLASSES_REQUESTS requests; glasses2noglasses
 # GLASSES2_STEPS steps (128 px), one request. Full width: the JAX modules'
 # parameter counts (jax.eval_shape)
-GLASSES_STEPS = 8
+GLASSES_STEPS = 4
 GLASSES_REQUESTS = 2
 GLASSES2_STEPS = 2
 EXPECTED_PARAMS_GLASSES_G = 2_462_565      # mobile_resnet_attn, ngf 64
@@ -410,7 +428,7 @@ SC_REQUEST_K1 = 16
 # MARIO_REQUESTS requests; the segformer G (128 px) and a bdd100k-wide
 # segformer f_s (512 px, 19 classes) in fp32, card against CPU, to
 # MIT_TOL of the largest output
-MARIO_STEPS = 8
+MARIO_STEPS = 4
 MARIO_REQUESTS = 2
 MARIO_IMAGE = 180
 EXPECTED_PARAMS_MARIO_G = 3_931_824
@@ -420,7 +438,7 @@ MIT_TOL = 1e-4
 # images with a reference each, then UNETREF_REQUESTS DDIM-10 --ref_in
 # requests and one with the config's DDPM sampler; the full-width
 # UNetRefAttn in fp32, card against CPU
-UNETREF_STEPS = 8
+UNETREF_STEPS = 4
 UNETREF_REQUESTS = 2
 EXPECTED_PARAMS_UNETREF = 147_557_059
 # the ref UNet's legacy attention at ds 4 of a 128 px training batch: 16
@@ -618,7 +636,7 @@ IMAGE_TOL = 1e-4
 GAN_EXAMPLE = "example_gan_horse2zebra.json"
 CYCLEGAN_STEPS = 8
 CYCLEGAN_REQUESTS = 2
-CYCLEGAN_UNET_STEPS = 6
+CYCLEGAN_UNET_STEPS = 3
 CYCLEGAN_UNET_REQUESTS = 2
 CYCLEGAN_UNET_PER_STEP = 6
 EXPECTED_PARAMS_CYCLEGAN = {"G_A": 11_853_669, "G_B": 11_853_669,
@@ -651,8 +669,40 @@ PALETTE_ZOO = (("palette_uvit_128", ["--G_netG", "uvit"], 72_451_587, 0),
                ("palette_wavelet_128", ["--train_feat_wavelet"], 63_296_396,
                 1))
 ZOO_TOL = 1e-4
+# ReCycleGAN and ReCUT over the nuplet layout (nuplets of 3 frames:
+# frames 0 and 1 fold into the batch, frame 2 is P's target), at full
+# width: recycle_h2z (horse2zebra with --model_type re_cycle_gan: batch 4
+# nuplets, 256 px, resnet_attn Gs, projected and basic Ds a domain) and
+# recut_glasses (noglasses2glasses with --model_type re_cut_semantic_mask
+# and FastCUT's flips: batch 2 nuplets, 256 px, the vision-aided D among
+# its three). Their P nets are unet_128 at ngf 64 over 6 channels, whose
+# middle AttentionBlock runs K1-K3 at GAN_SHAPE and RECUT_SHAPE: P_A and
+# P_B on the real sequences, then on the stacks of G's fakes, each with
+# its backward (ReCUT: P_B alone). No kernel serves the Gs. After the
+# steps one more with the gate opened (threshold RE_OPEN_THRESHOLD): its
+# recycle or ReCUT terms must be positive. The bf16 step on the card is
+# held against fp32 on the CPU as the CycleGAN step of
+# tests/test_torch_cuda.py is: at a reduced width (RE_STEP_WIDTH: G_ngf
+# and D_ndf), batch 1 nuplet, RE_STEP_SIZE px, the P nets redrawn with
+# their zero layers at N(0, RE_STEP_ZERO_STD), to RE_STEP_TOL of each loss
+# (relative, at least 1); P_A's qkv gradient against the CPU's and its
+# middle block's against the plain attention (``re_step_check``).
+# Steps were cut to pay for these phases: glasses, mario2sonic and unetref
+# 8 -> 4, CycleGAN unet_256 6 -> 3
+RE_NUPLET = 3
+RE_STEPS = 2
+RECUT_STEPS = 2
+RE_PER_STEP = {"flash_attention_fwd": 4, "flash_attention_bwd_dq": 4,
+               "flash_attention_bwd_dkv": 4}
+RECUT_PER_STEP = {k: 2 for k in RE_PER_STEP}
+EXPECTED_PARAMS_P = 45_194_115             # unet_128 at ngf 64, 6 channels
+RE_OPEN_THRESHOLD = 100.0
+RE_STEP_SIZE = 64
+RE_STEP_WIDTH = 16
+RE_STEP_ZERO_STD = 0.02
+RE_STEP_TOL = 5e-2
 PROBE_ITERS = 32
-TRACE_ATTEMPTS = 4                  # traces of one timing, at most
+TRACE_ATTEMPTS = 2                  # traces of one timing, at most
 SPIN_HZ = 1.98e9                    # the H100's top SM clock, cycles a second
 
 
@@ -2641,16 +2691,18 @@ def _shm_workdir(workdir, prefix):
     return tempfile.mkdtemp(prefix=f"{prefix}_", dir=workdir)
 
 
-def _profiled_step(model, opt):
-    """One warm step of ``model`` on a synthetic batch timed by the host
-    clock, and another traced (``torch.profiler``): latency, device
-    launches, busy time (the union of the kernels' intervals) and the idle
-    share of the latency, as ``scripts/profile_request.py`` reads them."""
+def _profiled_step(model, opt, batch=None):
+    """One warm step of ``model`` on a synthetic batch (or ``batch``) timed
+    by the host clock, and another traced (``torch.profiler``): latency,
+    device launches, busy time (the union of the kernels' intervals) and
+    the idle share of the latency, as ``scripts/profile_request.py`` reads
+    them."""
     import torch
     from joligen_tpu_torch.scripts.profile_request import (busy_us,
                                                            synthetic_batch)
-    batch = synthetic_batch(opt.data_crop_size, SEED + 80,
-                            opt.train_batch_size)
+    if batch is None:
+        batch = synthetic_batch(opt.data_crop_size, SEED + 80,
+                                opt.train_batch_size)
 
     def step():
         model.optimize_parameters(batch)
@@ -2663,10 +2715,12 @@ def _profiled_step(model, opt):
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         step()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = busy_us([(e.time_range.start, e.time_range.end)
-                    for e in kernels])
+    # the trace's raw events (ns): building the profiler's FunctionEvents
+    # from a GAN step's ~10^5 events takes ~20 s of host time
+    kernels = [(e.start_ns() / 1e3, e.end_ns() / 1e3)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy = busy_us(kernels)
     rec = {"latency_ms": latency_us / 1e3, "device_launches": len(kernels),
            "device_busy_ms": busy / 1e3,
            "device_idle_share": (max(0.0, 1.0 - busy / latency_us)
@@ -2737,6 +2791,287 @@ def cyclegan_phase(workdir, unet=False):
                              f"{name}_requests": req["launches"]}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _re_opt(example, workdir, name, args, n_images, size):
+    """An example config with ``args`` over a synthetic
+    ``unaligned_labeled_mask`` dataset (the nuplet mode reads its layout)
+    of ``n_images`` a domain, ``size`` px (``_example_opt``)."""
+    from joligen_tpu_torch.tools.synthetic_datasets import \
+        write_unaligned_labeled
+
+    opt = _example_opt(example, workdir, name, [
+        "--data_dataset_mode", "nuplet_unaligned_labeled_mask",
+        "--data_relative_paths", *args])
+    write_unaligned_labeled(opt.dataroot, n_images, size, seed=SEED + 90)
+    return opt
+
+
+def _nuplets(size, seed, batch):
+    """Synthetic nuplets of RE_NUPLET frames (``synthetic_batch``), the
+    label mask given to both domains."""
+    from joligen_tpu_torch.scripts.profile_request import synthetic_batch
+    clip = synthetic_batch(size, seed, batch, frames=RE_NUPLET)
+    clip["A_label_mask"] = clip["B_label_mask"]
+    return clip
+
+
+def re_step_check(opt):
+    """One ReCycleGAN step in bf16 on the card against fp32 on the CPU from
+    the same state and the same draws (pools, DiffAugment): the CPU model's
+    init at G_ngf and D_ndf RE_STEP_WIDTH with its P nets redrawn from the
+    seed, their zero-initialised layers (``proj_out`` among them) at
+    N(0, RE_STEP_ZERO_STD), so that attention adds to P's outputs and K2
+    and K3 get a non-zero dO; batch 1 nuplet, RE_STEP_SIZE px, the gate
+    opened (RE_OPEN_THRESHOLD) so that the recycle terms count. First P_A's
+    loss gradient at its middle block's qkv weight, which reaches it only
+    through K2/K3: on the card no further from the CPU's fp32 gradient than
+    twice the same bf16 pass through the attention's plain version is, plus
+    RE_STEP_TOL (of the norm: bf16 through the whole unet moves it by 10-15
+    %, and the two bf16 passes differ by about as much); and the
+    block alone, on the input and output gradient that the card's pass gave
+    it, within RE_STEP_TOL of its plain version; then the step: K1-K3
+    RE_PER_STEP times on the card, every loss within RE_STEP_TOL
+    (relative, at least 1). Returns its record."""
+    import copy
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models import create_model
+    from joligen_tpu_torch.models.cut_model import channel_stack
+    from joligen_tpu_torch.models.diffusion_networks import init_weights
+    from joligen_tpu_torch.models.modules import unet_mha
+    from joligen_tpu_torch.ops.diff_aug import draw_diff_augment
+    from joligen_tpu_torch.ops.flash_attention import \
+        flash_attention_reference
+
+    @contextlib.contextmanager
+    def attention(plain):
+        """The unet's attention through K1-K3, or with ``plain`` through
+        their plain version."""
+        kernel = unet_mha.flash_attention
+        if plain:
+            unet_mha.flash_attention = (
+                lambda q, k, v: flash_attention_reference(q, k, v)[0])
+        try:
+            yield
+        finally:
+            unet_mha.flash_attention = kernel
+
+    def p_grad(model, prepared, plain=False):
+        """P_A's loss gradient at its middle block's qkv weight, and the
+        block's input and output gradient on the way."""
+        blk, seen = model.nets["P_A"].AttentionBlock_0, {}
+
+        def keep(mod, args, out):
+            seen["x"] = args[0].detach()
+            out.register_hook(lambda g: seen.update(dy=g.detach()))
+        handle = blk.register_forward_hook(keep)
+        try:
+            with attention(plain):
+                loss = torch.mean(torch.abs(
+                    model.nets["P_A"](channel_stack(prepared["real_A_seq"]))
+                    - prepared["real_A_last"]))
+                grad = torch.autograd.grad(loss, blk.qkv.weight)[0]
+        finally:
+            handle.remove()
+        return grad.double().cpu(), seen
+
+    def block_grad(blk, seen, plain):
+        """The block's qkv gradient on the input and output gradient that
+        P_A's own pass gave it (``seen``)."""
+        with attention(plain):
+            out = blk(seen["x"])
+            return torch.autograd.grad(out, blk.qkv.weight, seen["dy"])[
+                0].double().cpu()
+
+    size, n = RE_STEP_SIZE, RE_NUPLET - 1
+    ckpt = tempfile.mkdtemp(prefix="re_step_")
+    try:
+        models = {}
+        for dev, bf16 in (("cpu", False), ("cuda", True)):
+            o = copy.copy(opt)
+            o.tpu_bf16, o.train_batch_size = bf16, 1
+            o.data_crop_size = o.data_load_size = size
+            o.G_ngf = o.D_ndf = RE_STEP_WIDTH
+            o.alg_re_projection_threshold = RE_OPEN_THRESHOLD
+            o.checkpoints_dir = ckpt
+            models[dev] = create_model(o, phase="train",
+                                       device=torch.device(dev))
+        m = models["cpu"]
+        g = torch.Generator().manual_seed(SEED + 91)
+        for name in ("P_A", "P_B"):
+            init_weights(m.nets[name], g, zero_init_std=RE_STEP_ZERO_STD)
+        for name, net in m.nets.items():
+            models["cuda"].nets[name].load_state_dict(net.state_dict())
+        draws = {"pool_A": m.pool_A.draw_query(g, n),
+                 "pool_B": m.pool_B.draw_query(g, n), "d_real_aug": {},
+                 "d_fake_aug": {}}
+        for sname, _, _ in m.d_names:
+            for k in ("d_real_aug", "d_fake_aug"):
+                draws[k][sname] = draw_diff_augment(
+                    g, (n, 3, size, size), m.diff_policy, m.diff_prob)
+
+        def moved(d, dev):
+            if isinstance(d, dict):
+                return {k: moved(v, dev) for k, v in d.items()}
+            return d.to(dev) if torch.is_tensor(d) else d
+        batch = _nuplets(size, SEED + 92, 1)
+        losses, grads = {}, {}
+        for dev, model in models.items():
+            prepared = model.prepare_batch(batch)
+            grads[dev], seen = p_grad(model, prepared)
+            if dev == "cuda":
+                grads["cuda_plain"], _ = p_grad(model, prepared, plain=True)
+                blk = model.nets["P_A"].AttentionBlock_0
+                grads["block"] = block_grad(blk, seen, False)
+                grads["block_plain"] = block_grad(blk, seen, True)
+            reset_launches()
+            out = model.optimize_prepared(prepared, moved(draws, dev))
+            losses[dev] = {k: float(v) for k, v in out.items()}
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = read_launches()
+        del models, m
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    err = max(abs(losses["cuda"][k] - v) / max(1.0, abs(v))
+              for k, v in losses["cpu"].items())
+    g_norm = grads["cpu"].norm().item()
+
+    def g_err(x, y):
+        return (grads[x] - grads[y]).norm().item() / grads[y].norm().item()
+    g_errs = {"block_card_vs_plain": g_err("block", "block_plain"),
+              "card_vs_plain": g_err("cuda", "cuda_plain"),
+              "card_vs_cpu": g_err("cuda", "cpu"),
+              "plain_vs_cpu": g_err("cuda_plain", "cpu")}
+    rec = {"losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+           "loss_max_rel_err": err, "tol": RE_STEP_TOL,
+           "p_qkv_grad_norm_cpu": g_norm, "p_qkv_grad_rel_err": g_errs,
+           "launches": launches, "size": size, "nuplets": 1,
+           "width": RE_STEP_WIDTH}
+    log("recycle_h2z bf16 step on the card vs fp32 on the CPU: "
+        + json.dumps(rec))
+    if (launches != _attention_only(launches, RE_PER_STEP)
+            or err > RE_STEP_TOL or not g_norm > 0
+            or not grads["block_plain"].norm().item() > 0
+            or g_errs["block_card_vs_plain"] > RE_STEP_TOL
+            or g_errs["card_vs_cpu"]
+            > 2 * g_errs["plain_vs_cpu"] + RE_STEP_TOL
+            or not min(losses["cpu"]["G_recycle_A"],
+                       losses["cpu"]["G_recycle_B"]) > 0
+            or not all(np.isfinite(v) for v in losses["cuda"].values())):
+        raise AssertionError("card and CPU ReCycleGAN steps disagree")
+    return rec
+
+
+def re_phase(workdir):
+    """ReCycleGAN and ReCUT over the nuplet layout at full width (see
+    RE_NUPLET): recycle_h2z RE_STEPS steps and recut_glasses RECUT_STEPS
+    steps, K1-K3 RE_PER_STEP and RECUT_PER_STEP times a step, each with the
+    nets' parameter counts (the P nets EXPECTED_PARAMS_P), finite losses
+    (the P losses and the ReCUT or recycle terms among them), the warm step
+    time, images/s, peak memory and data wait; then a step with the gate
+    opened (RE_OPEN_THRESHOLD), whose recycle or ReCUT terms must be
+    positive: recycle_h2z's is the profiled step (``_profiled_step``:
+    launches and idle share); one request each through
+    ``scripts/gen_single_image`` from G_A's checkpoint (no kernel); and
+    recycle_h2z's bf16 step against fp32 on the CPU (``re_step_check``).
+    Returns (records, launch counts per path)."""
+    import numpy as np
+    import torch
+
+    recs, paths = {}, {}
+    runs = (
+        ("recycle_h2z", GAN_EXAMPLE, ["--model_type", "re_cycle_gan"],
+         RE_STEPS, GAN_SHAPE[0], 286, RE_PER_STEP,
+         dict(EXPECTED_PARAMS_CYCLEGAN, P_A=EXPECTED_PARAMS_P,
+              P_B=EXPECTED_PARAMS_P),
+         {"P_proj_real_A", "P_proj_real_B", "G_recycle_A", "G_recycle_B"},
+         ("G_recycle_A", "G_recycle_B")),
+        ("recut_glasses", "example_gan_noglasses2glasses.json",
+         ["--model_type", "re_cut_semantic_mask",
+          "--alg_cut_flip_equivariance"],
+         RECUT_STEPS, RECUT_SHAPE[0], 256, RECUT_PER_STEP,
+         dict(EXPECTED_PARAMS_GLASSES, G_A=EXPECTED_PARAMS_GLASSES_G,
+              P_B=EXPECTED_PARAMS_P),
+         {"P_proj_real_B", "G_recut", "f_s", "G_sem_mask"}, ("G_recut",)))
+    for (name, example, args, steps, batch, image, per, want, keys,
+         gated) in runs:
+        wd = _shm_workdir(workdir, name)
+        t0 = time.perf_counter()
+        try:
+            opt = _re_opt(example, wd, name, args, steps * batch, image)
+            model, opt, rec = _train_run(
+                opt, steps, 1, f"{name} training", want["G_A"],
+                attention_per_step=per)
+            counts = model.param_count()
+            if ({k: counts.get(k) for k in want} != want
+                    or opt.train_batch_size != batch
+                    or opt.data_crop_size != 256 or opt.G_ngf != 64
+                    or opt.alg_re_nuplet_size != RE_NUPLET
+                    or model.nets["P_B"].AttentionBlock_0.heads
+                    != GAN_SHAPE[2]):
+                raise AssertionError(f"{name} is not at full width: "
+                                     f"{counts}")
+            if not keys <= set(rec["losses_last"]) or not all(
+                    np.isfinite(rec["losses_last"][k]) for k in keys):
+                raise AssertionError(f"{name}: losses {rec['losses_last']}")
+            rec["parameters_per_net"] = counts
+            rec["images_per_step"] = batch * (RE_NUPLET - 1)
+            # P's losses (about 3 after these steps) keep the config's
+            # threshold of 1 shut; opened, the gated terms count, and the
+            # step runs what it ran before (P's calls run whatever the gate)
+            t1 = time.perf_counter()
+            model.p_threshold = RE_OPEN_THRESHOLD
+            clip = _nuplets(256, SEED + 93, batch)
+            if name == "recycle_h2z":
+                rec["profiled_step"] = _profiled_step(model, opt, clip)
+                log(f"{name}: a profiled step "
+                    + json.dumps(rec["profiled_step"]))
+            else:
+                model.optimize_parameters(clip)
+                torch.cuda.synchronize()
+            rec["gate_open_losses"] = {k: float(model.loss_log[k])
+                                       for k in gated}
+            rec["gate_open_s"] = time.perf_counter() - t1
+            log(f"{name}: parameters {counts}; gate opened: "
+                f"{rec['gate_open_losses']}")
+            if not all(np.isfinite(v) and v > 0
+                       for v in rec["gate_open_losses"].values()):
+                raise AssertionError(f"{name}: gated terms "
+                                     f"{rec['gate_open_losses']}")
+            del model
+            torch.cuda.empty_cache()
+            ckpt = os.path.join(opt.checkpoints_dir, opt.name,
+                                "latest_net_G_A.pth")
+            out_dir = os.path.join(wd, f"out_{name}")
+            os.makedirs(out_dir)
+            req = _serve_gan(ckpt, os.path.join(opt.dataroot, "trainA",
+                                                "imgs", "0000.png"),
+                             out_dir, 1)
+            if req["launches"] != _attention_only(req["launches"], 0):
+                raise AssertionError(f"{name} request launched "
+                                     f"{req['launches']}")
+            log(f"{name}: a request from G_A's checkpoint, "
+                f"{[round(t, 4) for t in req['request_s']]} s")
+            rec["requests"] = req
+            if name == "recycle_h2z":
+                t1 = time.perf_counter()
+                rec["step_check_bf16_card_vs_fp32_cpu"] = re_step_check(opt)
+                rec["step_check_s"] = time.perf_counter() - t1
+            rec["phase_s"] = time.perf_counter() - t0
+            log(f"{name}: {rec['phase_s']:.1f} s in all (training "
+                f"{rec['wall_s']:.1f} s, the gate-open step(s) "
+                f"{rec['gate_open_s']:.1f} s"
+                + (f", the step check {rec['step_check_s']:.1f} s"
+                   if "step_check_s" in rec else "") + ")")
+            recs[name] = rec
+            paths[f"{name}_training"] = rec["launches"]
+            paths[f"{name}_requests"] = req["launches"]
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+    return recs, paths
 
 
 def gan_zoo_phase(workdir):
@@ -4927,14 +5262,12 @@ def main():
                                      f"warpgroup.wait (C7517) in {injected}")
 
     # the attention backward (72 kernels, its fp32 ones at D = 128 and 160
-    # spilling) builds for minutes: its nvcc runs beside the build of the
-    # three other sources and the phases that launch no attention kernel
-    t0 = time.perf_counter()
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    bwd_build = pool.submit(_build.build, ["flash_attention_bwd"])
-    built = _build.build(["flash_attention_fwd", "conv3x3_tap", "dma_copy"])
-    log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(built)}")
-    check_build(built)
+    # spilling) builds for minutes, the three other sources for ~40 s: both
+    # nvcc runs go beside the phases that launch no kernel of the port
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    builds = [pool.submit(_build.build, ["flash_attention_bwd"]),
+              pool.submit(_build.build, ["flash_attention_fwd",
+                                         "conv3x3_tap", "dma_copy"])]
 
     seconds = {}                       # the smoke's time, phase by phase
 
@@ -4946,7 +5279,7 @@ def main():
         return out
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        # no attention kernel on these paths (the backward still builds)
+        # no kernel of the port on these paths (the kernels still build)
         gans, gan_paths = phase("CUT", cut_phase, workdir)
         cyclegan, cyclegan_paths = phase("CycleGAN", cyclegan_phase,
                                          workdir)
@@ -4961,13 +5294,17 @@ def main():
         glasses["noglasses2glasses"]["cross_check_fp32"] = phase(
             "vision-aided cross-check", vision_aided_cross_check)
         zoo_cross_check = phase("GAN zoo cross-check", gan_zoo_cross_check)
-        t0 = time.perf_counter()
-        built = bwd_build.result()
-        pool.shutdown()
-        log(f"build: waited {time.perf_counter() - t0:.2f} s more for "
-            f"{sorted(built)}")
-        check_build(built)
+
+        def await_build(job):
+            t0 = time.perf_counter()
+            built = job.result()
+            log(f"build: waited {time.perf_counter() - t0:.2f} s more for "
+                f"{sorted(built)}")
+            check_build(built)
+        await_build(builds[1])
         k1 = phase("K1", kernel_phase)
+        await_build(builds[0])
+        pool.shutdown()
         k2, k3 = phase("K2/K3", backward_kernel_phase)
         p1, p2, p3 = phase("P1-P3", probe_kernel_phase)
         model, serving = phase("serving", slice_phase, workdir)
@@ -5005,6 +5342,7 @@ def main():
         zoo, zoo_paths = phase("GAN zoo", gan_zoo_phase, workdir)
         palette_zoo, palette_zoo_paths = phase("palette zoo",
                                                palette_zoo_phase, workdir)
+        re_runs, re_paths = phase("ReCycleGAN and ReCUT", re_phase, workdir)
     metric_nets = phase("metrics", metrics_phase)
     grad_check = phase("gradient cross-check", gradient_cross_check)
     vid["cross_check_fp32_max_abs_err"] = phase("video cross-check",
@@ -5025,7 +5363,8 @@ def main():
              **mario_paths, **unetref_paths, **vid_paths, **b2b_paths,
              **mat_paths, **mat_video_paths, **image_paths, **wide_paths,
              **perc_paths, **cyclegan_paths, **cyclegan_unet_paths,
-             **zoo_paths, **palette_zoo_paths, **probe_launches}
+             **zoo_paths, **palette_zoo_paths, **re_paths,
+             **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -5053,6 +5392,7 @@ def main():
                                    "cross_check_fp32": zoo_cross_check}))
     log("GAN zoo: " + json.dumps(zoo))
     log("palette zoo: " + json.dumps(palette_zoo))
+    log("ReCycleGAN and ReCUT: " + json.dumps(re_runs))
     log("metrics: " + json.dumps(metric_nets))
     log("phases (s): " + json.dumps(seconds))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -4,7 +4,8 @@ All randomness, PIL decoding and cropping stay on the host; the device sees
 fixed-shape NHWC batches ((B, F, H, W, C) clips for the video modes). Ported
 modes (``PORTED_MODES``): the labeled-mask modes, their online bbox-crop
 variants and the four ref modes, ``unaligned``, ``aligned`` and
-``single``, and the online video modes; any other mode raises
+``single``, the online video modes and the nuplet mode (ReCUT's and
+ReCycleGAN's (N, H, W, C) frames); any other mode raises
 ``NotImplementedError``. ``list_test_sets`` names a dataroot's test sets
 (phase ``test``, ``testA<name>``/``testB<name>``), which the train-time
 metrics and ``test.py`` evaluate.
@@ -31,7 +32,8 @@ PORTED_MODES = ("unaligned_labeled_mask", "unaligned_labeled_mask_cls",
                 "self_supervised_labeled_mask_online_ref",
                 "temporal_labeled_mask_online",
                 "self_supervised_vid_mask_online",
-                "self_supervised_vid_labeled_mask_cls_online")
+                "self_supervised_vid_labeled_mask_cls_online",
+                "nuplet_unaligned_labeled_mask")
 
 
 def find_dataset_class(mode):
@@ -52,7 +54,8 @@ def find_dataset_class(mode):
                                     D.SelfSupervisedLabeledMaskOnlineRefDataset,
                                     D.TemporalLabeledMaskOnlineDataset,
                                     D.SelfSupervisedVidMaskOnlineDataset,
-                                    D.SelfSupervisedVidLabeledMaskClsOnlineDataset)))
+                                    D.SelfSupervisedVidLabeledMaskClsOnlineDataset,
+                                    D.NupletUnalignedLabeledMaskDataset)))
     if mode not in table:
         raise NotImplementedError(
             f"dataset mode {mode} is not ported (ported: {PORTED_MODES}; "

@@ -3,9 +3,10 @@
 online bbox-crop modes (``:229-357``), the unaligned mode (``:74-97``), the
 four ref modes (``:361-470``: a reference image per sample from
 ``trainA/conditions.txt``, as ``ref_A``), the aligned and single modes
-(``:663-698``) and the online video modes (``:705-965``: clips of
-``data_temporal_number_frames`` frames, (F, H, W, C), every frame cropped
-with frame 0's window and one rotation draw).
+(``:663-698``), the nuplet mode (``:515-558``: N consecutive frames of
+each domain, (N, H, W, C)) and the online video modes (``:705-965``:
+clips of ``data_temporal_number_frames`` frames, (F, H, W, C), every frame
+cropped with frame 0's window and one rotation draw).
 
 Each dataset returns per-sample dicts of numpy arrays with keys matching the
 reference contract (data/base_dataset.py:120-195): ``A``, ``B`` (H,W,C float32
@@ -418,6 +419,47 @@ class SelfSupervisedLabeledMaskOnlineRefDataset(
     def __init__(self, opt, phase, name=""):
         super().__init__(opt, phase, name)
         self._init_ref()
+
+
+class NupletUnalignedLabeledMaskDataset(UnalignedLabeledMaskDataset):
+    """``alg_re_nuplet_size`` consecutive frames of each domain, for ReCUT's
+    and ReCycleGAN's frame predictor (``datasets.py:515-558``): A's frames
+    from ``index`` on, wrapping at ``A_size``, under one transform draw; B's
+    from ``random.randint(0, max(0, B_size - n))`` on, under a draw of its
+    own. ``A`` and ``B`` are (N, H, W, C), the label masks (N, H, W, 1)
+    where the paths have them."""
+
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self.nuplet = int(getattr(opt, "alg_re_nuplet_size", 3) or 3)
+
+    def _frames(self, start, size, img_paths, mask_paths):
+        p = self.transform.sample_params()
+        frames, masks = [], []
+        for i in range(self.nuplet):
+            j = (start + i) % size
+            frames.append(self.transform.image(
+                self._load_img(img_paths[j]), p))
+            if mask_paths and mask_paths[j]:
+                masks.append(self.transform.mask(
+                    load_mask(self._resolve(mask_paths[j])), p))
+        return np.stack(frames), (np.stack(masks) if masks else None)
+
+    def __getitem__(self, index):
+        frames, masks = self._frames(index, self.A_size, self.A_img_paths,
+                                     self.A_mask_paths)
+        out = {"A": frames,
+               "A_img_paths": self.A_img_paths[index % self.A_size]}
+        if masks is not None:
+            out["A_label_mask"] = masks
+        if self.B_size:
+            j0 = random.randint(0, max(0, self.B_size - self.nuplet))
+            frames, masks = self._frames(j0, self.B_size, self.B_img_paths,
+                                         self.B_mask_paths)
+            out["B"] = frames
+            if masks is not None:
+                out["B_label_mask"] = masks
+        return out
 
 
 class AlignedDataset(BaseDataset):

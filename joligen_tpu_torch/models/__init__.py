@@ -3,10 +3,11 @@
 
 def create_model(opt, phase="train", device=None, cpu=False):
     """Name -> model class (``joligen_tpu/models/__init__.py``) for phase
-    ``train`` or ``test``: palette, cm, cm_gan, sc, b2b, cut, cycle_gan, mat
-    and test are ported (re_cut, re_cycle_gan and segmentation are not).
-    The device is CUDA unless ``cpu`` or an explicit ``device`` is
-    given."""
+    ``train`` or ``test``: palette, cm, cm_gan, sc, b2b, cut, re_cut,
+    re_cut_semantic_mask (which sets ``train_semantic_mask``), cycle_gan,
+    re_cycle_gan, mat and test are ported (segmentation is not;
+    re_cycle_gan_semantic_mask raises as in the JAX package). The device is
+    CUDA unless ``cpu`` or an explicit ``device`` is given."""
     if opt.model_type == "palette":
         from .palette_model import PaletteModel
         return PaletteModel(opt, phase=phase, device=device, cpu=cpu)
@@ -19,8 +20,10 @@ def create_model(opt, phase="train", device=None, cpu=False):
     if opt.model_type == "b2b":
         from .b2b_model import B2BModel
         return B2BModel(opt, phase=phase, device=device, cpu=cpu)
-    if opt.model_type == "cut":
+    if opt.model_type in ("cut", "re_cut", "re_cut_semantic_mask"):
         from .cut_model import CUTModel
+        if opt.model_type == "re_cut_semantic_mask":
+            opt.train_semantic_mask = True
         return CUTModel(opt, phase=phase, device=device, cpu=cpu)
     if opt.model_type in ("cycle_gan", "re_cycle_gan",
                           "re_cycle_gan_semantic_mask"):
@@ -34,5 +37,6 @@ def create_model(opt, phase="train", device=None, cpu=False):
         return TestModel(opt, phase=phase, device=device, cpu=cpu)
     raise NotImplementedError(
         f"model type {opt.model_type}: palette, cm, cm_gan, sc, b2b, cut, "
-        "cycle_gan, mat and test are ported (ROADMAP Queue 1 item 10, what "
-        "is left of the model families)")
+        "re_cut, re_cut_semantic_mask, cycle_gan, re_cycle_gan, mat and test "
+        "are ported (ROADMAP Queue 1 item 10, what is left of the model "
+        "families)")

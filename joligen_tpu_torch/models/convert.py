@@ -239,31 +239,37 @@ def torch_to_flax(state_dict, weight_leaves=False):
     stacks = {}     # path with ``block`` -> {block index: leaf}
     for key, t in state_dict.items():
         parts = key.split(".")
-        arr = t.detach().cpu().numpy()
+        t = t.detach()
         name, module = parts[-1], parts[-2] if len(parts) > 1 else ""
+        perm = None         # the leaf's axes in flax's order, if moved
         if _mat_leaf(weight_leaves, parts, name):
             fname = name
-            if name == "weight" and arr.ndim == 4:
-                arr = arr.transpose(2, 3, 1, 0)
-            elif name == "weight" and arr.ndim == 2:
-                arr = arr.T
-            elif name == "weight" or arr.ndim != 0:
+            if name == "weight" and t.dim() == 4:
+                perm = (2, 3, 1, 0)
+            elif name == "weight" and t.dim() == 2:
+                perm = (1, 0)
+            elif name == "weight" or t.dim() != 0:
                 raise ValueError(f"unmapped torch parameter {key}")
         elif name in ("bias", "kernel") or name in RAW_LEAVES \
                 or RAW_LEAF.match(name):
             fname = name
         elif name != "weight":
             raise ValueError(f"unmapped torch parameter {key}")
-        elif arr.ndim == 4:
-            arr, fname = arr.transpose(2, 3, 1, 0), "kernel"
-        elif arr.ndim == 5:
-            arr, fname = arr.transpose(2, 3, 4, 1, 0), "kernel"
-        elif arr.ndim == 1:
+        elif t.dim() == 4:
+            perm, fname = (2, 3, 1, 0), "kernel"
+        elif t.dim() == 5:
+            perm, fname = (2, 3, 4, 1, 0), "kernel"
+        elif t.dim() == 1:
             fname = "scale"
         elif module.startswith("embedder"):
             fname = "embedding"
         else:
-            arr, fname = arr.T, "kernel"
+            perm, fname = tuple(reversed(range(t.dim()))), "kernel"
+        # the axes move where the tensor lies (on the card, before its one
+        # copy to the host)
+        if perm is not None and t.dim() > 1:
+            t = t.permute(perm).contiguous()
+        arr = t.cpu().numpy()
         path = parts[:-1] + [fname]
         for i in range(len(path) - 1):
             if SCAN_STACK.match(path[i]) and path[i + 1].isdigit():

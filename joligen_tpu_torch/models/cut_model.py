@@ -1,17 +1,23 @@
 """CUT / FastCUT contrastive unpaired translation
-(``joligen_tpu/models/cut_model.py``) along the options the ``cut`` example
-configs reach: a generator G of any name the factory builds (resnet,
-resnet_attn, segformer, the unet Gs, uvit, hdit, hat, ittr; its encoder
-taps are the NCE layers, ``select_nce_layers``), the ``PatchSampleF``
-projector F with
-the PatchNCE, MoNCE or SRC + hDCE loss (identity NCE, ``MSE_idt``), and one
-or more discriminators (the vision-aided one among them) with the fake
-pool, DiffAugment, ``D_noise``, one-sided label smoothing and
-``D_dropout``; G EMA with ``train_G_ema``; and the semantic-mask branch
-(``train_semantic_mask``): the segmenter f_s, trained on the label masks of
-A (and of B with ``train_mask_f_s_B``), whose cross-entropy on G's fake
-(and identity) joins G's loss, and the out-of-mask identity loss
-(``train_mask_out_mask``).
+(``joligen_tpu/models/cut_model.py``) along every option of the JAX model
+but the semantic classifier: a generator G of any name the factory builds
+(resnet, resnet_attn, segformer, the unet Gs, uvit, hdit, hat, ittr; its
+encoder taps are the NCE layers, ``select_nce_layers``), the
+``PatchSampleF`` projector F with the PatchNCE, MoNCE or SRC + hDCE loss
+(identity NCE, ``MSE_idt``), and one or more discriminators (the
+vision-aided one among them) with the fake pool, DiffAugment, ``D_noise``,
+one-sided label smoothing and ``D_dropout``; G EMA with ``train_G_ema``;
+the semantic-mask branch (``train_semantic_mask``): the segmenter f_s,
+trained on the label masks of A (and of B with ``train_mask_f_s_B``), whose
+cross-entropy on G's fake (and identity) joins G's loss, and the
+out-of-mask identity loss (``train_mask_out_mask``); FastCUT's flips
+(``alg_cut_flip_equivariance``), the contrastive D
+(``train_use_contrastive_loss_D``), adaptive pseudo augmentation
+(``dataaug_APA``), diffusion-noise D augmentation (``dataaug_D_diffusion``),
+the supervised pixel and perceptual terms (``alg_cut_supervised_loss``);
+and ReCUT (model types ``re_cut`` and ``re_cut_semantic_mask``, over the
+``nuplet`` dataset mode): a frame predictor P_B (``define_P``) and G's
+``G_recut`` term.
 
 One step (``optimize_prepared``), in the JAX step's order
 (``cut_model.py:685-950``):
@@ -20,27 +26,46 @@ One step (``optimize_prepared``), in the JAX step's order
    their masks, with its own Adam; its loss at or below
    ``f_s_semantic_threshold`` opens the gate of G's semantic terms (a
    device tensor: nothing waits for the host);
-2. G and F together: G's loss (the GAN terms of every D on the augmented
-   fake, the NCE terms, the semantic terms through the updated f_s, whose
-   parameters take no gradient) and its gradients, then Adam on G (and its
-   EMA) and on F;
-3. the fake (before G's update) through the pool;
-4. each D on the augmented real and pooled images, with its own Adam.
+2. ReCUT: P_B on the channel stack of B's frames 0..N-2 against frame N-1,
+   10 · L1 (``P_proj_real_B``), with its own Adam at ``alg_re_P_lr``; its
+   loss at or below ``alg_re_projection_threshold`` opens the gate of G's
+   ReCUT terms (a device tensor; P's calls in G's loss run whatever the
+   gate, as in the JAX step);
+3. G and F together: with flips, A and B mirrored on a step's Bernoulli
+   draw; G's loss (the GAN terms of every D on the augmented fake, or the
+   contrastive term of D on the real and the fake; the NCE terms, whose
+   queries a flipped step mirrors back; ReCUT's NCE of A's last frame
+   against P(the stack of the fakes), P's parameters taking no gradient,
+   and with ``alg_re_adversarial_loss_p`` every D's term on that
+   prediction; the supervised L1 or MSE and LPIPS/DISTS terms against B;
+   the semantic terms through the updated f_s, whose parameters take no
+   gradient) and its gradients, then Adam on G (and its EMA) and on F;
+4. the fake (before G's update) through the pool;
+5. each D on the real images and the pooled fakes (``D_noise``, then the
+   diffusion noise, DiffAugment, and APA's pool images in place of reals),
+   the GAN or the contrastive loss, with its own Adam; then APA's p (every
+   step) and the diffusion noise's p (every ``dataaug_D_diffusion_every``
+   G steps) adapt from the first D's real logits and real loss.
 
 Images are NHWC at the networks' boundaries, as in the JAX package. The
 random draws (DiffAugment, patch ids, the pool, ``D_noise``, dropout) come
 from the model's generator on the device where they are used; ``draws``
 feeds any of them instead (tests feed the JAX step's draws): keys
-``g_aug``, ``g_dropout`` ({D name: masks}), ``nce`` and ``nce_idt`` (id
-lists), ``pool``, ``d_noise`` ((real, fake)), ``d_real_aug``,
-``d_fake_aug`` and ``d_dropout`` ({D name: (real masks, fake masks)}).
+``g_aug``, ``g_dropout`` ({D name: masks}), ``nce``, ``nce_idt`` and
+``nce_recut`` (id lists), ``flip`` (a bool tensor), ``pool``, ``d_noise``
+((real, fake)), ``d_diffusion`` ({"real", "fake"}: (t (B,) ints, 0 for an
+image left clean; noise)), ``d_real_aug``, ``d_fake_aug``, ``apa``
+({"idx", "u"}) and ``d_dropout`` ({D name: (real masks, fake masks)}).
+APA's and the diffusion noise's p are device scalars carried across steps
+(``apa_p``, ``d_diff_p``) and logged as ``APA_p`` and ``D_diff_p``.
 
 In phase ``test`` only G (and its EMA) is built and loaded.
 
-``train_sem_use_label_B``, which the glasses configs set, is read by
-nothing in the JAX package; the port reads it nowhere either. Options off
-this path raise ``NotImplementedError`` naming the option
-(``UNPORTED_OPTIONS``), as does an ``f_s_net`` other than ``unet``.
+``train_sem_use_label_B``, which the glasses configs set, and
+``alg_re_no_train_P_fake_images`` are read by nothing in the JAX package;
+the port reads them nowhere either. ``train_semantic_cls`` raises
+``NotImplementedError`` naming its ROADMAP item (``UNPORTED_OPTIONS``), as
+does an ``f_s_net`` other than ``unet``.
 """
 
 from __future__ import annotations
@@ -50,12 +75,14 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.diff_aug import apply_diff_augment, draw_diff_augment
+from ..ops.schedules import make_beta_schedule
 from ..utils.clip_vit import load_clip_ref_encoder
 from ..utils.dinov2 import load_dino_into
 from .base import BaseModel, dequantize, quantize_batch
-from .gan_networks import (define_D, define_F, define_G, flax_default_init,
-                           init_raw_leaves)
-from .modules.cut_networks import (gan_loss, monce_loss, patch_nce_loss,
+from .gan_networks import (define_D, define_F, define_G, define_P,
+                           flax_default_init, init_raw_leaves)
+from .modules.cut_networks import (contrastive_gan_loss, gan_loss,
+                                   monce_loss, patch_nce_loss,
                                    sample_patch_ids, src_hdce_loss)
 from .modules.image_pool import ImagePool
 from .modules.projected_d import load_efficientnet_trunk
@@ -63,23 +90,19 @@ from .modules.segformer import load_mit_backbone
 from .modules.semantic_networks import check_f_s_net, define_f
 from .train_state import apply_updates, param_grads, scheme_from_opt
 
-_LEFT = "ROADMAP Queue 1 item 10, what is left of the GAN families"
-# option -> where its port stands; each raises when it is set
+# option -> where its port stands; each raises when it is set. The rest of
+# the JAX model's options run (APA, D diffusion, the contrastive D, flips,
+# the supervised and perceptual losses since ReCUT's slice).
 UNPORTED_OPTIONS = {
-    "train_semantic_cls": _LEFT + " (semantic networks: the classifier)",
-    "dataaug_APA": _LEFT + " (adaptive pseudo augmentation)",
-    "dataaug_D_diffusion": _LEFT + " (diffusion-noise D augmentation)",
-    "train_use_contrastive_loss_D": _LEFT + " (contrastive D loss)",
-    "alg_cut_flip_equivariance": _LEFT + " (FastCUT flips)",
-    "alg_cut_supervised_loss": _LEFT + " (supervised and perceptual losses)",
+    "train_semantic_cls": "ROADMAP Queue 1 item 10.4, the mask D and "
+                          "define_C (semantic networks: the classifier)",
 }
 PATCH_DS = ("basic", "n_layers", "pixel")
+# D diffusion's timesteps (cut_model.py:827-830)
+D_DIFF_T_MIN, D_DIFF_T_MAX = 10, 1000
 
 
 def check_unported(opt):
-    if opt.model_type in ("re_cut", "re_cut_semantic_mask"):
-        raise NotImplementedError(
-            f"model type {opt.model_type} (re-CUT) is not ported ({_LEFT})")
     for name, where in UNPORTED_OPTIONS.items():
         v = getattr(opt, name, None)
         if isinstance(v, (list, tuple)):
@@ -128,6 +151,54 @@ def select_nce_layers(opt):
         return [opt.G_nblocks * i - 1
                 for i in range(1, len(opt.G_unet_mha_channel_mults) + 1)]
     return [int(i) for i in str(opt.alg_cut_nce_layers).split(",")]
+
+
+def init_predictor(opt, generator, scheme):
+    """A frame predictor P (``define_P``) at flax's init of its raw leaves,
+    then the init scheme where ``scheme`` (ReCUT's P_B,
+    ``cut_model.py:303-307``); without it (ReCycleGAN's P_A and P_B,
+    ``cycle_gan_model.py:111-117``) flax's default init: the unet Ps'
+    init of ``diffusion_networks.init_weights`` (their zero-initialised
+    layers zero), the resnet Ps' ``flax_default_init``."""
+    from .diffusion_networks import init_weights
+    net = init_raw_leaves(define_P(opt), generator)
+    if scheme:
+        return scheme_from_opt(net, generator, opt)
+    if "unet" in (getattr(opt, "alg_re_netP", "unet_128") or "unet_128"):
+        return init_weights(net, generator)
+    return flax_default_init(net, generator)
+
+
+def channel_stack(seq):
+    """(B, N, H, W, C) frames -> (B, H, W, N·C), frame i at channels
+    i·C..(i+1)·C - 1 (``jnp.concatenate`` of the frames on the last
+    axis)."""
+    b, n, h, w, c = seq.shape
+    return seq.permute(0, 2, 3, 1, 4).reshape(b, h, w, n * c)
+
+
+def fold_nuplets(batch, keys):
+    """The nuplet batch (B, N, H, W, C) of each of ``keys`` (batch key, out
+    key) folded: frames 0..N-2 into the batch, and frame N-1 (``<out>_last``)
+    and frames 0..N-2 (``<out>_seq``) kept (``cut_model.py:346-366``,
+    ``cycle_gan_model.py:127-138``)."""
+    out = {}
+    for key, name in keys:
+        x = np.asarray(batch[key])
+        out[name] = x[:, :-1].reshape((-1,) + x.shape[2:])
+        out[f"{name}_last"] = x[:, -1]
+        out[f"{name}_seq"] = x[:, :-1]
+    return out
+
+
+def fold_frames(batch):
+    """A batch's images and masks with each nuplet (a 5-D entry) folded as
+    the step folds it, frames 0..N-2 into the batch (the JAX models'
+    ``inference``, D accuracy and mIoU go through ``set_input``)."""
+    return {k: (np.asarray(v)[:, :-1].reshape((-1,) + np.shape(v)[2:])
+                if np.ndim(v) == 5 else v)
+            for k, v in batch.items()
+            if k in ("A", "B", "A_label_mask", "B_label_mask")}
 
 
 def _nchw(x):
@@ -184,6 +255,27 @@ class CUTModel(BaseModel):
         self.out_mask_loss = g("train_mask_loss_out_mask", "L1") or "L1"
         self.charbonnier_eps = float(g("train_mask_charbonnier_eps", 1e-6)
                                      or 1e-6)
+        # FastCUT flips, the contrastive D, the supervised and perceptual
+        # terms, APA and D diffusion (cut_model.py:102-141)
+        self.flip_equivariance = bool(g("alg_cut_flip_equivariance", False))
+        self.contrastive_d = bool(g("train_use_contrastive_loss_D", False))
+        self.supervised = [k for k in (g("alg_cut_supervised_loss", [""])
+                                       or [""]) if k]
+        self.lambda_supervised = float(g("alg_cut_lambda_supervised", 1.0)
+                                       or 1.0)
+        self.lambda_perceptual = float(g("alg_cut_lambda_perceptual", 1.0)
+                                       or 1.0)
+        self.apa = bool(g("dataaug_APA", False))
+        self.apa_target = float(g("dataaug_APA_target", 0.6))
+        self.apa_every = int(g("dataaug_APA_every", 4) or 4)
+        self.apa_nimg = float(g("dataaug_APA_nimg", 50) or 50)
+        self.d_diffusion = bool(g("dataaug_D_diffusion", False))
+        self.d_diffusion_every = int(g("dataaug_D_diffusion_every", 4) or 4)
+        # ReCUT (cut_model.py:286-307)
+        self.recut = opt.model_type in ("re_cut", "re_cut_semantic_mask")
+        self.nuplet = int(g("alg_re_nuplet_size", 3) or 3)
+        self.p_threshold = float(g("alg_re_projection_threshold", 1.0) or 1.0)
+        self.p_adversarial = bool(g("alg_re_adversarial_loss_p", False))
 
         init_gen = torch.Generator().manual_seed(self.seed)
         netG = init_generator(opt, init_gen)
@@ -214,24 +306,47 @@ class CUTModel(BaseModel):
                     # (f_s_B keeps its init, as in cut_model.py:262-279)
                     load_mit_backbone(net_f)
                 self.add_net(name, net_f, lr=g("train_sem_lr_f_s", 2e-4))
+        if self.recut:
+            self.add_net("P_B", init_predictor(opt, init_gen, scheme=True),
+                         lr=float(g("alg_re_P_lr", 2e-4) or 2e-4))
         size = opt.data_crop_size
         self.pool = ImagePool(int(g("train_pool_size", 50)),
                               (size, size, opt.model_output_nc), self.device)
+        self.apa_p = torch.tensor(float(g("dataaug_APA_p", 0.0) or 0.0),
+                                  device=self.device)
+        self.d_diff_p = torch.zeros((), device=self.device)
+        if self.d_diffusion:
+            # sqrt(alpha_bar) of the linear schedule, 1 at t = 0
+            # (cut_model.py:826-830)
+            gbar = np.sqrt(np.cumprod(1.0 - make_beta_schedule(
+                "linear", D_DIFF_T_MAX, 1e-4, 2e-2)))
+            self.d_diff_gbar = torch.tensor(
+                np.concatenate([[1.0], gbar]), dtype=torch.float32,
+                device=self.device)
 
     # ------------------------------------------------------------------
     def set_input(self, batch):
         """The images, and the label masks (``cut_model.py:330-345``): A's
         when the batch has them, B's with ``train_mask_f_s_B`` or
-        ``train_sem_idt``."""
-        out = {"real_A": batch["A"], "real_B": batch["B"]}
-        if "A_label_mask" in batch:
-            out["mask_A"] = batch["A_label_mask"]
-        if "B_label_mask" in batch and (self.mask_f_s_B or self.sem_idt):
-            out["mask_B"] = batch["B_label_mask"]
+        ``train_sem_idt``. ReCUT's nuplets (B, N, H, W, C) fold frames
+        0..N-2 into the batch and keep ``real_A_last``, ``real_B_last`` and
+        ``real_B_seq`` (``fold_nuplets``); a 4-D batch (a request) passes
+        as it is."""
+        if self.recut and np.ndim(batch["A"]) == 5:
+            out = fold_nuplets(batch, (("A", "real_A"), ("B", "real_B")))
+            del out["real_A_seq"]
+        else:
+            out = {"real_A": batch["A"], "real_B": batch["B"]}
+        masks = fold_frames(batch)
+        if "A_label_mask" in masks:
+            out["mask_A"] = masks["A_label_mask"]
+        if "B_label_mask" in masks and (self.mask_f_s_B or self.sem_idt):
+            out["mask_B"] = masks["B_label_mask"]
         return out
 
     def prepare_batch(self, batch):
-        """set_input, uint8 wire compression (the masks as labels), device
+        """set_input, uint8 wire compression (the masks as labels; ReCUT's
+        last frames and sequences stay float32, as in the JAX step), device
         upload."""
         return self.put_batch(quantize_batch(
             self.set_input(batch), float_keys=("real_A", "real_B"),
@@ -315,12 +430,16 @@ class CUTModel(BaseModel):
         out[:, c:-c, c:-c, :] = fake[:, c:-c, c:-c, :]
         return out
 
-    def _nce_features(self, feats_k, tgt_img, ids=None):
+    def _nce_features(self, feats_k, tgt_img, ids=None, flipped=None):
         """F's queries (with a graph) and keys (without: the losses detach
         them) for one NCE term (``cut_model.py:437-452``): ``feats_k`` are
-        the encoder taps of the source image."""
+        the encoder taps of the source image. On a flipped step
+        (``flipped``, a bool tensor) the queries are mirrored back, and only
+        they (``:447-449``)."""
         netG, netF = self.nets["G_A"], self.nets["F"]
         feats_q = netG(tgt_img, extract_layer_ids=self.nce_layers)
+        if flipped is not None:
+            feats_q = [torch.where(flipped, f.flip(2), f) for f in feats_q]
         if ids is None:
             ids = sample_patch_ids(self.generator, feats_k, self.num_patches)
         fq = netF(feats_q, ids)
@@ -368,11 +487,14 @@ class CUTModel(BaseModel):
                              include_all_neg, gamma=self.hdce_gamma)
 
     def _g_loss(self, real_A, real_B, draws, mask_A=None, mask_B=None,
-                fs_gate=None):
+                fs_gate=None, recut=None):
         """G's losses on NHWC fp32 images; the semantic terms where
-        ``mask_A`` (int, NHWC) is given, scaled by ``fs_gate``. Returns
-        (total, losses, fake_B)."""
+        ``mask_A`` (int, NHWC) is given, scaled by ``fs_gate``; ReCUT's
+        terms where ``recut`` is given ({"a_last": A's last frames,
+        "gate": P's gate}). On a flipped step the images come mirrored.
+        Returns (total, losses, fake_B)."""
         netG = self.nets["G_A"]
+        flipped = draws.get("flip")
         fake_B, feats_A = netG(real_A, with_features=self.nce_layers)
         fake_for_D = self._augment(self._compose_context(fake_B, real_A),
                                    draws.get("g_aug"))
@@ -380,20 +502,25 @@ class CUTModel(BaseModel):
         for name in self.d_names:
             pred = self._d(name, fake_for_D,
                            draws.get("g_dropout", {}).get(name))
-            if self.gan_mode in ("projected", "wgangp"):
+            if self.contrastive_d:
+                # cut_model.py:532-538: D on the real B, without dropout
+                g_gan = g_gan + contrastive_gan_loss(
+                    -self.nets[name](real_B), -pred)
+            elif self.gan_mode in ("projected", "wgangp"):
                 g_gan = g_gan - torch.mean(pred)
             else:
                 # the smoothed real target reaches G too (cut_model.py:541)
                 g_gan = g_gan + gan_loss(pred, True, self.gan_mode,
                                          smooth=self.d_label_smooth)
         losses = {"G_GAN": g_gan * self.lambda_gan}
-        groups = [self._nce_features(feats_A, fake_B, draws.get("nce"))]
+        groups = [self._nce_features(feats_A, fake_B, draws.get("nce"),
+                                     flipped)]
         idt_B = None
         if self.nce_idt or self.mse_idt or self.sem_idt:
             idt_B, feats_B = netG(real_B, with_features=self.nce_layers)
         if self.nce_idt:
             groups.append(self._nce_features(feats_B, idt_B,
-                                             draws.get("nce_idt")))
+                                             draws.get("nce_idt"), flipped))
         nce, src = self._nce_terms(groups, real_A.shape[0])
         losses["G_NCE"] = nce[0] * self.lambda_nce
         if self.lambda_src > 0:
@@ -404,11 +531,69 @@ class CUTModel(BaseModel):
         if self.mse_idt:
             losses["G_MSE_idt"] = self.lambda_mse_idt * torch.mean(
                 torch.abs(real_B - idt_B))
+        if recut is not None:
+            losses.update(self._recut_terms(fake_B, recut, draws, flipped))
+        if self.supervised:
+            losses["G_supervised"] = self._supervised(fake_B, real_B)
         if self.semantic_mask and mask_A is not None:
             losses.update(self._semantic_terms(real_A, real_B, fake_B, idt_B,
                                                mask_A, mask_B, fs_gate))
         total = sum(losses.values())
         return total, losses, fake_B
+
+    def _recut_terms(self, fake_B, recut, draws, flipped):
+        """ReCUT's G terms (``cut_model.py:584-613``): P_B (its parameters
+        take no gradient) on the channel stack of each nuplet's fakes
+        predicts the next frame, held against A's last frame by the NCE
+        loss (keys from A's last frame, mirrored on a flipped step; no
+        flip of the queries: that call passes none); with
+        ``alg_re_adversarial_loss_p`` each D but the mask and temporal ones
+        judges the prediction (-mean for projected and wgangp, else the
+        GAN loss without smoothing). Both scaled by P's gate."""
+        n1 = self.nuplet - 1
+        seq = fake_B.reshape((-1, n1) + tuple(fake_B.shape[1:]))
+        # G's update asks for no gradient of P's parameters
+        proj_fake = self.nets["P_B"](channel_stack(seq))
+        a_last = recut["a_last"]
+        if flipped is not None:
+            a_last = torch.where(flipped, a_last.flip(2), a_last)
+        with torch.no_grad():
+            feats_k = self.nets["G_A"](a_last,
+                                       extract_layer_ids=self.nce_layers)
+        group = self._nce_features(feats_k, proj_fake,
+                                   draws.get("nce_recut"))
+        gate = recut["gate"]
+        terms = {"G_recut": gate * self._nce_terms([group],
+                                                   a_last.shape[0])[0][0]}
+        if self.p_adversarial:
+            adv = 0.0
+            for name in self.d_names:
+                pred = self.nets[name](proj_fake)
+                adv = adv + (-torch.mean(pred)
+                             if self.gan_mode in ("projected", "wgangp")
+                             else gan_loss(pred, True, self.gan_mode))
+            terms["G_proj_fake_B_adversarial"] = gate * adv
+        return terms
+
+    def _supervised(self, fake_B, real_B):
+        """The supervised terms of aligned data (``cut_model.py:615-630``):
+        MSE, else L1, times ``alg_cut_lambda_supervised``, plus
+        ``alg_cut_lambda_perceptual`` times the LPIPS/DISTS distances
+        (``perceptual_terms``, the VGG input normalised by
+        ``alg_cut_dists_mean``/``_std``)."""
+        sup = 0.0
+        if "MSE" in self.supervised:
+            sup = self.lambda_supervised * torch.mean((fake_B - real_B) ** 2)
+        elif "L1" in self.supervised:
+            sup = self.lambda_supervised * torch.mean(
+                torch.abs(fake_B - real_B))
+        if "LPIPS" in self.supervised or "DISTS" in self.supervised:
+            terms = self.perceptual_terms(
+                fake_B, real_B, self.supervised,
+                mean=getattr(self.opt, "alg_cut_dists_mean", None),
+                std=getattr(self.opt, "alg_cut_dists_std", None))
+            sup = sup + self.lambda_perceptual * sum(terms.values())
+        return sup
 
     def _semantic_terms(self, real_A, real_B, fake_B, idt_B, mask_A, mask_B,
                         gate):
@@ -450,21 +635,106 @@ class CUTModel(BaseModel):
                 fake_B * (1 - m), real_A * (1 - m))
         return terms
 
+    def _p_update(self, seq, last):
+        """P_B's step before G's (``cut_model.py:749-771``): 10 · L1 of
+        P_B(the channel stack of ``seq``) against ``last``, its Adam.
+        Returns (loss, gate), device scalars."""
+        state = self.states["P_B"]
+        loss = 10.0 * torch.mean(torch.abs(
+            self.nets["P_B"](channel_stack(seq)) - last))
+        apply_updates(state, param_grads(loss, state.params))
+        loss = loss.detach()
+        return loss, (loss <= self.p_threshold).float()
+
+    def _draw_flip(self, draws):
+        """FastCUT's flip of this step: a device bool, fed or drawn."""
+        if "flip" not in draws:
+            draws["flip"] = torch.rand((), generator=self.generator,
+                                       device=self.device) < 0.5
+        return draws["flip"]
+
+    def _d_diffusion_noise(self, x, fed):
+        """q-sample of each image of ``x`` at its own t (``cut_model.py:
+        832-846``): t of weight ∝ t up to 10 + p · 990, kept for
+        min(64 p, 48) / 64 of the images (0, clean, for the rest); ``fed``
+        is (t, noise)."""
+        if fed is None:
+            b = x.shape[0]
+            ar = torch.arange(1, D_DIFF_T_MAX + 1, device=x.device,
+                              dtype=torch.float32)
+            t_cur = D_DIFF_T_MIN + self.d_diff_p * (D_DIFF_T_MAX
+                                                    - D_DIFF_T_MIN)
+            weights = torch.where(ar <= t_cur, ar, torch.zeros_like(ar))
+            t = torch.multinomial(weights, b, replacement=True,
+                                  generator=self.generator) + 1
+            frac = torch.clamp(self.d_diff_p * 64.0, max=48.0) / 64.0
+            use = torch.rand((b,), generator=self.generator,
+                             device=x.device) < frac
+            fed = (torch.where(use, t, torch.zeros_like(t)),
+                   torch.randn(x.shape, generator=self.generator,
+                               device=x.device))
+        t, noise = fed
+        g = self.d_diff_gbar[t].reshape(-1, 1, 1, 1).to(x.dtype)
+        return g * x + torch.sqrt(1.0 - g * g) * noise
+
+    def _apa(self, real_in, fed):
+        """APA (``cut_model.py:853-859``): each real image replaced by a
+        pool image (``ImagePool.get_random``) with probability p."""
+        b = real_in.shape[0]
+        if fed is None:
+            fed = {"idx": torch.randint(0, max(self.pool.count, 1), (b,),
+                                        generator=self.generator,
+                                        device=real_in.device),
+                   "u": torch.rand((b,), generator=self.generator,
+                                   device=real_in.device)}
+        use = (fed["u"] < self.apa_p).reshape(-1, 1, 1, 1)
+        return torch.where(use, self.pool.get_random(fed["idx"]), real_in)
+
+    def _adapt(self, niter, logits_real, loss_real, batch, losses):
+        """APA's p, every step, and the diffusion noise's p, on the
+        ``dataaug_D_diffusion_every`` cadence of G's step count, from the
+        first D's real logits and real loss (``cut_model.py:924-942``);
+        both logged. All on the device."""
+        if self.d_diffusion:
+            if niter % self.d_diffusion_every == 0:
+                step = batch * self.d_diffusion_every / (100.0 * 1000.0)
+                self.d_diff_p = torch.clamp(
+                    self.d_diff_p + torch.sign(loss_real - 0.9) * step,
+                    0.0, 1.0)
+            losses["D_diff_p"] = self.d_diff_p
+        if self.apa:
+            step = batch * self.apa_every / (self.apa_nimg * 1000.0)
+            adjust = torch.sign(torch.mean(torch.sign(logits_real))
+                                - self.apa_target)
+            self.apa_p = torch.clamp(self.apa_p + adjust * step, 0.0, 1.0)
+            losses["APA_p"] = self.apa_p
+
     def optimize_prepared(self, dev, draws=None):
         """One step on a prepared batch (see the module doc). Losses stay
         on the device."""
-        draws = draws or {}
+        draws = dict(draws or {})
         real_A = dequantize(dev["real_A"], "image")
         real_B = dequantize(dev["real_B"], "image")
         mask_A = dequantize(dev.get("mask_A"), "label")
         mask_B = dequantize(dev.get("mask_B"), "label")
-        heads, fs_gate = {}, None
+        niter = self.states["G_A"].step
+        heads, fs_gate, recut = {}, None, None
         if self.semantic_mask and mask_A is not None:
             heads["f_s"] = self._f_s_update(real_A, real_B, mask_A, mask_B)
             fs_gate = (heads["f_s"] <= self.fs_threshold).float()
+        if self.recut and "real_B_seq" in dev:
+            heads["P_proj_real_B"], gate = self._p_update(
+                dev["real_B_seq"], dev["real_B_last"])
+            recut = {"a_last": dev["real_A_last"], "gate": gate}
+        g_A, g_B = real_A, real_B
+        if self.flip_equivariance:
+            # FastCUT (cut_model.py:506-513): the step's images mirrored
+            flip = self._draw_flip(draws)
+            g_A = torch.where(flip, real_A.flip(2), real_A)
+            g_B = torch.where(flip, real_B.flip(2), real_B)
         sG, sF = self.states["G_A"], self.states["F"]
-        total, losses, fake_B = self._g_loss(real_A, real_B, draws, mask_A,
-                                             mask_B, fs_gate)
+        total, losses, fake_B = self._g_loss(g_A, g_B, draws, mask_A,
+                                             mask_B, fs_gate, recut)
         grads = param_grads(total, sG.params + sF.params)
         apply_updates(sG, grads[:len(sG.params)], self.ema_beta)
         apply_updates(sF, grads[len(sG.params):])
@@ -482,19 +752,35 @@ class CUTModel(BaseModel):
                             device=x.device) for x in (real_in, fake_in))
             real_in = real_in + self.d_noise * noise[0]
             fake_in = fake_in + self.d_noise * noise[1]
+        if self.d_diffusion:
+            fed = draws.get("d_diffusion", {})
+            real_in = self._d_diffusion_noise(real_in, fed.get("real"))
+            fake_in = self._d_diffusion_noise(fake_in, fed.get("fake"))
         real_in = self._augment(real_in, draws.get("d_real_aug"))
         fake_in = self._augment(fake_in, draws.get("d_fake_aug"))
+        if self.apa:
+            real_in = self._apa(real_in, draws.get("apa"))
+        first = None
         for name in self.d_names:
             keep_r, keep_f = draws.get("d_dropout", {}).get(name, (None, None))
             logits_real = self._d(name, real_in, keep_r)
             logits_fake = self._d(name, fake_in, keep_f)
-            loss = 0.5 * (gan_loss(logits_real, True, self.gan_mode,
-                                   smooth=self.d_label_smooth)
-                          + gan_loss(logits_fake, False, self.gan_mode))
+            if self.contrastive_d:
+                loss_real = contrastive_gan_loss(logits_real, logits_fake)
+                loss_fake = contrastive_gan_loss(-logits_fake, -logits_real)
+            else:
+                loss_real = gan_loss(logits_real, True, self.gan_mode,
+                                     smooth=self.d_label_smooth)
+                loss_fake = gan_loss(logits_fake, False, self.gan_mode)
+            loss = 0.5 * (loss_real + loss_fake)
             state = self.states[name]
             apply_updates(state, param_grads(loss, state.params))
             losses[f"D_{name}"] = loss.detach()
-        # the semantic heads were updated before G (their gate)
+            if first is None:
+                first = (logits_real.detach(), loss_real.detach())
+        if first is not None:
+            self._adapt(niter, *first, real_B.shape[0], losses)
+        # the semantic heads and P were updated before G (their gates)
         losses.update(heads)
         self.loss_log = losses
         return losses
@@ -504,11 +790,13 @@ class CUTModel(BaseModel):
 
     # ------------------------------------------------------------------
     def inference(self, batch, use_ema=None):
-        """NHWC float32 fakes in [-1, 1] for ``batch["A"]``, from G's EMA
-        when ``use_ema`` (default: ``train_G_ema``) and it exists."""
+        """NHWC float32 fakes in [-1, 1] for ``batch["A"]`` (nuplets
+        folded), from G's EMA when ``use_ema`` (default: ``train_G_ema``)
+        and it exists."""
         use_ema = self.use_ema if use_ema is None else use_ema
         net = self.ema_nets.get("G_A") if use_ema else None
         net = net if net is not None else self.nets["G_A"]
+        batch = fold_frames(batch)
         dev = self.put_batch({"real_A": np.asarray(batch["A"], np.float32)})
         with torch.inference_mode():
             return net(dev["real_A"]).cpu().numpy()
@@ -519,6 +807,7 @@ class CUTModel(BaseModel):
         from .modules.resnet_generator import ResnetGeneratorAttn
         if not isinstance(self.nets["G_A"], ResnetGeneratorAttn):
             return {}
+        batch = fold_frames(batch)
         dev = self.put_batch({"real_A": np.asarray(batch["A"], np.float32)})
         with torch.inference_mode():
             _, att = self.nets["G_A"](dev["real_A"], return_attention=True)
@@ -535,6 +824,7 @@ class CUTModel(BaseModel):
             return {}
         f_s = self.nets["f_s"]
         f_s_B = self.nets.get("f_s_B", f_s)
+        batch = fold_frames(batch)
 
         def iou(logits, target):
             pred = torch.softmax(logits.float(), dim=-1)
@@ -561,6 +851,7 @@ class CUTModel(BaseModel):
     def compute_D_accuracy(self, batch):
         """Precision, recall and accuracy of each D on a batch, logits
         above 0.5 counting as real (``cut_model.py:472-492``)."""
+        batch = fold_frames(batch)
         dev = self.put_batch({k: np.asarray(batch[s], np.float32)
                               for k, s in (("real_A", "A"), ("real_B", "B"))})
         out = {}

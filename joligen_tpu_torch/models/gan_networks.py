@@ -13,6 +13,7 @@ and ``define_F`` from the generator's encoder taps.
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -94,6 +95,23 @@ def define_G(opt):
             ngf=opt.G_ngf, n_blocks=opt.G_nblocks,
             img_size=opt.data_crop_size, dtype=dtype)
     raise NotImplementedError(f"GAN generator {netG}")
+
+
+def define_P(opt):
+    """ReCUT's and ReCycleGAN's frame predictor P (``cut_model.py:294-300``,
+    ``cycle_gan_model.py:104-110``): the generator ``alg_re_netP``
+    (resnet_9blocks, resnet_6blocks, resnet_attn, unet_256 or unet_128; the
+    rest of the options as G's) from the channel stack of
+    ``alg_re_nuplet_size`` - 1 frames to the next frame. flax infers P's
+    input width from that stack; here it comes from a copy of the options
+    with ``model_input_nc`` set to it. Of those five nets only the input
+    layer reads ``model_input_nc``; resnet_attn blends the stack's first 3
+    channels, the oldest frame, as the JAX net does."""
+    popt = copy.copy(opt)
+    popt.G_netG = getattr(opt, "alg_re_netP", "unet_128") or "unet_128"
+    nuplet = int(getattr(opt, "alg_re_nuplet_size", 3) or 3)
+    popt.model_input_nc = (nuplet - 1) * opt.model_input_nc
+    return define_G(popt)
 
 
 def init_raw_leaves(module, generator):

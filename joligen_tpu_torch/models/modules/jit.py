@@ -31,10 +31,10 @@ out_channels)`` fp32:
 4. the prefix dropped; ``final_adaLN`` shift and scale of ``final_norm``,
    ``final_proj`` (both zero-initialised), the patches back to pixels.
 
-JiT-B and JiT-L have head dim 64; JiT-H's 80 (1280 / 16) is not a head
-dim of K1, whose wrapper raises on a CUDA tensor there (ROADMAP Queue 2
-item 1). ``tpu_remat`` runs each block under ``torch.utils.checkpoint``,
-as the JAX package's ``nn.remat`` of the scanned block does.
+JiT-B and JiT-L have head dim 64, JiT-H 80 (1280 / 16); K1-K3 take both
+(``SUPPORTED_HEAD_DIMS`` in ``ops/flash_attention.py``). ``tpu_remat``
+runs each block under ``torch.utils.checkpoint``, as the JAX package's
+``nn.remat`` of the scanned block does.
 """
 
 from __future__ import annotations

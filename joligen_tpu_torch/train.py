@@ -193,8 +193,8 @@ def _train_loop(opt, model, dataloader, visualizer, stop, step_callback,
     # seconds the loop has waited for batches, spent in steps and in the
     # train-time metrics
     model.loop_times = {"data_s": 0.0, "compute_s": 0.0, "metrics_s": 0.0}
-    for epoch in range(getattr(opt, "train_epoch_count", 1),
-                       opt.train_n_epochs + opt.train_n_epochs_decay + 1):
+    last_epoch = opt.train_n_epochs + opt.train_n_epochs_decay
+    for epoch in range(getattr(opt, "train_epoch_count", 1), last_epoch + 1):
         epoch_t0 = time.time()
         t_prev = time.time()
         for dev, data in _feed(model, dataloader, depth):
@@ -281,7 +281,10 @@ def _train_loop(opt, model, dataloader, visualizer, stop, step_callback,
                 "epoch produced 0 training steps — every sample failed to "
                 "load (check dataroot/paths.txt; use --data_relative_paths "
                 "for dataroot-relative paths)")
-        model.save_networks("latest")
+        if epoch < last_epoch:
+            # the last epoch's is the save after the loop: the same
+            # weights, and the optimizer after its learning-rate update
+            model.save_networks("latest")
         if epoch % max(1, opt.train_save_epoch_freq) == 0:
             model.save_networks(str(epoch))
         model.update_learning_rate()

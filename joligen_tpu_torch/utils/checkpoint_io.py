@@ -25,6 +25,7 @@ class _Reader:
     def __init__(self, data):
         self.data = memoryview(data)
         self.pos = 0
+        self.bin_views = False
 
     def take(self, n):
         if self.pos + n > len(self.data):
@@ -63,7 +64,8 @@ class _Reader:
             if b in (0xd9, 0xda, 0xdb):
                 return self._str(n)
             if b in (0xc4, 0xc5, 0xc6):
-                return bytes(self.take(n))
+                view = self.take(n)
+                return view if self.bin_views else bytes(view)
             if b in (0xdc, 0xdd):
                 return self._array(n)
             if b in (0xde, 0xdf):
@@ -91,10 +93,12 @@ class _Reader:
 
     def _ext(self, n):
         code = self.unpack(">b")
-        payload = bytes(self.take(n))
+        payload = self.take(n)
         if code != _EXT_NDARRAY:
             raise ValueError(f"unsupported msgpack ext type {code}")
-        shape, dtype, raw = _Reader(payload).read()
+        inner = _Reader(payload)
+        inner.bin_views = True          # the array's bytes are copied once
+        shape, dtype, raw = inner.read()
         return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy()
 
 
@@ -180,24 +184,63 @@ def _pack_ndarray(arr, out):
     if arr.nbytes > _MAX_ARRAY_BYTES:
         raise ValueError("arrays over 1 GiB are chunked by flax; not "
                          "supported")
-    payload = bytearray()
-    _pack([[int(s) for s in arr.shape], arr.dtype.name,
-           np.ascontiguousarray(arr).tobytes("C")], payload)
-    n = len(payload)
+    data = np.ascontiguousarray(arr).reshape(-1)      # 0-D arrays too
+    # the payload is [shape, dtype name, bin of the C-order bytes]; its
+    # head is packed here and the bytes are handed over uncopied
+    head = bytearray()
+    _header(head, 3, 0x90, 15, ((0xdc, ">H"), (0xdd, ">I")))
+    _pack([int(s) for s in arr.shape], head)
+    _pack(arr.dtype.name, head)
+    _header(head, data.nbytes, 0, -1,
+            ((0xc4, ">B"), (0xc5, ">H"), (0xc6, ">I")))
+    n = len(head) + data.nbytes
     fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
     if n in fixext:
         out.append(fixext[n])
     else:
         _header(out, n, 0, -1, ((0xc7, ">B"), (0xc8, ">H"), (0xc9, ">I")))
     out += struct.pack(">b", _EXT_NDARRAY)
-    out += payload
+    out += head
+    out.raw(memoryview(data.view(np.uint8)))
+
+
+class _Chunks:
+    """The packer's output: small values gather in a bytearray, array
+    bytes are kept as views of the arrays, in order."""
+
+    def __init__(self):
+        self.parts = []
+        self.buf = bytearray()
+
+    def append(self, byte):
+        self.buf.append(byte)
+
+    def __iadd__(self, data):
+        self.buf += data
+        return self
+
+    def raw(self, view):
+        if self.buf:
+            self.parts.append(self.buf)
+            self.buf = bytearray()
+        self.parts.append(view)
+
+    def done(self):
+        if self.buf:
+            self.parts.append(self.buf)
+            self.buf = bytearray()
+        return self.parts
+
+
+def _packed(tree):
+    out = _Chunks()
+    _pack(tree, out)
+    return out.done()
 
 
 def dumps(tree):
     """Nested dict of numpy arrays -> msgpack bytes (flax's layout)."""
-    out = bytearray()
-    _pack(tree, out)
-    return bytes(out)
+    return b"".join(_packed(tree))
 
 
 def load(path):
@@ -206,5 +249,9 @@ def load(path):
 
 
 def save(path, tree):
+    """``dumps(tree)`` written to ``path``, its arrays' bytes straight from
+    the arrays."""
+    parts = _packed(tree)
     with open(path, "wb") as f:
-        f.write(dumps(tree))
+        for part in parts:
+            f.write(part)

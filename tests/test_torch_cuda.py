@@ -4,7 +4,8 @@
 dtype on its route (``ROUTES``); one
 training step of a small palette model counting one launch of each attention
 kernel, one of an online bbox-crop batch with and without remat, and one
-bf16 CycleGAN step with unet_256 Gs against fp32 on the CPU; and
+bf16 CycleGAN step with unet_256 Gs against fp32 on the CPU, and one
+bf16 ReCycleGAN step (its unet_128 P nets) against fp32 on the CPU; and
 one run of each probe counting its kernels' launches. Marked
 ``cuda``: they skip without a CUDA device. This file imports neither jax nor
 the JAX package, so it runs on a machine with only PyTorch:
@@ -474,6 +475,120 @@ def test_cycle_gan_bf16_step_on_the_card_matches_fp32_cpu(cuda, tmp_path):
     assert fa.LAUNCHES == {"flash_attention_fwd": 6,
                            "flash_attention_bwd_dq": 6,
                            "flash_attention_bwd_dkv": 6}
+    for k, want in losses["cpu"].items():
+        assert abs(losses["cuda"][k] - want) <= 5e-2 * max(1.0, abs(want)), (
+            k, losses["cuda"][k], want)
+
+
+def test_recycle_gan_bf16_step_on_the_card_matches_fp32_cpu(cuda, tmp_path,
+                                                           monkeypatch):
+    """One ReCycleGAN step (resnet_attn Gs and the unet_128 P nets at ngf
+    16, 64 px: P's middle block 4 heads of 32 over 8 x 8 tokens; nuplets
+    of 3 frames, 2 a batch), bf16 on the card against fp32 on the CPU from
+    the same weights and the same draws (pools, DiffAugment), the gate
+    open, the P nets redrawn from a seed with their zero-initialised layers
+    (``proj_out`` among them) at N(0, 0.02), so that attention adds to P's
+    outputs and K2/K3 get a non-zero dO: P_A's loss gradient at its middle
+    block's qkv weight no further from the CPU's fp32 one than twice the
+    same bf16 pass through the attention's plain version is, plus 5e-2 (of
+    the norm; bf16 through the unet alone moves it by 10-15 %), and the
+    block's alone, on the input and output gradient of the card's pass,
+    within 5e-2 of its plain version; then K1, K2 and K3 4 times each in
+    the step (P_A and P_B
+    on the real sequences, then on the fakes, each with its backward),
+    every loss within 5e-2 of the CPU's (relative, at least 1)."""
+    import copy
+
+    from joligen_tpu_torch.models import create_model
+    from joligen_tpu_torch.models.cut_model import channel_stack
+    from joligen_tpu_torch.models.diffusion_networks import init_weights
+    from joligen_tpu_torch.models.modules import unet_mha
+    from joligen_tpu_torch.ops.diff_aug import draw_diff_augment
+    from joligen_tpu_torch.options import TrainOptions
+
+    def plain(q, k, v):
+        return fa.flash_attention_reference(q, k, v)[0]
+
+    def p_grad(model, prepared):
+        blk, seen = model.nets["P_A"].AttentionBlock_0, {}
+
+        def keep(mod, args, out):
+            seen["x"] = args[0].detach()
+            out.register_hook(lambda g: seen.update(dy=g.detach()))
+        handle = blk.register_forward_hook(keep)
+        loss = torch.mean(torch.abs(
+            model.nets["P_A"](channel_stack(prepared["real_A_seq"]))
+            - prepared["real_A_last"]))
+        grad = torch.autograd.grad(loss, blk.qkv.weight)[0]
+        handle.remove()
+        return grad.double().cpu(), seen
+
+    def block_grad(blk, seen):
+        return torch.autograd.grad(blk(seen["x"]), blk.qkv.weight,
+                                   seen["dy"])[0].double().cpu()
+
+    cfg = {"model_type": "re_cycle_gan", "name": "cuda_recycle_gan",
+           "checkpoints_dir": str(tmp_path),
+           "data": {"crop_size": 64, "load_size": 64},
+           "G": {"netG": "resnet_attn", "ngf": 16, "nblocks": 2},
+           "D": {"netDs": ["basic"], "ndf": 16},
+           "alg": {"re": {"projection_threshold": 100.0}},
+           "dataaug": {"diff_aug_policy": "color,cutout"},
+           "train": {"batch_size": 2, "pool_size": 4}}
+    models = {}
+    for dev, bf16 in (("cpu", False), ("cuda", True)):
+        opt = TrainOptions().parse_json(copy.deepcopy(cfg), verbose=False)
+        opt.tpu_bf16 = bf16
+        models[dev] = create_model(opt, phase="train",
+                                   device=torch.device(dev))
+    g = torch.Generator().manual_seed(1)
+    m = models["cpu"]
+    for name in ("P_A", "P_B"):
+        init_weights(m.nets[name], g, zero_init_std=0.02)
+    for name, net in m.nets.items():
+        models["cuda"].nets[name].load_state_dict(net.state_dict())
+    rng = np.random.default_rng(0)
+    batch = {k: rng.uniform(-1, 1, (2, 3, 64, 64, 3)).astype(np.float32)
+             for k in ("A", "B")}
+    draws = {"pool_A": m.pool_A.draw_query(g, 4),
+             "pool_B": m.pool_B.draw_query(g, 4), "d_real_aug": {},
+             "d_fake_aug": {}}
+    for sname, _, _ in m.d_names:
+        for k in ("d_real_aug", "d_fake_aug"):
+            draws[k][sname] = draw_diff_augment(g, (4, 3, 64, 64),
+                                                m.diff_policy, m.diff_prob)
+
+    def moved(d, dev):
+        if isinstance(d, dict):
+            return {k: moved(v, dev) for k, v in d.items()}
+        return d.to(dev) if torch.is_tensor(d) else d
+    losses, grads = {}, {}
+    for dev, model in models.items():
+        prepared = model.prepare_batch(batch)
+        grads[dev], seen = p_grad(model, prepared)
+        if dev == "cuda":
+            blk = model.nets["P_A"].AttentionBlock_0
+            grads["block"] = block_grad(blk, seen)
+            with monkeypatch.context() as mp:
+                mp.setattr(unet_mha, "flash_attention", plain)
+                grads["plain"], _ = p_grad(model, prepared)
+                grads["block_plain"] = block_grad(blk, seen)
+        for name in fa.LAUNCHES:
+            fa.LAUNCHES[name] = 0
+        losses[dev] = {k: float(v) for k, v in model.optimize_prepared(
+            prepared, moved(draws, dev)).items()}
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention_fwd": 4,
+                           "flash_attention_bwd_dq": 4,
+                           "flash_attention_bwd_dkv": 4}
+
+    def g_err(x, y):
+        return (grads[x] - grads[y]).norm().item() / grads[y].norm().item()
+    assert grads["cpu"].norm().item() > 0
+    assert grads["block_plain"].norm().item() > 0
+    assert g_err("block", "block_plain") <= 5e-2
+    assert g_err("cuda", "cpu") <= 2 * g_err("plain", "cpu") + 5e-2
+    assert min(losses["cpu"]["G_recycle_A"], losses["cpu"]["G_recycle_B"]) > 0
     for k, want in losses["cpu"].items():
         assert abs(losses["cuda"][k] - want) <= 5e-2 * max(1.0, abs(want)), (
             k, losses["cuda"][k], want)

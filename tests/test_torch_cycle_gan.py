@@ -23,8 +23,9 @@
 2. Checkpoints: the port's files load into the JAX model and the JAX
    model's into the port, bit for bit; ``inference`` in both directions
    against the JAX ``inference``; phase ``test`` builds the two Gs only.
-3. The raises: ``re_cycle_gan`` (its ROADMAP item) and
-   ``re_cycle_gan_semantic_mask`` (as the JAX package).
+3. ``re_cycle_gan_semantic_mask`` raises (as the JAX package);
+   ``re_cycle_gan`` builds its P nets at the stack's width (its trajectory
+   is in ``tests/test_torch_recycle_gan.py``).
 """
 
 import numpy as np
@@ -293,7 +294,17 @@ def test_cycle_gan_checkpoints_and_inference(pair, tmp_path):
     ("re_cycle_gan", "ROADMAP Queue 1 item 10"),
     ("re_cycle_gan_semantic_mask", "no semantic heads")])
 def test_recycle_gan_raises(tmp_path, model_type, match):
+    """``re_cycle_gan_semantic_mask`` raises, as in the JAX package;
+    ``re_cycle_gan``, which raised naming ``match`` until ReCUT's slice,
+    now builds P_A and P_B (``unet_128``) over the stack of
+    ``alg_re_nuplet_size`` - 1 = 2 frames, 6 input channels."""
     opt = TrainOptions().parse_json(h2z_cfg(tmp_path), verbose=False)
     opt.model_type = model_type
+    if model_type == "re_cycle_gan":
+        model = create_model(opt, device="cpu")
+        for name in ("P_A", "P_B"):
+            assert model.nets[name].in_conv.weight.shape[1] == 6
+        assert model.nets["G_A"].encoder.stem.weight.shape[1] == 3
+        return
     with pytest.raises(NotImplementedError, match=match):
         create_model(opt, device="cpu")

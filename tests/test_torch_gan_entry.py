@@ -6,7 +6,8 @@
    width through ``joligen_tpu_torch/train.py`` (2 steps each), then one
    request each through ``scripts/gen_single_image.py --cpu`` from the
    checkpoint, and ``model_type: test`` loading the same G.
-3. Options off the ported path raise; without a card and without ``--cpu``
+3. Options off the ported path raise (the CUT options ported since build);
+   without a card and without ``--cpu``
    the GAN entry points raise.
 """
 
@@ -122,8 +123,20 @@ def test_train_and_serve_end_to_end(tmp_path, config):
     ("alg_cut_flip_equivariance", True),
     ("alg_cut_supervised_loss", ["L1"]), ("D_netDs", ["temporal"])])
 def test_unported_cut_options_raise(tmp_path, option, value):
+    """An option off the port's path raises naming it; APA, the
+    contrastive D, the flips and the supervised loss, which raised until
+    ReCUT's slice, now build (held against the JAX step by
+    ``tests/test_torch_cut_options.py`` and ``test_torch_recut.py``)."""
     opt = TrainOptions().parse_json(h2z_cfg(tmp_path), verbose=False)
     setattr(opt, option, value)
+    ported = {"dataaug_APA": "apa",
+              "train_use_contrastive_loss_D": "contrastive_d",
+              "alg_cut_flip_equivariance": "flip_equivariance",
+              "alg_cut_supervised_loss": "supervised"}
+    if option in ported:
+        model = create_model(opt, device="cpu")
+        assert getattr(model, ported[option]) == value
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         create_model(opt, device="cpu")
 
