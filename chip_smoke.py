@@ -252,6 +252,27 @@ GPU. Run from the repository root with no arguments:
    ``scripts/gen_single_image`` from G_A's checkpoint (no kernel); and a
    ReCycleGAN step in bf16 on the card against fp32 on the CPU at a
    reduced width (1 nuplet, 64 px), every loss within 5e-2 (relative).
+20. The semantic networks, over synthetic data in RAM (``/dev/shm``; the
+   ``unaligned_labeled_mask_cls`` layout, each class tinting its images):
+   ``example_gan_noglasses2glasses.json`` at full width (256 px, batch 2,
+   bf16) with ``--train_semantic_cls`` and ``--D_netDs projected_d basic
+   vision_aided mask`` (glasses_cls_maskd: the basic C, 3,914,754
+   parameters, the gumbel mask D, 2,763,713), 2 steps with CLS, D_B_mask's
+   loss and G_sem_cls finite, G_sem_cls > 0 (a step with C's gate opened
+   where none was), C's term with a gradient in G, G_sem_mask's gradient
+   in G changed by the mask D's target rule, a profiled step and a
+   request; with
+   ``--train_sem_cls_template resnet50 --f_s_net vgg --D_netDs projected_d
+   basic resnet18`` (glasses_resnet_vgg: the resnet50 C in fp32,
+   23,512,130; VGG16-FCN8s, 134,270,278; the resnet18 D, 11,177,025), 2
+   steps and a profiled one; ``--model_type segmentation`` with the unet f_s
+   (4 steps) and the vgg f_s (2 steps), each with a profiled step,
+   ``compute_miou`` in [0, 1] and ``inference`` (B, 256, 256, 1) int32;
+   then a CUT step with the basic C and one with the resnet18 C (the mask
+   D in both; 64 px, widths 16) in bf16 on the card against fp32 on the
+   CPU, every loss within 5e-2 (relative), and VGG16-FCN8s in fp32 at 64
+   px under both pads, card against CPU to 1e-4 of the largest logit. No
+   kernel of the port runs on these paths.
 
 Prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -701,6 +722,34 @@ RE_STEP_SIZE = 64
 RE_STEP_WIDTH = 16
 RE_STEP_ZERO_STD = 0.02
 RE_STEP_TOL = 5e-2
+# the semantic networks on noglasses2glasses at full width, in RAM
+# (/dev/shm), over synthetic unaligned_labeled_mask_cls data (a class tint
+# an image): glasses_cls_maskd (the basic C, the mask D beside the config's
+# three Ds) and glasses_resnet_vgg (the resnet50 C, the vgg f_s, a resnet18
+# D), SEM_STEPS steps each; the segmentation model with the unet f_s
+# SEG_UNET_STEPS steps and the vgg f_s SEG_VGG_STEPS steps. Full width: the
+# JAX modules' parameter counts (jax.eval_shape)
+SEM_EXAMPLE = "example_gan_noglasses2glasses.json"
+SEM_SIZE = 256                      # the config's crop
+SEM_STEPS = 2
+SEG_UNET_STEPS = 4
+SEG_VGG_STEPS = 2
+EXPECTED_PARAMS_SEM = {"CLS": 3_914_754, "D_B_mask": 2_763_713,
+                       "D_B_basic": 2_764_737}
+EXPECTED_PARAMS_SEM_VGG = {"CLS": 23_512_130, "f_s": 134_270_278,
+                           "D_B_resnet18": 11_177_025}
+EXPECTED_PARAMS_RESNET18_C = 11_177_538
+SEM_OPEN_THRESHOLD = 100.0
+# the card-vs-CPU checks: a CUT step (bf16 card, fp32 CPU) at
+# SEM_CHECK_SIZE px, G_ngf, D_ndf, f_s_nf and cls_nf SEM_CHECK_WIDTH, to
+# SEM_STEP_TOL of each loss (relative, at least 1); VGG16-FCN8s in fp32 at
+# SEM_CHECK_SIZE px, its zero-initialised skips at N(0, SEM_SKIP_STD), to
+# VGG_CHECK_TOL of the largest logit
+SEM_CHECK_SIZE = 64
+SEM_CHECK_WIDTH = 16
+SEM_STEP_TOL = 5e-2
+SEM_SKIP_STD = 0.02
+VGG_CHECK_TOL = 1e-4
 PROBE_ITERS = 32
 TRACE_ATTEMPTS = 2                  # traces of one timing, at most
 SPIN_HZ = 1.98e9                    # the H100's top SM clock, cycles a second
@@ -1614,16 +1663,18 @@ def _train(workdir, size, n_images, epochs, hook=None):
 
 
 def _train_run(opt, steps, epochs, label, expected_params=None, hook=None,
-               attention_per_step=1, eval_k1=0):
+               attention_per_step=1, eval_k1=0, main_net="G_A",
+               main_loss="G_tot"):
     """``launch_training(opt)`` with the launch counters at 0 just before it
     and read just after (one main path). Checks the step count, the
-    parameter count (when given) and bf16, ``attention_per_step`` launches
-    of each attention kernel a step (a dict: per kernel; none for the GANs)
-    and ``eval_k1`` more of K1 (the train-time metrics' sampling), and
-    finite losses, every loss the model logs. ``hook(model, iters,
-    steps)`` runs after each step, outside the step times. Returns (model,
-    opt, record): losses, median warm step, images/s, peak memory, the
-    loop's data wait."""
+    parameter count of ``main_net`` (when given) and bf16,
+    ``attention_per_step`` launches of each attention kernel a step (a dict:
+    per kernel; none for the GANs) and ``eval_k1`` more of K1 (the
+    train-time metrics' sampling), and finite losses, every loss the model
+    logs (``main_loss`` the one recorded first and last). ``hook(model,
+    iters, steps)`` runs after each step, outside the step times. Returns
+    (model, opt, record): losses, median warm step, images/s, peak memory,
+    the loop's data wait."""
     import numpy as np
     import torch
     from joligen_tpu_torch.train import launch_training
@@ -1633,7 +1684,7 @@ def _train_run(opt, steps, epochs, label, expected_params=None, hook=None,
     def on_step(model, iters):
         torch.cuda.synchronize()
         t_end = time.perf_counter()
-        losses.append(float(model.loss_log["G_tot"]))
+        losses.append(float(model.loss_log[main_loss]))
         all_losses.append({k: float(v) for k, v in model.loss_log.items()})
         if hook is not None:
             hook(model, iters, steps)
@@ -1650,7 +1701,7 @@ def _train_run(opt, steps, epochs, label, expected_params=None, hook=None,
     launches = read_launches()                       # main path ends here
     peak = torch.cuda.max_memory_allocated()
 
-    n_params = model.param_count()["G_A"]
+    n_params = model.param_count()[main_net]
     if (expected_params is not None and n_params != expected_params) or \
             model.device_dtype != torch.bfloat16:
         raise AssertionError(f"{label}: trained {n_params} parameters in "
@@ -2791,6 +2842,330 @@ def cyclegan_phase(workdir, unet=False):
                              f"{name}_requests": req["launches"]}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _sem_opt(workdir, name, args, n_images, cls=True):
+    """noglasses2glasses with ``args`` (``_example_opt``) over a synthetic
+    dataset of ``n_images`` a domain at SEM_SIZE px written here: the
+    ``unaligned_labeled_mask_cls`` layout, or without ``cls`` the config's
+    ``unaligned_labeled_mask``."""
+    from joligen_tpu_torch.tools import synthetic_datasets as synth
+
+    opt = _example_opt(SEM_EXAMPLE, workdir, name, args)
+    write = (synth.write_unaligned_labeled_mask_cls if cls
+             else synth.write_unaligned_labeled)
+    write(opt.dataroot, n_images, SEM_SIZE, seed=SEED + 101)
+    return opt
+
+
+def _sem_batch(size, seed, batch):
+    """A host batch of the cls layout: images, rectangle label masks and
+    class labels of both domains."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {k: rng.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
+           for k in "AB"}
+    for k in ("A_label_mask", "B_label_mask"):
+        m = np.zeros((batch, size, size, 1), np.int32)
+        m[:, size // 4:size // 2, size // 3:2 * size // 3] = 1
+        out[k] = m
+    for k in ("A_label_cls", "B_label_cls"):
+        out[k] = rng.integers(0, 2, batch).astype(np.int32)
+    return out
+
+
+def _g_gradients(model, batch):
+    """What C and the mask D give G's gradient on ``batch``, cuDNN in its
+    deterministic mode: the norm of the gradient of C's term G_sem_cls
+    alone (relative to the norm of G_sem_mask's), and the distance between
+    G_sem_mask's gradients with its target as a mask D makes it (f_s's own
+    prediction on A) and as it is without one (A's label mask), beside
+    the former's distance from itself run again (the card's noise), both
+    relative to its norm."""
+    import torch
+    from joligen_tpu_torch.models.base import dequantize
+
+    dev = model.prepare_batch(batch)
+    real_A, real_B = (dequantize(dev[k], "image") for k in ("real_A",
+                                                            "real_B"))
+    mask_A = dequantize(dev["mask_A"], "label")
+    netG = model.nets["G_A"]
+    params = list(netG.parameters())
+    one = torch.ones((), device=model.device)
+
+    def grad(term):
+        loss = term(netG(real_A))
+        return torch.cat([g.float().flatten() for g in
+                          torch.autograd.grad(loss, params)])
+
+    def sem_mask(mask_d):
+        def term(fake):
+            keep = model.has_mask_d
+            model.has_mask_d = mask_d
+            try:
+                return model._semantic_terms(real_A, real_B, fake, None,
+                                             mask_A, None, one)["G_sem_mask"]
+            finally:
+                model.has_mask_d = keep
+        return term
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        cls = grad(lambda fake: model._cls_crit(model.nets["CLS"](fake),
+                                                dev["cls_A"]))
+        with_d, again = grad(sem_mask(True)), grad(sem_mask(True))
+        without_d = grad(sem_mask(False))
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    norm = with_d.norm().item()
+    return {"cls_term": cls.norm().item() / norm,
+            "mask_d_target": (with_d - without_d).norm().item() / norm,
+            "again": (with_d - again).norm().item() / norm,
+            "sem_mask_norm": norm}
+
+
+def semantic_phase(workdir):
+    """The semantic networks at full width (see SEM_EXAMPLE):
+    glasses_cls_maskd and glasses_resnet_vgg SEM_STEPS steps each, the
+    segmentation model with the unet and the vgg f_s; each with the nets'
+    parameter counts, finite losses, the warm step time, images/s, peak
+    memory, data wait and a profiled step's launches and idle share (no
+    kernel of the port runs here). glasses_cls_maskd: CLS, D_B_mask's loss
+    and G_sem_cls finite, G_sem_cls > 0 on a step (one more with C's gate
+    opened, SEM_OPEN_THRESHOLD, where none had it), a non-zero gradient of
+    C's term in G, G_sem_mask's gradient in G moved by the mask D's target
+    rule beyond the card's own noise, a request from G_A's checkpoint.
+    The segmentation runs: ``compute_miou`` in [0, 1], ``inference`` a (B,
+    SEM_SIZE, SEM_SIZE, 1) int32 label map. Returns (records, launch
+    counts per path)."""
+    import numpy as np
+    import torch
+
+    recs, paths = {}, {}
+    runs = (
+        ("glasses_cls_maskd",
+         ["--data_dataset_mode", "unaligned_labeled_mask_cls",
+          "--train_semantic_cls", "--cls_semantic_nclasses", "2",
+          "--D_netDs", "projected_d", "basic", "vision_aided", "mask"],
+         SEM_STEPS, EXPECTED_PARAMS_SEM, {"CLS", "D_D_B_mask", "G_sem_cls"}),
+        ("glasses_resnet_vgg",
+         ["--data_dataset_mode", "unaligned_labeled_mask_cls",
+          "--train_semantic_cls", "--train_sem_cls_template", "resnet50",
+          "--f_s_net", "vgg", "--D_netDs", "projected_d", "basic",
+          "resnet18"],
+         SEM_STEPS, EXPECTED_PARAMS_SEM_VGG,
+         {"CLS", "D_D_B_resnet18", "G_sem_cls", "f_s"}),
+        ("segmentation_unet", ["--model_type", "segmentation"],
+         SEG_UNET_STEPS, {"f_s": EXPECTED_PARAMS_GLASSES["f_s"]}, {"f_s"}),
+        ("segmentation_vgg", ["--model_type", "segmentation", "--f_s_net",
+                              "vgg"],
+         SEG_VGG_STEPS, {"f_s": EXPECTED_PARAMS_SEM_VGG["f_s"]}, {"f_s"}))
+    for name, args, steps, want, keys in runs:
+        wd = _shm_workdir(workdir, name)
+        t0 = time.perf_counter()
+        seg = name.startswith("segmentation")
+        sem_cls = []
+        try:
+            opt = _sem_opt(wd, name, args, 2 * steps, cls=not seg)
+            model, opt, rec = _train_run(
+                opt, steps, 1, f"{name} training",
+                want["f_s"] if seg else EXPECTED_PARAMS_GLASSES_G,
+                hook=None if seg else (lambda m, i, n: sem_cls.append(
+                    float(m.loss_log["G_sem_cls"]))),
+                attention_per_step=0, main_net="f_s" if seg else "G_A",
+                main_loss="f_s" if seg else "G_tot")
+            counts = model.param_count()
+            if ({k: counts.get(k) for k in want} != want
+                    or opt.data_crop_size != SEM_SIZE
+                    or opt.train_batch_size != 2
+                    or (not seg and (opt.G_ngf != 64 or opt.D_ndf != 64))):
+                raise AssertionError(f"{name} is not at full width: "
+                                     f"{counts}")
+            if not keys <= set(rec["losses_last"]):
+                raise AssertionError(f"{name}: losses {rec['losses_last']}")
+            rec["parameters_per_net"] = counts
+            batch = _sem_batch(SEM_SIZE, SEED + 102, 2)
+            if name == "glasses_resnet_vgg":
+                dtypes = {model.nets["CLS"].dtype,
+                          model.nets["D_B_resnet18"].dtype}
+                if dtypes != {torch.float32} or \
+                        model.nets["f_s"].dtype != torch.bfloat16:
+                    raise AssertionError(f"{name}: templates in {dtypes}")
+            if name == "glasses_cls_maskd":
+                rec["G_sem_cls_per_step"] = sem_cls
+                if not any(v > 0 for v in sem_cls):
+                    model.cls_threshold = SEM_OPEN_THRESHOLD
+                    model.optimize_parameters(batch)
+                    rec["G_sem_cls_gate_opened"] = float(
+                        model.loss_log["G_sem_cls"])
+                    sem_cls.append(rec["G_sem_cls_gate_opened"])
+                rec["g_gradient"] = _g_gradients(model, batch)
+                g = rec["g_gradient"]
+                log(f"{name}: G_sem_cls {sem_cls}; G's gradient "
+                    + json.dumps(g))
+                if not (max(sem_cls) > 0 and g["sem_mask_norm"] > 0
+                        and 0 < g["cls_term"] < float("inf")
+                        and g["mask_d_target"] > 10 * g["again"]):
+                    raise AssertionError(f"{name}: C and the mask D do not "
+                                         "reach G")
+            rec["profiled_step"] = _profiled_step(model, opt, batch)
+            if seg:
+                miou = model.compute_miou(batch)
+                pred = model.inference(batch)
+                rec["miou"] = miou
+                if not (isinstance(miou, float) and 0.0 <= miou <= 1.0
+                        and pred.shape == (2, SEM_SIZE, SEM_SIZE, 1)
+                        and pred.dtype == np.int32):
+                    raise AssertionError(f"{name}: mIoU {miou}, inference "
+                                         f"{pred.shape} {pred.dtype}")
+            log(f"{name}: parameters {counts}; a profiled step "
+                + json.dumps(rec["profiled_step"]))
+            del model
+            torch.cuda.empty_cache()
+            paths[f"{name}_training"] = rec["launches"]
+            if name == "glasses_cls_maskd":
+                out_dir = os.path.join(wd, f"out_{name}")
+                os.makedirs(out_dir)
+                req = _serve_gan(
+                    os.path.join(opt.checkpoints_dir, opt.name,
+                                 "latest_net_G_A.pth"),
+                    os.path.join(opt.dataroot, "trainA", "imgs", "0000.png"),
+                    out_dir, 1)
+                if req["launches"] != _attention_only(req["launches"], 0):
+                    raise AssertionError(f"{name} request launched "
+                                         f"{req['launches']}")
+                rec["requests"] = req
+                paths[f"{name}_requests"] = req["launches"]
+            rec["phase_s"] = time.perf_counter() - t0
+            prof = rec["profiled_step"]
+            log(f"{name}: step {rec['median_warm_step_s'] * 1e3:.1f} ms, "
+                f"{rec['images_per_s']:.2f} images/s, peak "
+                f"{rec['max_memory_allocated'] / 1e9:.2f} GB, launches "
+                f"{rec['launches']}, idle share "
+                f"{prof['device_idle_share']}, {rec['phase_s']:.1f} s in all")
+            recs[name] = rec
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+    return recs, paths
+
+
+def semantic_cross_check():
+    """The card against the CPU: a CUT step with the basic C and one with
+    the resnet18 C, the mask D in both (noglasses2glasses at
+    SEM_CHECK_SIZE px, widths SEM_CHECK_WIDTH, Ds basic and mask), bf16 on
+    the card and fp32 on the CPU from the same weights on the same batch
+    and draws (patch ids, the pool, the gumbel noise), C's and f_s's gates
+    opened (SEM_OPEN_THRESHOLD): every loss within
+    SEM_STEP_TOL (relative, at least 1); then VGG16-FCN8s in fp32 (TF32
+    off) at SEM_CHECK_SIZE px under both pads, its skips drawn non-zero,
+    to VGG_CHECK_TOL of the largest logit. Returns its record."""
+    import copy
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models import create_model
+    from joligen_tpu_torch.models.modules import semantic_networks as sem
+    from joligen_tpu_torch.models.modules.cut_networks import \
+        sample_patch_ids
+
+    rec = {}
+    size, width = SEM_CHECK_SIZE, SEM_CHECK_WIDTH
+    ckpt = tempfile.mkdtemp(prefix="sem_step_")
+    try:
+        for template in ("basic", "resnet18"):
+            base = _example_opt(SEM_EXAMPLE, ckpt, f"sem_{template}", [
+                "--data_dataset_mode", "unaligned_labeled_mask_cls",
+                "--train_semantic_cls", "--train_sem_cls_template", template,
+                "--D_netDs", "basic", "mask"])
+            models = {}
+            for dev, bf16 in (("cpu", False), ("cuda", True)):
+                o = copy.copy(base)
+                o.tpu_bf16 = bf16
+                o.data_crop_size = o.data_load_size = size
+                o.G_ngf = o.D_ndf = o.f_s_nf = o.cls_nf = width
+                # both gates open: C's and f_s's terms count
+                o.cls_semantic_threshold = SEM_OPEN_THRESHOLD
+                o.f_s_semantic_threshold = SEM_OPEN_THRESHOLD
+                models[dev] = create_model(o, phase="train",
+                                           device=torch.device(dev))
+            m = models["cpu"]
+            if template == "resnet18" and m.param_count()["CLS"] != \
+                    EXPECTED_PARAMS_RESNET18_C:
+                raise AssertionError(f"resnet18 C: {m.param_count()}")
+            for name, net in m.nets.items():
+                models["cuda"].nets[name].load_state_dict(net.state_dict())
+            g = torch.Generator().manual_seed(SEED + 103)
+            batch = _sem_batch(size, SEED + 104, base.train_batch_size)
+            n = base.train_batch_size
+            with torch.no_grad():
+                feats = m.nets["G_A"](torch.zeros(1, size, size, 3),
+                                      extract_layer_ids=m.nce_layers)
+            draws = {"nce": sample_patch_ids(g, feats, m.num_patches),
+                     "nce_idt": sample_patch_ids(g, feats, m.num_patches),
+                     "pool": m.pool.draw_query(g, n),
+                     "gumbel": {"D_B_mask": torch.rand(
+                         (n, size, size, m.nclasses_fs), generator=g)
+                         * (1.0 - 2e-6) + 1e-6}}
+
+            def moved(d, dev):
+                if isinstance(d, dict):
+                    return {k: moved(v, dev) for k, v in d.items()}
+                if isinstance(d, list):
+                    return [moved(v, dev) for v in d]
+                return d.to(dev) if torch.is_tensor(d) else d
+            losses = {}
+            for dev, model in models.items():
+                out = model.optimize_prepared(model.prepare_batch(batch),
+                                              moved(draws, dev))
+                losses[dev] = {k: float(v) for k, v in out.items()}
+            err = max(abs(losses["cuda"][k] - v) / max(1.0, abs(v))
+                      for k, v in losses["cpu"].items())
+            rec[f"cut_step_{template}_c"] = {
+                "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+                "loss_max_rel_err": err, "tol": SEM_STEP_TOL}
+            log(f"semantic CUT step ({template} C, mask D) bf16 card vs "
+                "fp32 CPU: " + json.dumps(rec[f"cut_step_{template}_c"]))
+            if not ({"CLS", "G_sem_cls", "D_D_B_mask"} <= set(losses["cpu"])
+                    and err <= SEM_STEP_TOL and all(
+                        np.isfinite(v) for v in losses["cuda"].values())):
+                raise AssertionError(f"card and CPU CUT steps ({template} "
+                                     "C) disagree")
+            del models, m
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        gen = torch.Generator().manual_seed(SEED + 105)
+        x = torch.rand((1, size, size, 3), generator=gen) * 2 - 1
+        weights = sem.init_segmenter(sem.VGG16FCN8s(3, 2), gen).state_dict()
+        for name in sem.VGG16FCN8s.ZERO_INIT:
+            for leaf in ("weight", "bias"):
+                weights[f"{name}.{leaf}"].normal_(0.0, SEM_SKIP_STD,
+                                                  generator=gen)
+        for pad in ("fcn", "same"):        # both pads share one tree
+            net = sem.VGG16FCN8s(3, 2, pad=pad)
+            net.load_state_dict(weights)
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                with torch.inference_mode():
+                    outs[dev] = net.to(dev)(x.to(dev)).float().cpu()
+            err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+            scale = outs["cpu"].abs().max().item()
+            rec[f"vgg_{pad}"] = {"max_abs_err": err, "max_abs_logit": scale,
+                                 "tol": VGG_CHECK_TOL}
+            log(f"cross-check fp32 VGG16-FCN8s ({pad}) card vs CPU: max abs "
+                f"err {err:.3e} (logit max {scale:.3e})")
+            if not (outs["cuda"].shape == (1, size, size, 2)
+                    and torch.isfinite(outs["cuda"]).all()
+                    and err <= VGG_CHECK_TOL * scale):
+                raise AssertionError(f"card and CPU VGG16-FCN8s ({pad}) "
+                                     "disagree")
+            del net
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return rec
 
 
 def _re_opt(example, workdir, name, args, n_images, size):
@@ -5294,6 +5669,10 @@ def main():
         glasses["noglasses2glasses"]["cross_check_fp32"] = phase(
             "vision-aided cross-check", vision_aided_cross_check)
         zoo_cross_check = phase("GAN zoo cross-check", gan_zoo_cross_check)
+        sem_runs, sem_paths = phase("semantic nets", semantic_phase,
+                                    workdir)
+        sem_runs["cross_check"] = phase("semantic cross-check",
+                                        semantic_cross_check)
 
         def await_build(job):
             t0 = time.perf_counter()
@@ -5363,7 +5742,7 @@ def main():
              **mario_paths, **unetref_paths, **vid_paths, **b2b_paths,
              **mat_paths, **mat_video_paths, **image_paths, **wide_paths,
              **perc_paths, **cyclegan_paths, **cyclegan_unet_paths,
-             **zoo_paths, **palette_zoo_paths, **re_paths,
+             **zoo_paths, **palette_zoo_paths, **re_paths, **sem_paths,
              **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
@@ -5393,6 +5772,7 @@ def main():
     log("GAN zoo: " + json.dumps(zoo))
     log("palette zoo: " + json.dumps(palette_zoo))
     log("ReCycleGAN and ReCUT: " + json.dumps(re_runs))
+    log("semantic nets: " + json.dumps(sem_runs))
     log("metrics: " + json.dumps(metric_nets))
     log("phases (s): " + json.dumps(seconds))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -2,8 +2,9 @@
 
 All randomness, PIL decoding and cropping stay on the host; the device sees
 fixed-shape NHWC batches ((B, F, H, W, C) clips for the video modes). Ported
-modes (``PORTED_MODES``): the labeled-mask modes, their online bbox-crop
-variants and the four ref modes, ``unaligned``, ``aligned`` and
+modes (``PORTED_MODES``): the labeled-mask modes, ``unaligned_labeled_cls``
+(class labels, no masks), their online bbox-crop variants and the four ref
+modes, ``unaligned``, ``aligned`` and
 ``single``, the online video modes and the nuplet mode (ReCUT's and
 ReCycleGAN's (N, H, W, C) frames); any other mode raises
 ``NotImplementedError``. ``list_test_sets`` names a dataroot's test sets
@@ -19,6 +20,7 @@ import os
 from .loader import DataLoader
 
 PORTED_MODES = ("unaligned_labeled_mask", "unaligned_labeled_mask_cls",
+                "unaligned_labeled_cls",
                 "unaligned_labeled_mask_online",
                 "unaligned_labeled_mask_cls_online",
                 "self_supervised_labeled_mask",
@@ -40,6 +42,7 @@ def find_dataset_class(mode):
     from . import datasets as D
     table = dict(zip(PORTED_MODES, (D.UnalignedLabeledMaskDataset,
                                     D.UnalignedLabeledMaskClsDataset,
+                                    D.UnalignedLabeledClsDataset,
                                     D.UnalignedLabeledMaskOnlineDataset,
                                     D.UnalignedLabeledMaskClsOnlineDataset,
                                     D.SelfSupervisedLabeledMaskDataset,

@@ -184,6 +184,14 @@ class UnalignedLabeledMaskDataset(BaseDataset, _LabeledPathsMixin):
         return self.get_img(A_path, A_mask, A_cls, B_path, B_mask, B_cls)
 
 
+class UnalignedLabeledClsDataset(UnalignedLabeledMaskDataset):
+    """Class labels without masks (``datasets.py:183-186``): ``paths.txt``
+    lines 'img cls'; items carry ``A_label_cls``/``B_label_cls`` and no
+    label mask."""
+    with_cls = True
+    with_mask = False
+
+
 class UnalignedLabeledMaskClsDataset(UnalignedLabeledMaskDataset):
     with_cls = True
     with_mask = True

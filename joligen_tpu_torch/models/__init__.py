@@ -5,9 +5,9 @@ def create_model(opt, phase="train", device=None, cpu=False):
     """Name -> model class (``joligen_tpu/models/__init__.py``) for phase
     ``train`` or ``test``: palette, cm, cm_gan, sc, b2b, cut, re_cut,
     re_cut_semantic_mask (which sets ``train_semantic_mask``), cycle_gan,
-    re_cycle_gan, mat and test are ported (segmentation is not;
-    re_cycle_gan_semantic_mask raises as in the JAX package). The device is
-    CUDA unless ``cpu`` or an explicit ``device`` is given."""
+    re_cycle_gan, mat, segmentation and test are ported
+    (re_cycle_gan_semantic_mask raises as in the JAX package). The device
+    is CUDA unless ``cpu`` or an explicit ``device`` is given."""
     if opt.model_type == "palette":
         from .palette_model import PaletteModel
         return PaletteModel(opt, phase=phase, device=device, cpu=cpu)
@@ -32,11 +32,13 @@ def create_model(opt, phase="train", device=None, cpu=False):
     if opt.model_type == "mat":
         from .mat_model import MATModel
         return MATModel(opt, phase=phase, device=device, cpu=cpu)
+    if opt.model_type == "segmentation":
+        from .segmentation_model import SegmentationModel
+        return SegmentationModel(opt, phase=phase, device=device, cpu=cpu)
     if opt.model_type == "test":
         from .test_model import TestModel
         return TestModel(opt, phase=phase, device=device, cpu=cpu)
     raise NotImplementedError(
         f"model type {opt.model_type}: palette, cm, cm_gan, sc, b2b, cut, "
-        "re_cut, re_cut_semantic_mask, cycle_gan, re_cycle_gan, mat and test "
-        "are ported (ROADMAP Queue 1 item 10, what is left of the model "
-        "families)")
+        "re_cut, re_cut_semantic_mask, cycle_gan, re_cycle_gan, mat, "
+        "segmentation and test are ported")

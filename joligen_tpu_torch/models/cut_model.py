@@ -1,6 +1,6 @@
 """CUT / FastCUT contrastive unpaired translation
-(``joligen_tpu/models/cut_model.py``) along every option of the JAX model
-but the semantic classifier: a generator G of any name the factory builds
+(``joligen_tpu/models/cut_model.py``) along every option of the JAX model: a
+generator G of any name the factory builds
 (resnet, resnet_attn, segformer, the unet Gs, uvit, hdit, hat, ittr; its
 encoder taps are the NCE layers, ``select_nce_layers``), the
 ``PatchSampleF`` projector F with the PatchNCE, MoNCE or SRC + hDCE loss
@@ -10,7 +10,15 @@ one-sided label smoothing and ``D_dropout``; G EMA with ``train_G_ema``;
 the semantic-mask branch (``train_semantic_mask``): the segmenter f_s,
 trained on the label masks of A (and of B with ``train_mask_f_s_B``), whose
 cross-entropy on G's fake (and identity) joins G's loss, and the
-out-of-mask identity loss (``train_mask_out_mask``); FastCUT's flips
+out-of-mask identity loss (``train_mask_out_mask``); the gumbel ``mask`` D,
+which judges the one-hot label masks of A against the gumbel-softmax of
+f_s on G's fakes and trains on the D side only (with it, G's
+``G_sem_mask`` target is f_s's own prediction on A); the classifier C
+(``train_semantic_cls``, ``define_C``: ``basic`` or a ResNet template),
+trained on the class labels of A (and of B with ``train_sem_cls_B``), whose
+cross-entropy (or regression loss, ``train_cls_regression``) on G's fake
+(and, with ``train_sem_idt``, on the identity against B's labels) joins
+G's loss; FastCUT's flips
 (``alg_cut_flip_equivariance``), the contrastive D
 (``train_use_contrastive_loss_D``), adaptive pseudo augmentation
 (``dataaug_APA``), diffusion-noise D augmentation (``dataaug_D_diffusion``),
@@ -22,28 +30,34 @@ and ReCUT (model types ``re_cut`` and ``re_cut_semantic_mask``, over the
 One step (``optimize_prepared``), in the JAX step's order
 (``cut_model.py:685-950``):
 
-1. with ``train_semantic_mask``, f_s (and ``f_s_B``) on the real images and
+1. with ``train_semantic_cls``, C on the real images and their class
+   labels, with its own Adam at ``train_sem_lr_cls``; its loss at or below
+   ``cls_semantic_threshold`` opens the gate of G's classifier terms (a
+   device tensor);
+2. with ``train_semantic_mask``, f_s (and ``f_s_B``) on the real images and
    their masks, with its own Adam; its loss at or below
    ``f_s_semantic_threshold`` opens the gate of G's semantic terms (a
    device tensor: nothing waits for the host);
-2. ReCUT: P_B on the channel stack of B's frames 0..N-2 against frame N-1,
+3. ReCUT: P_B on the channel stack of B's frames 0..N-2 against frame N-1,
    10 · L1 (``P_proj_real_B``), with its own Adam at ``alg_re_P_lr``; its
    loss at or below ``alg_re_projection_threshold`` opens the gate of G's
    ReCUT terms (a device tensor; P's calls in G's loss run whatever the
    gate, as in the JAX step);
-3. G and F together: with flips, A and B mirrored on a step's Bernoulli
+4. G and F together: with flips, A and B mirrored on a step's Bernoulli
    draw; G's loss (the GAN terms of every D on the augmented fake, or the
    contrastive term of D on the real and the fake; the NCE terms, whose
    queries a flipped step mirrors back; ReCUT's NCE of A's last frame
    against P(the stack of the fakes), P's parameters taking no gradient,
    and with ``alg_re_adversarial_loss_p`` every D's term on that
    prediction; the supervised L1 or MSE and LPIPS/DISTS terms against B;
-   the semantic terms through the updated f_s, whose parameters take no
-   gradient) and its gradients, then Adam on G (and its EMA) and on F;
-4. the fake (before G's update) through the pool;
-5. each D on the real images and the pooled fakes (``D_noise``, then the
-   diffusion noise, DiffAugment, and APA's pool images in place of reals),
-   the GAN or the contrastive loss, with its own Adam; then APA's p (every
+   the semantic terms through the updated C and f_s, whose parameters take
+   no gradient) and its gradients, then Adam on G (and its EMA) and on F;
+5. the fake (before G's update) through the pool;
+6. each D on the real images and the pooled fakes (``D_noise``, then the
+   diffusion noise, DiffAugment, and APA's pool images in place of reals;
+   the mask D on A's one-hot masks and softmax(f_s(fake) + gumbel noise),
+   none of those augmentations), the GAN or the contrastive loss, with its
+   own Adam; then APA's p (every
    step) and the diffusion noise's p (every ``dataaug_D_diffusion_every``
    G steps) adapt from the first D's real logits and real loss.
 
@@ -55,7 +69,9 @@ feeds any of them instead (tests feed the JAX step's draws): keys
 ``nce_recut`` (id lists), ``flip`` (a bool tensor), ``pool``, ``d_noise``
 ((real, fake)), ``d_diffusion`` ({"real", "fake"}: (t (B,) ints, 0 for an
 image left clean; noise)), ``d_real_aug``, ``d_fake_aug``, ``apa``
-({"idx", "u"}) and ``d_dropout`` ({D name: (real masks, fake masks)}).
+({"idx", "u"}), ``d_dropout`` ({D name: (real masks, fake masks)}) and
+``gumbel`` ({D name: the uniform draws u in [1e-6, 1 - 1e-6] of the
+gumbel noise -log(-log u), NHWC like f_s's logits}).
 APA's and the diffusion noise's p are device scalars carried across steps
 (``apa_p``, ``d_diff_p``) and logged as ``APA_p`` and ``D_diff_p``.
 
@@ -63,9 +79,9 @@ In phase ``test`` only G (and its EMA) is built and loaded.
 
 ``train_sem_use_label_B``, which the glasses configs set, and
 ``alg_re_no_train_P_fake_images`` are read by nothing in the JAX package;
-the port reads them nowhere either. ``train_semantic_cls`` raises
-``NotImplementedError`` naming its ROADMAP item (``UNPORTED_OPTIONS``), as
-does an ``f_s_net`` other than ``unet``.
+the port reads them nowhere either. ``f_s_net: sam`` raises
+``NotImplementedError`` naming its ROADMAP item; a ``mask`` D without
+``train_semantic_mask`` raises ``ValueError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -87,17 +103,18 @@ from .modules.cut_networks import (contrastive_gan_loss, gan_loss,
 from .modules.image_pool import ImagePool
 from .modules.projected_d import load_efficientnet_trunk
 from .modules.segformer import load_mit_backbone
-from .modules.semantic_networks import check_f_s_net, define_f
+from .modules.semantic_networks import (check_f_s_net, define_C, define_f,
+                                        init_segmenter, load_resnet_template,
+                                        load_vgg_fcn8s_trunk)
 from .train_state import apply_updates, param_grads, scheme_from_opt
 
-# option -> where its port stands; each raises when it is set. The rest of
-# the JAX model's options run (APA, D diffusion, the contrastive D, flips,
-# the supervised and perceptual losses since ReCUT's slice).
-UNPORTED_OPTIONS = {
-    "train_semantic_cls": "ROADMAP Queue 1 item 10.4, the mask D and "
-                          "define_C (semantic networks: the classifier)",
-}
-PATCH_DS = ("basic", "n_layers", "pixel")
+# option -> where its port stands; each raises when it is set. Every option
+# of the JAX model runs since the semantic networks' slice.
+UNPORTED_OPTIONS = {}
+# the Ds that take the init scheme (cut_model.py:194-197)
+PATCH_DS = ("basic", "n_layers", "pixel", "mask")
+# the Ds that take live dropout with D_dropout (cut_model.py:375-381)
+DROPOUT_DS = ("basic", "n_layers", "mask")
 # D diffusion's timesteps (cut_model.py:827-830)
 D_DIFF_T_MIN, D_DIFF_T_MAX = 10, 1000
 
@@ -111,23 +128,28 @@ def check_unported(opt):
             raise NotImplementedError(f"option {name} is not ported ({where})")
     if getattr(opt, "train_semantic_mask", False):
         check_f_s_net(opt)
+    elif any("mask" in n for n in opt.D_netDs):
+        raise ValueError("D_netDs 'mask' requires --train_semantic_mask "
+                         "(the gumbel mask D judges f_s predictions)")
 
 
 def init_discriminator(name, netD, generator, opt):
     """A D's init (``cut_model.py:194-217``, ``cycle_gan_model.py:54-80``):
-    the PatchGAN Ds take the init scheme; the projected and vision-aided
-    Ds keep flax's default init, then their frozen trunks load their
-    weights files where those exist. Returns ``netD``."""
+    the PatchGAN Ds (the mask D among them) take the init scheme; the
+    others keep flax's default init, then the projected and vision-aided
+    Ds' frozen trunks load their weights files where those exist (the
+    ResNet-template Ds load nothing). Returns ``netD``."""
     if any(t in name for t in PATCH_DS):
         return scheme_from_opt(netD, generator, opt)
     flax_default_init(netD, generator)
     if "vision_aided" in name:
         load_clip_ref_encoder(netD)
         load_dino_into(netD)
-    elif netD.mit:
-        load_mit_backbone(netD, "feature_network")
-    else:
-        load_efficientnet_trunk(netD.feature_network)
+    elif "projected" in name:
+        if netD.mit:
+            load_mit_backbone(netD, "feature_network")
+        else:
+            load_efficientnet_trunk(netD.feature_network)
     return netD
 
 
@@ -252,7 +274,18 @@ class CUTModel(BaseModel):
                            or self.disjoint_f_s)
         self.fs_weights = [float(w) for w in (g("f_s_class_weights", [])
                                               or [])]
+        self.nclasses_fs = int(g("f_s_semantic_nclasses", 2) or 2)
         self.out_mask_loss = g("train_mask_loss_out_mask", "L1") or "L1"
+        self.has_mask_d = any("mask" in n for n in opt.D_netDs)
+        # the classifier C (cut_model.py:58-88)
+        self.semantic_cls = bool(g("train_semantic_cls", False))
+        self.cls_lambda = float(g("train_sem_cls_lambda", 1.0))
+        self.cls_threshold = float(g("cls_semantic_threshold", 1.0) or 1.0)
+        self.sem_cls_B = bool(g("train_sem_cls_B", False))
+        self.cls_regression = bool(g("train_cls_regression", False))
+        self.cls_l1_regression = bool(g("train_cls_l1_regression", False))
+        self.cls_weights = [float(w) for w in (g("cls_class_weights", [])
+                                               or [])]
         self.charbonnier_eps = float(g("train_mask_charbonnier_eps", 1e-6)
                                      or 1e-6)
         # FastCUT flips, the contrastive D, the supervised and perceptual
@@ -296,15 +329,28 @@ class CUTModel(BaseModel):
             self.add_net(name, init_discriminator(name, netD, init_gen, opt),
                          lr=g("train_D_lr", 2e-4))
             self.d_names.append(name)
+        if self.semantic_cls:
+            # C at flax's default init, with its own Adam; a ResNet template
+            # takes its ImageNet weights with train_sem_cls_pretrained
+            # (cut_model.py:228-240)
+            net_c = flax_default_init(define_C(opt), init_gen)
+            template = g("train_sem_cls_template", "basic")
+            if template and template != "basic" and g(
+                    "train_sem_cls_pretrained", False):
+                load_resnet_template(net_c, template)
+            self.add_net("CLS", net_c, lr=g("train_sem_lr_cls", 2e-4))
         if self.semantic_mask:
             # f_s (and, disjoint, f_s_B) at flax's default init, with its
             # own Adam (cut_model.py:241-279)
             for name in ("f_s", "f_s_B")[:1 + self.disjoint_f_s]:
-                net_f = flax_default_init(define_f(opt), init_gen)
+                net_f = init_segmenter(define_f(opt), init_gen)
                 if name == "f_s":
-                    # the segformer f_s's MiT weights, where they exist
-                    # (f_s_B keeps its init, as in cut_model.py:262-279)
+                    # the segformer f_s's MiT weights or the vgg f_s's VGG16
+                    # trunk, where they exist (f_s_B keeps its init, as in
+                    # cut_model.py:262-279)
                     load_mit_backbone(net_f)
+                    if g("f_s_net", "") == "vgg":
+                        load_vgg_fcn8s_trunk(net_f)
                 self.add_net(name, net_f, lr=g("train_sem_lr_f_s", 2e-4))
         if self.recut:
             self.add_net("P_B", init_predictor(opt, init_gen, scheme=True),
@@ -326,17 +372,22 @@ class CUTModel(BaseModel):
 
     # ------------------------------------------------------------------
     def set_input(self, batch):
-        """The images, and the label masks (``cut_model.py:330-345``): A's
-        when the batch has them, B's with ``train_mask_f_s_B`` or
-        ``train_sem_idt``. ReCUT's nuplets (B, N, H, W, C) fold frames
-        0..N-2 into the batch and keep ``real_A_last``, ``real_B_last`` and
-        ``real_B_seq`` (``fold_nuplets``); a 4-D batch (a request) passes
-        as it is."""
+        """The images, the label masks and classes (``cut_model.py:
+        330-345``): A's when the batch has them, B's masks with
+        ``train_mask_f_s_B`` or ``train_sem_idt``, B's classes with
+        ``train_sem_cls_B`` or ``train_sem_idt``. ReCUT's nuplets (B, N, H,
+        W, C) fold frames 0..N-2 into the batch and keep ``real_A_last``,
+        ``real_B_last`` and ``real_B_seq`` (``fold_nuplets``; no classes, as
+        in the JAX model); a 4-D batch (a request) passes as it is."""
         if self.recut and np.ndim(batch["A"]) == 5:
             out = fold_nuplets(batch, (("A", "real_A"), ("B", "real_B")))
             del out["real_A_seq"]
         else:
             out = {"real_A": batch["A"], "real_B": batch["B"]}
+            if "A_label_cls" in batch:
+                out["cls_A"] = np.asarray(batch["A_label_cls"], np.int32)
+            if "B_label_cls" in batch and (self.sem_cls_B or self.sem_idt):
+                out["cls_B"] = np.asarray(batch["B_label_cls"], np.int32)
         masks = fold_frames(batch)
         if "A_label_mask" in masks:
             out["mask_A"] = masks["A_label_mask"]
@@ -352,22 +403,46 @@ class CUTModel(BaseModel):
             self.set_input(batch), float_keys=("real_A", "real_B"),
             int_keys=("mask_A", "mask_B")))
 
-    def _ce(self, logits, labels):
+    def _ce(self, logits, labels, weights):
         """Softmax cross-entropy over the last axis of ``logits`` (fp32) with
-        integer ``labels``, mean over pixels; with ``f_s_class_weights``
-        torch's weighted form sum(w·ce) / sum(w) (``cut_model.py:383-391``).
-        A label out of range has an all-zero one-hot, as ``jax.nn.one_hot``
-        gives: its cross-entropy is 0."""
+        integer ``labels``, mean over pixels (or images); with class
+        ``weights`` torch's weighted form sum(w·ce) / sum(w), the label
+        clipped for the lookup only (``cut_model.py:383-391``). A label out
+        of range has an all-zero one-hot, as ``jax.nn.one_hot`` gives: its
+        cross-entropy is 0."""
         n = logits.shape[-1]
         classes = torch.arange(n, device=labels.device)
         onehot = (labels[..., None] == classes).to(logits.dtype)
         ce = -(onehot * F.log_softmax(logits, dim=-1)).sum(-1)
-        if not self.fs_weights:
+        if not weights:
             return ce.mean()
-        table = torch.tensor(self.fs_weights, dtype=ce.dtype,
-                             device=ce.device)
-        w = table[labels.clamp(0, len(self.fs_weights) - 1)]
+        table = torch.tensor(weights, dtype=ce.dtype, device=ce.device)
+        w = table[labels.clamp(0, len(weights) - 1)]
         return (ce * w).sum() / torch.clamp(w.sum(), min=1e-8)
+
+    def _cls_crit(self, pred, label):
+        """C's criterion (``cut_model.py:393-401``): ``_ce`` with
+        ``cls_class_weights``, or with ``train_cls_regression`` the MSE (L1
+        with ``train_cls_l1_regression``) of the first logit against the
+        label."""
+        if self.cls_regression:
+            d = pred.reshape(pred.shape[0], -1)[:, 0] - label.to(pred.dtype)
+            return (torch.mean(torch.abs(d)) if self.cls_l1_regression
+                    else torch.mean(d * d))
+        return self._ce(pred, label, self.cls_weights)
+
+    def _cls_update(self, real_A, real_B, cls_A, cls_B):
+        """C's step before f_s's and G's (``cut_model.py:702-717``): its
+        criterion on A (and on B with ``train_sem_cls_B``), Adam. Returns
+        (loss, gate), device scalars."""
+        net = self.nets["CLS"]
+        loss = self._cls_crit(net(real_A), cls_A)
+        if self.sem_cls_B and cls_B is not None:
+            loss = loss + self._cls_crit(net(real_B), cls_B)
+        state = self.states["CLS"]
+        apply_updates(state, param_grads(loss, state.params))
+        loss = loss.detach()
+        return loss, (loss <= self.cls_threshold).float()
 
     def _out_mask_crit(self, a, b):
         """L1, MSE or Charbonnier (``cut_model.py:403-412``)."""
@@ -388,10 +463,12 @@ class CUTModel(BaseModel):
             states.append(self.states["f_s_B"])
         loss = torch.zeros((), device=real_A.device)
         if not self.no_train_f_s_A:
-            loss = loss + self._ce(self.nets["f_s"](real_A), mask_A[..., 0])
+            loss = loss + self._ce(self.nets["f_s"](real_A), mask_A[..., 0],
+                                   self.fs_weights)
         if self.mask_f_s_B and mask_B is not None:
             net = self.nets["f_s_B" if self.disjoint_f_s else "f_s"]
-            loss = loss + self._ce(net(real_B), mask_B[..., 0])
+            loss = loss + self._ce(net(real_B), mask_B[..., 0],
+                                   self.fs_weights)
         params = [p for st in states for p in st.params]
         grads = (param_grads(loss, params) if loss.requires_grad
                  else [torch.zeros_like(p) for p in params])
@@ -413,9 +490,9 @@ class CUTModel(BaseModel):
         return _nhwc(apply_diff_augment(x, draws, self.diff_policy))
 
     def _d(self, name, x, dropout=None):
-        """Apply D ``name``; PatchGAN Ds take live dropout with
-        ``D_dropout`` (fed masks, or the model's generator)."""
-        if self.d_dropout and any(t in name for t in ("basic", "n_layers")):
+        """Apply D ``name``; PatchGAN Ds (the mask D too) take live dropout
+        with ``D_dropout`` (fed masks, or the model's generator)."""
+        if self.d_dropout and any(t in name for t in DROPOUT_DS):
             return self.nets[name](
                 x, dropout=self.generator if dropout is None else dropout)
         return self.nets[name](x)
@@ -487,12 +564,14 @@ class CUTModel(BaseModel):
                              include_all_neg, gamma=self.hdce_gamma)
 
     def _g_loss(self, real_A, real_B, draws, mask_A=None, mask_B=None,
-                fs_gate=None, recut=None):
+                fs_gate=None, recut=None, cls=None):
         """G's losses on NHWC fp32 images; the semantic terms where
         ``mask_A`` (int, NHWC) is given, scaled by ``fs_gate``; ReCUT's
         terms where ``recut`` is given ({"a_last": A's last frames,
-        "gate": P's gate}). On a flipped step the images come mirrored.
-        Returns (total, losses, fake_B)."""
+        "gate": P's gate}); C's terms where ``cls`` is given ({"A", "B":
+        the class labels (B's or None), "gate": C's gate}). The mask D
+        trains on the D side only: it has no G term. On a flipped step the
+        images come mirrored. Returns (total, losses, fake_B)."""
         netG = self.nets["G_A"]
         flipped = draws.get("flip")
         fake_B, feats_A = netG(real_A, with_features=self.nce_layers)
@@ -500,6 +579,8 @@ class CUTModel(BaseModel):
                                    draws.get("g_aug"))
         g_gan = 0.0
         for name in self.d_names:
+            if "mask" in name:       # cut_model.py:523-525
+                continue
             pred = self._d(name, fake_for_D,
                            draws.get("g_dropout", {}).get(name))
             if self.contrastive_d:
@@ -535,6 +616,15 @@ class CUTModel(BaseModel):
             losses.update(self._recut_terms(fake_B, recut, draws, flipped))
         if self.supervised:
             losses["G_supervised"] = self._supervised(fake_B, real_B)
+        if cls is not None:
+            # through C's updated parameters, which take no gradient
+            # (cut_model.py:632-643)
+            net = self.nets["CLS"]
+            losses["G_sem_cls"] = cls["gate"] * self.cls_lambda * \
+                self._cls_crit(net(fake_B), cls["A"])
+            if self.sem_idt and idt_B is not None and cls["B"] is not None:
+                losses["G_sem_cls_idt"] = cls["gate"] * self.cls_lambda * \
+                    self._cls_crit(net(idt_B), cls["B"])
         if self.semantic_mask and mask_A is not None:
             losses.update(self._semantic_terms(real_A, real_B, fake_B, idt_B,
                                                mask_A, mask_B, fs_gate))
@@ -547,9 +637,10 @@ class CUTModel(BaseModel):
         predicts the next frame, held against A's last frame by the NCE
         loss (keys from A's last frame, mirrored on a flipped step; no
         flip of the queries: that call passes none); with
-        ``alg_re_adversarial_loss_p`` each D but the mask and temporal ones
-        judges the prediction (-mean for projected and wgangp, else the
-        GAN loss without smoothing). Both scaled by P's gate."""
+        ``alg_re_adversarial_loss_p`` each D but the mask one (and the
+        temporal one, not ported) judges the prediction (-mean for projected
+        and wgangp, else the GAN loss without smoothing). Both scaled by P's
+        gate."""
         n1 = self.nuplet - 1
         seq = fake_B.reshape((-1, n1) + tuple(fake_B.shape[1:]))
         # G's update asks for no gradient of P's parameters
@@ -568,6 +659,8 @@ class CUTModel(BaseModel):
         if self.p_adversarial:
             adv = 0.0
             for name in self.d_names:
+                if "mask" in name:
+                    continue
                 pred = self.nets[name](proj_fake)
                 adv = adv + (-torch.mean(pred)
                              if self.gan_mode in ("projected", "wgangp")
@@ -600,9 +693,9 @@ class CUTModel(BaseModel):
         """G's semantic-mask terms (``cut_model.py:644-681``) through the
         updated f_s, whose parameters take no gradient: f_s's cross-entropy
         on the fake against A's mask (all 0 with ``train_mask_for_removal``;
-        f_s's own prediction on A with ``train_sem_net_output``), on the
-        identity with ``train_sem_idt``, and the out-of-mask identity loss
-        with ``train_mask_out_mask``."""
+        f_s's own prediction on A with ``train_sem_net_output`` or a mask
+        D), on the identity with ``train_sem_idt``, and the out-of-mask
+        identity loss with ``train_mask_out_mask``."""
         f_s = self.nets["f_s"]
         f_s_B = self.nets["f_s_B" if self.disjoint_f_s else "f_s"]
         label_A = mask_A[..., 0]
@@ -614,12 +707,12 @@ class CUTModel(BaseModel):
 
         if self.mask_for_removal:
             label_fake = torch.zeros_like(label_A)
-        elif self.sem_net_output:
+        elif self.sem_net_output or self.has_mask_d:
             label_fake = predicted(f_s, real_A)
         else:
             label_fake = label_A
         terms["G_sem_mask"] = gate * self.mask_lambda * self._ce(
-            f_s_B(fake_B), label_fake)
+            f_s_B(fake_B), label_fake, self.fs_weights)
         if self.sem_idt and idt_B is not None:
             if self.mask_for_removal:
                 label_idt = torch.zeros_like(label_A)
@@ -628,7 +721,7 @@ class CUTModel(BaseModel):
             else:
                 label_idt = mask_B[..., 0]
             terms["G_sem_mask_idt"] = gate * self.mask_lambda * self._ce(
-                f_s_B(idt_B), label_idt)
+                f_s_B(idt_B), label_idt, self.fs_weights)
         if self.out_mask:
             m = torch.clamp(mask_A.to(fake_B.dtype), 0, 1)
             terms["G_out_mask"] = self.lambda_out_mask * self._out_mask_crit(
@@ -645,6 +738,23 @@ class CUTModel(BaseModel):
         apply_updates(state, param_grads(loss, state.params))
         loss = loss.detach()
         return loss, (loss <= self.p_threshold).float()
+
+    def _mask_d_inputs(self, fake, mask_A, u=None):
+        """The gumbel mask D's inputs (``cut_model.py:864-876``): A's label
+        mask, clipped to the classes, one-hot (real); the softmax of f_s's
+        logits on the fake (the updated f_s, no gradient) plus gumbel noise
+        -log(-log u), u uniform in [1e-6, 1 - 1e-6] (fake)."""
+        with torch.no_grad():
+            logits = self.nets["f_s"](fake)
+        if u is None:
+            u = torch.rand(logits.shape, generator=self.generator,
+                           device=logits.device) * (1.0 - 2e-6) + 1e-6
+        d_fake = torch.softmax(logits - torch.log(-torch.log(u)), dim=-1)
+        n = self.nclasses_fs
+        labels = mask_A[..., 0].clamp(0, n - 1)
+        d_real = (labels[..., None] == torch.arange(
+            n, device=labels.device)).to(fake.dtype)
+        return d_real, d_fake
 
     def _draw_flip(self, draws):
         """FastCUT's flip of this step: a device bool, fed or drawn."""
@@ -718,7 +828,11 @@ class CUTModel(BaseModel):
         mask_A = dequantize(dev.get("mask_A"), "label")
         mask_B = dequantize(dev.get("mask_B"), "label")
         niter = self.states["G_A"].step
-        heads, fs_gate, recut = {}, None, None
+        heads, fs_gate, recut, cls = {}, None, None, None
+        if self.semantic_cls and "cls_A" in dev:
+            cls = {"A": dev["cls_A"], "B": dev.get("cls_B")}
+            heads["CLS"], cls["gate"] = self._cls_update(
+                real_A, real_B, cls["A"], cls["B"])
         if self.semantic_mask and mask_A is not None:
             heads["f_s"] = self._f_s_update(real_A, real_B, mask_A, mask_B)
             fs_gate = (heads["f_s"] <= self.fs_threshold).float()
@@ -734,7 +848,7 @@ class CUTModel(BaseModel):
             g_B = torch.where(flip, real_B.flip(2), real_B)
         sG, sF = self.states["G_A"], self.states["F"]
         total, losses, fake_B = self._g_loss(g_A, g_B, draws, mask_A,
-                                             mask_B, fs_gate, recut)
+                                             mask_B, fs_gate, recut, cls)
         grads = param_grads(total, sG.params + sF.params)
         apply_updates(sG, grads[:len(sG.params)], self.ema_beta)
         apply_updates(sF, grads[len(sG.params):])
@@ -763,8 +877,12 @@ class CUTModel(BaseModel):
         first = None
         for name in self.d_names:
             keep_r, keep_f = draws.get("d_dropout", {}).get(name, (None, None))
-            logits_real = self._d(name, real_in, keep_r)
-            logits_fake = self._d(name, fake_in, keep_f)
+            d_real, d_fake = real_in, fake_in
+            if "mask" in name and mask_A is not None:
+                d_real, d_fake = self._mask_d_inputs(
+                    fake, mask_A, draws.get("gumbel", {}).get(name))
+            logits_real = self._d(name, d_real, keep_r)
+            logits_fake = self._d(name, d_fake, keep_f)
             if self.contrastive_d:
                 loss_real = contrastive_gan_loss(logits_real, logits_fake)
                 loss_fake = contrastive_gan_loss(-logits_fake, -logits_real)

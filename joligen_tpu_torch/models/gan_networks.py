@@ -2,9 +2,11 @@
 generator of the JAX package (resnet, resnet_attn and their mobile
 variants, unet_mha, uvit, unet_256/128, segformer, hdit, hat, ittr), the
 ``basic`` / ``n_layers`` / ``pixel`` / ``projected_d`` / ``vision_aided``
-discriminators and the ``PatchSampleF`` projector. A generator name the
-JAX package refuses raises as there; any other discriminator raises,
-naming its ROADMAP item.
+discriminators, the gumbel ``mask`` D (a PatchGAN over the one-hot masks
+of ``f_s_semantic_nclasses`` channels) and the ResNet-template Ds
+(``resnet18``, ``resnet34``, ``resnet50``: one logit an image, fp32), and
+the ``PatchSampleF`` projector. A generator name the JAX package refuses
+raises as there; any other discriminator raises, naming its ROADMAP item.
 
 torch layers need their input sizes, which flax infers: the factories take
 them from the options (``model_input_nc``, ``model_output_nc``, the crop)
@@ -23,12 +25,12 @@ from .. import compute_dtype
 from .modules.cut_networks import PatchSampleF
 from .modules.discriminators import NLayerDiscriminator, PixelDiscriminator
 from .modules.resnet_generator import ResnetGenerator, ResnetGeneratorAttn
+from .modules.semantic_networks import RESNET_CFG, ResNetTemplate
 
 _ROADMAP_ZOO = "ROADMAP Queue 1 item 13, rest of the zoo"
 UNPORTED_D = {
     "temporal": "ROADMAP Queue 1 item 11, video diffusion",
     "depth": _ROADMAP_ZOO, "sam": _ROADMAP_ZOO,
-    "mask": "ROADMAP Queue 1 item 10, semantic networks",
 }
 
 
@@ -183,6 +185,17 @@ def define_D(opt, names=None):
                       "features")
             ds["D_B_" + name] = VisionAidedDiscriminator(backbones=bks,
                                                          dtype=dtype)
+        elif name == "mask":
+            # judges one-hot masks (gan_networks.py:190-198): no freq_space
+            ds["D_B_" + name] = NLayerDiscriminator(
+                in_channels=opt.f_s_semantic_nclasses, ndf=opt.D_ndf,
+                n_layers=opt.D_n_layers, norm=opt.D_norm,
+                antialias=not getattr(opt, "D_no_antialias", False),
+                use_dropout=getattr(opt, "D_dropout", False),
+                use_spectral=getattr(opt, "D_spectral", False), dtype=dtype)
+        elif name in RESNET_CFG:
+            # the template without a dtype: fp32 (gan_networks.py:199-207)
+            ds["D_B_" + name] = ResNetTemplate(nclasses=1, variant=name)
         else:
             where = UNPORTED_D.get(name, _ROADMAP_ZOO)
             raise NotImplementedError(

@@ -5,7 +5,9 @@ bbox-crop layout (``xview``, ``mapillary``, ``mario``), ``single``
 (``df2kost``), ``aligned`` (``SEN2VEN``) and ``online_ref`` (the online
 layout with a reference image per image: ``unetref_viton``); and of the GAN
 example configs: ``unaligned`` (``horse2zebra``, ``mnist2USPS``),
-``unaligned_labeled`` (``unaligned_labeled_mask``: the glasses configs) and
+``unaligned_labeled`` (``unaligned_labeled_mask``: the glasses configs),
+``unaligned_labeled_cls`` and ``unaligned_labeled_mask_cls`` (class labels,
+a tint each, without and with masks: the classifier's layouts) and
 ``online_ab`` (online bbox crops in both domains, classes 1 to 6:
 ``mario2sonic``); and ``video`` (``self_supervised_vid_mask_online``:
 series of frames with a box file each, the ``vid_mario`` configs).
@@ -160,6 +162,47 @@ def write_unaligned_labeled(root, n, size, seed=0):
             f.write("\n".join(lines) + "\n")
 
 
+def write_unaligned_labeled_cls(root, n, size, seed=0, with_mask=False,
+                                nclasses=2):
+    """``trainA`` and ``trainB`` of ``n`` images of ``size``² px each with a
+    class label drawn from ``nclasses``, each class tinting its images its
+    own way (a classifier can learn it): ``imgs/*.png`` and ``paths.txt``
+    lines 'img cls' (``unaligned_labeled_cls``), or with ``with_mask`` also
+    ``masks/*.png`` (a rectangle of label 1 on 0, B's images darkened
+    inside it as in ``write_unaligned_labeled``) and lines 'img cls mask'
+    (``unaligned_labeled_mask_cls``)."""
+    rng = np.random.default_rng(seed)
+    tints = [np.roll(np.array([72, -36, -36]), c) * (1 + c // 3)
+             for c in range(nclasses)]
+    for dom in "AB":
+        base = os.path.join(root, f"train{dom}")
+        for sub in ("imgs", "masks") if with_mask else ("imgs",):
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        lines = []
+        for i in range(n):
+            cls = int(rng.integers(0, nclasses))
+            img = np.clip(_image(rng, size).astype(np.int16) + tints[cls],
+                          0, 255).astype(np.uint8)
+            ipath = f"train{dom}/imgs/{i:04d}.png"
+            line = f"{ipath} {cls}"
+            if with_mask:
+                mask = _rect_mask(rng, size)
+                if dom == "B":
+                    img[mask > 0] = img[mask > 0] // 4
+                mpath = f"train{dom}/masks/{i:04d}.png"
+                Image.fromarray(mask).save(os.path.join(root, mpath))
+                line += f" {mpath}"
+            Image.fromarray(img).save(os.path.join(root, ipath))
+            lines.append(line)
+        with open(os.path.join(base, "paths.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def write_unaligned_labeled_mask_cls(root, n, size, seed=0, nclasses=2):
+    """``write_unaligned_labeled_cls`` with the masks."""
+    write_unaligned_labeled_cls(root, n, size, seed, True, nclasses)
+
+
 def write_online_ab(root, n, size, seed=0):
     """The online layout (``write_online``) in ``trainA`` and ``trainB``,
     boxes of classes 1 to 6 (mario2sonic's 7 f_s classes with 0)."""
@@ -250,6 +293,8 @@ def write_test_split(kind, root, n, size, seed=1, **kw):
 WRITERS = {"labeled": write_labeled, "online": write_online, "single": write_single,
            "aligned": write_aligned, "unaligned": write_unaligned,
            "unaligned_labeled": write_unaligned_labeled,
+           "unaligned_labeled_cls": write_unaligned_labeled_cls,
+           "unaligned_labeled_mask_cls": write_unaligned_labeled_mask_cls,
            "online_ab": write_online_ab, "online_ref": write_online_ref,
            "video": write_video}
 

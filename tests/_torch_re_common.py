@@ -12,6 +12,7 @@ past 2 x lr a step; the exact-zero gradients to 2 x lr a step)."""
 
 import copy
 import functools
+import zlib
 
 import numpy as np
 import pytest
@@ -102,10 +103,12 @@ def cut_draws(key, jm, tm, n, pool_count, d_diff_p):
     """The JAX CUT step's draws for ``key`` (``cut_model.py:502-950``) at a
     folded batch of ``n`` images, the pool holding ``pool_count`` images
     and the diffusion p at ``d_diff_p`` before the step: rngs[0] split for
-    the flip, G's augmentation, each D, then the two NCE calls (ReCUT's
-    ids from fold_in(that key, 1717)); rngs[1] the pool, rngs[2] and
+    the flip, G's augmentation, each D but a mask D, then the two NCE
+    calls (ReCUT's ids from fold_in(that key, 1717)); rngs[1] the pool,
+    rngs[2] and
     rngs[3] D's DiffAugment, fold_in(rngs[4], 7) the diffusion noise,
-    rngs[6] and rngs[7] APA."""
+    rngs[6] and rngs[7] APA, and fold_in(rngs[6], crc32(name) % 1000) the
+    gumbel noise of a mask D ``name``."""
     rngs = jax.random.split(key, 8)
     shape = (n, SIZE, SIZE, 3)
     r = rngs[0]
@@ -114,8 +117,9 @@ def cut_draws(key, jm, tm, n, pool_count, d_diff_p):
         r, rf = jax.random.split(r)
         draws["flip"] = torch.tensor(bool(jax.random.bernoulli(rf)))
     r, rng_aug = jax.random.split(r)
-    for _ in jm.netDs:
-        r, _ = jax.random.split(r)
+    for name in jm.netDs:
+        if "mask" not in name:      # the mask D has no G term
+            r, _ = jax.random.split(r)
     rng_nce, rng_idt = jax.random.split(r)
     feats = tm.nets["G_A"](torch.zeros(1, SIZE, SIZE, 3),
                            extract_layer_ids=tm.nce_layers)
@@ -142,15 +146,23 @@ def cut_draws(key, jm, tm, n, pool_count, d_diff_p):
                 rngs[6], (n,), 0, max(count, 1)))).long(),
             "u": torch.from_numpy(np.array(jax.random.uniform(
                 rngs[7], (n,))))}
+    for name in jm.netDs:
+        if "mask" in name:
+            key_g = jax.random.fold_in(rngs[6],
+                                       zlib.crc32(name.encode()) % 1000)
+            draws.setdefault("gumbel", {})[name] = torch.from_numpy(
+                np.array(jax.random.uniform(
+                    key_g, (n, SIZE, SIZE, tm.nclasses_fs),
+                    minval=1e-6, maxval=1.0 - 1e-6)))
     return draws
 
 
 def zero_grad_masks(tm):
     """{net.parameter: element mask} of the gradients that are exactly 0:
     the conv biases right before an InstanceNorm (the resnet Gs' but their
-    heads), the basic Ds' middle conv biases, and with the contrastive D
-    its last conv bias too (the contrastive loss is unchanged when every
-    logit shifts alike), and the key third of each attention ``qkv`` bias
+    heads), the basic and mask Ds' middle conv biases, and with the
+    contrastive D its last conv bias too (the contrastive loss is unchanged
+    when every logit shifts alike), and the key third of each attention ``qkv`` bias
     (it shifts all of a query's scores alike)."""
     out = {}
     for name, net in tm.nets.items():
@@ -162,7 +174,7 @@ def zero_grad_masks(tm):
                 out[f"{name}.{n}"] = m
             elif resnet_g and n.endswith(".bias") and ".head." not in n:
                 out[f"{name}.{n}"] = torch.ones(p.shape, dtype=bool)
-            elif "basic" in name and any(
+            elif ("basic" in name or "mask" in name) and any(
                     n == f"Conv_{i}.bias"
                     for i in range(1, tm.opt.D_n_layers + 1
                                    + getattr(tm, "contrastive_d", False))):

@@ -5,8 +5,10 @@ dtype on its route (``ROUTES``); one
 training step of a small palette model counting one launch of each attention
 kernel, one of an online bbox-crop batch with and without remat, and one
 bf16 CycleGAN step with unet_256 Gs against fp32 on the CPU, and one
-bf16 ReCycleGAN step (its unet_128 P nets) against fp32 on the CPU; and
-one run of each probe counting its kernels' launches. Marked
+bf16 ReCycleGAN step (its unet_128 P nets) against fp32 on the CPU, and
+the semantic networks' card-vs-CPU check (bf16 CUT steps with the basic
+and resnet18 C and the mask D, fp32 VGG16-FCN8s); and one run of each
+probe counting its kernels' launches. Marked
 ``cuda``: they skip without a CUDA device. This file imports neither jax nor
 the JAX package, so it runs on a machine with only PyTorch:
 
@@ -478,6 +480,33 @@ def test_cycle_gan_bf16_step_on_the_card_matches_fp32_cpu(cuda, tmp_path):
     for k, want in losses["cpu"].items():
         assert abs(losses["cuda"][k] - want) <= 5e-2 * max(1.0, abs(want)), (
             k, losses["cuda"][k], want)
+
+
+def test_semantic_nets_on_the_card_match_cpu(cuda):
+    """The semantic networks' card-vs-CPU check of ``chip_smoke.py``
+    (``semantic_cross_check``): a CUT step with the basic C and one with
+    the resnet18 C, the gumbel mask D in both (noglasses2glasses at 64 px,
+    widths 16, both gates opened), bf16 on the card against fp32 on the
+    CPU from the same weights and draws, every loss within 5e-2
+    (relative, at least 1); VGG16-FCN8s in fp32, TF32 off, at 64 px under
+    both pads within 1e-4 of the largest logit. No kernel of the port
+    runs."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    before = {n: c for n, c in fa.LAUNCHES.items()}
+    rec = smoke.semantic_cross_check()
+    assert fa.LAUNCHES == before
+    for template in ("basic", "resnet18"):
+        assert rec[f"cut_step_{template}_c"]["loss_max_rel_err"] <= 5e-2
+    for pad in ("fcn", "same"):
+        r = rec[f"vgg_{pad}"]
+        assert r["max_abs_err"] <= 1e-4 * r["max_abs_logit"]
 
 
 def test_recycle_gan_bf16_step_on_the_card_matches_fp32_cpu(cuda, tmp_path,

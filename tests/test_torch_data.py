@@ -22,7 +22,7 @@ from joligen_tpu.options import TrainOptions as JaxTrainOptions
 from joligen_tpu_torch.data import (PORTED_MODES, create_dataloader,
                                     create_dataset)
 from joligen_tpu_torch.options import TrainOptions
-from joligen_tpu_torch.tools.synthetic_datasets import write_online
+from joligen_tpu_torch.tools.synthetic_datasets import WRITERS, write_online
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from tools.make_fake_dataset import make  # noqa: E402
@@ -118,10 +118,44 @@ def test_loader_yields_full_batches(dataroot):
         np.testing.assert_array_equal(b["A"][keep], b["B"][keep])
 
 
+@pytest.mark.parametrize("mode,nclasses", [("unaligned_labeled_cls", 3),
+                                           ("unaligned_labeled_mask_cls", 2)])
+def test_cls_layouts_match_jax_dataset(tmp_path, mode, nclasses):
+    """``synthetic_datasets``' class layouts ('img cls', 'img cls mask')
+    through both packages' datasets, item for item: the class labels of
+    both domains, no label mask in ``unaligned_labeled_cls``."""
+    root = str(tmp_path / mode)
+    WRITERS[mode](root, 6, 40, seed=4, nclasses=nclasses)
+    cfg = _cfg(root, mode, False)
+    jds = jax_create_dataset(JaxTrainOptions().parse_json(cfg, verbose=False))
+    tds = create_dataset(TrainOptions().parse_json(cfg, verbose=False))
+    assert len(tds) == len(jds) == 6
+    classes = set()
+    for i in range(len(tds)):
+        items = []
+        for ds in (jds, tds):
+            random.seed(200 + i)
+            np.random.seed(200 + i)
+            items.append(ds[i])
+        want, got = items
+        assert sorted(got) == sorted(want)
+        assert ("A_label_mask" in got) == (mode != "unaligned_labeled_cls")
+        for k, w in want.items():
+            if isinstance(w, np.ndarray) and w.dtype == np.float32:
+                np.testing.assert_allclose(got[k], w, atol=1e-6, rtol=0)
+            elif isinstance(w, np.ndarray):
+                assert got[k].dtype == w.dtype
+                np.testing.assert_array_equal(got[k], w, err_msg=k)
+            else:
+                assert got[k] == w, k
+        classes |= {int(got["A_label_cls"]), int(got["B_label_cls"])}
+    assert classes == set(range(nclasses))
+
+
 def test_unported_modes_raise(dataroot):
     assert "self_supervised_labeled_mask" in PORTED_MODES
     assert "unaligned" in PORTED_MODES
-    opt = TrainOptions().parse_json(_cfg(dataroot, "unaligned_labeled_cls",
+    opt = TrainOptions().parse_json(_cfg(dataroot, "colorization",
                                          False), verbose=False)
     with pytest.raises(NotImplementedError, match="not ported"):
         create_dataset(opt)
