@@ -10,8 +10,8 @@ GPU. Run from the repository root with no arguments:
    fails if ``ptxas`` spills in a ``wgmma`` kernel or injects a
    ``warpgroup.wait`` (C7517) anywhere. Every nvcc (the attention
    backward's for minutes: 72 kernels at eight head dims) runs on while
-   the phases that launch no kernel of the port run (items 7 and 9: CUT,
-   glasses, mario2sonic, unetref and their cross-checks); the forward's
+   the phases that launch no kernel of the port run (items 7, 9, 18 and
+   20 and item 21's tutorial video run); the forward's
    is awaited before K1's phase, the backward's before K2/K3's.
 3. Kernels: K1 (flash-attention forward), K2 (dQ) and K3 (dK, dV) each
    against its plain PyTorch version on the same CUDA tensors at the paths'
@@ -24,7 +24,9 @@ GPU. Run from the repository root with no arguments:
    (4096, 8, 8, 8), (64, 8, 8, 64), (16384, 6, 8, 8); vit_vid's token
    motion module at head dim 96, (64, 8, 8, 96), and JiT blocks,
    (8, 64, 12, 64) and (8, 96, 12, 64), and the image JiT's at 256 px,
-   (8, 256, 12, 64) and (8, 288, 12, 64); ragged ones) in both dtypes and,
+   (8, 256, 12, 64) and (8, 288, 12, 64); b2b's blocks after the global
+   context's and a reference's tokens, (8, 176, 12, 64); ragged ones) in
+   both dtypes and,
    where S <= 32, both tilings, packed and plain (the card tests'
    tolerance there, TOL (1 + |want|): one bf16 ulp of those gradients
    exceeds TOL), then timed at those shapes in both tilings beside sdpa;
@@ -135,9 +137,10 @@ GPU. Run from the repository root with no arguments:
    kernel of the port runs on these paths (their launch counts are 0).
 10. Video palette, over synthetic series of frames with a box file each:
    ``example_ddpm_vid_mario.json`` at full width (unet_vid, 132,645,763
-   parameters; one clip of 8 frames at 64 px a micro-step, iter_size 32;
-   EMA; bf16), 32 micro-steps with K1, K2 and K3 81 times each a
-   micro-step, the weights still until the 32nd, its checkpoint reloaded
+   parameters; one clip of 8 frames at 64 px a micro-step; EMA; bf16;
+   its iter_size of 32 cut to 8), 8 micro-steps with K1, K2 and K3 81
+   times each a micro-step, the weights still until the 8th, its
+   checkpoint reloaded
    (the EMA bit for bit), two DDIM-10 clip requests and one with the
    config's DDPM sampler (its test schedule cut to 10 steps) through
    ``scripts/gen_vid_diffusion``; ``_ft`` (batch 3) and ``_ft_from_image``
@@ -273,6 +276,29 @@ GPU. Run from the repository root with no arguments:
    CPU, every loss within 5e-2 (relative), and VGG16-FCN8s in fp32 at 64
    px under both pads, card against CPU to 1e-4 of the largest logit. No
    kernel of the port runs on these paths.
+21. The rest of video: ``example_b2b_vid_mario.json`` with
+   ``--tpu_mesh_fsdp 1 --alg_b2b_global_context_mode tokens
+   --alg_b2b_object_ref_paths`` (one 64 px PNG written here;
+   b2b_vid_gc_tokens: 157,098,240 parameters, the blocks after the prefix
+   at S = 176, (8, 176, 12, 64)), 4 of the model's own steps with K1, K2
+   and K3 16 times each a step, a profiled step (idle share, K1-K3's
+   device time), one ``model.inference`` on a dataset batch with its
+   context (99 denoiser calls of 16 K1, the pixels outside the mask kept)
+   and one 50-step clip request through ``scripts/gen_vid_diffusion``; the
+   same with ``adaln`` (b2b_vid_gc_adaln: 158,390,784 parameters, S stays
+   96), 2 steps and a profiled one; the video variant of the bdd100k
+   tutorial's command (cut_video_clear2snowy: CUT over
+   ``temporal_labeled_mask_online`` at the options' defaults, batch 4
+   clips (the command's 8 do not fit on one card) of 5 frames 30 apart
+   at 256 px from 512 +- 64 px crops of video MAT's series of 121 frames
+   of 576 px (item 17; written here first), mobile_resnet_attn G,
+   projected, basic and temporal Ds, the vgg f_s of 11 classes, G EMA),
+   5 steps with the temporal D at steps 0 and 4 (its loss 0
+   and its state still on the others), the steps with and without it
+   timed apart, a profiled step off its cadence, a warm step on it, one
+   ``gen_single_image`` request on a frame (no kernel on this path); then
+   JiTViD in ``tokens`` mode with one reference and the temporal D at 256
+   px on a clip of 5 frames, fp32, card against CPU.
 
 Prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -466,8 +492,9 @@ EXPECTED_PARAMS_UNETREF = 147_557_059
 # images, 8 heads of 32 over 1024 tokens (qkv of 3 x 256 rows)
 UNETREF_ATTN_QKV = (16, 768, 1024)
 # the video palette configs (unet_vid): vid_mario one epoch of VID_STEPS
-# micro-steps at batch 1 (one update at iter_size 32; two until the smoke
-# took the wide head dims' phases) over clips of 8
+# micro-steps at batch 1, one update at VID_ITER_SIZE (the config's 32,
+# cut for the smoke's time when it took the rest of video; two updates
+# until it took the wide head dims' phases) over clips of 8
 # frames cropped from VID_IMAGE px frames (VID_SERIES series of VID_FRAMES
 # frames: the dataset's length is its frame count), then VID_DDIM_REQUESTS
 # DDIM-10 clip requests and one with the config's DDPM sampler at its test
@@ -477,8 +504,8 @@ UNETREF_ATTN_QKV = (16, 768, 1024)
 VID_EXAMPLES = ("example_ddpm_vid_mario.json",
                 "example_ddpm_vid_mario_ft.json",
                 "example_ddpm_vid_mario_ft_from_image.json")
-VID_STEPS = 32
-VID_SERIES, VID_FRAMES = 2, 16
+VID_STEPS = VID_ITER_SIZE = 8
+VID_SERIES, VID_FRAMES = 1, 8
 VID_IMAGE = 160
 VID_DDIM_REQUESTS = 2
 EXPECTED_PARAMS_VID = 132_645_763         # the denoiser; its trunk 132,643,651
@@ -502,6 +529,9 @@ VID_MID_SHAPE = (8, 64, 16, 32)
 B2B_MOTION_SHAPE = (64, 8, 8, 96)
 B2B_PRE_SHAPE = (8, 64, 12, 64)
 B2B_POST_SHAPE = (8, 96, 12, 64)
+# with the global context's tokens and one object reference's after block
+# 4: S = 64 + 64 + 16 + 32 = 176 (b2b_vid_gc_tokens)
+B2B_GC_POST_SHAPE = (8, 176, 12, 64)
 # the image JiT-B/16's blocks at 256 px, batch 8 (b2b_image_256): 256
 # tokens before the 32 in-context tokens and 288 after (a ragged last tile
 # of queries and of keys); palette_vit_128's are B2B_PRE_SHAPE and
@@ -524,15 +554,17 @@ JITH_IMAGE_POST_SHAPE = (8, 288, 16, 80)
 # K1-K3 at the video paths' shapes, in both dtypes, and at S <= 32 in both
 # tilings (packed and plain): every motion-module shape of the video path
 # (vid_mario's levels 1-4, _ft_from_image's levels 1-4; D = 8), b2b's
-# three shapes (D = 96 and the JiT blocks' S = 64 and 96 with 12 heads),
-# and ragged sequence counts and lengths, at D = 96 too
+# four shapes (D = 96 and the JiT blocks' S = 64, 96 and, with the global
+# context's tokens and a reference, 176 with 12 heads), and ragged
+# sequence counts and lengths, at D = 96 too
 SHORT_CHECKS = [VID_L1_SHAPE, (1024, 8, 8, 16), (256, 8, 8, 32),
                 VID_L4_SHAPE, VID_S6_SHAPE, (4096, 6, 8, 16),
                 (1024, 6, 8, 32), (256, 6, 8, 64), (3, 6, 8, 32),
                 (7, 8, 3, 16), (2, 17, 3, 8), (3, 32, 2, 8), (2, 1, 3, 8),
                 B2B_MOTION_SHAPE, B2B_PRE_SHAPE, B2B_POST_SHAPE,
-                (5, 7, 3, 96), (3, 100, 2, 96), JIT_IMAGE_PRE_SHAPE,
-                JIT_IMAGE_POST_SHAPE, MAT_MOTION_SHAPE, MAT_MOTION_4H_SHAPE,
+                B2B_GC_POST_SHAPE, (5, 7, 3, 96), (3, 100, 2, 96),
+                JIT_IMAGE_PRE_SHAPE, JIT_IMAGE_POST_SHAPE, MAT_MOTION_SHAPE,
+                MAT_MOTION_4H_SHAPE,
                 JITH_MOTION_SHAPE, JITL_MOTION_SHAPE, (8, 64, 16, 80),
                 JITH_VID_POST_SHAPE, (3, 1, 1, 80), (5, 5, 3, 160),
                 (7, 8, 3, 128), (3, 17, 3, 80), (3, 32, 3, 160),
@@ -544,6 +576,7 @@ VID_TIMINGS = (("vid_level1", VID_L1_SHAPE, 50),
                ("b2b_motion", B2B_MOTION_SHAPE, 50),
                ("b2b_jit_pre", B2B_PRE_SHAPE, 50),
                ("b2b_jit_post", B2B_POST_SHAPE, 50),
+               ("b2b_gc_post", B2B_GC_POST_SHAPE, 50),
                ("jit_image_pre", JIT_IMAGE_PRE_SHAPE, 50),
                ("jit_image_post", JIT_IMAGE_POST_SHAPE, 50),
                ("mat_motion", MAT_MOTION_SHAPE, 20),
@@ -565,6 +598,52 @@ EXPECTED_PARAMS_B2B = 156_640_512      # [y_cond, z]: 6 input channels
 # K1 launches a b2b denoiser call (and K2 and K3 a step): 12 JiT blocks and
 # the motion module's 2 blocks of 2 temporal attentions
 B2B_K1_PER_CALL = 16
+# b2b_vid_mario with the global context and an object reference
+# (B2B_EXAMPLE + --tpu_mesh_fsdp 1 and the context's options), over one
+# series of 8 frames of B2B_IMAGE px: ``tokens`` with one reference of
+# B2B_GC_REF_SIZE px (the context's 64 tokens and the reference's 16
+# before the 32 in-context ones: S = 176 from block 4, B2B_GC_POST_SHAPE)
+# B2B_GC_STEPS steps, a 50-step clip request through
+# scripts/gen_vid_diffusion (no context: the zero image, as the JAX
+# script) and one model.inference on a dataset batch with its context;
+# ``adaln`` (the context's encoder adds to c; S stays 96)
+# B2B_GC_ADALN_STEPS steps. K1 B2B_K1_PER_CALL a call, K2 and K3 as many a
+# step, in both. The parameter counts are the JAX package's
+# (jax.eval_shape; the tests hold them)
+B2B_GC_STEPS = 4
+B2B_GC_ADALN_STEPS = 2
+B2B_GC_REF_SIZE = 64
+EXPECTED_PARAMS_B2B_GC = {"tokens": 157_098_240, "adaln": 158_390_784}
+# the video variant of docs/tutorial_styletransfer_bdd100k.md's command:
+# CUT over temporal_labeled_mask_online with the temporal D beside the
+# projected and basic ones, at the options' defaults (clips of 5 frames 30
+# apart, the temporal D every 4 steps, the vgg f_s of 11 classes), but for
+# the batch: the command's 8 clips (40 frames a step) do not fit on one
+# NVIDIA H100 80GB HBM3 at 700.00 W (out of memory at 77.6 GB allocated,
+# in G's identity pass), so CUT_VIDEO_BATCH clips; over video MAT's series
+# (``_video_series``; B's paths list A's frames); CUT_VIDEO_STEPS steps
+# (the temporal D at steps 0 and 4), a profiled step off its cadence and
+# one on it, a gen_single_image request on one frame. No kernel of the
+# port. The parameter counts are the JAX package's (jax.eval_shape)
+CUT_VIDEO_ARGS = [
+    "--model_type", "cut", "--data_dataset_mode",
+    "temporal_labeled_mask_online", "--data_load_size", "360",
+    "--data_crop_size", "256", "--data_online_creation_crop_size_A", "512",
+    "--data_online_creation_crop_delta_A", "64",
+    "--data_online_creation_crop_size_B", "512",
+    "--data_online_creation_crop_delta_B", "64", "--G_netG",
+    "mobile_resnet_attn", "--D_netDs", "projected_d", "basic", "temporal",
+    "--train_semantic_mask", "--f_s_semantic_nclasses", "11",
+    "--train_G_ema"]
+CUT_VIDEO_BATCH = 4
+CUT_VIDEO_STEPS = 5
+EXPECTED_PARAMS_CUT_VIDEO = {"G_A": 2_462_565,
+                             "D_B_projected_d": 9_227_252,
+                             "D_B_basic": 2_764_737,
+                             "D_B_temporal": 12_016_372}
+# the temporal D in fp32, card against CPU: one clip of CUT_VIDEO_FRAMES
+# frames at 256 px, to CROSS_CHECK_TOL
+CUT_VIDEO_FRAMES = 5
 # MAT inpainting (example_mat_inpainting.json as it is: batch 8, 256 px,
 # base 64, stage-1 dim 180, bf16): one epoch of MAT_STEPS steps over a
 # synthetic labeled-mask set (step 0 takes R1: d_reg_every 16), then the
@@ -2768,12 +2847,15 @@ def _profiled_step(model, opt, batch=None):
         step()
     # the trace's raw events (ns): building the profiler's FunctionEvents
     # from a GAN step's ~10^5 events takes ~20 s of host time
-    kernels = [(e.start_ns() / 1e3, e.end_ns() / 1e3)
-               for e in prof.profiler.kineto_results.events()
-               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    kernels = [(e.start_ns() / 1e3, e.end_ns() / 1e3) for e in events]
     busy = busy_us(kernels)
+    # K1-K3's own time (the port's attention kernels' names hold flash_)
+    flash = sum((e.end_ns() - e.start_ns()) / 1e3 for e in events
+                if "flash_" in e.name())
     rec = {"latency_ms": latency_us / 1e3, "device_launches": len(kernels),
-           "device_busy_ms": busy / 1e3,
+           "device_busy_ms": busy / 1e3, "flash_kernels_ms": flash / 1e3,
            "device_idle_share": (max(0.0, 1.0 - busy / latency_us)
                                  if kernels else None)}
     return rec
@@ -4359,10 +4441,11 @@ def _serve_vid(ckpt, served, sopt, frames_dir, out_dir, n, extra, label,
 
 
 def vid_phase(workdir):
-    """``example_ddpm_vid_mario.json`` as it is (unet_vid, 132,645,763
-    parameters; clips of 8 frames at 64 px, batch 1, iter_size 32; EMA;
-    bf16) for VID_STEPS micro-steps, the parameters still at the 31st and
-    moved at the 32nd (one update), its checkpoint reloaded (the EMA bit
+    """``example_ddpm_vid_mario.json`` (unet_vid, 132,645,763 parameters;
+    clips of 8 frames at 64 px, batch 1; EMA; bf16) with its iter_size of
+    32 cut to VID_ITER_SIZE, for VID_STEPS micro-steps, the parameters
+    still until the last and moved at it (one update), its checkpoint
+    reloaded (the EMA bit
     for bit), VID_DDIM_REQUESTS DDIM-10 clip requests and one with the
     config's DDPM sampler at its test schedule; then the two _ft configs
     (canny sketches with per-frame dropout) one epoch and one DDIM-10
@@ -4373,6 +4456,9 @@ def vid_phase(workdir):
     from joligen_tpu_torch.scripts.common import load_model_from_file
 
     opt = _vid_opt(VID_EXAMPLES[0], workdir, "vid", VID_SERIES, VID_FRAMES)
+    if opt.train_iter_size != 32:
+        raise AssertionError("vid_mario is not the example config")
+    opt.train_iter_size = VID_ITER_SIZE
     # the one leaf with a gradient before the first update: every other
     # gradient flows through the zero-initialised out_proj
     watched = "inner.out_proj.weight"
@@ -4393,8 +4479,7 @@ def vid_phase(workdir):
     if not (isinstance(model.nets["G_A"].inner, UNetVid) and model.is_video
             and model.use_ema and _k1_per_call(opt) == VID_K1_PER_CALL
             and built["gt"].shape == (1, 8, 64, 64, 3)
-            and built["mask"].shape == (1, 8, 64, 64, 1)
-            and opt.train_iter_size == 32):
+            and built["mask"].shape == (1, 8, 64, 64, 1)):
         raise AssertionError("vid_mario is not the example config")
     if not (torch.equal(marks[1], marks[every - 1])
             and not torch.equal(marks[every - 1], marks[every])):
@@ -4664,6 +4749,257 @@ def b2b_cross_check():
     return err
 
 
+def _write_ref_png(path, size, seed):
+    """A seeded noise image of ``size``² px with a flat square: an object
+    reference."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+    img[size // 4:3 * size // 4, size // 4:3 * size // 4] = rng.integers(
+        0, 256, 3, dtype=np.uint8)
+    Image.fromarray(img).save(path)
+    return path
+
+
+def _first_batch(opt):
+    """The first batch of ``opt``'s training loader (collated numpy)."""
+    from joligen_tpu_torch.data import create_dataloader, create_dataset
+    return next(iter(create_dataloader(opt, create_dataset(opt, "train"))))
+
+
+def b2b_context_phase(workdir):
+    """b2b_vid_gc_tokens and b2b_vid_gc_adaln (see the module doc, item 21).
+    Returns (record, launch counts per path)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.modules.vit_vid import JiTViD
+    from joligen_tpu_torch.tools.synthetic_datasets import write_video
+
+    ref = _write_ref_png(os.path.join(workdir, "object_ref.png"),
+                         B2B_GC_REF_SIZE, SEED + 91)
+    per_step = dict.fromkeys(("flash_attention_fwd", "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv"), B2B_K1_PER_CALL)
+    recs, paths = {}, {}
+    for mode, steps in (("tokens", B2B_GC_STEPS),
+                        ("adaln", B2B_GC_ADALN_STEPS)):
+        # a served model's patched inference is a reference cycle (the b2b
+        # phase's, this loop's): collect it, so that a run's peak holds its
+        # own model alone
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = f"b2b_vid_gc_{mode}"
+        args = ["--tpu_mesh_fsdp", "1", "--alg_b2b_global_context_mode",
+                mode]
+        if mode == "tokens":
+            args += ["--alg_b2b_object_ref_paths", ref]
+        opt = _example_opt(B2B_EXAMPLE, workdir, name, args)
+        write_video(opt.dataroot, 8, B2B_IMAGE, seed=SEED + 92, n_series=1,
+                    phases=("train",))
+        if _b2b_k1_per_call(opt) != B2B_K1_PER_CALL:
+            raise AssertionError(f"{name}: the denoiser's attention sites "
+                                 "changed")
+        model, rec = _model_steps(opt, steps, f"{name} training",
+                                  EXPECTED_PARAMS_B2B_GC[mode], per_step)
+        net = model.nets["G_A"]
+        nf = opt.data_temporal_number_frames
+        batch = _first_batch(opt)
+        if not (isinstance(net, JiTViD) and net.global_context_mode == mode
+                and batch["B_global_context"].shape == (1, nf, 128, 128, 3)
+                and (mode == "adaln" or (
+                    model.object_refs.shape == (1, 1, 64, 64, 3)
+                    and net.oref_posemb.shape[1] == 16
+                    and net.gc_posemb.shape[1] == 64))):
+            raise AssertionError(f"{name} did not build as configured")
+        secs = rec["step_s"][1:]
+        rec["median_warm_step_s"] = float(np.median(secs))
+        rec["frames_per_s"] = nf * opt.train_batch_size / \
+            rec["median_warm_step_s"]
+        rec["profiled_step"] = _profiled_step(model, opt, batch)
+        log(f"{name}: profiled step {rec['profiled_step']}")
+        paths[f"{name}_training"] = rec["launches"]
+        if mode == "tokens":
+            # a dataset batch through model.inference, its context with it
+            calls = 2 * model.denoise_timesteps - 1
+            reset_launches()
+            t0 = time.perf_counter()
+            out = model.inference(batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches()
+            want = _attention_only(launches, {"flash_attention_fwd":
+                                              calls * B2B_K1_PER_CALL})
+            keep = np.broadcast_to(batch["B_label_mask"] == 0, out.shape)
+            kept = float(np.abs(out - batch["B"])[keep].max())
+            if not (out.shape == batch["B"].shape and np.isfinite(out).all()
+                    and launches == want and kept <= 1e-6):
+                raise AssertionError(f"{name}: inference with its context "
+                                     f"{out.shape}, launches {launches}, "
+                                     f"outside the mask moved {kept}")
+            rec["inference_with_context"] = {"request_s": secs,
+                                             "launches": launches,
+                                             "denoiser_calls": calls}
+            log(f"{name}: model.inference with the batch's context, "
+                f"{calls} denoiser calls, {secs:.3f} s, launches {launches}")
+            paths[f"{name}_inference"] = launches
+            # a clip request through the script, from the trained model
+            rec["request"] = _serve_b2b(
+                os.path.join(opt.checkpoints_dir, "unsaved.pth"), model, opt,
+                os.path.join(opt.dataroot, "trainA", "vid0"),
+                os.path.join(workdir, f"out_{name}"), 1, 1, [],
+                f"{name}_request")
+            paths[f"{name}_request"] = rec["request"]["launches"]
+        recs[name] = rec
+        del model, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs, paths
+
+
+def cut_video_phase(workdir):
+    """The video variant of the bdd100k tutorial (see the module doc, item
+    21). Returns (record, launch counts per path)."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.options import TrainOptions
+    from joligen_tpu_torch.scripts import gen_single_image as gen
+
+    root = _video_series(workdir)
+    os.makedirs(os.path.join(root, "trainB"), exist_ok=True)
+    shutil.copy(os.path.join(root, "trainA", "paths.txt"),
+                os.path.join(root, "trainB", "paths.txt"))
+    opt = TrainOptions().parse_cli([
+        *CUT_VIDEO_ARGS, "--train_batch_size", str(CUT_VIDEO_BATCH),
+        "--dataroot", root, "--data_relative_paths",
+        "--checkpoints_dir", os.path.join(workdir, "cut_video_ckpt"),
+        "--name", "cut_video"])
+    if not (opt.data_temporal_number_frames == 5
+            and opt.D_temporal_every == 4 and opt.f_s_net == "vgg"
+            and opt.data_temporal_frame_step == 30):
+        raise AssertionError("cut_video_clear2snowy is not at the "
+                             "options' defaults")
+    model, rec = _model_steps(opt, CUT_VIDEO_STEPS,
+                              "cut_video_clear2snowy training",
+                              EXPECTED_PARAMS_CUT_VIDEO["G_A"], {})
+    counts = model.param_count()
+    rec["parameters_per_net"] = counts
+    if any(counts[k] != v for k, v in EXPECTED_PARAMS_CUT_VIDEO.items()):
+        raise AssertionError(f"cut_video_clear2snowy: parameters "
+                             f"{counts}")
+    frames = opt.train_batch_size * opt.data_temporal_number_frames
+    on = [i for i in range(CUT_VIDEO_STEPS) if i % 4 == 0]
+    d_temporal = [d["D_D_B_temporal"] for d in rec["losses_per_step"]]
+    if not (all(d_temporal[i] > 0 for i in on) and all(
+            d_temporal[i] == 0 for i in range(CUT_VIDEO_STEPS)
+            if i not in on)):
+        raise AssertionError(f"the temporal D's cadence: {d_temporal}")
+    rec["temporal_d_steps"] = on
+    rec["step_s_with_temporal_d"] = [rec["step_s"][i] for i in on]
+    rec["step_s_without_temporal_d"] = [
+        rec["step_s"][i] for i in range(CUT_VIDEO_STEPS) if i not in on]
+    rec["frames_per_s_without_temporal_d"] = frames / float(
+        np.median(rec["step_s_without_temporal_d"]))
+    batch = _first_batch(opt)
+    # G's step count is 5: the profiled step's warm, timed and traced
+    # steps are 5-7, off the cadence; step 8, timed below, is on it
+    rec["profiled_step_without_temporal_d"] = _profiled_step(
+        model, opt, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.optimize_parameters(batch)            # step 8: with it
+    torch.cuda.synchronize()
+    rec["warm_step_s_with_temporal_d"] = time.perf_counter() - t0
+    if not float(model.loss_log["D_D_B_temporal"]) > 0:
+        raise AssertionError("step 8 did not train the temporal D")
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"cut_video_clear2snowy: {frames} frames a step, steps "
+        f"{[round(t, 4) for t in rec['step_s']]} s (the temporal D at "
+        f"{on}), warm step with it "
+        f"{rec['warm_step_s_with_temporal_d']:.4f} s, profiled step "
+        f"without it {rec['profiled_step_without_temporal_d']}, peak "
+        f"{rec['max_memory_allocated']} B")
+    img = os.path.join(root, "trainA", "vid0", "frame_000.png")
+    reset_launches()
+    t0 = time.perf_counter()
+    out = gen.inference(gen.parser().parse_args([
+        "--model_in_file", "unsaved.pth", "--img_in", img,
+        "--img_out", os.path.join(workdir, "out_cut_video.png")]), model,
+        opt)
+    torch.cuda.synchronize()
+    req = {"request_s": time.perf_counter() - t0,
+           "launches": read_launches()}
+    if not (out.shape == (MAT_VIDEO_IMAGE, MAT_VIDEO_IMAGE, 3)
+            and np.isfinite(out).all()):
+        raise AssertionError(f"cut_video request: {out.shape}")
+    rec["request"] = req
+    log(f"cut_video_clear2snowy: a request on one frame "
+        f"{req['request_s']:.4f} s, launches {req['launches']}")
+    del model
+    torch.cuda.empty_cache()
+    return {"cut_video_clear2snowy": rec}, {
+        "cut_video_training": rec["launches"],
+        "cut_video_request": req["launches"]}
+
+
+def video_context_cross_check():
+    """The fp32 nets of this phase at full width, card against CPU: JiTViD
+    in ``tokens`` mode with one reference (K1 16 times: S = 176 on the
+    plain tiling), one clip of 8 frames at 128 px with a context a frame,
+    on seeded weights with small seeded values in the zero-initialised
+    layers; the temporal D at 256 px on one clip of CUT_VIDEO_FRAMES frames
+    (no kernel), its LSTM biases seeded too."""
+    import numpy as np
+    import torch
+    from joligen_tpu_torch.models.diffusion_networks import (define_inner_G,
+                                                             init_weights)
+    from joligen_tpu_torch.models.gan_networks import define_D
+    from joligen_tpu_torch.models.cut_model import init_discriminator
+    from joligen_tpu_torch.options import TrainOptions
+
+    opt = _fp32(_example_opt(B2B_EXAMPLE, tempfile.gettempdir(),
+                             "b2b_gc_xcheck", [
+                                 "--alg_b2b_global_context_mode", "tokens",
+                                 "--alg_b2b_object_ref_paths", "ref.png"]))
+    rng = np.random.default_rng(SEED + 94)
+
+    def uniform(*shape):
+        return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+    x, gc = uniform(1, 8, 128, 128, 6), uniform(1, 8, 128, 128, 3)
+    ref = uniform(1, 1, 64, 64, 3)
+    t = torch.from_numpy(rng.uniform(0, 1, (1, 8)).astype(np.float32))
+
+    def build():
+        return init_weights(define_inner_G(opt, 6),
+                            torch.Generator().manual_seed(SEED + 95),
+                            zero_init_std=0.01)
+    err_g, out = _card_vs_cpu(build, (x, t), {
+        "global_context": gc, "object_ref": ref}, "JiTViD with context",
+        k1=B2B_K1_PER_CALL)
+    if not out.abs().max().item() > 0:
+        raise AssertionError("the JiTViD cross-check's output is 0")
+
+    dopt = TrainOptions().parse_cli([*CUT_VIDEO_ARGS, "--dataroot", "x",
+                                     "--tpu_bf16", "false"])
+    clip = uniform(1, CUT_VIDEO_FRAMES, 256, 256, 3)
+
+    def build_d():
+        net = define_D(dopt, ["temporal"])["D_B_temporal"]
+        init_discriminator("D_B_temporal", net,
+                           torch.Generator().manual_seed(SEED + 96), dopt)
+        with torch.no_grad():
+            for i in range(net.n_scales):
+                getattr(net, f"lstm_b{i}").normal_(
+                    0.0, 0.1, generator=torch.Generator().manual_seed(i))
+        return net
+    err_d, out_d = _card_vs_cpu(build_d, (clip,), {}, "temporal D", k1=0)
+    return {"jitvid_tokens_ref_max_abs_err": err_g,
+            "temporal_d_max_abs_err": err_d,
+            "temporal_d_logits": list(out_d.shape)}
+
+
 def _mat_steps(model, dev, r1, n):
     """``n`` synchronized steps of ``model`` on the prepared batch ``dev``,
     each with (``r1``) or without R1: D's step count is set to a multiple
@@ -4924,7 +5260,7 @@ def _model_steps(opt, n, label, expected_params, per_step):
                              f"{want}; losses {losses}")
     rec = {"batch": opt.train_batch_size, "steps": n,
            "parameters": n_params, "launches": launches, "step_s": secs,
-           "losses_last": losses[-1],
+           "losses_last": losses[-1], "losses_per_step": losses,
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     log(f"{label}: {n} steps of the model, {n_params} parameters, "
         f"launches {launches}, steps {[round(t, 4) for t in secs]} s, "
@@ -4934,10 +5270,7 @@ def _model_steps(opt, n, label, expected_params, per_step):
 
 def _mat_video_opt(workdir, name, args=()):
     """``example_mat_inpainting.json`` + MAT_VIDEO_ARGS (+ ``args``) over
-    one synthetic series of MAT_VIDEO_SERIES frames of MAT_VIDEO_IMAGE px
-    with a box file each, written under ``workdir`` once."""
-    from joligen_tpu_torch.tools.synthetic_datasets import write_video
-
+    ``_video_series(workdir)``."""
     opt = _example_opt(MAT_EXAMPLE, workdir, "mat_video",
                        MAT_VIDEO_ARGS + list(args))
     opt.name = f"smoke_{name}"
@@ -4950,10 +5283,21 @@ def _mat_video_opt(workdir, name, args=()):
         raise AssertionError("mat_video is not the example config at the "
                              "options' defaults")
     opt.train_batch_size = MAT_VIDEO_BATCH
-    if not os.path.isdir(opt.dataroot):
-        write_video(opt.dataroot, MAT_VIDEO_SERIES, MAT_VIDEO_IMAGE,
-                    seed=SEED + 81, n_series=1, phases=("train",))
+    opt.dataroot = _video_series(workdir)
     return opt
+
+
+def _video_series(workdir):
+    """One synthetic series of MAT_VIDEO_SERIES frames of MAT_VIDEO_IMAGE px
+    with a box file each, under ``workdir``, written by the first phase
+    that reads it (cut video's, then video MAT's)."""
+    from joligen_tpu_torch.tools.synthetic_datasets import write_video
+
+    root = os.path.join(workdir, "data_mat_video")
+    if not os.path.isdir(root):
+        write_video(root, MAT_VIDEO_SERIES, MAT_VIDEO_IMAGE, seed=SEED + 81,
+                    n_series=1, phases=("train",))
+    return root
 
 
 def mat_video_phase(workdir):
@@ -5673,6 +6017,8 @@ def main():
                                     workdir)
         sem_runs["cross_check"] = phase("semantic cross-check",
                                         semantic_cross_check)
+        cut_video, cut_video_paths = phase("cut video", cut_video_phase,
+                                           workdir)
 
         def await_build(job):
             t0 = time.perf_counter()
@@ -5707,6 +6053,8 @@ def main():
         cms, cm_paths = phase("cm", cm_phase, workdir)
         vid, vid_paths = phase("video", vid_phase, workdir)
         b2b, b2b_paths = phase("b2b", b2b_phase, workdir)
+        b2b_gc, b2b_gc_paths = phase("b2b context", b2b_context_phase,
+                                     workdir)
         mat, mat_paths = phase("mat", mat_phase, workdir)
         mat_video, mat_video_paths = phase("mat video", mat_video_phase,
                                            workdir)
@@ -5728,6 +6076,8 @@ def main():
                                                 vid_cross_check)
     b2b["cross_check_fp32_max_abs_err"] = phase("b2b cross-check",
                                                 b2b_cross_check)
+    b2b_gc["cross_check_fp32"] = phase("video context cross-check",
+                                       video_context_cross_check)
     mat["cross_check_fp32"] = phase("mat cross-check", mat_cross_check)
     mat_video["cross_check_fp32"] = phase("mat video cross-check",
                                           mat_video_cross_check)
@@ -5743,7 +6093,7 @@ def main():
              **mat_paths, **mat_video_paths, **image_paths, **wide_paths,
              **perc_paths, **cyclegan_paths, **cyclegan_unet_paths,
              **zoo_paths, **palette_zoo_paths, **re_paths, **sem_paths,
-             **probe_launches}
+             **cut_video_paths, **b2b_gc_paths, **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -5773,6 +6123,7 @@ def main():
     log("palette zoo: " + json.dumps(palette_zoo))
     log("ReCycleGAN and ReCUT: " + json.dumps(re_runs))
     log("semantic nets: " + json.dumps(sem_runs))
+    log("video context: " + json.dumps({**b2b_gc, **cut_video}))
     log("metrics: " + json.dumps(metric_nets))
     log("phases (s): " + json.dumps(seconds))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

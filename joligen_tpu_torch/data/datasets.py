@@ -519,19 +519,14 @@ class TemporalLabeledMaskOnlineDataset(BaseDataset, TemporalFrameStepMixin):
     series directory, all cropped with frame 0's window and one rotation
     draw. ``A``/``B`` (F, H, W, C), masks (F, H, W, 1). With
     ``data_temporal_num_common_char`` the frames' names must share that
-    many first characters. The b2b global context
-    (``alg_b2b_global_context_mode``) is not ported."""
+    many first characters. With the b2b global context
+    (``alg_b2b_global_context_mode`` not none) each frame also gives its
+    context image (``_global_context_image``), ``A_global_context`` /
+    ``B_global_context`` (F, s, s, 3)."""
 
     crop_center = False
 
     def __init__(self, opt, phase, name=""):
-        gc_mode = getattr(opt, "alg_b2b_global_context_mode", "none") \
-            or "none"
-        if gc_mode != "none":
-            raise NotImplementedError(
-                f"alg_b2b_global_context_mode {gc_mode!r}: the b2b global "
-                "context image (ROADMAP Queue 1 item 11, video diffusion: "
-                "b2b and vit_vid)")
         super().__init__(opt, phase, name)
         self.A_img_paths, self.A_mask_paths = make_labeled_path_dataset(
             self.dir_A, "/paths.txt")
@@ -584,8 +579,8 @@ class TemporalLabeledMaskOnlineDataset(BaseDataset, TemporalFrameStepMixin):
 
     def _load_clip(self, img_paths, mask_paths, domain):
         """Pick a window, crop every frame with frame 0's window. Returns
-        (frames (F,H,W,C), masks (F,H,W,1), ref_bbox, cat, step) or
-        None."""
+        (frames (F,H,W,C), masks (F,H,W,1), ref_bbox, cat, step, the
+        global-context images (F,s,s,3) or None) or None."""
         step = self._sample_temporal_frame_step()
         indices = self._pick_window_cached(img_paths, step)
         if indices is None or not self._common_char_ok(img_paths, indices):
@@ -603,6 +598,11 @@ class TemporalLabeledMaskOnlineDataset(BaseDataset, TemporalFrameStepMixin):
                             f"data_online_creation_crop_delta_{domain}", 0)
             crop_dim = random.randint(base - delta, base + delta) \
                 if delta > 0 else base
+        gc_mode = getattr(self.opt, "alg_b2b_global_context_mode",
+                          "none") or "none"
+        gc_size = int(getattr(self.opt, "alg_b2b_global_context_size", 128)
+                      or 128)
+        contexts = []
         # one rotation draw for every frame of the clip
         rotation_state = sample_rotation_state(self.opt)
         for i, gi in enumerate(indices):
@@ -618,6 +618,10 @@ class TemporalLabeledMaskOnlineDataset(BaseDataset, TemporalFrameStepMixin):
                     crop_dim_override=crop_dim,
                     crop_coordinates=crop_coords,
                     rotation_state=rotation_state)
+                if gc_mode != "none":
+                    contexts.append(self._global_context_image(
+                        img_paths[gi], crop_coords, crop_dim, domain,
+                        gc_size))
             except Exception as e:  # an unreadable frame skips the clip
                 print(f"temporal crop failure frame {i} {img_paths[gi]}: {e}")
                 return None
@@ -626,7 +630,23 @@ class TemporalLabeledMaskOnlineDataset(BaseDataset, TemporalFrameStepMixin):
                 ref_bbox, cat = bbox, c
             frames.append(img)
             masks.append(self._post_mask(mask))
-        return np.stack(frames), np.stack(masks), ref_bbox, cat, step
+        gc = np.stack(contexts) if contexts else None
+        return np.stack(frames), np.stack(masks), ref_bbox, cat, step, gc
+
+    def _global_context_image(self, img_path, crop_coords, crop_dim, domain,
+                              gc_size):
+        """The whole frame with frame 0's crop window blacked out, PIL
+        bicubic to ``gc_size``², in [-1, 1] (``datasets.py:835-852``)."""
+        from PIL import Image
+        arr = np.asarray(self._load_img(img_path), np.uint8).copy()
+        cx0, cy0 = crop_coords[0], crop_coords[1]
+        cd = crop_coords[2] if len(crop_coords) >= 3 else crop_dim or getattr(
+            self.opt, f"data_online_creation_crop_size_{domain}", 512)
+        cd = min(cd, arr.shape[0], arr.shape[1])
+        arr[cy0:cy0 + cd, cx0:cx0 + cd] = 0
+        small = np.asarray(Image.fromarray(arr).resize(
+            (gc_size, gc_size), Image.BICUBIC), np.uint8)
+        return small.astype(np.float32) / 127.5 - 1.0
 
     def _online_crop_kwargs(self, img_path, bbox_path, domain,
                             crop_dim_override=None, **extra):
@@ -677,7 +697,7 @@ class TemporalLabeledMaskOnlineDataset(BaseDataset, TemporalFrameStepMixin):
         a = self._load_clip(self.A_img_paths, self.A_mask_paths, "A")
         if a is None:
             return None
-        A, A_masks, A_ref_bbox, A_cat, step = a
+        A, A_masks, A_ref_bbox, A_cat, step, A_gc = a
         out = {
             "A": A, "A_label_mask": A_masks,
             "A_ref": A[0], "A_ref_label_mask": A_masks[0],
@@ -685,16 +705,20 @@ class TemporalLabeledMaskOnlineDataset(BaseDataset, TemporalFrameStepMixin):
             "A_img_paths": self.A_img_paths[0],
             "temporal_frame_step": np.int32(step),
         }
+        if A_gc is not None:
+            out["A_global_context"] = A_gc
         if self.B_size:
             b = self._load_clip(self.B_img_paths, self.B_mask_paths, "B")
             if b is None:
                 return None
-            B, B_masks, B_ref_bbox, B_cat, _ = b
+            B, B_masks, B_ref_bbox, B_cat, _, B_gc = b
             out.update({"B": B, "B_label_mask": B_masks,
                         "B_ref": B[0], "B_ref_label_mask": B_masks[0],
                         "B_ref_bbox": B_ref_bbox,
                         "B_label_cls": np.int32(B_cat),
                         "B_img_paths": self.B_img_paths[0]})
+            if B_gc is not None:
+                out["B_global_context"] = B_gc
         return out
 
 
@@ -716,7 +740,7 @@ class SelfSupervisedVidMaskOnlineDataset(TemporalLabeledMaskOnlineDataset):
         a = self._load_clip(self.A_img_paths, self.A_mask_paths, "A")
         if a is None:
             return None
-        frames, masks, ref_bbox, cat, step = a
+        frames, masks, ref_bbox, cat, step, gc = a
         if getattr(self.opt, "data_online_creation_rand_mask_A", True):
             noised = np.stack([fill_mask_with_random(f, m, -1)
                                for f, m in zip(frames, masks)])
@@ -724,7 +748,7 @@ class SelfSupervisedVidMaskOnlineDataset(TemporalLabeledMaskOnlineDataset):
             noised = np.stack([fill_mask_with_color(f, m)
                                for f, m in zip(frames, masks)])
         cls = np.int32(cat if self.with_cls else 0)
-        return {
+        out = {
             "A": noised, "A_label_mask": masks,
             "A_ref": noised[0], "A_ref_label_mask": masks[0],
             "A_ref_bbox": ref_bbox, "A_label_cls": cls,
@@ -735,6 +759,10 @@ class SelfSupervisedVidMaskOnlineDataset(TemporalLabeledMaskOnlineDataset):
             "B_img_paths": self.A_img_paths[0],
             "temporal_frame_step": np.int32(step),
         }
+        if gc is not None:
+            out["A_global_context"] = gc
+            out["B_global_context"] = gc
+        return out
 
 
 class SelfSupervisedVidLabeledMaskClsOnlineDataset(

@@ -40,6 +40,16 @@ are saved as ``{prefix}_net_G_lora.pth``.
 ``alg_b2b_perceptual_loss`` (LPIPS, DISTS) adds ``G_perceptual``:
 ``alg_b2b_lambda_perceptual`` times the terms of the masked x-prediction
 against the masked ground truth.
+
+On video, the global context (``alg_b2b_global_context_mode`` adaln or
+tokens) comes with the batch (``B_global_context``, one masked image of
+the whole frame a frame, from the temporal datasets) and reaches every
+denoiser call of a step and of ``inference``; without it an ``adaln``
+model adds nothing to c and a ``tokens`` model reads a zero image. The
+object references (``alg_b2b_object_ref_paths``) are read once here (PIL
+RGB, bicubic to ``alg_b2b_object_ref_size``, [-1, 1]: ``object_refs``, a
+(1, N, s, s, 3) tensor on the model's device) and given to every denoiser
+call, broadcast to the batch.
 """
 
 from __future__ import annotations
@@ -58,6 +68,17 @@ from .modules.b2b import b2b_sample, b2b_training_outputs, mask_size_condition
 from .modules.cm import pseudo_huber_loss
 from .modules.jit import JiT
 from .train_state import apply_updates, param_grads
+
+
+def load_object_refs(paths, size):
+    """The object-reference images (``b2b_model.py:127-136``): PIL RGB,
+    bicubic to ``size``², scaled to [-1, 1], stacked (1, N, size, size,
+    3) float32."""
+    from PIL import Image
+    refs = [np.asarray(Image.open(p).convert("RGB").resize(
+        (size, size), Image.BICUBIC), np.float32) / 127.5 - 1.0
+        for p in paths]
+    return np.stack(refs)[None]
 
 
 class B2BModel(BaseModel):
@@ -110,6 +131,11 @@ class B2BModel(BaseModel):
         self.lambda_ref_copy = float(g("alg_b2b_lambda_ref_copy", 0.0)
                                      or 0.0)
         self.conditional = is_conditional(opt, self.task)
+        self.gc_mode = g("alg_b2b_global_context_mode", "none") or "none"
+        ref_paths = g("alg_b2b_object_ref_paths", []) or []
+        self.object_refs = (torch.from_numpy(load_object_refs(
+            ref_paths, int(g("alg_b2b_object_ref_size", 64) or 64))).to(
+                self.device) if self.is_video and ref_paths else None)
 
         cin = opt.model_output_nc + (1 if self.mask_as_channel else 0)
         if self.conditional:
@@ -136,8 +162,9 @@ class B2BModel(BaseModel):
 
     # ------------------------------------------------------------------
     def set_input(self, batch):
-        """Collated numpy batch -> {gt, mask, y_cond, labels, frame_step};
-        an image model takes a clip's frames as its batch."""
+        """Collated numpy batch -> {gt, mask, y_cond, labels, frame_step,
+        global_context}; an image model takes a clip's frames as its
+        batch."""
         gt = batch["B"]
         mask = batch.get("B_label_mask")
         cond = batch["A"] if self.conditional else None
@@ -158,6 +185,9 @@ class B2BModel(BaseModel):
         if self.frame_step_cond and "temporal_frame_step" in batch:
             out["frame_step"] = np.asarray(batch["temporal_frame_step"],
                                            np.float32)
+        if "B_global_context" in batch:
+            out["global_context"] = np.asarray(batch["B_global_context"],
+                                               np.float32)
         return out
 
     def prepare_batch(self, batch):
@@ -167,8 +197,10 @@ class B2BModel(BaseModel):
             self.set_input(batch), float_keys=("gt", "y_cond"),
             int_keys=("mask",)))
 
-    def _apply_fn(self, net, mask, frame_step):
-        """apply_fn(z_in, t, labels, mask_size) of ``b2b.py``."""
+    def _apply_fn(self, net, mask, frame_step, global_context=None):
+        """apply_fn(z_in, t, labels, mask_size) of ``b2b.py``; on video the
+        frame step, the global context and the object references go with
+        every call."""
         mch = (None if not (self.mask_as_channel and mask is not None)
                else torch.clamp(mask.float(), 0.0, 1.0))
 
@@ -179,9 +211,13 @@ class B2BModel(BaseModel):
                 z_in = torch.cat([z_in, pad], dim=-1)
             if not self.is_video:
                 return net(z_in, t, y=labels, mask_size=mask_size)
+            refs = self.object_refs
+            if refs is not None:
+                refs = refs.expand((z_in.shape[0],) + tuple(refs.shape[1:]))
             return net(z_in, t, y=labels, mask_size=mask_size,
                        temporal_frame_step=(frame_step if self.frame_step_cond
-                                            else None))
+                                            else None),
+                       global_context=global_context, object_ref=refs)
         return apply_fn
 
     def _mask_size(self, mask, y):
@@ -238,7 +274,8 @@ class B2BModel(BaseModel):
         y_cond = dequantize(dev.get("y_cond"), "image")
         mask = dequantize(dev.get("mask"), "label")
         apply_fn = self._apply_fn(self.nets["G_A"], mask,
-                                  dev.get("frame_step"))
+                                  dev.get("frame_step"),
+                                  dev.get("global_context"))
         v_pred, v_target, loss_mask, raw_x_pred, is_ref = \
             b2b_training_outputs(
                 apply_fn, self.generator, gt, y_cond=y_cond,
@@ -328,7 +365,8 @@ class B2BModel(BaseModel):
         with torch.inference_mode(), merged_weights(
                 net, self._merged(net) if self.use_lora else {}):
             out = b2b_sample(
-                self._apply_fn(net, mask, dev.get("frame_step")),
+                self._apply_fn(net, mask, dev.get("frame_step"),
+                               dev.get("global_context")),
                 self.generator, y, y_cond=dev.get("y_cond"),
                 mask=None if self.mask_as_channel else mask,
                 labels=dev.get("labels"), num_classes=self.num_classes,

@@ -28,8 +28,9 @@ configs' trunks take 6 input channels.
 ``alg_cm_lambda_perceptual`` times the terms' sum, of the masked output
 against the masked ground truth (``BaseModel.perceptual_terms``; the
 ImageNet normalisation of a weights file overridden by ``alg_cm_dists_mean``
-/ ``_std``). Raises ``NotImplementedError`` for the ``previous_frame``
-conditioning of video batches.
+/ ``_std``). On clips, ``alg_diffusion_cond_image_creation previous_frame``
+conditions each frame on the ground truth's previous one
+(``previous_frame_condition``).
 """
 
 from __future__ import annotations
@@ -71,6 +72,21 @@ def is_conditional(opt, task):
 def trunk_in_channels(opt, conditional):
     """The denoiser's input: x, or [x_cond, x]."""
     return opt.model_output_nc + (opt.model_input_nc if conditional else 0)
+
+
+def previous_frame_condition(gt, shape, p_use, train):
+    """cm's ``previous_frame`` condition of clips (``cm_model.py:102-117``):
+    frame k's condition is ground-truth frame k - 1, frame 0's itself; in
+    training each (clip, frame) is blanked to -1 with probability 1 -
+    ``p_use``, drawn from numpy's global generator as in the JAX model.
+    Reshaped to ``shape`` (A's)."""
+    gt = np.asarray(gt)
+    prev = np.concatenate([gt[:, :1], gt[:, :-1]], axis=1)
+    if train and p_use < 1.0:
+        drop = np.random.rand(prev.shape[0], prev.shape[1]) >= p_use
+        prev = np.where(drop[:, :, None, None, None], -np.ones_like(prev),
+                        prev)
+    return prev.reshape(shape)
 
 
 class CMModel(BaseModel):
@@ -122,12 +138,15 @@ class CMModel(BaseModel):
         if self.conditional:
             creation = getattr(self.opt, "alg_diffusion_cond_image_creation",
                                "y_t") or "y_t"
+            cond = batch["A"]
             if creation == "previous_frame" and np.asarray(
                     batch["B"]).ndim == 5:
-                raise NotImplementedError(
-                    "previous_frame conditioning of video batches is not "
-                    "ported (ROADMAP Queue 1 item 11, video diffusion)")
-            out["y_cond"] = batch["A"]
+                cond = previous_frame_condition(
+                    batch["B"], np.shape(batch["A"]),
+                    float(getattr(self.opt,
+                                  "alg_diffusion_cond_prob_use_previous_frame",
+                                  0.5) or 0.0), self.phase == "train")
+            out["y_cond"] = cond
         return out
 
     def prepare_batch(self, batch):

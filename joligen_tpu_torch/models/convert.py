@@ -26,9 +26,12 @@ The JiT video denoiser (``vit_vid``) adds two rules:
   2304) is the per-block torch keys ``blocks1.0.qkv.weight`` ...
   ``blocks1.7.qkv.weight``, each then mapped as any leaf (a Dense
   transposed); back, the blocks' leaves stack again in block order;
-- its raw tables (``y_embed``, ``register_tokens``, ``in_context_posemb``:
-  ``RAW_LEAVES``), as they are, under their own names, at the top of the
-  tree.
+- its raw tables (``y_embed``, ``register_tokens``, ``in_context_posemb``,
+  the global context's ``gc_posemb`` and ``gc_type`` and the object
+  references' ``oref_posemb`` and ``oref_type``: ``RAW_LEAVES``), as they
+  are, under their own names, at the top of the tree. The context encoder
+  ``gc_enc`` (convs, GroupNorms, Denses) and the patch embeddings
+  ``gc_embed`` and ``oref_embed`` (Denses) take the rules above.
 
 The video denoiser's motion modules need no other rule: their Dense kernels
 (the bias-free ``to_q``/``to_k``/``to_v`` have no ``bias`` leaf) transpose,
@@ -43,7 +46,9 @@ normalisation keeps no state (``SNConv`` is ``kernel`` and ``bias``); the
 projected D's frozen trunk and projections are plain convs and GroupNorms.
 
 HDiT adds its per-head ``attn_scale`` (1-D) and the skips' 0-D ``lerp{i}``,
-as they are (``RAW_LEAVES``, ``RAW_LEAF``).
+as they are (``RAW_LEAVES``, ``RAW_LEAF``). The temporal projected D adds
+its LSTM cells' ``lstm_w{i}`` (2c, 4c), applied as ``[h, x] @ W``, and
+``lstm_b{i}`` (4c), as they are (``RAW_LEAF``).
 
 The rest of the GAN zoo adds raw leaves, as they are, under their own
 names (``RAW_LEAVES``): UViT's attention ``qkv_kernel`` (3C, C) and
@@ -90,10 +95,11 @@ import torch
 
 RAW_LEAVES = ("W", "class_embedding", "positional_embedding", "proj",
               "cls_token", "pos_embed", "ls1", "ls2", "y_embed",
-              "register_tokens", "in_context_posemb", "attn_scale",
+              "register_tokens", "in_context_posemb", "gc_posemb",
+              "gc_type", "oref_posemb", "oref_type", "attn_scale",
               "qkv_kernel", "qkv_bias", "proj_kernel", "proj_bias", "rpb",
               "g", "b")
-RAW_LEAF = re.compile(r"lerp\d+$")
+RAW_LEAF = re.compile(r"(lerp|lstm_w|lstm_b)\d+$")
 # a module whose child ``block`` is an ``nn.scan`` stack of blocks
 SCAN_STACK = re.compile(r"blocks(\d+|_pre|_post)$")
 # the top-level subtrees of a MAT tree that keep the ``kernel`` rules

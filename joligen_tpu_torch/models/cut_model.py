@@ -25,7 +25,13 @@ G's loss; FastCUT's flips
 the supervised pixel and perceptual terms (``alg_cut_supervised_loss``);
 and ReCUT (model types ``re_cut`` and ``re_cut_semantic_mask``, over the
 ``nuplet`` dataset mode): a frame predictor P_B (``define_P``) and G's
-``G_recut`` term.
+``G_recut`` term; the GAN video mode (``D_netDs`` with ``temporal``, over
+``temporal_labeled_mask_online`` clips (B, F, H, W, C)): every frame
+folds into the batch, G runs per frame, the temporal projected D judges
+whole clips (the fake clips in G's term, the real and the detached fake
+clips in its own update, no augmentation) every ``D_temporal_every`` G
+steps, and ``G_temporal``, ``train_temporal_criterion_lambda`` times the
+MSE of consecutive fake frames, joins G's loss.
 
 One step (``optimize_prepared``), in the JAX step's order
 (``cut_model.py:685-950``):
@@ -51,13 +57,16 @@ One step (``optimize_prepared``), in the JAX step's order
    and with ``alg_re_adversarial_loss_p`` every D's term on that
    prediction; the supervised L1 or MSE and LPIPS/DISTS terms against B;
    the semantic terms through the updated C and f_s, whose parameters take
-   no gradient) and its gradients, then Adam on G (and its EMA) and on F;
-5. the fake (before G's update) through the pool;
+   no gradient; on clips the temporal D's term and ``G_temporal``) and its
+   gradients, then Adam on G (and its EMA) and on F;
+5. the fake (before G's update; frames) through the pool;
 6. each D on the real images and the pooled fakes (``D_noise``, then the
    diffusion noise, DiffAugment, and APA's pool images in place of reals;
    the mask D on A's one-hot masks and softmax(f_s(fake) + gumbel noise),
-   none of those augmentations), the GAN or the contrastive loss, with its
-   own Adam; then APA's p (every
+   none of those augmentations; the temporal D on the real and fake clips
+   as they are, and on a step off its cadence not at all: its loss 0, its
+   parameters and Adam state as they were), the GAN or the contrastive
+   loss, with its own Adam; then APA's p (every
    step) and the diffusion noise's p (every ``dataaug_D_diffusion_every``
    G steps) adapt from the first D's real logits and real loss.
 
@@ -145,7 +154,7 @@ def init_discriminator(name, netD, generator, opt):
     if "vision_aided" in name:
         load_clip_ref_encoder(netD)
         load_dino_into(netD)
-    elif "projected" in name:
+    elif "projected" in name or "temporal" in name:
         if netD.mit:
             load_mit_backbone(netD, "feature_network")
         else:
@@ -213,14 +222,19 @@ def fold_nuplets(batch, keys):
     return out
 
 
-def fold_frames(batch):
-    """A batch's images and masks with each nuplet (a 5-D entry) folded as
-    the step folds it, frames 0..N-2 into the batch (the JAX models'
-    ``inference``, D accuracy and mIoU go through ``set_input``)."""
-    return {k: (np.asarray(v)[:, :-1].reshape((-1,) + np.shape(v)[2:])
-                if np.ndim(v) == 5 else v)
+def fold_frames(batch, drop_last=True):
+    """A batch's images and masks with each 5-D entry folded as the step
+    folds it (the JAX models' ``inference``, D accuracy and mIoU go through
+    ``set_input``): a nuplet's frames 0..N-2 into the batch
+    (``drop_last``), or every frame of a clip (CUT's video mode,
+    ``cut_model.py:413-416``)."""
+    def fold(v):
+        v = np.asarray(v)
+        return (v[:, :-1] if drop_last else v).reshape((-1,) + v.shape[2:])
+    return {k: fold(v) if np.ndim(v) == 5 else v
             for k, v in batch.items()
             if k in ("A", "B", "A_label_mask", "B_label_mask")}
+
 
 
 def _nchw(x):
@@ -309,6 +323,14 @@ class CUTModel(BaseModel):
         self.nuplet = int(g("alg_re_nuplet_size", 3) or 3)
         self.p_threshold = float(g("alg_re_projection_threshold", 1.0) or 1.0)
         self.p_adversarial = bool(g("alg_re_adversarial_loss_p", False))
+        # GAN video mode (cut_model.py:117, 367-373, 418-421): a temporal D
+        # judges whole clips every D_temporal_every steps; G_temporal
+        # holds consecutive fake frames together
+        self.temporal_d = any("temporal" in n for n in opt.D_netDs)
+        self.d_temporal_every = int(g("D_temporal_every", 4) or 1)
+        self.temporal_criterion = bool(g("train_temporal_criterion", False))
+        self.lambda_temporal = float(g("train_temporal_criterion_lambda",
+                                       1.0) or 1.0)
 
         init_gen = torch.Generator().manual_seed(self.seed)
         netG = init_generator(opt, init_gen)
@@ -378,7 +400,9 @@ class CUTModel(BaseModel):
         ``train_sem_cls_B`` or ``train_sem_idt``. ReCUT's nuplets (B, N, H,
         W, C) fold frames 0..N-2 into the batch and keep ``real_A_last``,
         ``real_B_last`` and ``real_B_seq`` (``fold_nuplets``; no classes, as
-        in the JAX model); a 4-D batch (a request) passes as it is."""
+        in the JAX model); any other clip (B, F, H, W, C) stays whole, its
+        masks folded with all F frames (the step folds the clip); a 4-D
+        batch (a request) passes as it is."""
         if self.recut and np.ndim(batch["A"]) == 5:
             out = fold_nuplets(batch, (("A", "real_A"), ("B", "real_B")))
             del out["real_A_seq"]
@@ -388,7 +412,7 @@ class CUTModel(BaseModel):
                 out["cls_A"] = np.asarray(batch["A_label_cls"], np.int32)
             if "B_label_cls" in batch and (self.sem_cls_B or self.sem_idt):
                 out["cls_B"] = np.asarray(batch["B_label_cls"], np.int32)
-        masks = fold_frames(batch)
+        masks = fold_frames(batch, drop_last=self.recut)
         if "A_label_mask" in masks:
             out["mask_A"] = masks["A_label_mask"]
         if "B_label_mask" in masks and (self.mask_f_s_B or self.sem_idt):
@@ -564,29 +588,40 @@ class CUTModel(BaseModel):
                              include_all_neg, gamma=self.hdce_gamma)
 
     def _g_loss(self, real_A, real_B, draws, mask_A=None, mask_B=None,
-                fs_gate=None, recut=None, cls=None):
+                fs_gate=None, recut=None, cls=None, video=None):
         """G's losses on NHWC fp32 images; the semantic terms where
         ``mask_A`` (int, NHWC) is given, scaled by ``fs_gate``; ReCUT's
         terms where ``recut`` is given ({"a_last": A's last frames,
         "gate": P's gate}); C's terms where ``cls`` is given ({"A", "B":
         the class labels (B's or None), "gate": C's gate}). The mask D
         trains on the D side only: it has no G term. On a flipped step the
-        images come mirrored. Returns (total, losses, fake_B)."""
+        images come mirrored. On clips, ``video`` ({"clip": (B, F),
+        "real_B": B's clips, "temporal_on": whether the temporal D counts
+        this step}): the images are the folded frames, the temporal D
+        judges the fake clips and ``G_temporal`` joins. Returns (total,
+        losses, fake_B)."""
         netG = self.nets["G_A"]
         flipped = draws.get("flip")
         fake_B, feats_A = netG(real_A, with_features=self.nce_layers)
+        fake_clip = (None if video is None else fake_B.reshape(
+            tuple(video["clip"]) + tuple(fake_B.shape[1:])))
         fake_for_D = self._augment(self._compose_context(fake_B, real_A),
                                    draws.get("g_aug"))
         g_gan = 0.0
         for name in self.d_names:
             if "mask" in name:       # cut_model.py:523-525
                 continue
-            pred = self._d(name, fake_for_D,
+            temporal = "temporal" in name and fake_clip is not None
+            if ("temporal" in name and self.d_temporal_every > 1
+                    and not (video or {}).get("temporal_on", True)):
+                continue             # an off step adds 0 (:546-551)
+            pred = self._d(name, fake_clip if temporal else fake_for_D,
                            draws.get("g_dropout", {}).get(name))
             if self.contrastive_d:
                 # cut_model.py:532-538: D on the real B, without dropout
                 g_gan = g_gan + contrastive_gan_loss(
-                    -self.nets[name](real_B), -pred)
+                    -self.nets[name](video["real_B"] if temporal
+                                     else real_B), -pred)
             elif self.gan_mode in ("projected", "wgangp"):
                 g_gan = g_gan - torch.mean(pred)
             else:
@@ -594,6 +629,11 @@ class CUTModel(BaseModel):
                 g_gan = g_gan + gan_loss(pred, True, self.gan_mode,
                                          smooth=self.d_label_smooth)
         losses = {"G_GAN": g_gan * self.lambda_gan}
+        if fake_clip is not None and (self.temporal_criterion
+                                      or self.temporal_d):
+            # the MSE of consecutive fake frames (cut_model.py:555-561)
+            losses["G_temporal"] = self.lambda_temporal * torch.mean(
+                (fake_clip[:, 1:] - fake_clip[:, :-1]) ** 2)
         groups = [self._nce_features(feats_A, fake_B, draws.get("nce"),
                                      flipped)]
         idt_B = None
@@ -637,10 +677,9 @@ class CUTModel(BaseModel):
         predicts the next frame, held against A's last frame by the NCE
         loss (keys from A's last frame, mirrored on a flipped step; no
         flip of the queries: that call passes none); with
-        ``alg_re_adversarial_loss_p`` each D but the mask one (and the
-        temporal one, not ported) judges the prediction (-mean for projected
-        and wgangp, else the GAN loss without smoothing). Both scaled by P's
-        gate."""
+        ``alg_re_adversarial_loss_p`` each D but the mask and temporal ones
+        judges the prediction (-mean for projected and wgangp, else the GAN
+        loss without smoothing). Both scaled by P's gate."""
         n1 = self.nuplet - 1
         seq = fake_B.reshape((-1, n1) + tuple(fake_B.shape[1:]))
         # G's update asks for no gradient of P's parameters
@@ -659,7 +698,7 @@ class CUTModel(BaseModel):
         if self.p_adversarial:
             adv = 0.0
             for name in self.d_names:
-                if "mask" in name:
+                if "mask" in name or "temporal" in name:
                     continue
                 pred = self.nets[name](proj_fake)
                 adv = adv + (-torch.mean(pred)
@@ -827,7 +866,15 @@ class CUTModel(BaseModel):
         real_B = dequantize(dev["real_B"], "image")
         mask_A = dequantize(dev.get("mask_A"), "label")
         mask_B = dequantize(dev.get("mask_B"), "label")
+        # G's step count before its update: the host decides the cadences
         niter = self.states["G_A"].step
+        video = None
+        if real_A.ndim == 5:
+            # clips (GAN video mode): every frame folds into the batch;
+            # the temporal D judges them whole (cut_model.py:413-416)
+            video = {"clip": real_A.shape[:2], "real_B": real_B,
+                     "temporal_on": niter % self.d_temporal_every == 0}
+            real_A, real_B = real_A.flatten(0, 1), real_B.flatten(0, 1)
         heads, fs_gate, recut, cls = {}, None, None, None
         if self.semantic_cls and "cls_A" in dev:
             cls = {"A": dev["cls_A"], "B": dev.get("cls_B")}
@@ -848,7 +895,8 @@ class CUTModel(BaseModel):
             g_B = torch.where(flip, real_B.flip(2), real_B)
         sG, sF = self.states["G_A"], self.states["F"]
         total, losses, fake_B = self._g_loss(g_A, g_B, draws, mask_A,
-                                             mask_B, fs_gate, recut, cls)
+                                             mask_B, fs_gate, recut, cls,
+                                             video)
         grads = param_grads(total, sG.params + sF.params)
         apply_updates(sG, grads[:len(sG.params)], self.ema_beta)
         apply_updates(sF, grads[len(sG.params):])
@@ -878,7 +926,18 @@ class CUTModel(BaseModel):
         for name in self.d_names:
             keep_r, keep_f = draws.get("d_dropout", {}).get(name, (None, None))
             d_real, d_fake = real_in, fake_in
-            if "mask" in name and mask_A is not None:
+            temporal = "temporal" in name and video is not None
+            cadenced = "temporal" in name and self.d_temporal_every > 1
+            if cadenced and not (video or {}).get("temporal_on", True):
+                # an off step (cut_model.py:904-915): no compute, its
+                # parameters and Adam state as they were
+                losses[f"D_{name}"] = torch.zeros((), device=self.device)
+                continue
+            if temporal:
+                # the clips as they are: no noise, augmentation or APA
+                d_real = video["real_B"]
+                d_fake = fake_B.detach().reshape(d_real.shape)
+            elif "mask" in name and mask_A is not None:
                 d_real, d_fake = self._mask_d_inputs(
                     fake, mask_A, draws.get("gumbel", {}).get(name))
             logits_real = self._d(name, d_real, keep_r)
@@ -894,7 +953,7 @@ class CUTModel(BaseModel):
             state = self.states[name]
             apply_updates(state, param_grads(loss, state.params))
             losses[f"D_{name}"] = loss.detach()
-            if first is None:
+            if first is None and not cadenced:
                 first = (logits_real.detach(), loss_real.detach())
         if first is not None:
             self._adapt(niter, *first, real_B.shape[0], losses)
@@ -908,13 +967,13 @@ class CUTModel(BaseModel):
 
     # ------------------------------------------------------------------
     def inference(self, batch, use_ema=None):
-        """NHWC float32 fakes in [-1, 1] for ``batch["A"]`` (nuplets
-        folded), from G's EMA when ``use_ema`` (default: ``train_G_ema``)
-        and it exists."""
+        """NHWC float32 fakes in [-1, 1] for ``batch["A"]`` (5-D batches
+        folded: a nuplet's frames 0..N-2, a clip's every frame), from G's EMA
+        when ``use_ema`` (default: ``train_G_ema``) and it exists."""
         use_ema = self.use_ema if use_ema is None else use_ema
         net = self.ema_nets.get("G_A") if use_ema else None
         net = net if net is not None else self.nets["G_A"]
-        batch = fold_frames(batch)
+        batch = fold_frames(batch, drop_last=self.recut)
         dev = self.put_batch({"real_A": np.asarray(batch["A"], np.float32)})
         with torch.inference_mode():
             return net(dev["real_A"]).cpu().numpy()
@@ -925,7 +984,7 @@ class CUTModel(BaseModel):
         from .modules.resnet_generator import ResnetGeneratorAttn
         if not isinstance(self.nets["G_A"], ResnetGeneratorAttn):
             return {}
-        batch = fold_frames(batch)
+        batch = fold_frames(batch, drop_last=self.recut)
         dev = self.put_batch({"real_A": np.asarray(batch["A"], np.float32)})
         with torch.inference_mode():
             _, att = self.nets["G_A"](dev["real_A"], return_attention=True)
@@ -942,7 +1001,7 @@ class CUTModel(BaseModel):
             return {}
         f_s = self.nets["f_s"]
         f_s_B = self.nets.get("f_s_B", f_s)
-        batch = fold_frames(batch)
+        batch = fold_frames(batch, drop_last=self.recut)
 
         def iou(logits, target):
             pred = torch.softmax(logits.float(), dim=-1)
@@ -969,7 +1028,7 @@ class CUTModel(BaseModel):
     def compute_D_accuracy(self, batch):
         """Precision, recall and accuracy of each D on a batch, logits
         above 0.5 counting as real (``cut_model.py:472-492``)."""
-        batch = fold_frames(batch)
+        batch = fold_frames(batch, drop_last=self.recut)
         dev = self.put_batch({k: np.asarray(batch[s], np.float32)
                               for k, s in (("real_A", "A"), ("real_B", "B"))})
         out = {}

@@ -45,11 +45,6 @@ def define_inner_G(opt, in_channel=None):
                     "vit_vid", "vit", "dit", "hdit", "resnet_attn",
                     "mobile_resnet_attn"):
         raise NotImplementedError(f"diffusion generator {netG}")
-    if netG == "vit_vid":
-        if in_channel is None:
-            raise ValueError("vit_vid takes its input channel count from "
-                             "its model (b2b)")
-        return JiTViD.from_opt(opt, in_channel, dtype=compute_dtype(opt))
     if in_channel is None:
         cond = getattr(opt, "alg_diffusion_cond_embed", "") or ""
         extra = 0
@@ -57,6 +52,8 @@ def define_inner_G(opt, in_channel=None):
             extra = (1 if netG in RAW_T_NETGS
                      else opt.alg_diffusion_cond_embed_dim)
         in_channel = opt.model_input_nc + opt.model_output_nc + extra
+    if netG == "vit_vid":
+        return JiTViD.from_opt(opt, in_channel, dtype=compute_dtype(opt))
     if netG in ("vit", "dit"):
         return JiT.from_opt(opt, in_channel, dtype=compute_dtype(opt))
     if netG == "hdit":
@@ -133,12 +130,8 @@ def define_inner_G(opt, in_channel=None):
 
 def define_G(opt):
     """Full conditioned denoiser: (x, gammas, cls, mask, ref) -> eps_hat;
-    a ``RAW_T_NETGS`` trunk takes the gammas as its t. Palette with the
-    video JiT is not ported: vit_vid runs under b2b."""
-    if opt.G_netG == "vit_vid":
-        raise NotImplementedError(
-            "palette with the vit_vid denoiser is not ported; b2b runs it "
-            "(ROADMAP Queue 1 item 11, video diffusion)")
+    a ``RAW_T_NETGS`` trunk takes the gammas as its t (the video JiT a
+    clip's gammas, one a clip)."""
     conditioning = getattr(opt, "alg_diffusion_cond_embed", "") or ""
     nclasses = max(getattr(opt, "f_s_semantic_nclasses", 2),
                    getattr(opt, "cls_semantic_nclasses", 2))

@@ -1,8 +1,8 @@
 """GAN network factories (``joligen_tpu/models/gan_networks.py``): every
 generator of the JAX package (resnet, resnet_attn and their mobile
 variants, unet_mha, uvit, unet_256/128, segformer, hdit, hat, ittr), the
-``basic`` / ``n_layers`` / ``pixel`` / ``projected_d`` / ``vision_aided``
-discriminators, the gumbel ``mask`` D (a PatchGAN over the one-hot masks
+``basic`` / ``n_layers`` / ``pixel`` / ``projected_d`` / ``temporal`` /
+``vision_aided`` discriminators, the gumbel ``mask`` D (a PatchGAN over the one-hot masks
 of ``f_s_semantic_nclasses`` channels) and the ResNet-template Ds
 (``resnet18``, ``resnet34``, ``resnet50``: one logit an image, fp32), and
 the ``PatchSampleF`` projector. A generator name the JAX package refuses
@@ -28,10 +28,7 @@ from .modules.resnet_generator import ResnetGenerator, ResnetGeneratorAttn
 from .modules.semantic_networks import RESNET_CFG, ResNetTemplate
 
 _ROADMAP_ZOO = "ROADMAP Queue 1 item 13, rest of the zoo"
-UNPORTED_D = {
-    "temporal": "ROADMAP Queue 1 item 11, video diffusion",
-    "depth": _ROADMAP_ZOO, "sam": _ROADMAP_ZOO,
-}
+UNPORTED_D = {"depth": _ROADMAP_ZOO, "sam": _ROADMAP_ZOO}
 
 
 def define_G(opt):
@@ -175,6 +172,13 @@ def define_D(opt, names=None):
                 network_type=ptype,
                 trunk_stages=(_LITE3_STAGES if ptype == "depth"
                               else _LITE0_STAGES), dtype=dtype)
+        elif name == "temporal":
+            # judges clips (gan_networks.py:141-144): the EfficientNet
+            # trunk whatever D_proj_network_type
+            from .modules.projected_d import TemporalProjectedDiscriminator
+            ds["D_B_" + name] = TemporalProjectedDiscriminator(
+                size=opt.data_crop_size,
+                interp=getattr(opt, "D_proj_interp", -1), dtype=dtype)
         elif name == "vision_aided":
             from ..utils.clip_vit import clip_weights_path
             from .modules.vision_aided_d import VisionAidedDiscriminator
@@ -249,12 +253,15 @@ def flax_default_init(module, generator):
 
 
 def _flax_init(mod, leaf, p, generator):
-    if leaf == "bias" or leaf in ZERO_INIT:
+    # the temporal D's LSTM cells: lecun-normal over the first axis of
+    # lstm_w{i} (2c, 4c), zero lstm_b{i}
+    if leaf == "bias" or leaf in ZERO_INIT or leaf.startswith("lstm_b"):
         p.zero_()
     elif p.ndim == 1:
         p.fill_(1.0)
     else:
-        fan_in = getattr(mod, "fan_in", None) or p[0].numel()
+        fan_in = (p.shape[0] if leaf.startswith("lstm_w")
+                  else getattr(mod, "fan_in", None) or p[0].numel())
         std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
         t = torch.empty(p.shape, dtype=torch.float32)
         nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,

@@ -23,6 +23,10 @@ how many stride-2 steps each ``DownBlockPatch`` takes.
 Pretrained trunk weights load from ``$JOLIGEN_TPU_WEIGHTS_DIR/
 efficientnet_lite0.npz`` when that file exists (``load_efficientnet_trunk``);
 otherwise the trunk keeps its seeded random init.
+
+``TemporalProjectedDiscriminator`` (``D_netDs temporal``) judges clips: the
+same frozen trunk and projections on every frame, an LSTM cell over the
+frames at each location of each scale, the patch heads on its last state.
 """
 
 from __future__ import annotations
@@ -247,7 +251,70 @@ class ProjectedDiscriminator(nn.Module):
 
 
 class TemporalProjectedDiscriminator(nn.Module):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the temporal projected discriminator is not ported (ROADMAP "
-            "Queue 1 item 11, video diffusion)")
+    """The video D (``projected_d.py:223-283``): the frozen trunk and
+    projections on every frame, an LSTM cell at each spatial location of
+    each scale over the frames, the patch head on the last hidden state.
+    ``forward(x)``: (B, F, H, W, C) clips in [-1, 1] -> (B, total patches)
+    fp32 logits.
+
+    The cell of scale i holds ``lstm_w{i}`` (2c, 4c), applied as
+    ``[h, x] @ W``, and ``lstm_b{i}`` (4c); gate order [i, f, g, o], h and
+    c from zeros, in the compute dtype. This is the JAX package's design,
+    not the torch reference's ``MultiScaleLSTM``, which flattens each scale
+    to (B, F, c·r·r) under a hidden size of 16 and holds only where c·r·r
+    = 16. Only the LSTM cells and the patch heads train: the trunk's and
+    projections' outputs are detached, as in ``ProjectedDiscriminator``."""
+
+    def __init__(self, size, interp=-1, proj_ch=64, dtype=torch.float32):
+        super().__init__()
+        self.interp = interp
+        self.mit = False
+        size = interp if interp and interp > 0 else size
+        self.feature_network = EfficientNetLiteTrunk(_LITE0_STAGES, dtype)
+        self.proj = FRandomProj(self.feature_network.tap_channels, proj_ch,
+                                dtype)
+        sizes = trunk_sizes(size)
+        for i, (c, s) in enumerate(zip(self.proj.channels, sizes)):
+            self.register_parameter(f"lstm_w{i}", nn.Parameter(
+                torch.zeros(2 * c, 4 * c)))
+            self.register_parameter(f"lstm_b{i}", nn.Parameter(
+                torch.zeros(4 * c)))
+            self.add_module(f"disc{i}", DownBlockPatch(c, s, proj_ch, dtype))
+        self.n_scales = len(self.proj.channels)
+
+    def frozen_parameters(self):
+        """The trunk's and projections' parameters (zero gradient)."""
+        return list(self.feature_network.parameters()) + list(
+            self.proj.parameters())
+
+    def _lstm(self, i, seq):
+        """(F, N, h, w, c) -> h after the last frame (N, h, w, c)."""
+        w = getattr(self, f"lstm_w{i}").to(seq.dtype)
+        b = getattr(self, f"lstm_b{i}").to(seq.dtype)
+        h = c = torch.zeros_like(seq[0])
+        for xt in seq:
+            gates = torch.cat([h, xt], dim=-1) @ w + b
+            ig, fg, gg, og = torch.chunk(gates, 4, dim=-1)
+            c = torch.sigmoid(fg) * c + torch.sigmoid(ig) * torch.tanh(gg)
+            h = torch.sigmoid(og) * torch.tanh(c)
+        return h
+
+    def forward(self, x):
+        b, f = x.shape[:2]
+        flat = x.reshape((b * f,) + tuple(x.shape[2:])).permute(0, 3, 1, 2)
+        if flat.shape[1] == 1:
+            flat = flat.repeat(1, 3, 1, 1)
+        if self.interp and self.interp > 0 and flat.shape[2] != self.interp:
+            flat = resize_bilinear(flat, (self.interp, self.interp))
+        with torch.no_grad():
+            feats = [ft.detach() for ft in self.feature_network(flat)]
+            projs = self.proj(feats)
+        logits = []
+        for i, p in enumerate(projs):
+            # (B*F, c, h, w) -> (F, B, h, w, c)
+            seq = p.reshape((b, f) + tuple(p.shape[1:])).permute(1, 0, 3, 4,
+                                                                  2)
+            h_last = self._lstm(i, seq).permute(0, 3, 1, 2)
+            li = getattr(self, f"disc{i}")(h_last)
+            logits.append(li.reshape(b, -1))
+        return torch.cat(logits, dim=1).float()

@@ -32,9 +32,22 @@ of the port's ``motion.py`` over (B * T, F, d) sequences, zero-init
 K2/K3) at head dim 96, the packed tiling over F = 8 frames.
 
 ``tpu_remat`` runs each block under ``torch.utils.checkpoint``, as
-``nn.remat`` does; names and checkpoints are the same. The global context
-(``alg_b2b_global_context_mode`` adaln or tokens) and the object references
-(``alg_b2b_object_ref_paths``) raise (ROADMAP Queue 1 item 11).
+``nn.remat`` does; names and checkpoints are the same.
+
+The global context (``alg_b2b_global_context_mode``): a masked image of the
+whole frame (B, h, w, 3), repeated over the frames, or one a frame (B, F,
+h, w, 3). ``adaln``: ``GlobalContextEncoder`` (``gc_enc``) adds its vector
+to c, when a context is given. ``tokens``: the image through ``gc_embed``
+(a bottleneck patch embedding), plus ``gc_posemb`` and ``gc_type``, joins
+the prefix; a zero image stands in when none is given. The object
+references (``alg_b2b_object_ref_paths``, N of them): (B, N, s, s, 3)
+through ``oref_embed`` plus ``oref_posemb`` and ``oref_type``, shared by
+every frame of a clip (zeros when none are given). The prefix is
+[registers, global context, object references, in-context] at the block
+``in_context_start``; JiT-B/16 in ``tokens`` mode with one reference of 64
+px at 128 px runs its blocks 4-11 at S = 64 + 64 + 16 + 32 = 176.
+``alg_b2b_global_context_conditioning`` is read by nothing, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -48,9 +61,7 @@ from ...ops.schedules import timestep_embedding
 from .jit import (JiTBlock, RMSNorm, axial_rope_tables, cached_tables,
                   jit_config, modulate, sincos_2d_pos_embed)
 from .motion import TemporalTransformerBlock
-from .unet_mha import Dense, GroupNorm
-
-UNPORTED = "ROADMAP Queue 1 item 11, video diffusion"
+from .unet_mha import Conv, Dense, GroupNorm
 
 
 class TokenMotionModule(nn.Module):
@@ -84,6 +95,34 @@ class TokenMotionModule(nn.Module):
         return x + self.proj_out(y)
 
 
+class GlobalContextEncoder(nn.Module):
+    """The masked global-context image (N, h, w, 3) -> (N, hidden): four
+    3×3 stride-2 convs of 64, 128, 256 and 256 channels, each with
+    GroupNorm(min(32, ch)) (flax's eps 1e-6) and SiLU, the spatial mean,
+    ``proj0``, SiLU and the zero-initialised ``proj1`` (a no-op on c at
+    init)."""
+
+    CHANNELS = (64, 128, 256, 256)
+
+    def __init__(self, hidden_size, dtype=torch.float32):
+        super().__init__()
+        cin = 3
+        for i, ch in enumerate(self.CHANNELS):
+            self.add_module(f"conv{i}", Conv(cin, ch, 3, 2, 1, dtype=dtype))
+            self.add_module(f"gn{i}", GroupNorm(min(32, ch), ch, eps=1e-6))
+            cin = ch
+        self.proj0 = Dense(cin, hidden_size, dtype=dtype)
+        self.proj1 = Dense(hidden_size, hidden_size, dtype=dtype,
+                           zero_init=True)
+
+    def forward(self, x):
+        h = x.permute(0, 3, 1, 2)
+        for i in range(len(self.CHANNELS)):
+            h = getattr(self, f"conv{i}")(h)
+            h = F.silu(getattr(self, f"gn{i}")(h))
+        return self.proj1(F.silu(self.proj0(h.mean(dim=(2, 3)))))
+
+
 class BottleneckPatchEmbed(nn.Module):
     """(N, H, W, C) -> (N, T, hidden): patches, bias-free ``proj1`` to the
     bottleneck, ``proj2``."""
@@ -113,7 +152,9 @@ class JiTViD(nn.Module):
                  num_register_tokens=0, in_context_len=32,
                  in_context_start=4, out_channels=None,
                  mask_size_conditioning=False,
-                 temporal_frame_step_conditioning=False, motion_every=0,
+                 temporal_frame_step_conditioning=False,
+                 global_context_mode="none", global_context_size=128,
+                 object_ref_num_images=0, object_ref_size=64, motion_every=0,
                  motion_num_heads=8, motion_num_layers=2, max_frames=25,
                  remat=False, dtype=torch.float32):
         super().__init__()
@@ -129,6 +170,10 @@ class JiTViD(nn.Module):
         self.out_channels = out_channels or in_channels
         self.mask_size_conditioning = mask_size_conditioning
         self.frame_step_conditioning = temporal_frame_step_conditioning
+        self.global_context_mode = global_context_mode
+        self.global_context_size = global_context_size
+        self.object_ref_num_images = object_ref_num_images
+        self.object_ref_size = object_ref_size
         self.motion_every = motion_every
         self.remat = remat
         self.dtype = dtype
@@ -149,10 +194,27 @@ class JiTViD(nn.Module):
         if num_register_tokens > 0:
             self.register_tokens = nn.Parameter(
                 torch.zeros(1, num_register_tokens, d))
+        if global_context_mode == "adaln":
+            self.gc_enc = GlobalContextEncoder(d, dtype=dtype)
+        elif global_context_mode == "tokens":
+            self.gc_embed = BottleneckPatchEmbed(3, bottleneck_dim, d,
+                                                 patch_size, dtype=dtype)
+            n_gc = (global_context_size // patch_size) ** 2
+            self.gc_posemb = nn.Parameter(torch.zeros(1, n_gc, d))
+            self.gc_type = nn.Parameter(torch.zeros(1, 1, d))
+        if object_ref_num_images > 0:
+            self.oref_embed = BottleneckPatchEmbed(3, bottleneck_dim, d,
+                                                   patch_size, dtype=dtype)
+            n_oref = object_ref_num_images * (object_ref_size
+                                              // patch_size) ** 2
+            self.oref_posemb = nn.Parameter(torch.zeros(1, n_oref, d))
+            self.oref_type = nn.Parameter(torch.zeros(1, 1, d))
         if in_context_len > 0:
             self.in_context_posemb = nn.Parameter(
                 torch.zeros(1, in_context_len, d))
-        self.would_insert = num_register_tokens > 0 or in_context_len > 0
+        self.would_insert = (num_register_tokens > 0 or in_context_len > 0
+                             or global_context_mode == "tokens"
+                             or object_ref_num_images > 0)
         self.split_at = in_context_start if self.would_insert else depth
         share_motion = motion_every <= 0
         for si, (a, b, has_motion) in enumerate(self._segments()):
@@ -173,16 +235,9 @@ class JiTViD(nn.Module):
     @classmethod
     def from_opt(cls, opt, in_channels, dtype=torch.float32):
         """The JAX ``JiTViD.from_opt``: ``jit_config`` (the ``JiTVid-*``
-        variants are the ``JiT-*`` ones), the motion, mask-size and
-        frame-step settings from the options."""
-        gcm = getattr(opt, "alg_b2b_global_context_mode", "") or "none"
-        if gcm != "none":
-            raise NotImplementedError(
-                f"alg_b2b_global_context_mode={gcm} is not ported "
-                f"({UNPORTED})")
-        if getattr(opt, "alg_b2b_object_ref_paths", None):
-            raise NotImplementedError(
-                f"alg_b2b_object_ref_paths is not ported ({UNPORTED})")
+        variants are the ``JiT-*`` ones), the motion, mask-size,
+        frame-step, global-context and object-reference settings from the
+        options (the references by their count)."""
         variant = getattr(opt, "G_vit_variant", "") or "JiT-B/16"
         cfg = jit_config(opt, variant.replace("JiTVid-", "JiT-", 1))
         return cls(
@@ -198,6 +253,13 @@ class JiTViD(nn.Module):
                 opt, "alg_b2b_mask_size_conditioning", False),
             temporal_frame_step_conditioning=getattr(
                 opt, "alg_b2b_temporal_frame_step_conditioning", False),
+            global_context_mode=(getattr(opt, "alg_b2b_global_context_mode",
+                                         "") or "none"),
+            global_context_size=getattr(opt, "alg_b2b_global_context_size",
+                                        128),
+            object_ref_num_images=len(
+                getattr(opt, "alg_b2b_object_ref_paths", []) or []),
+            object_ref_size=getattr(opt, "alg_b2b_object_ref_size", 64),
             motion_every=getattr(opt, "G_vit_vid_motion_every", 0) or 0,
             max_frames=max(25, getattr(opt, "data_temporal_number_frames",
                                        8)),
@@ -235,7 +297,46 @@ class JiTViD(nn.Module):
             return v.expand(bf)
         return v
 
-    def forward(self, x, t, y=None, mask_size=None, temporal_frame_step=None):
+    def _per_frame_images(self, img, f, bf):
+        """(B, h, w, 3) images repeated over the frames, or (B, F, h, w, 3)
+        ones folded: (B*F, h, w, 3)."""
+        if img.ndim == 4:
+            return img.repeat_interleave(f, dim=0)
+        return img.reshape((bf,) + tuple(img.shape[2:]))
+
+    def _prefix(self, y_emb, global_context, object_ref, b, f, bf, dtype):
+        """The prefix tokens, [registers, global context, object
+        references, in-context], and their count."""
+        dev = y_emb.device
+        prefix = []
+        if self.num_register_tokens > 0:
+            prefix.append(self.register_tokens.to(dtype).expand(bf, -1, -1))
+        if self.global_context_mode == "tokens":
+            s = self.global_context_size
+            gc = (torch.zeros(bf, s, s, 3, device=dev)
+                  if global_context is None
+                  else self._per_frame_images(global_context, f, bf))
+            tok = self.gc_embed(gc)
+            prefix.append(tok + self.gc_posemb.to(tok.dtype)
+                          + self.gc_type.to(tok.dtype))
+        if self.object_ref_num_images > 0:
+            if object_ref is None:
+                s = self.object_ref_size
+                object_ref = torch.zeros(b, self.object_ref_num_images, s, s,
+                                         3, device=dev)
+            tok = self.oref_embed(object_ref.reshape(
+                (-1,) + tuple(object_ref.shape[2:])))
+            tok = tok.reshape(b, -1, tok.shape[-1])
+            tok = (tok + self.oref_posemb.to(tok.dtype)
+                   + self.oref_type.to(tok.dtype))
+            prefix.append(tok.repeat_interleave(f, dim=0))
+        if self.in_context_len > 0:
+            prefix.append(y_emb[:, None, :]
+                          + self.in_context_posemb.to(dtype))
+        return prefix, sum(t.shape[1] for t in prefix)
+
+    def forward(self, x, t, y=None, mask_size=None, temporal_frame_step=None,
+                global_context=None, object_ref=None):
         b, f, hh, ww, cin = x.shape
         p, d = self.patch_size, self.hidden_size
         gh, gw = hh // p, ww // p
@@ -272,6 +373,9 @@ class JiTViD(nn.Module):
                       temporal_frame_step, device=dev).float(), b, f, bf))
             fs_emb = self.fs_0(timestep_embedding(fs, 256))
             c = c + self.fs_1(F.silu(fs_emb))
+        if self.global_context_mode == "adaln" and global_context is not None:
+            c = c + self.gc_enc(self._per_frame_images(global_context, f,
+                                                       bf))
 
         cos0, sin0 = cached_tables(self._tables, ("rope", gh, gw, hd, 0),
                                    lambda: axial_rope_tables(gh, gw, hd), dev)
@@ -280,14 +384,9 @@ class JiTViD(nn.Module):
         n_prefix = 0
         for si, (a, b2, has_motion) in enumerate(self._segments()):
             if a == self.split_at and a < self.depth and self.would_insert:
-                prefix = []
-                if self.num_register_tokens > 0:
-                    prefix.append(self.register_tokens.to(h.dtype).expand(
-                        bf, -1, -1))
-                if self.in_context_len > 0:
-                    prefix.append(y_emb[:, None, :]
-                                  + self.in_context_posemb.to(h.dtype))
-                n_prefix = self.num_register_tokens + self.in_context_len
+                prefix, n_prefix = self._prefix(y_emb, global_context,
+                                                object_ref, b, f, bf,
+                                                h.dtype)
                 h = torch.cat(prefix + [h], dim=1)
                 cos1, sin1 = cached_tables(
                     self._tables, ("rope", gh, gw, hd, n_prefix),
@@ -315,7 +414,10 @@ class JiTViD(nn.Module):
 
     def embedding_params(self):
         """The parameters flax draws from N(0, 0.02): the class table, the
-        register tokens and the in-context position table."""
-        return [getattr(self, n) for n in ("y_embed", "register_tokens",
-                                           "in_context_posemb")
-                if hasattr(self, n)]
+        register tokens, the global context's and the object references'
+        position tables and type rows, and the in-context position
+        table."""
+        return [getattr(self, n) for n in (
+            "y_embed", "register_tokens", "gc_posemb", "gc_type",
+            "oref_posemb", "oref_type", "in_context_posemb")
+            if hasattr(self, n)]

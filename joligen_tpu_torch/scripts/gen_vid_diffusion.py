@@ -21,6 +21,11 @@ context (re-noised inside the mask by ``--context_noise_sigma``);
 ``--cls_progress`` give class labels. Frames are pasted back into their
 windows and written as ``frame_{i:05d}_generated.png``.
 
+A b2b model with the global context gets none from the script, as from
+the JAX script: under ``tokens`` it reads the zero image, under ``adaln``
+nothing joins its conditioning; its object references are the ones its
+options name, loaded with the model.
+
 ``--video_out`` (an MP4 through cv2) raises. Runs on CUDA unless ``--cpu``.
 """
 
@@ -64,9 +69,12 @@ def _check_supported(args, opt):
             "import (ROADMAP Queue 1 item 16, export and serving); the "
             "frames are written as PNGs")
     if opt.model_type not in ("palette", "b2b"):
+        # the JAX script calls any model's inference; its cm and sc models
+        # cannot sample a clip (their noise levels broadcast over images)
         raise NotImplementedError(
             f"video requests of model type {opt.model_type}: palette and "
-            "b2b are ported (ROADMAP Queue 1 item 11, video diffusion)")
+            "b2b sample clips; the JAX package's cm and sc models fail on "
+            "them too")
 
 
 def crop_frames(imgs, bboxes, opt):

@@ -9,12 +9,13 @@ in fp32, at the small width of ``tests/_torch_cm_common.py``:
 3. checkpoints the JAX ``load_networks`` reads, and the reverse, bit for
    bit;
 4. the perceptual terms add ``G_perceptual`` to a step; ``previous_frame``
-   video conditioning raises.
+   conditioning of clips equal to the JAX model's.
 
 ``cm_gan`` is in ``tests/test_torch_cm_gan.py``.
 """
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -83,12 +84,41 @@ def test_perceptual_terms_raise(tmp_path, model_type, option):
     assert 0.0 < float(losses["G_perceptual"]) < float(losses["G_tot"])
 
 
-def test_previous_frame_video_batches_raise(tmp_path):
-    opt = TrainOptions().parse_json(small_cfg(tmp_path), verbose=False)
-    opt.alg_diffusion_cond_image_creation = "previous_frame"
-    tm = create_model(opt, device="cpu")
-    video = {k: v[:, None] for k, v in batch(0).items()}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tm.set_input(video)
-    # image batches take the A image, as in the JAX model
+def test_previous_frame_video_batches_raise(tmp_path, monkeypatch):
+    """``previous_frame`` on clips, refused until it was ported: frame k's
+    condition is ground-truth frame k - 1 (frame 0 its own), each (clip,
+    frame) blanked to -1 with probability 1 -
+    ``alg_diffusion_cond_prob_use_previous_frame`` in training, from
+    numpy's global generator: ``set_input`` equal to the JAX model's under
+    one ``np.random.seed``, in training and at test. Image batches take
+    the A image. (The JAX cm model goes no further on clips: its step and
+    sampler broadcast one noise level an image over 4-D images.)"""
+    cfg = small_cfg(tmp_path, {"alg": {"diffusion": {
+        "cond_image_creation": "previous_frame",
+        "cond_prob_use_previous_frame": 0.5}}})
+    jm, tm = models(cfg, monkeypatch)
+    rng = np.random.default_rng(5)
+    video = {k: np.repeat(v[:, None], 4, axis=1) for k, v in
+             batch(0).items()}
+    video["B"] = rng.uniform(-1, 1, video["B"].shape).astype(np.float32)
+    blanked = 0
+    for phase in ("train", "test"):
+        jm.phase = tm.phase = phase
+        for seed in range(3):
+            np.random.seed(seed)
+            want = jm.set_input(video)
+            np.random.seed(seed)
+            got = tm.set_input(video)
+            assert sorted(got) == sorted(want)
+            for k, v in want.items():
+                np.testing.assert_array_equal(got[k], np.asarray(v), k)
+            cond = got["y_cond"]
+            np.testing.assert_array_equal(cond[:, 0][cond[:, 0] != -1],
+                                          video["B"][:, 0][cond[:, 0] != -1])
+            if phase == "train":
+                blanked += int((cond == -1).all(axis=(2, 3, 4)).sum())
+            else:
+                np.testing.assert_array_equal(cond[:, 1:],
+                                              video["B"][:, :-1])
+    assert blanked > 0
     assert "y_cond" in tm.set_input(batch(0))

@@ -123,29 +123,30 @@ def test_train_and_serve_end_to_end(tmp_path, config):
     ("alg_cut_flip_equivariance", True),
     ("alg_cut_supervised_loss", ["L1"]), ("D_netDs", ["temporal"])])
 def test_unported_cut_options_raise(tmp_path, option, value):
-    """An option off the port's path raises naming it; APA, the
-    contrastive D, the flips and the supervised loss, which raised until
-    ReCUT's slice, now build (held against the JAX step by
-    ``tests/test_torch_cut_options.py`` and ``test_torch_recut.py``), and
-    so does the semantic-mask branch with horse2zebra's f_s, the option
-    schema's ``vgg`` (VGG16-FCN8s, which raised until the semantic
-    networks' slice; held against the JAX net by
-    ``tests/test_torch_vgg_fcn8s.py``)."""
+    """The CUT options that raised until their slices now build: APA, the
+    contrastive D, the flips and the supervised loss since ReCUT's slice
+    (held against the JAX step by ``tests/test_torch_cut_options.py`` and
+    ``test_torch_recut.py``), the semantic-mask branch with horse2zebra's
+    f_s, the option schema's ``vgg`` (VGG16-FCN8s), since the semantic
+    networks' slice (held against the JAX net by
+    ``tests/test_torch_vgg_fcn8s.py``), and the temporal D since the video
+    slice (held against the JAX step by ``tests/test_torch_cut_video.py``);
+    an option still off the port's path would raise naming it."""
     opt = TrainOptions().parse_json(h2z_cfg(tmp_path), verbose=False)
     setattr(opt, option, value)
     ported = {"dataaug_APA": "apa",
               "train_use_contrastive_loss_D": "contrastive_d",
               "alg_cut_flip_equivariance": "flip_equivariance",
               "alg_cut_supervised_loss": "supervised",
-              "train_semantic_mask": "semantic_mask"}
-    if option in ported:
-        model = create_model(opt, device="cpu")
-        assert getattr(model, ported[option]) == value
-        if option == "train_semantic_mask":
-            assert type(model.nets["f_s"]).__name__ == "VGG16FCN8s"
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        create_model(opt, device="cpu")
+              "train_semantic_mask": "semantic_mask",
+              "D_netDs": "temporal_d"}
+    model = create_model(opt, device="cpu")
+    want = True if option == "D_netDs" else value
+    assert getattr(model, ported[option]) == want
+    if option == "train_semantic_mask":
+        assert type(model.nets["f_s"]).__name__ == "VGG16FCN8s"
+    if option == "D_netDs":
+        assert list(model.d_names) == ["D_B_temporal"]
 
 
 def test_gan_entry_points_raise_without_a_card(monkeypatch, tmp_path):

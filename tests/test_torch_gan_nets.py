@@ -376,8 +376,18 @@ def test_unported_networks_raise():
     for factory in (tgan.define_G, jgan.define_G):
         with pytest.raises(NotImplementedError, match="no_such_generator"):
             factory(opt if factory is tgan.define_G else jopt)
-    with pytest.raises(NotImplementedError, match="temporal"):
-        tgan.define_D(opt, ["temporal"])
+    # the temporal D, refused until it was ported, builds as in the JAX
+    # factory (parity: tests/test_torch_temporal_d.py); depth and sam
+    # still raise
+    from joligen_tpu_torch.models.modules.projected_d import \
+        TemporalProjectedDiscriminator
+    assert list(jgan.define_D(jopt, ["temporal"])) == ["D_B_temporal"]
+    assert isinstance(tgan.define_D(opt, ["temporal"])["D_B_temporal"],
+                      TemporalProjectedDiscriminator)
+    assert set(tgan.UNPORTED_D) == {"depth", "sam"}
+    for name in tgan.UNPORTED_D:
+        with pytest.raises(NotImplementedError, match="item 13"):
+            tgan.define_D(opt, [name])
     # the JAX factory builds the same names for the ported Ds
     jopt, _ = _h2z_opts()
     assert list(jgan.define_D(jopt)) == list(tgan.define_D(opt))

@@ -12,9 +12,10 @@
    printed for glasses2noglasses), then one request each through
    ``scripts/gen_single_image.py --cpu`` from the checkpoint.
 3. What stays off the ported path raises, naming its ROADMAP item: the
-   sam segmenter, the ``sam``, ``depth`` and ``temporal`` Ds (the vgg
-   segmenter, the classifier and the ``mask`` D run since the semantic
-   networks' slice). ``train_sem_use_label_B`` is accepted and read by nothing,
+   sam segmenter, the ``sam`` and ``depth`` Ds (the vgg segmenter, the
+   classifier and the ``mask`` D run since the semantic networks' slice,
+   the ``temporal`` D since the video slice that ported it:
+   ``tests/test_torch_cut_video.py``). ``train_sem_use_label_B`` is accepted and read by nothing,
    in either package (a reference property the port copies).
 """
 
@@ -108,7 +109,7 @@ def test_train_and_serve_end_to_end(tmp_path, monkeypatch, capsys, config):
 
 @pytest.mark.parametrize("option,value,item", [
     ("D_netDs", ["depth"], "item 13"), ("f_s_net", "sam", "item 14"),
-    ("D_netDs", ["sam"], "item 13"), ("D_netDs", ["temporal"], "item 11")])
+    ("D_netDs", ["sam"], "item 13")])
 def test_off_path_options_raise(tmp_path, option, value, item):
     opt = TrainOptions().parse_json(h2z_cfg(tmp_path, {
         "train": {"semantic_mask": True}, "f_s": {"net": "unet"}}),

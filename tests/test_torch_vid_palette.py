@@ -19,7 +19,9 @@ package, on the CPU, fp32:
    ``gen_vid_diffusion.py`` (``--autoregressive``, ``--direction
    backward``, ``--cond_canny``, ``--cls_progress``); the script's batches
    and written frames equal to the JAX script's on the same stub model; the
-   raises.
+   raises;
+5. the b2b global context of each frame from the three modes, equal to
+   the JAX package's.
 """
 
 import importlib.util
@@ -125,11 +127,41 @@ def test_video_dataset_items_match_jax(tmp_path, mode):
 
 
 def test_b2b_global_context_raises(tmp_path):
-    write_video(str(tmp_path / "data"), 6, 32)
-    opt = TrainOptions().parse_json(_vid_cfg(tmp_path), verbose=False)
-    opt.alg_b2b_global_context_mode = "masked"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        create_dataset(opt)
+    """The b2b global context, refused until it was ported, now comes with
+    every clip of the three video modes: each frame's whole image with
+    frame 0's crop window blacked out, PIL bicubic to
+    ``alg_b2b_global_context_size``, in [-1, 1] (``A_global_context``, and
+    ``B_global_context`` from B's clip or, self-supervised, the same),
+    equal to the JAX package's items with ``random`` and numpy seeded
+    alike."""
+    write_video(str(tmp_path / "data"), 6, 32, seed=2, domains=("A", "B"))
+    for mode in VID_MODES:
+        cfg = _vid_cfg(tmp_path, {
+            "data": {"dataset_mode": mode,
+                     "online_creation": {"crop_size_B": 24,
+                                         "crop_delta_B": 6}},
+            "alg": {"b2b": {"global_context_mode": "tokens",
+                            "global_context_size": 12}}})
+        jds = jax_create_dataset(JaxTrainOptions().parse_json(
+            cfg, verbose=False))
+        tds = create_dataset(TrainOptions().parse_json(cfg, verbose=False))
+        for i in range(3):
+            items = []
+            for ds in (jds, tds):
+                random.seed(30 + i)
+                np.random.seed(40 + i)
+                items.append(ds[i])
+            want, got = items
+            assert sorted(got) == sorted(want)
+            for k in ("A_global_context", "B_global_context"):
+                assert got[k].shape == (F, 12, 12, 3)
+                assert got[k].dtype == np.float32
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+            # the blacked-out window: black pixels, -1 after scaling
+            assert (got["A_global_context"] == -1.0).any()
+            for k, v in want.items():
+                if isinstance(v, np.ndarray):
+                    np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 def _clips(seed, batch=B, frames=F):

@@ -17,7 +17,8 @@ leaf, ``adaLN``, ``final_adaLN``, ``final_proj``, ``ms_1``, ``fs_1`` and
    name and shape against ``jax.eval_shape`` of the JAX module on its 6
    input channels, 156,640,512 parameters, its segments [(0, 4), (4, 12)
    with the motion module];
-5. the global context and object references raise.
+5. the global context and object references build from the options
+   (their parity: ``tests/test_torch_vit_vid_context.py``).
 """
 
 import json
@@ -258,11 +259,28 @@ def test_wide_variants_match_jax_count_and_head_dims(variant, count, blocks,
 
 
 def test_global_context_and_object_refs_raise():
+    """The global context and the object references, which raised until
+    they were ported, now build from the options (parity:
+    ``tests/test_torch_vit_vid_context.py``): their mode, context size,
+    reference count and size; ``tokens`` or a reference inserts a prefix
+    at ``in_context_start`` even without in-context tokens, ``adaln``
+    alone does not."""
     topt, _ = _example_opts()
     topt.alg_b2b_global_context_mode = "tokens"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tvv.JiTViD.from_opt(topt, CIN)
-    topt.alg_b2b_global_context_mode = "none"
-    topt.alg_b2b_object_ref_paths = ["ref.png"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tvv.JiTViD.from_opt(topt, CIN)
+    topt.alg_b2b_global_context_size = 64
+    topt.alg_b2b_object_ref_paths = ["a.png", "b.png"]
+    topt.alg_b2b_object_ref_size = 32
+    with torch.device("meta"):
+        net = tvv.JiTViD.from_opt(topt, CIN)
+    assert net.gc_posemb.shape == (1, 16, 768)
+    assert net.oref_posemb.shape == (1, 2 * 4, 768)
+    assert not hasattr(net, "gc_enc") and net.split_at == 4
+    topt.G_vit_in_context_len = 0
+    topt.alg_b2b_object_ref_paths = []
+    for mode, inserts in (("tokens", True), ("adaln", False)):
+        topt.alg_b2b_global_context_mode = mode
+        with torch.device("meta"):
+            net = tvv.JiTViD.from_opt(topt, CIN)
+        assert net.would_insert == inserts
+        assert net.split_at == (4 if inserts else net.depth)
+        assert hasattr(net, "gc_enc") == (mode == "adaln")
