@@ -34,7 +34,10 @@ GPU. Run from the repository root with no arguments:
    motion module at 8 and 4 heads over 5 frames, (2048, 5, 8, 64) and
    (2048, 5, 4, 128); JiT-H's and JiT-L's motion modules, (64, 8, 8, 160)
    and (64, 8, 8, 128); JiT-H's blocks, (8, 64 | 96, 16, 80) on video and
-   (8, 288, 16, 80) on images at 256 px) and ragged ones (S of 1, 5, 17,
+   (8, 288, 16, 80) on images at 256 px; the multi-dataset B2B path's
+   JiT blocks at 8 clips of 2 frames, (16, 256, 12, 64) and (16, 288, 12,
+   64), and its motion module at S = 2, (2048, 2, 8, 96)) and ragged ones
+   (S of 1, 5, 17,
    32, 63, 65 and 100 over odd B*H) the same way, timed at the path
    shapes beside their bounds and sdpa; the autograd Function
    against autograd through the plain forward; P1 and P2 (the 3×3 tap
@@ -155,10 +158,11 @@ GPU. Run from the repository root with no arguments:
    px a step, online crops with delta 16 of 192 px frames; AdamW, EMA,
    bf16; ``tpu_mesh_fsdp`` 1, its one override: one card), 8 steps with
    K1, K2 and K3 16 times each a step and finite losses, ``G_ref_copy``
-   among them; its checkpoint reloaded (the EMA bit for bit); two clip
-   requests with the config's 50 Heun steps (99 denoiser calls of 16 K1)
-   and one ``--autoregressive`` request over two clips through
-   ``scripts/gen_vid_diffusion``, the pixels outside each mask kept; the
+   among them; its checkpoint reloaded (the EMA bit for bit); a clip
+   request with the config's 50 Heun steps (99 denoiser calls of 16 K1)
+   and one ``--autoregressive`` request of 10 Heun steps over two clips
+   through ``scripts/gen_vid_diffusion``, the pixels outside each mask
+   kept; the
    full-width JiTViD in fp32, card against CPU.
 12. MAT inpainting: ``example_mat_inpainting.json`` at full width (the
    MAT generator, 59,779,834 parameters, and its two-trunk D, 36,083,330;
@@ -299,6 +303,25 @@ GPU. Run from the repository root with no arguments:
    ``gen_single_image`` request on a frame (no kernel on this path); then
    JiTViD in ``tokens`` mode with one reference and the temporal D at 256
    px on a clip of 5 frames, fp32, card against CPU.
+22. Multi-dataset B2B with Muon: ``scripts/gen_multi_dataset_b2b_config``
+   of the port over two synthetic video roots (32 frames each, 512 and 768
+   px, so the children's derived crops differ; in RAM, ``/dev/shm``), its
+   ``train_config.json`` through the train CLI's parser as written but for
+   one epoch: ``multi_dataset`` over the 2 children, vit_vid JiT-B/16
+   (156,929,280 parameters, 7 input channels) at 256 px, 8 clips of 2
+   frames a micro-step, Muon at ``train_iter_size`` 4 (49 of its 92 flax
+   leaves Muon's, as the flax-rank rule counts them), EMA, LPIPS + DISTS;
+   8 micro-steps (2 updates) with K1, K2 and K3 16 times each a
+   micro-step ((16, 256 | 288, 12, 64) plain, (2048, 2, 8, 96) packed),
+   ``tpu_profile_dir`` (a trace of micro-steps 4 to 6 written); the
+   checkpoint reloaded (the EMA and the Muon/Adam state bit for bit); a
+   Muon update timed alone; muon, radam, lion (both with a bf16 first
+   moment too) and madgrad, one update each on the card against the CPU;
+   a profiled micro-step (idle share, launches, frames/s); two clip
+   requests of the config's 2 Heun steps through
+   ``scripts/gen_vid_diffusion``, the first and a warm one;
+   then a ``--cond_in`` request (rotation, both perspective warps,
+   keep-ratio) through item 5's trained palette checkpoint, 10 K1.
 
 Prints one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -551,6 +574,12 @@ JITH_MOTION_SHAPE = (64, 8, 8, 160)
 JITL_MOTION_SHAPE = (64, 8, 8, 128)
 JITH_VID_POST_SHAPE = (8, 96, 16, 80)
 JITH_IMAGE_POST_SHAPE = (8, 288, 16, 80)
+# the multi-dataset B2B path (8 clips of 2 frames at 256 px): the JiT
+# blocks (B * F, 256 | 288, 12, 64), the token motion module (B * T, 2, 8,
+# 96): S = 2, the packed tiling's shortest sequence
+MD_PRE_SHAPE = (16, 256, 12, 64)
+MD_POST_SHAPE = (16, 288, 12, 64)
+MD_MOTION_SHAPE = (2048, 2, 8, 96)
 # K1-K3 at the video paths' shapes, in both dtypes, and at S <= 32 in both
 # tilings (packed and plain): every motion-module shape of the video path
 # (vid_mario's levels 1-4, _ft_from_image's levels 1-4; D = 8), b2b's
@@ -568,7 +597,8 @@ SHORT_CHECKS = [VID_L1_SHAPE, (1024, 8, 8, 16), (256, 8, 8, 32),
                 JITH_MOTION_SHAPE, JITL_MOTION_SHAPE, (8, 64, 16, 80),
                 JITH_VID_POST_SHAPE, (3, 1, 1, 80), (5, 5, 3, 160),
                 (7, 8, 3, 128), (3, 17, 3, 80), (3, 32, 3, 160),
-                (1, 63, 3, 128), (2, 100, 3, 80)]
+                (1, 63, 3, 128), (2, 100, 3, 80), MD_MOTION_SHAPE,
+                MD_PRE_SHAPE, MD_POST_SHAPE]
 VID_TIMINGS = (("vid_level1", VID_L1_SHAPE, 50),
                ("vid_level4", VID_L4_SHAPE, 50),
                ("vid_s6_level1", VID_S6_SHAPE, 20),
@@ -584,15 +614,20 @@ VID_TIMINGS = (("vid_level1", VID_L1_SHAPE, 50),
                ("jith_motion", JITH_MOTION_SHAPE, 20),
                ("jitl_motion", JITL_MOTION_SHAPE, 20),
                ("jith_vid_post", JITH_VID_POST_SHAPE, 20),
-               ("jith_image_post", JITH_IMAGE_POST_SHAPE, 20))
+               ("jith_image_post", JITH_IMAGE_POST_SHAPE, 20),
+               ("md_motion", MD_MOTION_SHAPE, 20),
+               ("md_jit_pre", MD_PRE_SHAPE, 20),
+               ("md_jit_post", MD_POST_SHAPE, 20))
 # b2b_vid_mario (example_b2b_vid_mario.json) as it is but for its mesh
 # (tpu_mesh_fsdp 2 cannot hold on one card): B2B_STEPS steps at batch 1
 # over one series of 8 frames of B2B_IMAGE px (its crops are 128 px with
 # delta 16), B2B_REQUESTS clip requests with the config's 50 Heun steps and
-# one --autoregressive request over two clips of a 16-frame series
+# one --autoregressive request of B2B_AR_STEPS Heun steps over two clips of
+# a 16-frame series
 B2B_EXAMPLE = "example_b2b_vid_mario.json"
 B2B_STEPS = 8
-B2B_REQUESTS = 2
+B2B_REQUESTS = 1
+B2B_AR_STEPS = 10
 B2B_IMAGE = 192
 EXPECTED_PARAMS_B2B = 156_640_512      # [y_cond, z]: 6 input channels
 # K1 launches a b2b denoiser call (and K2 and K3 a step): 12 JiT blocks and
@@ -614,6 +649,30 @@ B2B_GC_STEPS = 4
 B2B_GC_ADALN_STEPS = 2
 B2B_GC_REF_SIZE = 64
 EXPECTED_PARAMS_B2B_GC = {"tokens": 157_098_240, "adaln": 158_390_784}
+# the multi-dataset B2B path: joligen_tpu_torch/scripts/
+# gen_multi_dataset_b2b_config.py over two synthetic video roots of
+# MD_SERIES frames each (MD_IMAGES px: boxes of 1/8 to 1/4 of a side, so
+# the children's derived crops differ), its train_config.json trained as
+# written (vit_vid JiT-B/16 at 256 px, 8 clips of 2 frames a micro-step,
+# Muon at train_iter_size 4, EMA, LPIPS + DISTS on the fp32 VGG16 trunk)
+# but for the epoch count: one epoch of MD_STEPS micro-steps (2 Muon
+# updates), with tpu_profile_dir; K1-K3 B2B_K1_PER_CALL each a micro-step:
+# the JiT blocks at (16, 256 | 288, 12, 64), the token motion module at
+# (2048, 2, 8, 96) on the packed tiling. The parameter count and the Muon
+# leaves are the JAX package's (jax.eval_shape, optax's partition; tests/
+# test_torch_multi_dataset_b2b.py holds them)
+MD_SERIES = 32
+MD_IMAGES = (512, 768)
+MD_STEPS = 8
+EXPECTED_PARAMS_MD = 156_929_280
+EXPECTED_MUON_LEAVES_MD = 49
+# each optimizer's one fp32 update on the card against the CPU, on the
+# trained denoiser's parameters outside blocks1 and the motion module
+# (every label kind: the scan stack blocks0, the top-level Denses, the raw
+# tables, the patch embedding), fed seeded gradients: within MD_OPT_TOL
+# of the largest parameter change (Lion: at most 1 % of a leaf's elements
+# apart, by at most 2 x lr)
+MD_OPT_TOL = 1e-4
 # the video variant of docs/tutorial_styletransfer_bdd100k.md's command:
 # CUT over temporal_labeled_mask_online with the temporal D beside the
 # projected and basic ones, at the options' defaults (clips of 5 frames 30
@@ -4596,14 +4655,17 @@ def _b2b_k1_per_call(opt):
 
 
 def _serve_b2b(ckpt, served, sopt, frames_dir, out_dir, n, clips, extra,
-               label, per_call=B2B_K1_PER_CALL):
+               label, per_call=B2B_K1_PER_CALL, image=B2B_IMAGE, steps=None):
     """``n`` requests of ``clips`` clips each through
     ``scripts/gen_vid_diffusion`` with the loaded b2b model, ``extra``
     arguments, the launch counters at 0 just before them and read just
     after: ``per_call`` K1 launches a denoiser call (2 * steps - 1 calls
     a clip) and no other kernel. Each writes its frames, finite, of the
     input frames' size; outside each clip's mask the model's output is its
-    input (to 1e-6). Returns latencies and launches."""
+    input (to 1e-6), unless the mask is an input channel
+    (``alg_b2b_mask_as_channel``: the sampler then projects nothing, in
+    both packages). ``steps``: ``--sampling_steps`` (default: the
+    model's). Returns latencies and launches."""
     import numpy as np
     import torch
     from joligen_tpu_torch.scripts import gen_vid_diffusion as gen
@@ -4621,13 +4683,14 @@ def _serve_b2b(ckpt, served, sopt, frames_dir, out_dir, n, clips, extra,
         args = gen.build_parser().parse_args([
             "--model_in_file", ckpt, "--dir_in", frames_dir,
             "--dir_out", os.path.join(out_dir, f"{label}{i}"),
-            "--max_frames", str(nf * clips), "--seed", str(i), *extra])
+            "--max_frames", str(nf * clips), "--seed", str(i), *extra,
+            *(["--sampling_steps", str(steps)] if steps else [])])
         t0 = time.perf_counter()
         written = gen.inference(args, lmodel=served, lopt=sopt)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         if not (len(written) == nf * clips
-                and written[0].shape == (B2B_IMAGE, B2B_IMAGE, 3)):
+                and written[0].shape == (image, image, 3)):
             raise AssertionError(f"{label} request {i} wrote "
                                  f"{len(written)} frames")
     launches = read_launches()                   # and end here
@@ -4640,12 +4703,13 @@ def _serve_b2b(ckpt, served, sopt, frames_dir, out_dir, n, clips, extra,
                 and np.isfinite(out).all()):
             raise AssertionError(f"{label}: output {out.shape}")
         kept = max(kept, float(np.abs(out - batch["B"])[keep].max()))
-    if kept > 1e-6:
+    if kept > 1e-6 and not served.mask_as_channel:
         raise AssertionError(f"{label}: the output moved {kept} outside "
                              "the mask")
-    calls = n * clips * (2 * served.denoise_timesteps - 1)
+    calls = n * clips * (2 * (steps or served.denoise_timesteps) - 1)
     log(f"{label}: {n} requests of {clips} clips of {nf} frames "
-        f"({served.denoise_timesteps} Heun steps, {calls} denoiser calls) "
+        f"({steps or served.denoise_timesteps} Heun steps, {calls} denoiser "
+        "calls) "
         f"{[round(t, 4) for t in secs]} s, launches {launches}, outside "
         f"the mask moved {kept:.2e}")
     want = _attention_only(launches, {"flash_attention_fwd":
@@ -4704,7 +4768,7 @@ def b2b_phase(workdir):
                                  B2B_REQUESTS, 1, [], "b2b_requests")
     rec["request_autoregressive"] = _serve_b2b(
         ckpt, served, sopt, frames_dir, out_dir, 1, 2, ["--autoregressive"],
-        "b2b_autoregressive")
+        "b2b_autoregressive", steps=B2B_AR_STEPS)
     del served
     torch.cuda.empty_cache()
     return rec, {"b2b_training": rec["launches"],
@@ -5918,6 +5982,233 @@ def perceptual_phase(workdir):
     return recs, paths
 
 
+def _md_optimizer_checks(net, opt):
+    """Each of muon, radam (fp32 and bf16 first moment), lion (the same)
+    and madgrad: one update from seeded gradients of parameters shaped as
+    the denoiser's outside blocks1 and the motion module, on the card and
+    on the CPU (``MD_OPT_TOL`` of the largest change; Lion's sign
+    allowance). The parameters start at 0, so that each change is the
+    update itself: from the trained values (|p| ~ 0.5) the fp32 sum p + u
+    rounds to steps of 6e-8, 3.4e-4 of Muon's largest change. Returns
+    {optimizer: max error / largest change}."""
+    import copy
+
+    import torch
+    from joligen_tpu_torch.models.train_state import make_optimizer
+
+    named = [(n, p) for n, p in net.named_parameters()
+             if not n.startswith(("blocks1", "motion"))]
+    gen = torch.Generator().manual_seed(SEED + 95)
+    grads = [torch.randn(p.shape, generator=gen) * 1e-2 for _, p in named]
+    start = [torch.zeros(p.shape) for _, p in named]
+    out = {}
+    for name, moment in (("muon", "float32"), ("radam", "float32"),
+                         ("radam", "bfloat16"), ("lion", "float32"),
+                         ("lion", "bfloat16"), ("madgrad", "float32")):
+        o = copy.copy(opt)
+        o.train_optim, o.tpu_optim_moment_dtype = name, moment
+        moved = {}
+        for dev in ("cuda", "cpu"):
+            params = {n: s.clone().to(dev) for (n, _), s in
+                      zip(named, start)}
+            tx = make_optimizer(o, o.train_G_lr, params, iter_size=1)
+            tx.update([g.to(dev) for g in grads])
+            torch.cuda.synchronize()
+            moved[dev] = [params[n].cpu() - s for (n, _), s in
+                          zip(named, start)]
+        top = max(d.abs().max().item() for d in moved["cpu"])
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(moved["cuda"], moved["cpu"]))
+        if name == "lion":
+            ok = top > 0 and all(
+                ((a - b).abs() > MD_OPT_TOL * top).float().mean() <= 0.01
+                and (a - b).abs().max() <= 2 * o.train_G_lr + 1e-7
+                for a, b in zip(moved["cuda"], moved["cpu"]))
+        else:
+            ok = top > 0 and err <= MD_OPT_TOL * top
+        label = name if moment == "float32" else f"{name}_bf16_moment"
+        out[label] = {"max_abs_err": err, "largest_change": top}
+        log(f"multi-dataset: {label} update card vs CPU over "
+            f"{len(named)} parameters: err {err:.3e}, largest change "
+            f"{top:.3e}")
+        if not ok:
+            raise AssertionError(f"{label}: the card's update differs from "
+                                 f"the CPU's: {err} of {top}")
+    return out
+
+
+def multi_dataset_phase(workdir):
+    """The multi-dataset B2B path (see the module doc, item 22). Returns
+    (record, launch counts per path)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from joligen_tpu_torch import card_line
+    from joligen_tpu_torch.data import create_dataset
+    from joligen_tpu_torch.models import create_model
+    from joligen_tpu_torch.models.convert import torch_to_flax
+    from joligen_tpu_torch.models.modules.vit_vid import JiTViD
+    from joligen_tpu_torch.options import TrainOptions
+    from joligen_tpu_torch.scripts import gen_multi_dataset_b2b_config as mgen
+    from joligen_tpu_torch.scripts.common import load_model_from_file
+    from joligen_tpu_torch.tools.synthetic_datasets import write_video
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shm = _shm_workdir(workdir, "multi_dataset")
+    try:
+        roots = os.path.join(shm, "roots")
+        for i, size in enumerate(MD_IMAGES):
+            write_video(os.path.join(roots, f"clips{i}"), MD_SERIES, size,
+                        seed=SEED + 96 + i, n_series=1, phases=("train",))
+        multi_path, train_path = mgen.main([
+            "--datasets-root", roots, "--output-dir",
+            os.path.join(shm, "config"), "--checkpoints-dir",
+            os.path.join(shm, "ckpt")])
+        with open(multi_path) as f:
+            multi = json.load(f)
+        crops = [d["overrides"]["data_online_creation_crop_size_A"]
+                 for d in multi["datasets"]]
+        trace_dir = os.path.join(shm, "trace")
+        # the train CLI's parse of the written config; one epoch of it
+        opt = TrainOptions().parse_cli([
+            "--config_json", train_path, "--train_n_epochs", "1",
+            "--tpu_profile_dir", trace_dir])
+        children = create_dataset(opt, "train").children
+        if not (opt.data_dataset_mode == "multi_dataset"
+                and len(children) == 2 and len(set(crops)) == 2
+                and opt.train_optim == "muon" and opt.G_netG == "vit_vid"
+                and opt.G_vit_variant == "JiT-B/16"
+                and opt.data_crop_size == 256
+                and opt.data_temporal_number_frames == 2
+                and opt.train_batch_size == 8 and opt.train_iter_size == 4
+                and opt.train_G_ema and opt.train_beta2 == 0.95
+                and set(opt.alg_b2b_perceptual_loss) == {"LPIPS", "DISTS"}):
+            raise AssertionError(f"the generated config is not the "
+                                 f"multi-dataset B2B one: {vars(opt)}")
+        log(f"multi-dataset: generated {train_path}: children crops "
+            f"{crops}, {opt.train_batch_size} clips of "
+            f"{opt.data_temporal_number_frames} frames at "
+            f"{opt.data_crop_size} px, {opt.train_optim} at iter_size "
+            f"{opt.train_iter_size}")
+        if _b2b_k1_per_call(opt) != B2B_K1_PER_CALL:
+            raise AssertionError("the denoiser's attention sites changed")
+        model, opt, rec = _train_run(opt, MD_STEPS, 1,
+                                     "multi_dataset_b2b training",
+                                     EXPECTED_PARAMS_MD,
+                                     attention_per_step=B2B_K1_PER_CALL)
+        net, tx = model.nets["G_A"], model.states["G_A"].tx
+        muon = tx.inner
+        leaves = _leaves(torch_to_flax({k: v.detach().cpu() for k, v in
+                                        net.state_dict().items()}))
+        flax_2d = sum(np.ndim(a) == 2 for a in leaves)
+        rec["muon_leaves"], rec["flax_rank_2_leaves"] = len(muon.leaves), \
+            flax_2d
+        log(f"multi-dataset: Muon takes {len(muon.leaves)} leaves, the "
+            f"flax-rank rule {flax_2d}, of {len(leaves)} flax leaves")
+        del leaves
+        if not (isinstance(net, JiTViD) and model.use_ema
+                and tx.gradient_step == MD_STEPS // opt.train_iter_size
+                and len(muon.leaves) == flax_2d == EXPECTED_MUON_LEAVES_MD
+                and "G_perceptual" in rec["losses_last"]):
+            raise AssertionError("multi_dataset_b2b did not train as "
+                                 "configured")
+        traces = [f for f in os.listdir(trace_dir)
+                  if f.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"the profile directory holds {traces}")
+        rec["trace_bytes"] = os.path.getsize(os.path.join(trace_dir,
+                                                          traces[0]))
+        # the save reloaded: the EMA and the Muon/Adam state bit for bit
+        again = create_model(opt, phase="train")
+        again.load_networks("latest")
+        if not (all(torch.equal(a, b) for a, b in zip(
+                model.ema_nets["G_A"].state_dict().values(),
+                again.ema_nets["G_A"].state_dict().values()))
+                and _same_state(tx.state_dict(),
+                                again.states["G_A"].tx.state_dict())):
+            raise AssertionError("the reloaded EMA or optimizer state "
+                                 "differs")
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a Muon update alone (Newton-Schulz included), fed gradients
+        grads = [torch.randn_like(p) * 1e-3 for p in tx.inner.params]
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            muon.update(grads)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        rec["muon_update_ms"] = [s * 1e3 for s in secs]
+        del grads
+        rec["optimizers_card_vs_cpu"] = _md_optimizer_checks(net, opt)
+        batch = _first_batch(opt)
+        reset_launches()
+        rec["profiled_micro_step"] = _profiled_step(model, opt, batch)
+        per = read_launches()
+        rec["profiled_micro_step"]["launches_3_micro_steps"] = per
+        step = rec["profiled_micro_step"]
+        rec["frames_per_s"] = (opt.train_batch_size
+                               * opt.data_temporal_number_frames
+                               / (step["latency_ms"] / 1e3))
+        log(f"multi-dataset: profiled micro-step {step}, "
+            f"{rec['frames_per_s']:.1f} frames/s, Muon update "
+            f"{[round(t, 2) for t in rec['muon_update_ms']]} ms, peak "
+            f"{rec['max_memory_allocated'] / 1e9:.2f} GB ({card_line()})")
+        del model, net, tx, muon
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a clip request from the saved EMA
+        ckpt = os.path.join(opt.checkpoints_dir, opt.name,
+                            "latest_net_G_A.pth")
+        served, sopt = load_model_from_file(ckpt)
+        frames = os.path.join(roots, "clips0", "trainA", "vid0")
+        # two requests: the first one's latency, and a warm one's
+        rec["request"] = _serve_b2b(
+            ckpt, served, sopt, frames, os.path.join(shm, "out"), 2, 1, [],
+            "multi_dataset_b2b_request", image=MD_IMAGES[0])
+        del served
+    finally:
+        shutil.rmtree(shm, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # --cond_in through the palette checkpoint of the training phase
+    ckpt = os.path.join(workdir, "train_ckpt", "smoke_train_128px",
+                        "latest_net_G_A.pth")
+    exemplar = _write_ref_png(os.path.join(workdir, "exemplar.png"), 48,
+                              SEED + 97)
+    cond, _, _, served = _serve_request(
+        ckpt, os.path.join(workdir, "img.png"),
+        os.path.join(workdir, "out_cond_in"),
+        ["--mask_in", os.path.join(workdir, "mask.png"), "--cond_in",
+         exemplar, "--cond_rotation", "20", "--cond_persp_horizontal",
+         "0.2", "--cond_persp_vertical", "0.2", "--cond_keep_ratio"],
+        "cond_in")
+    del served
+    rec["cond_in_request"] = cond
+    return rec, {"multi_dataset_b2b_training": rec["launches"],
+                 "multi_dataset_b2b_profiled_micro_steps":
+                     rec["profiled_micro_step"]["launches_3_micro_steps"],
+                 "multi_dataset_b2b_request": rec["request"]["launches"],
+                 "cond_in_request": cond["launches"]}
+
+
+def _leaves(tree):
+    return [x for v in tree.values()
+            for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _same_state(a, b):
+    """Two optimizer state dicts equal bit for bit."""
+    import numpy as np
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same_state(a[k], b[k]) for k in a)
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
 def ptxas_spills(ptxas):
     """The functions of a ``-Xptxas=-v`` log whose registers spill, each
     with its log line."""
@@ -6070,6 +6361,8 @@ def main():
         palette_zoo, palette_zoo_paths = phase("palette zoo",
                                                palette_zoo_phase, workdir)
         re_runs, re_paths = phase("ReCycleGAN and ReCUT", re_phase, workdir)
+        md, md_paths = phase("multi-dataset b2b", multi_dataset_phase,
+                             workdir)
     metric_nets = phase("metrics", metrics_phase)
     grad_check = phase("gradient cross-check", gradient_cross_check)
     vid["cross_check_fp32_max_abs_err"] = phase("video cross-check",
@@ -6093,7 +6386,8 @@ def main():
              **mat_paths, **mat_video_paths, **image_paths, **wide_paths,
              **perc_paths, **cyclegan_paths, **cyclegan_unet_paths,
              **zoo_paths, **palette_zoo_paths, **re_paths, **sem_paths,
-             **cut_video_paths, **b2b_gc_paths, **probe_launches}
+             **cut_video_paths, **b2b_gc_paths, **md_paths,
+             **probe_launches}
     kernels = [k1, k2, k3, p1, p2, p3]
     for k in kernels:
         per_path = {p: c[k["name"]] for p, c in paths.items()}
@@ -6124,6 +6418,7 @@ def main():
     log("ReCycleGAN and ReCUT: " + json.dumps(re_runs))
     log("semantic nets: " + json.dumps(sem_runs))
     log("video context: " + json.dumps({**b2b_gc, **cut_video}))
+    log("multi-dataset b2b: " + json.dumps(md))
     log("metrics: " + json.dumps(metric_nets))
     log("phases (s): " + json.dumps(seconds))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -35,7 +35,9 @@ PORTED_MODES = ("unaligned_labeled_mask", "unaligned_labeled_mask_cls",
                 "temporal_labeled_mask_online",
                 "self_supervised_vid_mask_online",
                 "self_supervised_vid_labeled_mask_cls_online",
-                "nuplet_unaligned_labeled_mask")
+                "nuplet_unaligned_labeled_mask",
+                "unaligned_labeled_mask_online_prompt", "colorization",
+                "multi_dataset", "self_supervised_temporal")
 
 
 def find_dataset_class(mode):
@@ -58,7 +60,10 @@ def find_dataset_class(mode):
                                     D.TemporalLabeledMaskOnlineDataset,
                                     D.SelfSupervisedVidMaskOnlineDataset,
                                     D.SelfSupervisedVidLabeledMaskClsOnlineDataset,
-                                    D.NupletUnalignedLabeledMaskDataset)))
+                                    D.NupletUnalignedLabeledMaskDataset,
+                                    D.UnalignedLabeledMaskOnlinePromptDataset,
+                                    D.ColorizationDataset, D.MultiDataset,
+                                    D.SelfSupervisedTemporalDataset)))
     if mode not in table:
         raise NotImplementedError(
             f"dataset mode {mode} is not ported (ported: {PORTED_MODES}; "

@@ -2,11 +2,15 @@
 ``joligen_tpu/data/datasets.py``: the labeled-mask modes (``:31-227``), the
 online bbox-crop modes (``:229-357``), the unaligned mode (``:74-97``), the
 four ref modes (``:361-470``: a reference image per sample from
-``trainA/conditions.txt``, as ``ref_A``), the aligned and single modes
-(``:663-698``), the nuplet mode (``:515-558``: N consecutive frames of
-each domain, (N, H, W, C)) and the online video modes (``:705-965``:
-clips of ``data_temporal_number_frames`` frames, (F, H, W, C), every frame
-cropped with frame 0's window and one rotation draw).
+``trainA/conditions.txt``, as ``ref_A``), the online prompt mode
+(``:471-486``: ``real_B_prompt`` from ``trainB/prompts.txt``),
+colorization (``:489-512``: L and ab of an RGB image, cv2's 8-bit Lab in
+numpy), the nuplet mode (``:515-558``: N consecutive frames of each
+domain, (N, H, W, C)), the multi-dataset mixture (``:560-650``), the
+aligned and single modes (``:663-698``) and the online video modes
+(``:705-977``: clips of ``data_temporal_number_frames`` frames, (F, H, W,
+C), every frame cropped with frame 0's window and one rotation draw; the
+self-supervised temporal pairs).
 
 Each dataset returns per-sample dicts of numpy arrays with keys matching the
 reference contract (data/base_dataset.py:120-195): ``A``, ``B`` (H,W,C float32
@@ -22,7 +26,7 @@ import random
 import numpy as np
 
 from .image_folder import (make_dataset, make_labeled_path_dataset,
-                           make_ref_path)
+                           make_ref_path, make_ref_path_list)
 from .online_creation import crop_image, sample_rotation_state
 from .temporal_sampling import (TemporalFrameStepMixin,
                                 build_temporal_series_index,
@@ -364,6 +368,179 @@ class SelfSupervisedLabeledMaskOnlineDataset(UnalignedLabeledMaskOnlineDataset):
 
 class SelfSupervisedLabeledMaskClsOnlineDataset(SelfSupervisedLabeledMaskOnlineDataset):
     with_cls = True
+
+
+class UnalignedLabeledMaskOnlinePromptDataset(
+        UnalignedLabeledMaskOnlineDataset):
+    """The online mode with a text prompt a B image, ``real_B_prompt``,
+    from ``trainB/prompts.txt`` (reference
+    data/unaligned_labeled_mask_online_prompt_dataset.py)."""
+
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        self.B_img_prompt = make_ref_path_list(self.dir_B, "/prompts.txt")
+
+    def __getitem__(self, index):
+        out = super().__getitem__(index)
+        if out is None or "B_img_paths" not in out:
+            return out
+        out["real_B_prompt"] = self.B_img_prompt.get(out["B_img_paths"],
+                                                     [""])[0]
+        return out
+
+
+def _lab_tables():
+    """cv2's 8-bit RGB->Lab tables (imgproc color_lab.cpp: sRGB gamma at 3
+    fraction bits, the cube-root table at 15 bits in float32, the D65 XYZ
+    coefficients at 12 bits)."""
+    x = np.arange(256) / 255.0
+    lin = np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+    gamma = np.rint(255.0 * 8 * lin).astype(np.int64)
+    t = (np.arange(256 * 3 // 2 * 8).astype(np.float32)
+         / np.float32(255 * 8)).astype(np.float32)
+    cbrt = np.where(t < np.float32(0.008856),
+                    t * np.float32(7.787) + np.float32(16.0 / 116.0),
+                    np.cbrt(t)).astype(np.float32)
+    cbrt = np.rint(np.float32(1 << 15) * cbrt).astype(np.int64)
+    xyz = np.array([[0.412453, 0.357580, 0.180423],
+                    [0.212671, 0.715160, 0.072169],
+                    [0.019334, 0.119193, 0.950227]])
+    white = np.array([0.950456, 1.0, 1.088754])
+    coeffs = np.rint((1 << 12) * xyz / white[:, None]).astype(np.int64)
+    return gamma, cbrt, coeffs
+
+
+def rgb_to_lab_u8(rgb):
+    """``cv2.cvtColor(rgb, cv2.COLOR_RGB2LAB)`` for uint8 (H, W, 3): L in
+    [0, 255] (L·255/100), a + 128, b + 128, in cv2's integer arithmetic
+    (bit for bit on every 8-bit colour)."""
+    gamma, cbrt, c = _lab_tables()
+    rgb = gamma[np.asarray(rgb, np.uint8)]
+
+    def descale(v, n):
+        return (v + (1 << (n - 1))) >> n
+    f = [cbrt[descale(rgb @ c[i], 12)] for i in range(3)]
+    L = descale(((116 * 255 + 50) // 100) * f[1]
+                - (16 * 255 * (1 << 15) + 50) // 100, 15)
+    a = descale(500 * (f[0] - f[1]) + 128 * (1 << 15), 15)
+    b = descale(200 * (f[1] - f[2]) + 128 * (1 << 15), 15)
+    return np.clip(np.stack([L, a, b], -1), 0, 255).astype(np.uint8)
+
+
+class ColorizationDataset(BaseDataset):
+    """RGB -> (L, ab) pairs for pix2pix colorization (reference
+    data/colorization_dataset.py; the JAX package's cv2 8-bit Lab): A = L,
+    B = ab, each scaled from [0, 255] to [-1, 1]; images from
+    ``<dataroot>/<phase>``, else ``<phase>A``."""
+
+    def __init__(self, opt, phase, name=""):
+        super().__init__(opt, phase, name)
+        d = os.path.join(self.root, phase)
+        if not os.path.isdir(d):
+            d = self.dir_A
+        self.A_img_paths = make_dataset(d, opt.data_max_dataset_size)
+        self.A_size = len(self.A_img_paths)
+
+    def __getitem__(self, index):
+        path = self.A_img_paths[index % self.A_size]
+        p = self.transform.sample_params()
+        rgb = self.transform.image(self._load_img(path), p)
+        u8 = ((rgb + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+        lab = rgb_to_lab_u8(u8).astype(np.float32)
+        return {"A": lab[:, :, :1] / 127.5 - 1.0,
+                "B": lab[:, :, 1:] / 127.5 - 1.0, "A_img_paths": path}
+
+
+class MultiDataset:
+    """A weighted mixture of child datasets, each with its option overrides,
+    from the JSON file ``data_multi_dataset_config`` (the JAX package's
+    ``MultiDataset``; reference data/multi_dataset_dataset.py:52-305). Two
+    schemas: a list {"datasets": [{"name", "dataset_mode", "dataroot",
+    "weight", "overrides"}], "test_sets": [{"id", "dataset" or
+    "dataset_name", "test_name" or "child_test_name", "dataroot"}]}, whose
+    phase ``test`` keeps the child of the test set whose id is ``name``;
+    or a dict {"datasets": {name: {"dataroot", "weight", <options>}}}.
+    ``data_multi_dataset_crop_delta_scale`` scales each child's
+    ``data_online_creation_crop_delta_A``; a child cannot be a mixture.
+    A sample draws a child by weight and then an index, with ``random`` in
+    the JAX order."""
+
+    def __init__(self, opt, phase, name=""):
+        import copy
+        import json
+        cfg_path = getattr(opt, "data_multi_dataset_config", "") or ""
+        if not cfg_path:
+            raise ValueError("multi_dataset mode requires "
+                             "--data_multi_dataset_config")
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+        entries = cfg["datasets"]
+        if isinstance(entries, dict):
+            entries = [{"name": cname,
+                        "dataset_mode": c.get("data_dataset_mode",
+                                              opt.data_dataset_mode),
+                        "overrides": {k: v for k, v in c.items()
+                                      if k not in ("weight",
+                                                   "data_dataset_mode")},
+                        "weight": c.get("weight", 1.0)}
+                       for cname, c in entries.items()]
+        child_test_names = {}
+        if phase == "test" and cfg.get("test_sets"):
+            ts = next((t for t in cfg["test_sets"] if t.get("id") == name),
+                      None)
+            if ts is None:
+                raise ValueError(
+                    f"test set id '{name}' not in config test_sets: "
+                    f"{[t.get('id') for t in cfg['test_sets']]}")
+            ds = ts.get("dataset", ts.get("dataset_name"))
+            tn = ts.get("test_name", ts.get("child_test_name", ""))
+            entries = [dict(e) for e in entries if e.get("name") == ds]
+            if ts.get("dataroot"):
+                for e in entries:
+                    e["dataroot"] = ts["dataroot"]
+            child_test_names = {ds: tn}
+        from . import find_dataset_class
+        delta_scale = float(getattr(
+            opt, "data_multi_dataset_crop_delta_scale", 1.0) or 1.0)
+        self.children, self.weights = [], []
+        for i, c in enumerate(entries):
+            cname = c.get("name", f"dataset_{i}")
+            child_opt = copy.deepcopy(opt)
+            overrides = dict(c.get("overrides", {}))
+            if "dataroot" in c:
+                overrides["dataroot"] = c["dataroot"]
+            if "data_online_creation_crop_delta_A" in overrides:
+                overrides["data_online_creation_crop_delta_A"] = int(
+                    overrides["data_online_creation_crop_delta_A"]
+                    * delta_scale)
+            for k, v in overrides.items():
+                setattr(child_opt, k, v)
+            mode = c.get("dataset_mode", opt.data_dataset_mode)
+            if mode == "multi_dataset":
+                raise ValueError("multi_dataset cannot nest")
+            child_opt.data_dataset_mode = mode
+            child_name = (child_test_names.get(cname, name)
+                          if phase == "test" else name)
+            self.children.append(find_dataset_class(mode)(
+                child_opt, phase, name=child_name))
+            self.weights.append(float(c.get("weight", 1.0)))
+        total = sum(self.weights)
+        if total <= 0:
+            raise ValueError("at least one multi_dataset child weight "
+                             "must be > 0")
+        self.weights = [w / total for w in self.weights]
+
+    def __len__(self):
+        return sum(len(c) for c in self.children)
+
+    def __getitem__(self, index):
+        r = random.random()
+        acc = 0.0
+        for child, w in zip(self.children, self.weights):
+            acc += w
+            if r <= acc:
+                return child[random.randint(0, len(child) - 1)]
+        return self.children[-1][index % len(self.children[-1])]
 
 
 def ref_resize(img, size):
@@ -768,3 +945,25 @@ class SelfSupervisedVidMaskOnlineDataset(TemporalLabeledMaskOnlineDataset):
 class SelfSupervisedVidLabeledMaskClsOnlineDataset(
         SelfSupervisedVidMaskOnlineDataset):
     with_cls = True
+
+
+class SelfSupervisedTemporalDataset(TemporalLabeledMaskOnlineDataset):
+    """Next-frame pairs: A = [frame 0, frame 1 masked], B = [frame 0,
+    frame 1] (reference data/self_supervised_temporal_dataset.py); a clip
+    of fewer than 2 frames is skipped."""
+
+    def __getitem__(self, index):
+        out = super().__getitem__(index)
+        if out is None:
+            return None
+        frames, masks = out["A"], out["A_label_mask"]
+        if frames.shape[0] < 2:
+            return None
+        if getattr(self.opt, "data_online_creation_rand_mask_A", True):
+            masked1 = fill_mask_with_random(frames[1], masks[1], -1)
+        else:
+            masked1 = fill_mask_with_color(frames[1], masks[1])
+        out["B"] = frames
+        out["B_label_mask"] = masks.copy()
+        out["A"] = np.stack([frames[0], masked1])
+        return out

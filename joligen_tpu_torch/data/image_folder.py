@@ -54,3 +54,17 @@ def make_ref_path(d, paths):
             if len(parts) == 2:
                 ref[parts[0]] = parts[1]
     return ref
+
+
+def make_ref_path_list(d, paths):
+    """img path -> [its entry], from ``<d><paths>`` lines '<img> <rest of
+    the line>' (prompts, or reference paths) (reference
+    data/image_folder.py:139-160)."""
+    ref = {}
+    assert os.path.isdir(d), f"{d} is not a valid directory"
+    with open(d + paths) as f:
+        for line in f.read().split("\n"):
+            parts = line.split(" ", 1)
+            if len(parts) == 2:
+                ref[parts[0]] = [parts[1]]
+    return ref

@@ -13,6 +13,7 @@ model.
 
 from __future__ import annotations
 
+import collections
 import copy
 import os
 import pickle
@@ -22,7 +23,7 @@ import torch
 
 from .. import compute_dtype, resolve_device
 from ..utils import checkpoint_io
-from .convert import flax_to_torch, torch_to_flax
+from .convert import flax_to_torch, optax_state_to_torch, torch_to_flax
 from .train_state import NetState, make_optimizer
 
 
@@ -72,19 +73,102 @@ def check_mesh(opt):
             "multi-GPU)")
 
 
+# the optax state classes of the JAX package's ``_optim.pkl`` (optax 0.2.6),
+# read as named tuples of the same fields
+_OPTAX_STATES = {
+    "ScaleByAdamState": ("count", "mu", "nu"),
+    "ScaleByLionState": ("count", "mu"),
+    "MuonState": ("count", "mu", "ns_coeffs"),
+    "ScaleByScheduleState": ("count",),
+    "EmptyState": (),
+    "MaskedNode": (),
+    "MaskedState": ("inner_state",),
+    "PartitionState": ("inner_states",),
+    "MultiStepsState": ("mini_step", "gradient_step", "inner_opt_state",
+                        "acc_grads", "skip_state"),
+}
+_OPTAX_CLASSES = {name: collections.namedtuple(name, fields)
+                  for name, fields in _OPTAX_STATES.items()}
+
+
+class _BF16Array(np.ndarray):
+    """An array as numpy unpickles it; ``bf16`` marks the raw 16-bit words
+    of an ``ml_dtypes.bfloat16`` array."""
+
+    bf16 = False
+
+    def __setstate__(self, state):
+        dtype = state[2]
+        marked = getattr(dtype, "names", None) == ("bfloat16",)
+        if marked:
+            state = state[:2] + (np.dtype("<u2"),) + state[3:]
+        super().__setstate__(state)
+        self.bf16 = marked
+
+
+def _reconstruct(cls, shape, dtype):
+    return np.ndarray.__new__(_BF16Array, shape, dtype)
+
+
+def _bf16_dtype(obj, *args):
+    """``numpy.dtype``; for the bfloat16 stand-in a fresh marked 2-byte
+    dtype (its pickled state is then applied to that copy alone)."""
+    if obj is _BFloat16:
+        return np.dtype([("bfloat16", "<u2")])
+    return np.dtype(obj, *args)
+
+
+class _BFloat16:
+    """Stand-in for ``ml_dtypes.bfloat16``."""
+
+
+def _plain(obj):
+    """Unpickled state -> numpy arrays (a bf16 one widened to fp32 bit for
+    bit), named tuples, dicts, lists and scalars."""
+    if isinstance(obj, _BF16Array):
+        a = np.asarray(obj).view(np.ndarray)
+        if obj.bf16:
+            return (a.astype(np.uint32) << 16).view(np.float32)
+        return np.array(a)
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_plain(v) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_plain(v) for v in obj)
+    return obj
+
+
 class _PlainUnpickler(pickle.Unpickler):
-    """Reads the port's ``_optim.pkl`` (dicts, ints, numpy arrays) and
-    refuses any other class: the JAX package's file holds optax state
-    classes, which the port cannot read."""
+    """Reads an ``_optim.pkl``: the port's (dicts, ints, numpy arrays) or
+    the JAX package's (optax's state classes, ``_OPTAX_STATES``, read as
+    named tuples; ``ml_dtypes.bfloat16`` arrays widened to fp32), without
+    importing optax or ml_dtypes. Any other class is refused."""
 
     def find_class(self, module, name):
+        if module == "ml_dtypes" and name == "bfloat16":
+            return _BFloat16
+        if (module.startswith("numpy") and name == "_reconstruct"):
+            return _reconstruct
+        if module == "numpy" and name == "dtype":
+            return _bf16_dtype
         if module == "numpy" or module.startswith("numpy."):
             return super().find_class(module, name)
-        raise NotImplementedError(
-            f"optimizer state file holds {module}.{name}: reading the JAX "
-            "package's optax _optim.pkl is not ported (ROADMAP Queue 1 item "
-            "6, training state, the rest); resume without it (load_optim=False, as "
-            "--train_continue_from does)")
+        if module.startswith("optax.") and name in _OPTAX_CLASSES:
+            return _OPTAX_CLASSES[name]
+        raise pickle.UnpicklingError(
+            f"optimizer state file holds {module}.{name}, which is neither "
+            "the port's state nor an optax state of the JAX package")
+
+    def load(self):
+        return _plain(super().load())
+
+
+def _port_state(state):
+    """Whether an unpickled optimizer state is the port's (a dict keyed by
+    the port's fields) rather than optax's (named tuples, or the JAX
+    madgrad's dict with ``k``)."""
+    return isinstance(state, dict) and "k" not in state
 
 
 class BaseModel:
@@ -115,7 +199,8 @@ class BaseModel:
         if use_ema:
             self.ema_nets[name] = copy.deepcopy(net).requires_grad_(False)
         if self.is_train:
-            tx = make_optimizer(self.opt, lr, dict(net.named_parameters()))
+            tx = make_optimizer(self.opt, lr, dict(net.named_parameters()),
+                                as_flax=hasattr(net, "flax_tree"))
             self.states[name] = NetState(net, self.ema_nets.get(name), tx)
 
     def put_batch(self, batch):
@@ -326,8 +411,17 @@ class BaseModel:
             with open(opt_path, "rb") as f:
                 saved = _PlainUnpickler(f).load()
             for name, state in saved.items():
-                if name in self.states:
-                    self.states[name].tx.load_state_dict(state)
+                if name not in self.states:
+                    continue
+                if not _port_state(state):    # the JAX package's optax state
+                    net = self.nets[name]
+                    if hasattr(net, "flax_tree"):
+                        raise NotImplementedError(
+                            f"{name}: reading an optax state of an adapter "
+                            "tree is not ported")
+                    state = optax_state_to_torch(
+                        state, getattr(net, "flax_weight_leaves", False))
+                self.states[name].tx.load_state_dict(state)
 
     def param_count(self):
         return {n: sum(p.numel() for p in net.parameters())

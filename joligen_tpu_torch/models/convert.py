@@ -82,7 +82,9 @@ keys of its branches (``I3D.flax_tree`` joins them again on the way back).
 
 Both directions only transpose, so they are exact. The same mapping carries
 an optax adam/adamw state (count, mu, nu) to the port's optimizer state and
-back.
+back, and the state of radam, lion, muon and the JAX package's madgrad to
+the port's (``optax_state_to_torch``). ``flax_layout`` names a torch
+parameter's flax leaf (Muon picks its leaves by their flax rank).
 """
 
 from __future__ import annotations
@@ -180,29 +182,64 @@ def _tree_to_torch_numpy(tree, weight_leaves=False):
             flax_to_torch(f32(tree), weight_leaves).items()}
 
 
-def optax_adam_state_to_torch(opt_state, weight_leaves=False):
-    """An optax adam/adamw state (the ``chain`` tuple, optionally inside
-    ``MultiStepsState``) -> the port's optimizer state dict
-    (``models/train_state.py``): ``{"count", "mu", "nu"}``, or
-    ``{"mini_step", "gradient_step", "acc_grads", "inner"}`` around it.
-    Reads the NamedTuples by field name; optax is not imported."""
+def _masked(v):
+    return type(v).__name__ == "MaskedNode"
+
+
+def _unmasked(tree):
+    """``tree`` without optax's ``MaskedNode`` leaves (and the dicts they
+    leave empty)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            v = _unmasked(v)
+            if v:
+                out[k] = v
+        elif not _masked(v):
+            out[k] = v
+    return out
+
+
+def optax_state_to_torch(opt_state, weight_leaves=False):
+    """An optax state of the JAX ``make_optimizer`` -> the port's optimizer
+    state dict (``models/train_state.py``), reading the NamedTuples by field
+    name (optax is not imported): adam, adamw and radam (the ``chain``
+    holding ``ScaleByAdamState``) -> {"count", "mu", "nu"}; lion
+    (``ScaleByLionState``) -> {"count", "mu"}; the JAX package's madgrad
+    dict {"s", "v", "x0", "k"} -> {"count", "s", "v", "x0"}; muon (the
+    ``PartitionState`` of its ``muon`` and ``adam`` branches, each leaf of
+    one a ``MaskedNode`` in the other) -> {"count", "mu", "adam"}; each in
+    {"mini_step", "gradient_step", "acc_grads", "inner"} under
+    ``MultiStepsState``."""
+    tree = lambda t: _tree_to_torch_numpy(_unmasked(t), weight_leaves)
     if hasattr(opt_state, "mini_step"):
         return {"mini_step": int(opt_state.mini_step),
                 "gradient_step": int(opt_state.gradient_step),
-                "acc_grads": _tree_to_torch_numpy(opt_state.acc_grads,
-                                                  weight_leaves),
-                "inner": optax_adam_state_to_torch(opt_state.inner_opt_state,
-                                                   weight_leaves)}
-    adam = next(s for s in opt_state if hasattr(s, "mu"))
-    return {"count": int(adam.count),
-            "mu": _tree_to_torch_numpy(adam.mu, weight_leaves),
-            "nu": _tree_to_torch_numpy(adam.nu, weight_leaves)}
+                "acc_grads": tree(opt_state.acc_grads),
+                "inner": optax_state_to_torch(opt_state.inner_opt_state,
+                                              weight_leaves)}
+    if isinstance(opt_state, dict) and "x0" in opt_state:
+        return {"count": int(opt_state["k"]), "s": tree(opt_state["s"]),
+                "v": tree(opt_state["v"]), "x0": tree(opt_state["x0"])}
+    if hasattr(opt_state, "inner_states"):
+        branches = dict(opt_state.inner_states)
+        muon = next(s for s in branches["muon"].inner_state
+                    if hasattr(s, "ns_coeffs"))
+        return {"count": int(muon.count), "mu": tree(muon.mu),
+                "adam": optax_state_to_torch(
+                    branches["adam"].inner_state, weight_leaves)}
+    first = next(s for s in opt_state if hasattr(s, "mu"))
+    out = {"count": int(first.count), "mu": tree(first.mu)}
+    if hasattr(first, "nu"):
+        out["nu"] = tree(first.nu)
+    return out
 
 
 def torch_adam_state_to_optax(state, template, weight_leaves=False):
-    """Inverse of ``optax_adam_state_to_torch``: fills a copy of
-    ``template`` (the optimizer's own ``init`` state, which gives the
-    NamedTuple types and the leaf dtypes) from the port's state dict."""
+    """Inverse of ``optax_state_to_torch`` for adam and adamw: fills a
+    copy of ``template`` (the optimizer's own ``init`` state, which gives
+    the NamedTuple types and the leaf dtypes) from the port's state
+    dict."""
     def tree(arrays, like):
         flax = torch_to_flax({k: torch.from_numpy(np.asarray(v, np.float32))
                               for k, v in arrays.items()}, weight_leaves)
@@ -295,6 +332,31 @@ def _set(root, path, arr):
     for p in path[:-1]:
         node = node.setdefault(p, {})
     node[path[-1]] = arr
+
+
+def flax_layout(name, ndim):
+    """Where a torch parameter lies in the flax tree (``torch_to_flax``'s
+    rules): (the flax path of its leaf, its index in a scanned stack or
+    None, whether the flax leaf is its transpose: a Dense weight)."""
+    parts = name.split(".")
+    leaf, module = parts[-1], parts[-2] if len(parts) > 1 else ""
+    transposed = False
+    if leaf != "weight" or leaf in RAW_LEAVES:   # as they are (MAT's too)
+        fname = leaf
+    elif ndim in (4, 5):
+        fname = "kernel"
+    elif ndim == 1:
+        fname = "scale"
+    elif module.startswith("embedder"):
+        fname = "embedding"
+    else:
+        fname, transposed = "kernel", ndim == 2
+    path = parts[:-1] + [fname]
+    for i in range(len(path) - 1):
+        if SCAN_STACK.match(path[i]) and path[i + 1].isdigit():
+            return (tuple(path[:i + 1] + ["block"] + path[i + 2:]),
+                    int(path[i + 1]), transposed)
+    return tuple(path), None, transposed
 
 
 def flax_kernel_path(weight_name):

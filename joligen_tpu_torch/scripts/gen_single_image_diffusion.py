@@ -27,8 +27,15 @@ Same CLI and outputs as the JAX script: ``<name>_orig.png``,
   read as RGB, PIL BICUBIC-resized to the crop and mapped to [-1, 1]
   (the JAX script's ``:224-231``).
 
-``--cond_in`` (exemplar insertion) raises, and so does a video model
-(``scripts/gen_vid_diffusion.py`` serves it).
+- ``--cond_in``: an exemplar pasted into the mask's box over the
+  conditioning image (the JAX script's ``:183-216``): rotated by up to
+  ``--cond_rotation`` degrees (PIL, expanded, cropped to its content),
+  perspective-warped by ``--cond_persp_horizontal`` / ``_vertical``
+  (``ops/cv_warp.py``, cv2's warp in numpy; the corners drawn from
+  ``random`` in the JAX order), padded to the box's aspect with
+  ``--cond_keep_ratio``, BICUBIC-resized into the box.
+
+A video model raises (``scripts/gen_vid_diffusion.py`` serves it).
 Runs on CUDA unless ``--cpu``.
 """
 
@@ -95,10 +102,6 @@ def _check_supported(args, opt):
                      getattr(opt, "alg_diffusion_cond_image_creation", "y_t")
                      or "y_t")
     check_cond_creation(opt, cond_creation)
-    if args.cond_in:
-        raise NotImplementedError(
-            "--cond_in exemplar insertion needs a perspective warp "
-            "(ROADMAP Queue 1 item 7, entry points, the rest)")
     if opt.model_type not in ("palette", "cm", "cm_gan", "sc", "b2b"):
         raise NotImplementedError(
             f"model type {opt.model_type} (ROADMAP Queue 1 items 9 to 13, "
@@ -140,6 +143,78 @@ def build_cond(args, opt, cond_creation, crop, mask):
     if cond_creation == "pix2pix":
         return crop
     return fill_mask_with_random(crop, mask, -1)     # y_t
+
+
+def cond_augment(arr_u8, rotation, persp_horizontal, persp_vertical):
+    """The exemplar's random rotation (PIL, expanded, cropped to its
+    content) and horizontal and vertical perspective warp (the JAX script's
+    ``_cond_augment``, ``:74-107``: the same ``random`` calls in the same
+    order)."""
+    from PIL import Image
+
+    from ..ops.cv_warp import get_perspective_transform, warp_perspective
+    if rotation:
+        ang = random.uniform(-rotation, rotation)
+        im = Image.fromarray(arr_u8).rotate(ang, Image.BICUBIC, expand=True)
+        bbox = im.getbbox()
+        if bbox:
+            im = im.crop(bbox)
+        arr_u8 = np.asarray(im)
+    h, w = arr_u8.shape[:2]
+    start = np.float32([[0, 0], [w, 0], [w, h], [0, h]])
+    end = start.copy()
+    d = h * persp_horizontal * random.random()
+    if random.choice([True, False]):
+        end[1][1] += d
+        end[2][1] -= d
+    else:
+        end[0][1] += d
+        end[3][1] -= d
+    d = h * persp_vertical * random.random()
+    if random.choice([True, False]):
+        end[3][0] += d
+        end[2][0] -= d
+    else:
+        end[0][0] += d
+        end[1][0] -= d
+    if np.any(start != end):
+        arr_u8 = warp_perspective(arr_u8, get_perspective_transform(
+            start, end), (w, h))
+    return arr_u8
+
+
+def paste_cond(args, cond, mask):
+    """``cond`` with the ``--cond_in`` exemplar pasted into the box of
+    ``mask`` (its masked pixels only)."""
+    from PIL import Image
+    sprite = cond_augment(load_image_rgb(args.cond_in), args.cond_rotation,
+                          args.cond_persp_horizontal,
+                          args.cond_persp_vertical)
+    ys, xs = np.nonzero(mask[:, :, 0])
+    if not ys.size:
+        return cond
+    x0, y0, x1, y1 = xs.min(), ys.min(), xs.max() + 1, ys.max() + 1
+    bw, bh = x1 - x0, y1 - y0
+    if args.cond_keep_ratio and bh > 0:
+        br = bw / bh
+        ch, cw = sprite.shape[:2]
+        cr = cw / max(1, ch)
+        nw, nh = cw, ch
+        if cr < br:
+            nw = round(cw * br / cr)
+        elif cr > br:
+            nh = round(ch * cr / br)
+        pad = np.zeros((nh, nw, 3), np.uint8)
+        ox, oy = (nw - cw) // 2, (nh - ch) // 2
+        pad[oy:oy + ch, ox:ox + cw] = sprite
+        sprite = pad
+    sp = np.asarray(Image.fromarray(sprite).resize((bw, bh), Image.BICUBIC),
+                    np.uint8)
+    cond = cond.copy()
+    region = mask[y0:y1, x0:x1, 0:1] > 0
+    cond[y0:y1, x0:x1] = np.where(region, sp.astype(np.float32) / 127.5 - 1.0,
+                                  cond[y0:y1, x0:x1])
+    return cond
 
 
 def load_ref(path, size):
@@ -186,6 +261,8 @@ def inference(args, lmodel=None, lopt=None):
 
     img, crop, mask, bbox_select = build_inputs(args, opt)
     cond = build_cond(args, opt, cond_creation, crop, mask)
+    if args.cond_in:
+        cond = paste_cond(args, cond, mask)
     ref = load_ref(args.ref_in, crop.shape[0]) if args.ref_in else None
 
     outs = []
@@ -244,6 +321,10 @@ def build_parser():
     p.add_argument("--sampling_steps", type=int, default=-1)
     p.add_argument("--cond_in", default="",
                    help="exemplar image pasted into the mask region")
+    p.add_argument("--cond_keep_ratio", action="store_true")
+    p.add_argument("--cond_rotation", type=float, default=0.0)
+    p.add_argument("--cond_persp_horizontal", type=float, default=0.0)
+    p.add_argument("--cond_persp_vertical", type=float, default=0.0)
     p.add_argument("--ref_in", default="",
                    help="reference image for ref-conditioned diffusion")
     p.add_argument("--alg_diffusion_guidance_scale", type=float, default=0.0,

@@ -18,8 +18,10 @@ f_s's mIoU every ``train_mask_miou_every`` images
 test set (``data.list_test_sets``, else phase ``test`` unnamed),
 ``init_metrics`` on the first, ``compute_metrics_test`` of each every
 ``train_metrics_every`` images and after the last epoch, the final values
-in ``<checkpoints_dir>/<name>/eval_results.json``. ``tpu_profile_dir``
-raises.
+in ``<checkpoints_dir>/<name>/eval_results.json``; with ``tpu_profile_dir``
+a ``torch.profiler`` trace (host and CUDA activity, a Chrome trace JSON)
+of the steps from ``total_iters`` = 3 batches to 6, the JAX loop's window
+(``train.py:198-211``).
 """
 
 from __future__ import annotations
@@ -97,11 +99,6 @@ def launch_training(opt, cpu=False, step_callback=None):
     import numpy as np
 
     resolve_device(cpu=cpu)        # no card and no --cpu: raise before work
-    if getattr(opt, "tpu_profile_dir", ""):
-        raise NotImplementedError(
-            "tpu_profile_dir: traces inside training are not ported; "
-            "python -m joligen_tpu_torch.scripts.profile_request --train "
-            "traces one training step")
 
     from .data import create_dataloader, create_dataset, list_test_sets
     from .models import create_model
@@ -156,12 +153,47 @@ def launch_training(opt, cpu=False, step_callback=None):
     stop = {"now": False}
     handlers = {s: signal.signal(s, lambda signum, frame: stop.update(now=True))
                 for s in (signal.SIGINT, signal.SIGTERM)}
+    trace = _TraceWindow(getattr(opt, "tpu_profile_dir", "") or "",
+                         opt.train_batch_size, model.device)
     try:
         return _train_loop(opt, model, dataloader, visualizer, stop,
-                           step_callback, metric_loaders)
+                           step_callback, metric_loaders, trace)
     finally:
+        trace.close()
         for s, h in handlers.items():
             signal.signal(s, h)
+
+
+class _TraceWindow:
+    """``tpu_profile_dir``'s trace: a ``torch.profiler`` run (host and,
+    on the card, CUDA activity) started before the step at ``total_iters``
+    = 3 batches and stopped after the one that reaches 6 batches (or at
+    ``close``), its trace written into the directory."""
+
+    def __init__(self, profile_dir, batch, device):
+        self.dir, self.batch, self.device = profile_dir, batch, device
+        self.prof = None
+
+    def before_step(self, total_iters):
+        if self.dir and total_iters == 3 * self.batch:
+            import torch
+            os.makedirs(self.dir, exist_ok=True)
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(
+                activities=acts, on_trace_ready=(
+                    torch.profiler.tensorboard_trace_handler(self.dir)))
+            self.prof.start()
+
+    def after_step(self, total_iters):
+        if self.prof is not None and total_iters == 6 * self.batch:
+            self.close()
+
+    def close(self):
+        if self.prof is not None:
+            prof, self.prof = self.prof, None
+            prof.stop()
 
 
 def _evaluate(model, metric_loaders, results):
@@ -177,7 +209,7 @@ def _evaluate(model, metric_loaders, results):
 
 
 def _train_loop(opt, model, dataloader, visualizer, stop, step_callback,
-                metric_loaders=()):
+                metric_loaders, trace):
     import numpy as np
 
     batch = opt.train_batch_size
@@ -198,6 +230,7 @@ def _train_loop(opt, model, dataloader, visualizer, stop, step_callback,
         epoch_t0 = time.time()
         t_prev = time.time()
         for dev, data in _feed(model, dataloader, depth):
+            trace.before_step(total_iters)
             t0 = time.time()
             t_data += t0 - t_prev
             losses = model.optimize_prepared(dev)
@@ -207,6 +240,7 @@ def _train_loop(opt, model, dataloader, visualizer, stop, step_callback,
             t_compute += t1 - t0
             t_prev = t1
             total_iters += batch
+            trace.after_step(total_iters)
             model.loop_times.update(data_s=t_data, compute_s=t_compute)
 
             if total_iters % print_every == 0:

@@ -27,7 +27,7 @@ from joligen_tpu.utils import clip_vit as jclip
 from joligen_tpu.utils import dinov2 as jdino
 from joligen_tpu_torch.models import create_model
 from joligen_tpu_torch.models.convert import (flax_to_torch,
-                                              optax_adam_state_to_torch)
+                                              optax_state_to_torch)
 from joligen_tpu_torch.options import TrainOptions
 from joligen_tpu_torch.utils import clip_vit as tclip
 from joligen_tpu_torch.utils import dinov2 as tdino
@@ -192,7 +192,7 @@ def jax_state(tm, states, pool):
     return {
         "nets": {n: flax_to_torch(states[n].params) for n in tm.nets},
         "ema": {n: flax_to_torch(states[n].ema_params) for n in tm.ema_nets},
-        "tx": {n: optax_adam_state_to_torch(states[n].opt_state)
+        "tx": {n: optax_state_to_torch(states[n].opt_state)
                for n in tm.states},
         "step": {n: int(states[n].step) for n in tm.states},
         "pool": (torch.from_numpy(np.array(pool.buffer)), int(pool.count))}

@@ -45,7 +45,7 @@ from joligen_tpu.options import TrainOptions as JaxTrainOptions
 from joligen_tpu.parallel.mesh import quantize_batch
 from joligen_tpu_torch.models import create_model
 from joligen_tpu_torch.models.convert import (flax_to_torch,
-                                              optax_adam_state_to_torch)
+                                              optax_state_to_torch)
 from joligen_tpu_torch.options import TrainOptions
 
 STEPS, LR = 3, 2e-4
@@ -184,7 +184,7 @@ def _jax_state(tm, states, pools):
     return {
         "nets": {n: flax_to_torch(states[n].params) for n in tm.nets},
         "ema": {n: flax_to_torch(states[n].ema_params) for n in tm.ema_nets},
-        "tx": {n: optax_adam_state_to_torch(states[n].opt_state)
+        "tx": {n: optax_state_to_torch(states[n].opt_state)
                for n in tm.states},
         "step": {n: int(states[n].step) for n in tm.states},
         "pools": [(torch.from_numpy(np.array(p.buffer)), int(p.count))

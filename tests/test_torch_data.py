@@ -20,7 +20,8 @@ import pytest
 from joligen_tpu.data import create_dataset as jax_create_dataset
 from joligen_tpu.options import TrainOptions as JaxTrainOptions
 from joligen_tpu_torch.data import (PORTED_MODES, create_dataloader,
-                                    create_dataset)
+                                    create_dataset,
+                                    find_dataset_class)
 from joligen_tpu_torch.options import TrainOptions
 from joligen_tpu_torch.tools.synthetic_datasets import WRITERS, write_online
 
@@ -153,10 +154,18 @@ def test_cls_layouts_match_jax_dataset(tmp_path, mode, nclasses):
 
 
 def test_unported_modes_raise(dataroot):
-    assert "self_supervised_labeled_mask" in PORTED_MODES
-    assert "unaligned" in PORTED_MODES
+    """Every mode of the JAX table is ported; a mode outside it raises."""
+    from joligen_tpu.data import find_dataset_class as jax_find
+
+    for mode in ("self_supervised_labeled_mask", "unaligned", "colorization",
+                 "multi_dataset", "self_supervised_temporal",
+                 "unaligned_labeled_mask_online_prompt"):
+        assert mode in PORTED_MODES
+    for mode in PORTED_MODES:
+        assert jax_find(mode).__name__ == find_dataset_class(mode).__name__
     opt = TrainOptions().parse_json(_cfg(dataroot, "colorization",
                                          False), verbose=False)
+    opt.data_dataset_mode = "no_such_mode"
     with pytest.raises(NotImplementedError, match="not ported"):
         create_dataset(opt)
 

@@ -47,7 +47,7 @@ from joligen_tpu.ops.schedules import NoiseSchedule as JaxNoiseSchedule
 from joligen_tpu.options import TrainOptions as JaxTrainOptions
 from joligen_tpu_torch.models import diffusion_networks as tdn
 from joligen_tpu_torch.models.convert import (flax_to_torch,
-                                              optax_adam_state_to_torch,
+                                              optax_state_to_torch,
                                               torch_adam_state_to_optax,
                                               torch_to_flax)
 from joligen_tpu_torch.models.modules import jit as tj
@@ -173,7 +173,7 @@ def test_jit_tree_and_adam_state_round_trip_exactly(trees):
     rng = np.random.default_rng(6)
     state = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(
         a.shape).astype(np.float32)) if a.ndim else a, state)
-    mine = optax_adam_state_to_torch(jax.device_get(state))
+    mine = optax_state_to_torch(jax.device_get(state))
     assert set(mine["mu"]) == set(sd)
     again = torch_adam_state_to_optax(mine, jax.device_get(state))
     for a, b in zip(jax.tree.leaves(again), jax.tree.leaves(state)):

@@ -43,7 +43,7 @@ from joligen_tpu.models.train_state import make_optimizer as jax_optimizer
 from joligen_tpu_torch.models import create_model
 from joligen_tpu_torch.models import mat_model as tmm
 from joligen_tpu_torch.models.convert import (flax_to_torch,
-                                              optax_adam_state_to_torch,
+                                              optax_state_to_torch,
                                               torch_adam_state_to_optax,
                                               torch_to_flax)
 from joligen_tpu_torch.models.modules import mat as tm
@@ -92,7 +92,7 @@ def test_converter_rule_is_exact_both_ways(tmp_path):
             np.random.default_rng(3).standard_normal(a.shape), jnp.float32),
             tree)
         _, state = tx.update(grads, tx.init(tree), tree)
-        port = optax_adam_state_to_torch(state, weight_leaves=True)
+        port = optax_state_to_torch(state, weight_leaves=True)
         adam = make_optimizer(opt, 2e-3, dict(net.named_parameters()))
         adam.load_state_dict(port)
         assert adam.count == 1 and all(float(m.abs().max()) > 0

@@ -11,7 +11,8 @@
    end from a checkpoint directory; a ``--bbox_in`` request cuts the crop,
    mask and window that the JAX script's ``build_inputs`` cuts (exactly),
    and its output equals the JAX DDIM-10 run on those inputs from the same
-   y_t (1e-3); ``--cond_in`` raises.
+   y_t (1e-3); a ``--cond_in`` request pastes the exemplar into the mask
+   (its JAX counterpart: tests/test_torch_cond_in.py).
 """
 
 import importlib.util
@@ -191,12 +192,19 @@ def test_script_serves_a_request_on_cpu(checkpoint, tmp_path):
     assert np.array_equal(crop_u8[keep], expect[keep])
     # a second request reuses the loaded model
     gen.inference(args, lmodel=model, lopt=model.opt)
-    bad = gen.build_parser().parse_args([
+    cond = np.asarray(Image.open(tmp_path / "out" / "img_cond.png"))
+    exemplar = gen.build_parser().parse_args([
         "--model_in_file", str(d / "latest_net_G_A.pth"),
-        "--img_in", str(tmp_path / "img.png"), "--cond_in",
-        str(tmp_path / "img.png"), "--cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        gen.inference(bad, lmodel=model, lopt=model.opt)
+        "--img_in", str(tmp_path / "img.png"),
+        "--mask_in", str(tmp_path / "mask.png"), "--cond_in",
+        str(tmp_path / "img.png"), "--cond_rotation", "20",
+        "--cond_persp_horizontal", "0.2", "--dir_out",
+        str(tmp_path / "out_cond"), "--seed", "0", "--cpu"])
+    full, _, _ = gen.inference(exemplar, lmodel=model, lopt=model.opt)
+    pasted = np.asarray(Image.open(tmp_path / "out_cond" / "img_cond.png"))
+    assert full.shape == img.shape
+    assert np.array_equal(pasted[keep], cond[keep])
+    assert not np.array_equal(pasted[~keep], cond[~keep])
 
 
 def _jax_script():

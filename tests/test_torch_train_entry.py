@@ -2,8 +2,8 @@
 config and a tools/make_fake_dataset.py dataset: it trains 2 epochs, prints
 loss lines and writes the net, EMA and optimizer files; ``--train_continue``
 reloads them bit for bit; the JAX package's ``load_networks`` reads the
-port's net files; the port refuses the JAX package's optax ``_optim.pkl``
-unless told not to load it."""
+port's net files; the port reads the JAX package's optax ``_optim.pkl``
+(its state classes read without optax), moments bit for bit."""
 
 import hashlib
 import json
@@ -151,9 +151,16 @@ def test_port_refuses_the_jax_optimizer_file(run, tmp_path):
     jm.save_dir = str(tmp_path)
     jm.save_networks("latest")
     model = _port_model(run_dir, save_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        model.load_networks("latest")
-    model.load_networks("latest", load_optim=False)
+    model.load_networks("latest")
     want = flax_to_torch(jax.device_get(jm.states["G_A"].params))
     for k, v in model.nets["G_A"].state_dict().items():
         assert torch.equal(want[k], v), k
+    # the optax state (adamw: its chain's ScaleByAdamState) read bit for bit
+    adam = jax.device_get(jm.states["G_A"].opt_state)[0]
+    state = model.states["G_A"].tx.state_dict()
+    assert state["count"] == int(adam.count)
+    for moment in ("mu", "nu"):
+        tree = flax_to_torch(getattr(adam, moment))
+        assert set(state[moment]) == set(tree)
+        for k, v in tree.items():
+            np.testing.assert_array_equal(state[moment][k], v.numpy())

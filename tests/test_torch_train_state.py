@@ -24,7 +24,7 @@ from _torch_gan_common import few_torch_threads  # noqa: F401
 from joligen_tpu.models import train_state as jts
 from joligen_tpu_torch.models import train_state as tts
 from joligen_tpu_torch.models.convert import (flax_to_torch,
-                                              optax_adam_state_to_torch,
+                                              optax_state_to_torch,
                                               torch_adam_state_to_optax,
                                               torch_to_flax)
 from joligen_tpu_torch.models.modules.unet_mha import Conv, Dense
@@ -131,7 +131,7 @@ def test_twelve_steps_match_optax(optim, moment, iter_size):
         assert mine["gradient_step"] == 6 and mine["mini_step"] == 0
         mine = mine["inner"]
     assert mine["count"] == 12 // iter_size
-    theirs = optax_adam_state_to_torch(jax.device_get(js.opt_state))
+    theirs = optax_state_to_torch(jax.device_get(js.opt_state))
     theirs = theirs["inner"] if iter_size > 1 else theirs
     assert theirs["count"] == mine["count"]
     for k in mine["mu"]:
@@ -154,7 +154,7 @@ def test_optimizer_state_converter_round_trip(moment, iter_size):
     host = jax.device_get(js)
     ps = _port_state(opt, host.params, iter_size)
     ps.ema.load_state_dict(flax_to_torch(host.ema_params))
-    ps.tx.load_state_dict(optax_adam_state_to_torch(host.opt_state))
+    ps.tx.load_state_dict(optax_state_to_torch(host.opt_state))
     back = torch_adam_state_to_optax(ps.tx.state_dict(),
                                      tx.init(js.params))
     assert jax.tree.structure(back) == jax.tree.structure(host.opt_state)
@@ -171,8 +171,14 @@ def test_optimizer_state_converter_round_trip(moment, iter_size):
 
 
 def test_unported_optimizers_raise():
+    """Every optimizer of the JAX factory builds (tests/
+    test_torch_optimizers.py holds them to it); another name raises."""
     net = _Net()
-    for name in ("radam", "lion", "madgrad", "muon"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tts.make_optimizer(_opt(train_optim=name), 1e-3,
-                               dict(net.named_parameters()))
+    for name in ("adam", "adamw", "adam8bit", "radam", "lion", "madgrad",
+                 "muon"):
+        tx = tts.make_optimizer(_opt(train_optim=name), 1e-3,
+                                dict(net.named_parameters()))
+        assert tx.names == [n for n, _ in net.named_parameters()]
+    with pytest.raises(NotImplementedError, match="optimizer sgd"):
+        tts.make_optimizer(_opt(train_optim="sgd"), 1e-3,
+                           dict(net.named_parameters()))

@@ -37,7 +37,7 @@ from _torch_gan_common import few_torch_threads, seeded_tree
 from joligen_tpu.models.modules import vit_vid as jvv
 from joligen_tpu.options import TrainOptions as JaxTrainOptions
 from joligen_tpu_torch.models.convert import (flax_to_torch,
-                                              optax_adam_state_to_torch,
+                                              optax_state_to_torch,
                                               torch_adam_state_to_optax,
                                               torch_to_flax)
 from joligen_tpu_torch.models.modules import vit_vid as tvv
@@ -173,7 +173,7 @@ def test_scan_stacks_and_adam_state_round_trip_exactly():
     rng = np.random.default_rng(6)
     state = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(
         a.shape).astype(np.float32)) if a.ndim else a, state)
-    mine = optax_adam_state_to_torch(jax.device_get(state))
+    mine = optax_state_to_torch(jax.device_get(state))
     assert set(mine["mu"]) == set(sd)
     again = torch_adam_state_to_optax(mine, jax.device_get(state))
     for a, b in zip(jax.tree.leaves(again), jax.tree.leaves(state)):

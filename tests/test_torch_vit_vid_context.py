@@ -45,7 +45,7 @@ from test_torch_vit_vid import (CIN, SMALL, _example_opts, _flax_shapes,
                                 _grads_close, _np)
 from joligen_tpu.models.modules import vit_vid as jvv_package
 from joligen_tpu_torch.models.convert import (flax_to_torch,
-                                              optax_adam_state_to_torch,
+                                              optax_state_to_torch,
                                               torch_adam_state_to_optax,
                                               torch_to_flax)
 from joligen_tpu_torch.models.modules import vit_vid as tvv
@@ -179,7 +179,7 @@ def test_new_leaves_and_adam_state_round_trip_exactly():
         rng = np.random.default_rng(6)
         state = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(
             a.shape).astype(np.float32)) if a.ndim else a, state)
-        mine = optax_adam_state_to_torch(jax.device_get(state))
+        mine = optax_state_to_torch(jax.device_get(state))
         assert set(mine["mu"]) == set(s)
         again = torch_adam_state_to_optax(mine, jax.device_get(state))
         for a, b in zip(jax.tree.leaves(again), jax.tree.leaves(state)):
